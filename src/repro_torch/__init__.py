@@ -1,0 +1,18 @@
+"""PyTorch/CUDA port of the AMTL system in `repro`.
+
+Imports torch and numpy only.  Entry points run on the CUDA device unless
+the caller passes device="cpu", which runs the plain PyTorch versions of
+the kernels.
+"""
+from repro_torch.core import (AMTLConfig, AMTLEngine, MTLProblem,
+                              amtl_events_only, amtl_solve, current_iterate,
+                              default_config, make_engine, validate_config)
+from repro_torch.interop import (problem_from_numpy, state_from_numpy,
+                                 state_to_numpy)
+
+__all__ = [
+    "AMTLConfig", "AMTLEngine", "MTLProblem", "amtl_events_only",
+    "amtl_solve", "current_iterate", "default_config", "make_engine",
+    "validate_config", "problem_from_numpy", "state_from_numpy",
+    "state_to_numpy",
+]

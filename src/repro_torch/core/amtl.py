@@ -1,0 +1,608 @@
+"""AMTL — asynchronous backward-forward coordinate updates (Algorithm 1),
+ported from `repro/core/amtl.py` to PyTorch.
+
+Event k activates a task t_k (uniform over tasks), which reads the server
+state at staleness nu_k <= tau; the server computes the backward step
+prox_{eta*lam*g} on that stale copy, and the node applies the forward step
+on its column with KM relaxation eta_k (Eq. III.4), optionally scaled by
+the delay-adaptive multiplier (Eq. III.5/III.6).
+
+Two engines of the reference are ported:
+
+  engine="delta" (default) — one iterate V (d, T) and a (tau+1, d) undo
+      log; the stale read at staleness nu is rebuilt by rolling back the
+      nu newest log entries.  Each event's column update and undo-log
+      entry is the `amtl_event` kernel.
+  engine="batch" — the delta ring, `event_batch` events per loop step,
+      the prox refreshed only at batch boundaries (every k-th batch when
+      prox_every = k * event_batch, the result carried in a (d, T) cache),
+      and the B column updates in one `amtl_event_batch` kernel that
+      serializes duplicate tasks in event order.
+
+With `prox_rank` (nuclear norm only) the refresh is the randomized SVT,
+whose sketch and reconstruction are the `gauss_sketch` and
+`svt_reconstruct` kernels.  engine="dense" and engine="sharded", SGD
+(`batch_size`) and ragged problems (`row_counts`) are later slices of the
+port; `make_engine` refuses them.
+
+Host and device.  The event stream — each event's (task, staleness), the
+sketch seeds, the delay history and the per-event eta_k — depends only on
+the PRNG key, the event counter, `delay_offsets` and the config, never on
+V; so does which undo-log entry restores which column.  `plan_events`
+replays all of it on the host (the reference's threefry chain, bit for
+bit, `core.prng`) before any device work, and `apply_plan` then issues
+only V work, with no device-to-host synchronization per event.  The
+state's `task_ring`, `ptr`, `event`, `history` and `key` are host values;
+`v`, `delta_ring` and `p_cache` are tensors on the engine's device.
+
+The session API is the reference's:
+
+    engine = make_engine(problem, cfg)                 # device: cuda
+    state  = engine.init(v0, key)                      # key: raw uint32[2]
+    state  = engine.run(state, delay_offsets, num_events)
+    v      = engine.iterate(state)
+
+`run` never mutates the state it is given: it clones `v` and `delta_ring`
+once on entry and updates the clones in place, so `run(s, n + m)` equals
+`run(run(s, n), m)` bitwise, and `s` stays valid.  On the CPU (the plain
+versions of the kernels) the batch engine equals the delta engine bitwise
+at a matched prox cadence, as in the reference.
+"""
+from __future__ import annotations
+
+import math
+import struct
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import prng
+from repro_torch.core.dynamic_step import DelayHistory, dynamic_multiplier
+from repro_torch.core.losses import MTLProblem
+from repro_torch.core.operators import (amtl_max_step, backward,
+                                        fixed_point_residual,
+                                        restore_columns, rollback_winners)
+from repro_torch.core.prox import svt_randomized
+from repro_torch.kernels import ops
+
+Tensor = torch.Tensor
+
+
+class AMTLConfig(NamedTuple):
+    eta: float                 # inner forward/backward step, in (0, 2/L)
+    eta_k: float               # KM relaxation, <= amtl_max_step(tau, T)
+    tau: int                   # max staleness (ring-buffer depth - 1)
+    dynamic_step: bool = False
+    delay_window: int = 5      # paper averages the last 5 delays
+    # The sampled delay is min(round(offset_t + U[0,1) * jitter), tau).
+    delay_jitter: float = 1.0
+    # "delta" and "batch" are ported; "dense" and "sharded" validate but
+    # are refused by make_engine until their slices.
+    engine: str = "delta"
+    # Server prox amortization (paper §III-C): refresh every K events.
+    prox_every: int = 1
+    # If set (nuclear reg only), refreshes use the randomized SVT.
+    prox_rank: int | None = None
+    # engine="batch"/"sharded" only: activations applied per loop step.
+    event_batch: int = 1
+    # engine="sharded" only: "replicated" or "distributed" server prox.
+    prox_mode: str = "replicated"
+    # SGD-AMTL minibatch size (paper §V); not yet ported.
+    batch_size: int | None = None
+
+
+class DeltaAMTLState(NamedTuple):
+    """Delta-engine state: one iterate + an O(tau*d) undo log."""
+    v: Tensor              # (d, T) current iterate (device)
+    delta_ring: Tensor     # (tau+1, d) pre-write column per event (device)
+    task_ring: np.ndarray  # (tau+1,) int32 task written at each event (host)
+    ptr: int               # slot of the newest event (host)
+    event: int             # global event counter (host)
+    p_cache: Tensor        # (d, T) cached server prox, or a (0, 0) stub
+    history: DelayHistory  # per-task recent delays (host)
+    key: np.ndarray        # raw uint32[2] PRNG key (host)
+
+
+class BatchAMTLState(NamedTuple):
+    """Batch-engine state: the delta ring with a per-cadence prox cache
+    (a (0, 0) stub at the aligned cadence prox_every == event_batch)."""
+    v: Tensor
+    delta_ring: Tensor
+    task_ring: np.ndarray
+    ptr: int
+    event: int
+    p_cache: Tensor
+    history: DelayHistory
+    key: np.ndarray
+
+
+class AMTLResult(NamedTuple):
+    v: Tensor              # final auxiliary iterate V (d, T)
+    w: Tensor              # final primal W = prox(V) (one extra backward)
+    objectives: Tensor     # objective of prox(V) per recorded epoch
+    residuals: Tensor      # BF fixed-point residual per recorded epoch
+
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU.  Raises when CUDA is asked for (or implied) and absent; never
+    falls back to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the card; pass "
+                "device='cpu' to run the plain PyTorch versions")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} requested but CUDA is not "
+                               "available")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        # float32 throughout: no TF32 in matmuls or convolutions.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def _prox_cache_init(cfg: AMTLConfig, v0: Tensor) -> Tensor:
+    """(d, T) zeros when a cache is carried, else a (0, 0) stub."""
+    per_step = cfg.event_batch if cfg.engine in ("batch", "sharded") else 1
+    if cfg.prox_every > per_step:
+        return torch.zeros_like(v0)
+    return torch.zeros((0, 0), dtype=v0.dtype, device=v0.device)
+
+
+def _init_fields(cfg: AMTLConfig, v0: Tensor, num_tasks: int, key) -> tuple:
+    depth = cfg.tau + 1
+    return (v0,
+            torch.zeros((depth, v0.shape[0]), dtype=v0.dtype,
+                        device=v0.device),
+            np.zeros((depth,), np.int32), 0, 0,
+            _prox_cache_init(cfg, v0),
+            DelayHistory.create(num_tasks, cfg.delay_window),
+            prng.to_key(prng.to_pair(key)))
+
+
+def init_delta_state(cfg: AMTLConfig, v0: Tensor, num_tasks: int,
+                     key) -> DeltaAMTLState:
+    return DeltaAMTLState(*_init_fields(cfg, v0, num_tasks, key))
+
+
+def init_batch_state(cfg: AMTLConfig, v0: Tensor, num_tasks: int,
+                     key) -> BatchAMTLState:
+    return BatchAMTLState(*_init_fields(cfg, v0, num_tasks, key))
+
+
+# --------------------------------------------------------- event stream ---
+
+def _fma32(a: np.float32, b: np.float32, c: np.float32) -> np.float32:
+    """float32 fma(a, b, c) with one rounding (see `kernels.ref._fma32`)."""
+    s = float(a) * float(b)                 # exact: 24 + 24 bits < 53
+    cc = float(c)
+    r = s + cc
+    bb = r - s
+    err = (s - (r - bb)) + (cc - bb)
+    if err != 0 and not struct.unpack("<q", struct.pack("<d", r))[0] & 1:
+        r = math.nextafter(r, math.inf if err > 0 else -math.inf)
+    return np.float32(r)
+
+
+def _sample_pair(cfg: AMTLConfig, offsets: np.ndarray, pair, num_tasks: int,
+                 event: int):
+    """`_sample_activation` on a key pair: (next pair, task, staleness).
+
+    XLA's CPU backend contracts `offset + jitter * u` into one fma, so the
+    staleness is rounded from that fma (half to even, as jnp.round).
+    """
+    nxt, k_task, k_delay = prng.split_pair(pair, 3)
+    t = prng.randint_pair(k_task, 0, num_tasks)
+    raw = _fma32(np.float32(cfg.delay_jitter), prng.uniform_pair(k_delay),
+                 offsets[t])
+    nu = min(int(np.rint(raw)), min(cfg.tau, event))
+    return nxt, t, nu
+
+
+def _sample_activation(cfg: AMTLConfig, delay_offsets, key, num_tasks: int,
+                       event: int):
+    """Shared event sampling: (next key, activated task, staleness nu)."""
+    nxt, t, nu = _sample_pair(cfg, np.asarray(delay_offsets, np.float32),
+                              prng.to_pair(key), num_tasks, int(event))
+    return prng.to_key(nxt), t, nu
+
+
+def _minibatch_seed(key) -> int:
+    """Per-event uint32 sampling seed, folded off the pre-event chain key."""
+    return prng.bits_pair(prng.fold_in_pair(prng.to_pair(key), 11))
+
+
+def _sample_activation_batch(cfg: AMTLConfig, delay_offsets, key,
+                             num_tasks: int, event: int, batch: int):
+    """`batch` steps of the serial chain: (next key, tasks, stalenesses,
+    minibatch seeds), each seed taken off the key the serial engine would
+    hold at that event."""
+    offs = np.asarray(delay_offsets, np.float32)
+    pair = prng.to_pair(key)
+    ts, nus, seeds = [], [], []
+    for i in range(batch):
+        seeds.append(prng.bits_pair(prng.fold_in_pair(pair, 11)))
+        pair, t, nu = _sample_pair(cfg, offs, pair, num_tasks, int(event) + i)
+        ts.append(t)
+        nus.append(nu)
+    return (prng.to_key(pair), np.asarray(ts, np.int32),
+            np.asarray(nus, np.int32), np.asarray(seeds, np.uint32))
+
+
+def _eta_k(cfg: AMTLConfig, history: DelayHistory, t: int) -> np.float32:
+    if cfg.dynamic_step:
+        return np.float32(cfg.eta_k) * dynamic_multiplier(
+            history.mean_delay(t))
+    return np.float32(cfg.eta_k)
+
+
+def _km_relaxation(cfg: AMTLConfig, history: DelayHistory, t: int, nu: int):
+    """Record the delay and return (updated history, eta_k for this event)."""
+    history = history.record(t, nu)
+    return history, _eta_k(cfg, history, t)
+
+
+class EventPlan(NamedTuple):
+    """Everything a `run` needs that does not depend on V, for S steps of
+    `per_step` events each (N = S * per_step events)."""
+    tasks: np.ndarray          # (N,) task of each event
+    eta_ks: np.ndarray         # (N,) float32 KM relaxation of each event
+    refresh: np.ndarray        # (S,) bool: the step refreshes the prox
+    sketch_keys: np.ndarray    # (S, 2) uint32 folded sketch key per step
+    rb_cols: np.ndarray        # flat rollback columns of all refreshes
+    rb_slots: np.ndarray       # flat rollback ring slots, same order
+    rb_offsets: np.ndarray     # (S + 1,) step s owns rb_*[off[s]:off[s+1]]
+    ring_slots: np.ndarray     # (S, keep) ring slot of each kept undo entry
+    task_ring: np.ndarray      # host state after the run
+    ptr: int
+    event: int
+    history: DelayHistory
+    key: np.ndarray
+
+
+def plan_events(problem: MTLProblem, cfg: AMTLConfig, state,
+                delay_offsets, num_events: int) -> EventPlan:
+    """Replay the host side of `num_events` events (no device work)."""
+    per_step = cfg.event_batch if cfg.engine == "batch" else 1
+    steps = num_events // per_step
+    depth = cfg.tau + 1
+    keep = min(per_step, depth)
+    num_tasks = problem.num_tasks
+    offs = np.asarray(delay_offsets, np.float32)
+    aligned = cfg.prox_every <= per_step
+    randomized = cfg.prox_rank is not None and problem.reg_name == "nuclear"
+
+    pair = prng.to_pair(state.key)
+    history = state.history.copy()
+    ring = np.array(state.task_ring, np.int32)
+    ptr, event = int(state.ptr), int(state.event)
+    tasks = np.empty((steps * per_step,), np.int64)
+    eta_ks = np.empty((steps * per_step,), np.float32)
+    refresh = np.zeros((steps,), bool)
+    sketch_keys = np.zeros((steps, 2), np.uint32)
+    rb_cols, rb_slots, rb_offsets = [], [], [0]
+    ring_slots = np.empty((steps, keep), np.int64)
+    tail = np.arange(per_step - keep, per_step)
+    for s in range(steps):
+        first = s * per_step
+        refresh[s] = aligned or event % cfg.prox_every == 0
+        if refresh[s] and randomized:
+            # folded off the step's first pre-event key, as the reference
+            sketch_keys[s] = prng.fold_in_pair(pair, 7)
+        for i in range(per_step):
+            pair, t, nu = _sample_pair(cfg, offs, pair, num_tasks, event + i)
+            history.record_(t, nu)
+            tasks[first + i] = t
+            eta_ks[first + i] = _eta_k(cfg, history, t)
+            if i == 0:
+                nu0 = nu             # the refresh reads at the first staleness
+        if refresh[s] and cfg.tau > 0:
+            cols, slots = rollback_winners(ring, ptr, nu0, cfg.tau)
+            rb_cols.append(cols)
+            rb_slots.append(slots)
+            rb_offsets.append(rb_offsets[-1] + len(cols))
+        else:
+            rb_offsets.append(rb_offsets[-1])
+        ring_slots[s] = (ptr + 1 + tail) % depth
+        ring[ring_slots[s]] = tasks[first + tail]
+        ptr = (ptr + per_step) % depth
+        event += per_step
+    empty = np.zeros((0,), np.int64)
+    return EventPlan(
+        tasks=tasks, eta_ks=eta_ks, refresh=refresh,
+        sketch_keys=sketch_keys,
+        rb_cols=np.concatenate(rb_cols) if rb_cols else empty,
+        rb_slots=np.concatenate(rb_slots) if rb_slots else empty,
+        rb_offsets=np.asarray(rb_offsets, np.int64), ring_slots=ring_slots,
+        task_ring=ring, ptr=ptr, event=event, history=history,
+        key=prng.to_key(pair))
+
+
+def _to(device: torch.device, a: np.ndarray, dtype: torch.dtype) -> Tensor:
+    return torch.as_tensor(a).to(device=device, dtype=dtype,
+                                 non_blocking=True)
+
+
+def apply_plan(problem: MTLProblem, cfg: AMTLConfig, state,
+               plan: EventPlan):
+    """Run the device side of a plan; returns the new state.
+
+    `state.v` and `state.delta_ring` are cloned once; the clones are
+    updated in place (column writes, ring writes and the in-place
+    `amtl_event_batch` kernel) and become the new state's tensors.
+    """
+    dev = state.v.device
+    per_step = cfg.event_batch if cfg.engine == "batch" else 1
+    steps = plan.refresh.shape[0]
+    keep = plan.ring_slots.shape[1]
+    randomized = cfg.prox_rank is not None and problem.reg_name == "nuclear"
+    carried = cfg.prox_every > per_step
+    thresh = cfg.eta * problem.lam
+
+    v = state.v.clone()
+    ring = state.delta_ring.clone()
+    p_cache = state.p_cache
+    rb_cols = _to(dev, plan.rb_cols, torch.int64)
+    rb_slots = _to(dev, plan.rb_slots, torch.int64)
+    if cfg.engine == "batch":
+        tasks_dev = _to(dev, plan.tasks, torch.int32)
+        eta_ks_dev = _to(dev, plan.eta_ks, torch.float32)
+        ring_slots_dev = _to(dev, plan.ring_slots, torch.int64)
+
+    p = p_cache
+    for s in range(steps):
+        first = s * per_step
+        t0 = int(plan.tasks[first])
+        if plan.refresh[s]:
+            lo, hi = plan.rb_offsets[s], plan.rb_offsets[s + 1]
+            v_hat = restore_columns(v, ring, rb_cols[lo:hi], rb_slots[lo:hi])
+            v_hat[:, t0] = v[:, t0]
+            if randomized:
+                p = svt_randomized(v_hat, thresh, rank=cfg.prox_rank,
+                                   key=plan.sketch_keys[s])
+            else:
+                p = backward(problem, v_hat, cfg.eta)
+            if carried:
+                p_cache = p
+        if cfg.engine == "delta":
+            p_t = p[:, t0].contiguous()
+            g_t = problem.task_grad(t0, p_t)
+            v_new, old = ops.amtl_event(v[:, t0].contiguous(), p_t, g_t,
+                                        cfg.eta, float(plan.eta_ks[first]))
+            v[:, t0] = v_new
+            ring[int(plan.ring_slots[s, 0])] = old
+        else:
+            ts = tasks_dev[first:first + per_step]
+            p_cols = p.index_select(1, ts)                       # (d, B)
+            p_rows = p_cols.T.contiguous()                       # (B, d)
+            g_rows = torch.empty_like(p_rows)
+            for i in range(per_step):
+                g_rows[i] = problem.task_grad(int(plan.tasks[first + i]),
+                                              p_rows[i])
+            _, undo = ops.amtl_event_batch(
+                v, p_cols, g_rows.T.contiguous(), ts, cfg.eta,
+                eta_ks_dev[first:first + per_step])
+            ring.index_copy_(0, ring_slots_dev[s], undo[per_step - keep:])
+    return type(state)(v=v, delta_ring=ring, task_ring=plan.task_ring,
+                       ptr=plan.ptr, event=plan.event, p_cache=p_cache,
+                       history=plan.history, key=plan.key)
+
+
+def validate_config(cfg: AMTLConfig, reg_name: str | None = None) -> None:
+    """The reference's config validation, check for check."""
+    if cfg.engine not in ("delta", "dense", "batch", "sharded"):
+        raise ValueError(f"unknown AMTL engine {cfg.engine!r}; "
+                         "expected 'delta', 'dense', 'batch', or 'sharded'")
+    if cfg.prox_every < 1:
+        raise ValueError(f"prox_every must be >= 1, got {cfg.prox_every} "
+                         "(1 = exact prox every event)")
+    if cfg.event_batch < 1:
+        raise ValueError(f"event_batch must be >= 1, got {cfg.event_batch}")
+    if cfg.engine in ("dense", "delta") and cfg.event_batch != 1:
+        raise ValueError(
+            f"engine={cfg.engine!r} processes one event per step; "
+            f"event_batch={cfg.event_batch} requires engine='batch' or "
+            "engine='sharded'")
+    if cfg.prox_rank is not None and reg_name is not None \
+            and reg_name != "nuclear":
+        raise ValueError(
+            "prox_rank selects the randomized SVT refresh, which only "
+            f"exists for reg_name='nuclear' (got {reg_name!r})")
+    if cfg.engine == "dense" and (cfg.prox_every != 1
+                                  or cfg.prox_rank is not None):
+        raise ValueError("engine='dense' is the exact seed baseline; "
+                         "prox_every>1 / prox_rank require "
+                         "engine='delta', 'batch', or 'sharded'")
+    if cfg.batch_size is not None:
+        if cfg.batch_size < 1:
+            raise ValueError(
+                f"batch_size must be >= 1 (or None for exact full "
+                f"gradients), got {cfg.batch_size}")
+        if cfg.engine == "dense":
+            raise ValueError(
+                "engine='dense' is the exact seed baseline and computes "
+                "full gradients only; batch_size requires engine='delta', "
+                "'batch', or 'sharded'")
+    if cfg.engine in ("batch", "sharded") \
+            and cfg.prox_every % cfg.event_batch != 0:
+        raise ValueError(
+            f"engine={cfg.engine!r} refreshes the server prox only at "
+            f"batch boundaries, so prox_every ({cfg.prox_every}) must be a "
+            f"multiple of event_batch ({cfg.event_batch})")
+    if cfg.prox_mode not in ("replicated", "distributed"):
+        raise ValueError(f"unknown prox_mode {cfg.prox_mode!r}; "
+                         "expected 'replicated' or 'distributed'")
+    if cfg.prox_mode == "distributed":
+        if cfg.engine != "sharded":
+            raise ValueError(
+                "prox_mode='distributed' is the sharded engine's "
+                "rank-distributed server prox; "
+                f"engine={cfg.engine!r} has no shards to distribute over")
+        if cfg.prox_rank is None:
+            raise ValueError(
+                "prox_mode='distributed' distributes the RANDOMIZED SVT "
+                "sketch, so prox_rank must be set (the exact dense SVD "
+                "has no column-separable decomposition to distribute)")
+
+
+def _refuse_unported(problem: MTLProblem, cfg: AMTLConfig) -> None:
+    if cfg.engine in ("dense", "sharded"):
+        raise NotImplementedError(
+            f"engine={cfg.engine!r} is not ported yet: the "
+            + ("dense-engine" if cfg.engine == "dense" else "sharded-engine")
+            + " slice of the port brings it; use 'delta' or 'batch'")
+    if cfg.batch_size is not None:
+        raise NotImplementedError(
+            "batch_size (SGD-AMTL) arrives with the SGD/ragged slice of "
+            "the port")
+    if problem.row_counts is not None:
+        raise NotImplementedError(
+            "ragged problems (row_counts) arrive with the SGD/ragged slice "
+            "of the port")
+
+
+def _iterate_metrics(problem: MTLProblem, cfg: AMTLConfig, v: Tensor):
+    """(W, objective, BF residual) of the current iterate V."""
+    w = backward(problem, v, cfg.eta)
+    return w, problem.objective(w), fixed_point_residual(problem, v, cfg.eta)
+
+
+class AMTLEngine(NamedTuple):
+    """A resumable AMTL session (the reference's `AMTLEngine`).
+
+    init(v0, key) -> state
+        Fresh state for a (d, T) initial iterate and a raw uint32[2] key.
+    run(state, delay_offsets, num_events) -> state
+        Advance by `num_events` activations (a multiple of
+        `events_per_step`); `delay_offsets` may be None (all zero).
+        Composes bitwise and never mutates `state`.
+    iterate(state) -> V
+        The newest (d, T) iterate held by the state.
+    """
+    init: Callable[[Any, Any], Any]
+    run: Callable[[Any, Any, int], Any]
+    iterate: Callable[[Any], Tensor]
+    events_per_step: int
+    num_tasks: int
+    device: torch.device
+
+
+def make_engine(problem: MTLProblem, cfg: AMTLConfig,
+                device: torch.device | str | None = None) -> AMTLEngine:
+    """Build the resumable session engine for `cfg` (the public API).
+
+    `device` defaults to CUDA; without a card this raises unless the
+    caller passes device="cpu".  The problem's tensors must already be on
+    that device.  Validation runs here, eagerly.
+    """
+    validate_config(cfg, problem.reg_name)
+    _refuse_unported(problem, cfg)
+    dev = resolve_device(device)
+    if problem.xs.device != dev or problem.ys.device != dev:
+        raise ValueError(f"the problem's tensors are on {problem.xs.device}; "
+                         f"the engine runs on {dev}")
+    num_tasks = problem.num_tasks
+    per_step = cfg.event_batch if cfg.engine == "batch" else 1
+    init_fn = init_batch_state if cfg.engine == "batch" else init_delta_state
+
+    def init(v0, key):
+        v0 = torch.as_tensor(v0, dtype=torch.float32, device=dev).clone()
+        return init_fn(cfg, v0, num_tasks, key)
+
+    def run(state, delay_offsets, num_events: int):
+        if num_events % per_step != 0:
+            raise ValueError(
+                f"num_events ({num_events}) must be a multiple of "
+                f"event_batch ({per_step}) for engine={cfg.engine!r}")
+        if state.v.device != dev:
+            raise ValueError(f"the state is on {state.v.device}; the engine "
+                             f"runs on {dev}")
+        if delay_offsets is None:
+            offs = np.zeros((num_tasks,), np.float32)
+        elif isinstance(delay_offsets, torch.Tensor):
+            offs = delay_offsets.detach().cpu().numpy().astype(np.float32)
+        else:
+            offs = np.asarray(delay_offsets, np.float32)
+        plan = plan_events(problem, cfg, state, offs, int(num_events))
+        return apply_plan(problem, cfg, state, plan)
+
+    return AMTLEngine(init=init, run=run, iterate=current_iterate,
+                      events_per_step=per_step, num_tasks=num_tasks,
+                      device=dev)
+
+
+def amtl_solve(problem: MTLProblem, cfg: AMTLConfig, v0, key,
+               num_epochs: int, events_per_epoch: int | None = None,
+               delay_offsets=None,
+               device: torch.device | str | None = None) -> AMTLResult:
+    """Run AMTL for num_epochs * events_per_epoch activations, with the
+    objective and fixed-point residual of prox(V) after each epoch.  One
+    epoch defaults to T events."""
+    engine = make_engine(problem, cfg, device)
+    if events_per_epoch is None:
+        events_per_epoch = problem.num_tasks
+    if events_per_epoch % engine.events_per_step != 0:
+        raise ValueError(
+            f"events_per_epoch ({events_per_epoch}) must be a multiple of "
+            f"event_batch ({engine.events_per_step}) for "
+            f"engine={cfg.engine!r}")
+    state = engine.init(v0, key)
+    objs, ress, w = [], [], None
+    for _ in range(num_epochs):
+        state = engine.run(state, delay_offsets, events_per_epoch)
+        w, obj, res = _iterate_metrics(problem, cfg, engine.iterate(state))
+        objs.append(obj)
+        ress.append(res)
+    v = engine.iterate(state)
+    if w is None:                      # num_epochs == 0
+        w = _iterate_metrics(problem, cfg, v)[0]
+    empty = torch.zeros((0,), dtype=torch.float32, device=engine.device)
+    return AMTLResult(v, w, torch.stack(objs) if objs else empty,
+                      torch.stack(ress) if ress else empty)
+
+
+def amtl_events_only(problem: MTLProblem, cfg: AMTLConfig, v0, key,
+                     num_events: int, delay_offsets=None,
+                     device: torch.device | str | None = None):
+    """Run `num_events` activations with no per-epoch metric tail; returns
+    the final engine state."""
+    engine = make_engine(problem, cfg, device)
+    return engine.run(engine.init(v0, key), delay_offsets, num_events)
+
+
+def current_iterate(state) -> Tensor:
+    """The newest iterate V held by an engine's state."""
+    return state.v
+
+
+def default_config(problem: MTLProblem, tau: int = 4, c: float = 0.9,
+                   dynamic_step: bool = False, safety: float = 1.0, *,
+                   engine: str = "delta", prox_every: int = 1,
+                   prox_rank: int | None = None, event_batch: int = 1,
+                   prox_mode: str = "replicated",
+                   batch_size: int | None = None) -> AMTLConfig:
+    """Step sizes from Theorem 1: eta < 2/L, eta_k <= c/(2 tau/sqrt(T)+1),
+    validated like `make_engine` validates."""
+    lip = problem.lipschitz()
+    cfg = AMTLConfig(
+        eta=safety / lip,
+        eta_k=amtl_max_step(tau, problem.num_tasks, c),
+        tau=tau,
+        dynamic_step=dynamic_step,
+        engine=engine,
+        prox_every=prox_every,
+        prox_rank=prox_rank,
+        event_batch=event_batch,
+        prox_mode=prox_mode,
+        batch_size=batch_size,
+    )
+    validate_config(cfg, problem.reg_name)
+    return cfg

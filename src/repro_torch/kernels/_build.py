@@ -1,0 +1,135 @@
+"""Build and load the port's CUDA kernels.
+
+All sources in `repro_torch/csrc/*.cu` are compiled by ONE `nvcc` call into
+a shared library with a plain C interface, loaded with `ctypes`.  The
+library lands in `build/repro_torch_kernels/` at the repository root,
+named by a hash of the sources and flags, so an unchanged tree reuses it
+and a changed one rebuilds.  Nothing is built when a module is imported:
+the first kernel launch builds.
+
+Every C entry point returns `cudaGetLastError()` after its launch, and
+`check` raises on anything but 0, so a refused launch (too many threads,
+too much shared memory, no kernel image for the card) is never silent.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lib: ctypes.CDLL | None = None
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                           "on this machine")
+    return path
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> tuple[Path, float]:
+    """Compile the kernels if needed; returns (library, seconds spent).
+
+    `verbose` adds `-Xptxas -v` and prints the compiler's report of each
+    kernel's registers, shared memory and spills.
+    """
+    out = library_path()
+    if out.exists():
+        return out, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                           f"{res.stdout}\n{res.stderr}")
+    if verbose:
+        print(res.stdout + res.stderr, flush=True)
+    os.replace(tmp, out)       # atomic: a concurrent build never sees half a file
+    return out, secs
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        _lib = ctypes.CDLL(str(path))
+    return _lib
+
+
+def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
+    fn = getattr(load(), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
+                           f"cudaError {err}")
+
+
+def stream(device: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on `device`."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(name: str, **tensors: torch.Tensor) -> torch.device:
+    """Check that every tensor is a contiguous float32/int32 CUDA tensor on
+    one device; returns that device."""
+    dev = None
+    for arg, t in tensors.items():
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} must be a CUDA tensor")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            raise ValueError(f"{name}: {arg} is on {t.device}, not {dev}")
+    return dev
+
+
+def require_dtype(name: str, dtype: torch.dtype, **tensors: torch.Tensor):
+    for arg, t in tensors.items():
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
+
+
+def host_scalar(name: str, x) -> float:
+    """A Python float from a number or a CPU scalar (no device sync)."""
+    if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        raise ValueError(f"{name}: scalar must be a host number, not a "
+                         f"{x.device} tensor")
+    return float(x)

@@ -1,0 +1,123 @@
+"""The port stands alone: it imports neither JAX nor the reference package,
+runs on the card unless asked for the CPU, and never falls back.
+
+The import check runs in a subprocess, because this test process already
+holds JAX (tests/conftest.py imports it).
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import make_engine, AMTLConfig  # noqa: E402
+from repro_torch.interop import problem_from_numpy  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import amtl_event as k_event  # noqa: E402
+from repro_torch.kernels import amtl_event_batch as k_batch  # noqa: E402
+from repro_torch.kernels import gauss_sketch as k_sketch  # noqa: E402
+from repro_torch.kernels import svt_reconstruct as k_recon  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_CHILD = """
+import sys
+import numpy as np
+import repro_torch as rt
+p = rt.problem_from_numpy(np.ones((3, 4, 5)), np.ones((3, 4)), "lstsq",
+                          "nuclear", 0.1, device="cpu")
+for kw in (dict(engine="delta", prox_every=2, prox_rank=2),
+           dict(engine="batch", event_batch=2, prox_every=2)):
+    e = rt.make_engine(p, rt.AMTLConfig(eta=0.01, eta_k=0.5, tau=2, **kw),
+                       device="cpu")
+    e.run(e.init(np.zeros((5, 3), np.float32), np.array([0, 1], np.uint32)),
+          None, 4)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(",".join(bad))
+"""
+
+
+def test_import_and_cpu_engine_load_no_jax_or_reference():
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", _CHILD], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"loaded: {out.stdout.strip()}"
+
+
+def test_sources_name_no_jax_or_reference():
+    for path in (SRC / "repro_torch").rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                    f"{path}: imports {n}"
+
+
+def test_make_engine_without_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    p = problem_from_numpy(np.ones((2, 3, 4)), np.ones((2, 3)), "lstsq",
+                           "nuclear", 0.1, device="cpu")
+    cfg = AMTLConfig(eta=0.01, eta_k=0.5, tau=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_engine(p, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_engine(p, cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        problem_from_numpy(np.ones((2, 3, 4)), np.ones((2, 3)), "lstsq",
+                           "nuclear", 0.1)
+
+
+def test_cpu_tensors_take_plain_versions_and_launch_nothing():
+    ops.reset_launch_counts()
+    v = torch.randn(16, 4)
+    ops.amtl_event(v[:, 0].contiguous(), v[:, 1].contiguous(),
+                   v[:, 2].contiguous(), 0.1, 0.5)
+    ops.amtl_event_batch(v.clone(), torch.randn(16, 3), torch.randn(16, 3),
+                         torch.tensor([0, 2, 0], dtype=torch.int32), 0.1,
+                         torch.rand(3))
+    ops.gauss_sketch(v, 7, 0, 3)
+    ops.svt_reconstruct(torch.randn(16, 3), torch.rand(3), torch.randn(3, 4))
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """Called directly, a kernel wrapper takes only CUDA tensors: there is
+    no path from a kernel wrapper to the plain version."""
+    v = torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_event.amtl_event(v, v, v, 0.1, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_batch.amtl_event_batch(torch.zeros(8, 2), torch.zeros(8, 1),
+                                 torch.zeros(8, 1),
+                                 torch.zeros(1, dtype=torch.int32), 0.1,
+                                 torch.zeros(1))
+    with pytest.raises(ValueError, match="CUDA"):
+        k_sketch.gauss_sketch(torch.zeros(8, 2), 1, 0, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_recon.svt_reconstruct(torch.zeros(8, 2), torch.zeros(2),
+                                torch.zeros(2, 3))
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+
+
+def test_kernel_library_is_named_by_its_sources():
+    """The library's name follows a hash of the sources and flags, under
+    build/ at the repository root (listed in .gitignore)."""
+    path = _build.library_path()
+    assert path.parent == SRC.parent / "build" / "repro_torch_kernels"
+    assert {p.name for p in _build.sources()} == {
+        "amtl_event.cu", "amtl_event_batch.cu", "gauss_sketch.cu",
+        "svt_reconstruct.cu"}
+    assert path.name.startswith("librepro_torch_kernels-")
