@@ -5,9 +5,11 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/`, holds each
 kernel against its plain PyTorch version on the card, drives the port's
-main path — the AMTL engine session, batch engine with the randomized-SVT
-prox and delta engine, at full width — holds the card's run against the
-port's own CPU run of the same state, and times each kernel.  Any failed
+main paths at full width — the AMTL engine session (batch engine with the
+randomized-SVT prox, delta engine), and SGD-AMTL on ragged task cohorts
+published by a TaskStore (batch, delta and logistic sessions, a store
+append between two chunks) — holds the card's runs against the port's
+own CPU runs of the same states, and times each kernel.  Any failed
 phase exits non-zero.  The last three lines of standard output are the
 kernel table as JSON, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
@@ -25,6 +27,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -39,6 +43,13 @@ D, T, N_ROWS, TAU = 8192, 128, 256, 8
 ETA, LAM, RANK, BATCH = 0.05, 0.1, 16, 32
 BATCH_EVENTS, DELTA_EVENTS, DELTA_PROX_EVERY, CPU_EVENTS = 4096, 256, 8, 64
 
+# SGD-AMTL on ragged cohorts (examples/hospitals_async.py): T 128 cohorts
+# of rng.integers(80, 400) rows drawn from --seed, padded to the largest
+# by a TaskStore, minibatch 32, dynamic step; 256 labelled rows appended
+# between the two chunks of the batch session.
+COHORT_LO, COHORT_HI, SGD_BATCH, APPEND_ROWS = 80, 400, 32, 256
+LOGISTIC_EVENTS = 64
+
 # Tolerances of the kernels against their plain versions on the card.  The
 # two column-update kernels and their plain versions compute the same fma
 # sequence, so they must agree bitwise.  The sketch's normals come from
@@ -47,6 +58,10 @@ BATCH_EVENTS, DELTA_EVENTS, DELTA_PROX_EVERY, CPU_EVENTS = 4096, 256, 8, 64
 # T-term (sketch) or p-term (reconstruction) sum, scaled by its size.
 SKETCH_RTOL = 1e-5
 RECON_RTOL = 1e-5
+# The two gradient kernels against their plain versions: one rounding per
+# term of the kept rows' sums, in another order than PyTorch's matmuls,
+# bounded by 1e-5 of scale2 |X_K|^T |r_K| (K the kept rows).
+GRAD_RTOL = 1e-5
 # The card's session against the port's CPU session over 64 events: same
 # event stream bitwise; the iterate differs by the float32 rounding of the
 # gradients' and the prox's matrix products (cuBLAS/cuSOLVER against the
@@ -209,7 +224,88 @@ def check_kernels(dev, gen) -> dict:
                                            err=err.max().item())
     log(f"svt_reconstruct: within {RECON_RTOL} x sum|qu s||vt| of its "
         f"plain version (d=8192 p={p_main} m=128, d=1000 p=7 m=100)")
+    info.update(check_sgd_kernels(dev, gen))
     ops.reset_launch_counts()
+    return info
+
+
+def check_sgd_kernels(dev, gen) -> dict:
+    """The minibatch selection and the two least-squares gradient kernels
+    against their plain versions on the card."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import lstsq_grad as k_grad
+    from repro_torch.kernels import lstsq_grad_sampled as k_sampled
+    from repro_torch.kernels import sample_mask as k_mask
+
+    info = {}
+    cases = 0
+    for n in (1, 7, 400, 513):
+        for b in (1, SGD_BATCH, 600):
+            for n_t in sorted({0, 1, n // 2, n}):
+                for seed in (0, 77, 0xFFFFFFFF):
+                    block = ref.sample_scalars(n, b, [seed], [n_t])[0]
+                    got = k_mask.sample_mask(n, block, dev)
+                    want = ref.keep_bits_ref(n, block, dev)
+                    if not torch.equal(got, want) \
+                            or int(got.sum()) != min(b, n_t):
+                        fail(f"sample_mask n={n} b={b} n_t={n_t} "
+                             f"seed={seed}: not bitwise, or "
+                             f"{int(got.sum())} != min(b, n_t) bits set")
+                    cases += 1
+    info["sample_mask"] = dict(args=(400, ref.sample_scalars(
+        400, SGD_BATCH, [77], [240])[0], dev), err=0.0)
+    log(f"sample_mask: bitwise against its plain version over {cases} "
+        "(n, b, n_t, seed), n = 1, 7, 400, 513, n_t = 0, b >= n_t, b = 1; "
+        "exactly min(b, n_t) bits set")
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    # (label, n, d, batch_size, n_t): the main shape (a cohort of 240 rows
+    # in a 399-row buffer), d = 1000, a ragged count, a saturated
+    # minibatch, an empty cohort.
+    for label, n, d, b, n_t in (("main", 399, D, SGD_BATCH, 240),
+                                ("d=1000", 399, 1000, SGD_BATCH, 399),
+                                ("ragged", 399, D, SGD_BATCH, 81),
+                                ("saturated", 399, D, 300, 250),
+                                ("n_t=0", 399, D, SGD_BATCH, 0)):
+        x, w, y = randn(n, d), randn(d), randn(n)
+        seed = int(torch.randint(0, 2**31, (1,), generator=gen,
+                                 device=dev).item())
+        block = ref.sample_scalars(n, b, [seed], [n_t])[0]
+        bsz = min(b, n_t)
+        scale2 = 2 * float(np.float32(n_t) / np.float32(max(bsz, 1)))
+        for name, keep, kfn, rfn, s2 in (
+                ("lstsq_grad_sampled", ref.keep_bits_ref(n, block, dev),
+                 lambda: k_sampled.lstsq_grad_sampled(x, w, y, block, b),
+                 lambda: ref.lstsq_grad_sampled_masked_ref(x, w, y, seed, b,
+                                                           n_t), scale2),
+                ("lstsq_grad", torch.arange(n, device=dev) < n_t,
+                 lambda: k_grad.lstsq_grad(x, w, y, n_t),
+                 lambda: ref.lstsq_grad_masked_ref(x, w, y, n_t), 2.0)):
+            k1, k2, r = kfn(), kfn(), rfn()
+            torch.cuda.synchronize()
+            if not torch.equal(k1.view(torch.int32), k2.view(torch.int32)):
+                fail(f"{name} {label}: two launches on the same inputs "
+                     "gave different bits")
+            xk = x[keep].double()
+            res = xk @ w.double() - y[keep].double()
+            scale = s2 * (xk.abs().T @ res.abs())
+            err = (k1.double() - r.double()).abs()
+            if not bool((err <= GRAD_RTOL * scale).all()):
+                fail(f"{name} {label}: max |diff| {err.max().item():.3g} > "
+                     f"{GRAD_RTOL} * scale2 |X_K|^T |r_K|")
+            if n_t == 0 and bool(k1.any()):
+                fail(f"{name} {label}: n_t = 0 must give exactly zero")
+            if label == "main":
+                info[name] = dict(
+                    args=(x, w, y, block, b) if name == "lstsq_grad_sampled"
+                    else (x, w, y, n_t), err=err.max().item())
+    log(f"lstsq_grad_sampled, lstsq_grad: within {GRAD_RTOL} x scale2 "
+        "|X_K|^T |r_K| of their plain versions (main 240 of 399 rows at "
+        "d=8192, d=1000, ragged n_t, saturated b, n_t=0 exactly zero); two "
+        "launches give the same bits")
     return info
 
 
@@ -325,6 +421,252 @@ def compare_states(label: str, card, cpu) -> float:
     return worst
 
 
+# ------------------------------------------------------------ phases 7-8 --
+
+def make_store(seed: int, t: int = T, d: int = D):
+    """Ragged lstsq/nuclear cohorts of rng.integers(80, 400) rows drawn from
+    `seed`, rows N(0, 1/d), labels x w*_t + noise with a rank-4 W*, padded
+    by a TaskStore.  Returns the store and a maker of further labelled rows
+    of task t (the feedback the store takes between chunks)."""
+    from repro_torch.data import TaskStore
+    rng = np.random.default_rng(seed + 2)
+    sizes = rng.integers(COHORT_LO, COHORT_HI, size=t)
+    w_star = (rng.standard_normal((d, 4), dtype=np.float32)
+              @ rng.standard_normal((4, t), dtype=np.float32))
+
+    def rows(task: int, k: int):
+        x = rng.standard_normal((k, d), dtype=np.float32) / np.float32(d ** 0.5)
+        y = x @ w_star[:, task] + np.float32(0.01) * rng.standard_normal(
+            k, dtype=np.float32)
+        return x, y
+
+    xs, ys = zip(*(rows(i, int(n)) for i, n in enumerate(sizes)))
+    return TaskStore.from_ragged(xs, ys, "lstsq", "nuclear", LAM), rows
+
+
+def append_below_capacity(store, rows, k: int, seed: int) -> np.ndarray:
+    """Append k labelled rows to tasks with room left, so the capacity does
+    not double; returns the task ids in arrival order."""
+    rng = np.random.default_rng(seed + 3)
+    room = store.capacity - store.row_counts
+    ids = []
+    for _ in range(k):
+        t = int(rng.choice(np.flatnonzero(room > 0)))
+        room[t] -= 1
+        ids.append(t)
+    feats, labels = zip(*(rows(t, 1) for t in ids))
+    store.append(ids, np.concatenate(feats), np.concatenate(labels))
+    return np.asarray(ids)
+
+
+def sgd_configs(t: int = T):
+    """The ragged SGD sessions' batch and delta configs (hospitals_async.py:
+    batch_size 32, dynamic step)."""
+    batch_cfg, delta_cfg = configs(t)
+    return (batch_cfg._replace(batch_size=SGD_BATCH, dynamic_step=True),
+            delta_cfg._replace(batch_size=SGD_BATCH, dynamic_step=True))
+
+
+def ragged_batch_session(store, rows, cfg, v0, key, offs, seed, dev) -> dict:
+    """make_engine -> init -> run (half) -> store append -> make_engine on
+    the new problem -> run (half) -> iterate, with the launch counts of
+    exactly those two runs, and the host plan against the device work of
+    the second chunk (with and without the minibatch cutoffs)."""
+    from repro_torch.core import amtl, make_engine
+    from repro_torch.kernels import ops
+    problem = store.problem(dev)
+    engine = make_engine(problem, cfg, device=dev)
+    state0 = engine.init(v0, key)
+    engine.run(state0, offs, engine.events_per_step * 2)      # warm up
+    sync(dev)
+    half = BATCH_EVENTS // 2
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    mid = engine.run(state0, offs, half)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    old_counts = store.row_counts
+    ids = append_below_capacity(store, rows, APPEND_ROWS, seed)
+    problem2 = store.problem(dev)
+    engine2 = make_engine(problem2, cfg, device=dev)
+    sync(dev)
+    append_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = engine2.run(mid, offs, half)
+    v = engine2.iterate(state)
+    sync(dev)
+    wall += time.perf_counter() - t0
+    counts = ops.launch_counts()
+
+    new_counts = store.row_counts
+    if store.capacity != problem.xs.shape[1] \
+            or (new_counts - old_counts).sum() != APPEND_ROWS:
+        fail("ragged batch session: the append doubled the capacity or lost "
+             "rows")
+    t0 = time.perf_counter()
+    plan = amtl.plan_events(problem2, cfg, mid, offs, half)
+    host = time.perf_counter() - t0
+    if not np.array_equal(plan.scalars[:, 3], new_counts[plan.tasks]) \
+            or not np.isin(plan.tasks, ids).any():
+        fail("ragged batch session: the chunk after the append does not "
+             "draw its minibatches over the new row counts")
+    t0 = time.perf_counter()
+    amtl.plan_events(problem2, cfg._replace(batch_size=None), mid, offs,
+                     half)
+    host_full = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    amtl.apply_plan(problem2, cfg, mid, plan)
+    sync(dev)
+    device_side = time.perf_counter() - t0
+    return dict(state=state, v=v, counts=counts, wall=wall, host=host,
+                host_full=host_full, device=device_side, append=append_s,
+                problem=problem2, problem0=problem, plan_events=half,
+                grown=len(set(ids.tolist())))
+
+
+def store_gradients(problem, w, dev) -> tuple[dict, float]:
+    """The ragged store's masked full gradient of every task through
+    `ops.lstsq_grad` (the reference's store contract, tests/
+    test_taskstore.py:246), against the plain `full_grad` on the card;
+    returns the launch counts of those calls and the worst error ratio."""
+    import torch
+    from repro_torch.kernels import ops
+    counts = problem.host_row_counts()
+    ops.reset_launch_counts()
+    g = torch.stack([ops.lstsq_grad(problem.xs[t], w[:, t].contiguous(),
+                                    problem.ys[t], int(counts[t]))
+                     for t in range(problem.num_tasks)], dim=1)
+    launches = ops.launch_counts()
+    want = problem.full_grad(w)
+    worst = 0.0
+    for t in range(problem.num_tasks):
+        xk = problem.xs[t, :int(counts[t])].double()
+        res = xk @ w[:, t].double() - problem.ys[t, :int(counts[t])].double()
+        scale = 2.0 * (xk.abs().T @ res.abs())
+        err = (g[:, t].double() - want[:, t].double()).abs()
+        worst = max(worst, float((err / scale.clamp_min(1e-30)).max()))
+    if not worst <= GRAD_RTOL:
+        fail(f"store gradients: ops.lstsq_grad differs from full_grad by "
+             f"{worst:.3g} > {GRAD_RTOL} of 2 |X|^T |r|")
+    return launches, worst
+
+
+def report_session(label: str, r: dict, n: int, n_split: int) -> None:
+    """Events/s of the run of n events, and the host plan against the
+    device work of n_split events (the same run re-split, or one chunk)."""
+    log(f"phase 9 {label}: {n / r['wall']:.1f} events/s end to end "
+        f"({n} events in {r['wall']:.3f} s); host plan of {n_split} events "
+        f"{r['host']:.3f} s ({n_split / r['host']:.1f} events/s), device "
+        f"work {r['device']:.3f} s ({n_split / r['device']:.1f} events/s)")
+
+
+def report_busy(label: str, problem, cfg, v0, key, offs, n, device_s,
+                dev) -> None:
+    try:
+        busy, top = device_profile(problem, cfg, v0, key, offs, n, dev)
+    except RuntimeError as e:       # no CUPTI tracing on this machine
+        log(f"phase 9 {label} device busy share: not measured ({e})")
+        return
+    log(f"phase 9 {label} device busy {busy:.4f} s of the {device_s:.3f} s "
+        f"device-work window ({100 * busy / device_s:.1f}%), "
+        "torch.profiler; top: "
+        + "; ".join(f"{k[:60]} {t / 1e3:.1f} ms" for k, t in top))
+
+
+def kernel_spec(name: str, args_, dev) -> dict:
+    """Bytes, operations, the kernel, its plain version and the library
+    call for one kernel at its main-path shape."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    kern = ops.KERNELS[name]
+    if name == "amtl_event":
+        v, p, g, eta, eta_k = args_
+        d = v.shape[0]
+        nbytes, flops = 5 * 4 * d, 4 * d
+        kfn = lambda: kern.amtl_event(v, p, g, eta, eta_k)
+        pfn = lambda: ref.amtl_event_ref(v, p, g, eta, eta_k)
+        lib = None
+        src, rep = "amtl_event.cu", "src/repro/kernels/amtl_event.py:69"
+    elif name == "amtl_event_batch":
+        v, p, g, ts, eta, eks = args_
+        d, bsz = p.shape
+        uniq = int(torch.unique(ts[ts < T]).numel())
+        nbytes = 4 * (2 * d * uniq + 2 * d * bsz + d * bsz + 2 * bsz)
+        flops = 4 * d * bsz
+        vk, vr = v.clone(), v.clone()
+        kfn = lambda: kern.amtl_event_batch(vk, p, g, ts, eta, eks)
+        pfn = lambda: ref.amtl_event_batch_ref(vr, p, g, ts, eta, eks)
+        lib = None
+        src = "amtl_event_batch.cu"
+        rep = "src/repro/kernels/amtl_event_batch.py:138"
+    elif name == "gauss_sketch":
+        w, seed, off, p = args_
+        d, tt = w.shape
+        nbytes, flops = 4 * (d * tt + d * p), 2 * d * tt * p
+        omega = ref.gauss_omega_ref(tt, p, seed, off, dev)
+        kfn = lambda: kern.gauss_sketch(w, seed, off, p)
+        pfn = lambda: ref.gauss_sketch_ref(w, seed, off, p)
+        lib = lambda: torch.matmul(w, omega)
+        src, rep = "gauss_sketch.cu", "src/repro/kernels/gauss_sketch.py:83"
+    elif name == "svt_reconstruct":
+        qu, s, vt = args_
+        d, p = qu.shape
+        m = vt.shape[1]
+        nbytes = 4 * (d * p + p + p * m + d * m)
+        flops = 2 * d * p * m + d * p
+        kfn = lambda: kern.svt_reconstruct(qu, s, vt)
+        pfn = lambda: ref.svt_reconstruct_ref(qu, s, vt)
+        lib = lambda: (qu * s) @ vt
+        src = "svt_reconstruct.cu"
+        rep = "src/repro/kernels/svt_reconstruct.py:72"
+    elif name == "lstsq_grad_sampled":
+        x, w, y, block, b = args_
+        d = x.shape[1]
+        seed, n_t = int(block[0]), int(block[3])
+        kept = torch.nonzero(ref.keep_bits_ref(x.shape[0], block, dev))[:, 0]
+        k = int(kept.numel())
+        scale2 = 2 * float(np.float32(n_t) / np.float32(max(min(b, n_t), 1)))
+        nbytes, flops = 4 * (k * d + d + k + d), 4 * k * d
+        kfn = lambda: kern.lstsq_grad_sampled(x, w, y, block, b)
+        pfn = lambda: ref.lstsq_grad_sampled_masked_ref(x, w, y, seed, b, n_t)
+
+        def lib():
+            xk = x.index_select(0, kept)
+            return scale2 * (xk.T @ (xk @ w - y.index_select(0, kept)))
+        src = "lstsq_grad_sampled.cu"
+        rep = "src/repro/kernels/lstsq_grad_sampled.py:131"
+    elif name == "sample_mask":
+        n, block, mdev = args_
+        nbytes, flops = n, 0
+        kfn = lambda: kern.sample_mask(n, block, mdev)
+        pfn = lambda: ref.keep_bits_ref(n, block, mdev)
+        lib = None
+        src = "lstsq_grad_sampled.cu"
+        rep = "src/repro/kernels/lstsq_grad_sampled.py:165"
+    else:
+        x, w, y, n_t = args_
+        d = x.shape[1]
+        nbytes, flops = 4 * (n_t * d + d + n_t + d), 4 * n_t * d
+        kfn = lambda: kern.lstsq_grad(x, w, y, n_t)
+        pfn = lambda: ref.lstsq_grad_masked_ref(x, w, y, n_t)
+        xv, yv = x[:n_t], y[:n_t]
+        lib = lambda: 2 * (xv.T @ (xv @ w - yv))
+        src, rep = "lstsq_grad.cu", "src/repro/kernels/lstsq_grad.py:104"
+    return dict(kern=kern, nbytes=nbytes, flops=flops, kfn=kfn, pfn=pfn,
+                lib=lib, src=src, rep=rep)
+
+
+LIBRARY_CALLS = {
+    "gauss_sketch": "torch.matmul against a stored Omega",
+    "svt_reconstruct": "(qu * s) @ vt",
+    "lstsq_grad_sampled": "composite: index_select of the kept rows + two "
+                          "cuBLAS matvecs",
+    "lstsq_grad": "composite: 2 * (x.T @ (x @ w - y)) on the valid rows",
+}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -408,93 +750,145 @@ def main() -> None:
         f"max relative |diff| of v/delta_ring {worst} <= {SESSION_RTOL}: "
         "PASS")
 
-    # phase 7: times
-    for label, r, n in (("batch", b, BATCH_EVENTS), ("delta", dl,
-                                                      DELTA_EVENTS)):
-        log(f"phase 7 {label} engine: {n / r['wall']:.1f} events/s end to "
-            f"end ({r['wall']:.3f} s); host plan {r['host']:.3f} s "
-            f"({n / r['host']:.1f} events/s), device work "
-            f"{r['device']:.3f} s ({n / r['device']:.1f} events/s)")
-    for label, cfg, n, r in (("batch", batch_cfg, BATCH_EVENTS, b),
-                             ("delta", delta_cfg, DELTA_EVENTS, dl)):
-        try:
-            busy, top = device_profile(problem, cfg, v0, key, offs, n, dev)
-        except RuntimeError as e:       # no CUPTI tracing on this machine
-            log(f"phase 7 {label} engine device busy share: not measured "
-                f"({e})")
-            continue
-        log(f"phase 7 {label} engine device busy {busy:.4f} s of the "
-            f"{r['device']:.3f} s device-work window "
-            f"({100 * busy / r['device']:.1f}%), torch.profiler; top: "
-            + "; ".join(f"{k[:60]} {t / 1e3:.1f} ms" for k, t in top))
+    # phase 7: SGD-AMTL on ragged cohorts published by a TaskStore
+    store, rows = make_store(args.seed)
+    sgd_batch, sgd_delta = sgd_configs()
+    rp0 = store.problem(dev)
+    obj0 = objective(rp0, sgd_batch, v0)
+    rb = ragged_batch_session(store, rows, sgd_batch, v0, key, offs,
+                              args.seed, dev)
+    rp = rb["problem"]
+    if not bool(torch.isfinite(rb["v"]).all()):
+        fail("ragged batch session: iterate not finite")
+    batches = BATCH_EVENTS // BATCH
+    want = {"lstsq_grad_sampled": BATCH_EVENTS, "amtl_event_batch": batches,
+            "gauss_sketch": batches, "svt_reconstruct": batches}
+    for k, n in want.items():
+        if rb["counts"][k] != n:
+            fail(f"ragged batch session: {k} launched {rb['counts'][k]} != "
+                 f"{n} times")
+    obj1 = objective(rp, sgd_batch, rb["v"])
+    if not obj1 < obj0:
+        fail(f"ragged batch session: objective did not fall ({obj0} -> "
+             f"{obj1})")
+    log(f"phase 7 ragged SGD batch session: cohorts {int(rp0.host_row_counts().min())}"
+        f"..{int(rp0.host_row_counts().max())} rows (capacity "
+        f"{store.capacity}, {store.num_rows - APPEND_ROWS} rows), "
+        f"{BATCH_EVENTS} events in two chunks with {APPEND_ROWS} rows "
+        f"appended to {rb['grown']} tasks between them ({rb['append']:.3f} s,"
+        f" no doubling; the second chunk draws over the new counts), "
+        f"launches {rb['counts']}, objective {obj0:.6g} -> {obj1:.6g}: PASS")
+
+    rd = run_session(rp, sgd_delta, v0, key, offs, DELTA_EVENTS, dev)
+    if not bool(torch.isfinite(rd["v"]).all()):
+        fail("ragged delta session: iterate not finite")
+    for k in ("lstsq_grad_sampled", "amtl_event"):
+        if rd["counts"][k] != DELTA_EVENTS:
+            fail(f"ragged delta session: {k} launched {rd['counts'][k]} != "
+                 f"{DELTA_EVENTS} times")
+    log(f"phase 7 ragged SGD delta session: {DELTA_EVENTS} events, launches "
+        f"{rd['counts']}: PASS")
+
+    logistic = rp._replace(ys=torch.where(rp.ys > 0, 1.0, -1.0),
+                           loss_name="logistic")
+    rl = run_session(logistic, sgd_delta, v0, key, offs, LOGISTIC_EVENTS, dev)
+    if not bool(torch.isfinite(rl["v"]).all()):
+        fail("logistic delta session: iterate not finite")
+    if rl["counts"]["sample_mask"] != LOGISTIC_EVENTS \
+            or rl["counts"]["amtl_event"] != LOGISTIC_EVENTS \
+            or rl["counts"]["lstsq_grad_sampled"] != 0:
+        fail(f"logistic delta session: launches {rl['counts']}, want one "
+             "sample_mask and one amtl_event an event")
+    log(f"phase 7 logistic SGD delta session: {LOGISTIC_EVENTS} events, "
+        f"launches {rl['counts']}: PASS")
+
+    sg_counts, sg_worst = store_gradients(rp, rb["v"], dev)
+    if sg_counts["lstsq_grad"] != T:
+        fail(f"store gradients: lstsq_grad launched {sg_counts['lstsq_grad']}"
+             f" != {T} times")
+    log(f"phase 7 store gradients: the masked full gradient of {T} tasks "
+        f"through ops.lstsq_grad, launches {sg_counts}, within {sg_worst:.3g}"
+        f" of 2 |X|^T |r| of full_grad: PASS")
+
+    # phase 8: the card against the port's CPU run; batch == delta
+    rp_cpu = store.problem(cpu)
+    worst = {}
+    for label, cfg in (("sgd batch", sgd_batch), ("sgd delta", sgd_delta)):
+        card_s = run_session(rp, cfg, v0, key, offs, CPU_EVENTS,
+                             dev)["state"]
+        cpu_s = run_session(rp_cpu, cfg, v0.cpu(), key, offs, CPU_EVENTS,
+                            cpu)["state"]
+        worst[label] = compare_states(label, card_s, cpu_s)
+    del rp_cpu
+    matched = sgd_delta._replace(prox_every=BATCH)
+    sb = run_session(rp, sgd_batch, v0, key, offs, CPU_EVENTS, dev)["state"]
+    sd = run_session(rp, matched, v0, key, offs, CPU_EVENTS, dev)["state"]
+    if not (torch.equal(sb.v.view(torch.int32), sd.v.view(torch.int32))
+            and np.array_equal(sb.task_ring, sd.task_ring)):
+        fail("ragged SGD batch and delta sessions differ on the card at a "
+             f"matched cadence (max |diff| {(sb.v - sd.v).abs().max().item()})")
+    log(f"phase 8 ragged SGD card vs CPU ({CPU_EVENTS} events): event "
+        f"streams bitwise, max relative |diff| of v/delta_ring {worst} <= "
+        f"{SESSION_RTOL}; batch == delta bitwise on the card at prox_every "
+        f"{BATCH}: PASS")
+
+    # phase 9: times
+    for label, r, n, n_split in (
+            ("batch engine", b, BATCH_EVENTS, BATCH_EVENTS),
+            ("delta engine", dl, DELTA_EVENTS, DELTA_EVENTS),
+            ("ragged SGD batch (two chunks; split of the second)", rb,
+             BATCH_EVENTS, rb["plan_events"]),
+            ("ragged SGD delta", rd, DELTA_EVENTS, DELTA_EVENTS),
+            ("logistic SGD delta", rl, LOGISTIC_EVENTS, LOGISTIC_EVENTS)):
+        report_session(label, r, n, n_split)
+    log(f"phase 9 ragged SGD batch: the host plan of {rb['plan_events']} "
+        f"events takes {rb['host']:.3f} s with the minibatch seeds and "
+        f"cutoffs and {rb['host_full']:.3f} s without "
+        f"({1e6 * (rb['host'] - rb['host_full']) / rb['plan_events']:.1f} "
+        "us an event)")
+    for label, prob, cfg, n, r in (
+            ("batch engine", problem, batch_cfg, BATCH_EVENTS, b),
+            ("delta engine", problem, delta_cfg, DELTA_EVENTS, dl),
+            ("ragged SGD batch", rp, sgd_batch, rb["plan_events"], rb),
+            ("ragged SGD delta", rp, sgd_delta, DELTA_EVENTS, rd)):
+        report_busy(label, prob, cfg, v0, key, offs, n, r["device"], dev)
+
     kernels = []
-    per_batch = {"amtl_event": BATCH, "amtl_event_batch": 1,
-                 "gauss_sketch": 1, "svt_reconstruct": 1}
     launches = {k: (dl if k == "amtl_event" else b)["counts"][k]
-                for k in per_batch}
+                for k in ("amtl_event", "amtl_event_batch", "gauss_sketch",
+                          "svt_reconstruct")}
+    launches.update(lstsq_grad_sampled=rb["counts"]["lstsq_grad_sampled"],
+                    sample_mask=rl["counts"]["sample_mask"],
+                    lstsq_grad=sg_counts["lstsq_grad"])
+    where = {"amtl_event": "delta session", "sample_mask":
+             "logistic SGD delta session", "lstsq_grad": "store gradients",
+             "lstsq_grad_sampled": "ragged SGD batch session"}
     for name in ("amtl_event_batch", "gauss_sketch", "svt_reconstruct",
-                 "amtl_event"):
-        args_ = info[name]["args"]
-        kern = ops.KERNELS[name]
-        if name == "amtl_event":
-            v, p, g, eta, eta_k = args_
-            d = v.shape[0]
-            nbytes, flops = 5 * 4 * d, 4 * d
-            kfn = lambda: kern.amtl_event(v, p, g, eta, eta_k)
-            pfn = lambda: ref.amtl_event_ref(v, p, g, eta, eta_k)
-            lib = None
-            src, rep = "amtl_event.cu", "src/repro/kernels/amtl_event.py:69"
-        elif name == "amtl_event_batch":
-            v, p, g, ts, eta, eks = args_
-            d, bsz = p.shape
-            uniq = int(torch.unique(ts[ts < T]).numel())
-            nbytes = 4 * (2 * d * uniq + 2 * d * bsz + d * bsz + 2 * bsz)
-            flops = 4 * d * bsz
-            vk, vr = v.clone(), v.clone()
-            kfn = lambda: kern.amtl_event_batch(vk, p, g, ts, eta, eks)
-            pfn = lambda: ref.amtl_event_batch_ref(vr, p, g, ts, eta, eks)
-            lib = None
-            src = "amtl_event_batch.cu"
-            rep = "src/repro/kernels/amtl_event_batch.py:138"
-        elif name == "gauss_sketch":
-            w, seed, off, p = args_
-            d, tt = w.shape
-            nbytes, flops = 4 * (d * tt + d * p), 2 * d * tt * p
-            omega = ref.gauss_omega_ref(tt, p, seed, off, dev)
-            kfn = lambda: kern.gauss_sketch(w, seed, off, p)
-            pfn = lambda: ref.gauss_sketch_ref(w, seed, off, p)
-            lib = lambda: torch.matmul(w, omega)
-            src, rep = "gauss_sketch.cu", "src/repro/kernels/gauss_sketch.py:83"
-        else:
-            qu, s, vt = args_
-            d, p = qu.shape
-            m = vt.shape[1]
-            nbytes = 4 * (d * p + p + p * m + d * m)
-            flops = 2 * d * p * m + d * p
-            kfn = lambda: kern.svt_reconstruct(qu, s, vt)
-            pfn = lambda: ref.svt_reconstruct_ref(qu, s, vt)
-            lib = lambda: (qu * s) @ vt
-            src = "svt_reconstruct.cu"
-            rep = "src/repro/kernels/svt_reconstruct.py:72"
+                 "amtl_event", "lstsq_grad_sampled", "sample_mask",
+                 "lstsq_grad"):
+        spec = kernel_spec(name, info[name]["args"], dev)
+        kern = spec["kern"]
         saved = kern.launches
-        k_ms = cuda_ms(kfn)
-        issue_ms = cuda_ms(kfn, backlog=False)
-        p_ms = cuda_ms(pfn, inner=1, backlog=False)
-        l_ms = cuda_ms(lib) if lib is not None else None
+        k_ms = cuda_ms(spec["kfn"])
+        issue_ms = cuda_ms(spec["kfn"], backlog=False)
+        p_ms = cuda_ms(spec["pfn"], inner=1, backlog=False)
+        l_ms = cuda_ms(spec["lib"]) if spec["lib"] is not None else None
         kern.launches = saved           # timing launches are not the path's
-        bnd, by = bound_ms(nbytes, flops)
+        bnd, by = bound_ms(spec["nbytes"], spec["flops"])
         kernels.append(dict(
-            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
-            replaces=rep, launches=launches[name],
+            name=name, route="cuda",
+            source=f"src/repro_torch/csrc/{spec['src']}",
+            replaces=spec["rep"], launches=launches[name],
             max_abs_err=info[name]["err"], ms=k_ms, plain_ms=p_ms,
             bound_ms=bnd, bound_by=by, library_ms=l_ms))
-        log(f"phase 7 {name}: {k_ms * 1e3:.2f} us on the device (bound "
+        log(f"phase 9 {name}: {k_ms * 1e3:.2f} us on the device (bound "
             f"{bnd * 1e3:.2f} us by {by}; {issue_ms * 1e3:.2f} us a call "
             f"when the host issues them one by one), plain "
             f"{p_ms * 1e3:.1f} us, library "
-            f"{'n/a' if l_ms is None else f'{l_ms * 1e3:.2f} us'}, "
-            f"{per_batch[name]} launch(es) per {BATCH}-event batch, "
-            f"{launches[name]} on the main path")
+            + ("n/a" if l_ms is None else
+               f"{l_ms * 1e3:.2f} us ({LIBRARY_CALLS[name]})")
+            + f", {launches[name]} launches on the "
+            f"{where.get(name, 'batch session')}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -7,6 +7,7 @@ the kernels.
 from repro_torch.core import (AMTLConfig, AMTLEngine, MTLProblem,
                               amtl_events_only, amtl_solve, current_iterate,
                               default_config, make_engine, validate_config)
+from repro_torch.data import TaskStore, stack_ragged
 from repro_torch.interop import (problem_from_numpy, state_from_numpy,
                                  state_to_numpy)
 
@@ -14,5 +15,5 @@ __all__ = [
     "AMTLConfig", "AMTLEngine", "MTLProblem", "amtl_events_only",
     "amtl_solve", "current_iterate", "default_config", "make_engine",
     "validate_config", "problem_from_numpy", "state_from_numpy",
-    "state_to_numpy",
+    "state_to_numpy", "TaskStore", "stack_ragged",
 ]

@@ -15,6 +15,9 @@ from repro_torch.core.operators import (amtl_max_step, backward,
                                         rollback_columns_shard)
 from repro_torch.core.prox import (apply_prox, get_regularizer, sketch_width,
                                    svt, svt_randomized)
+from repro_torch.core.simulator import (NetworkModel, SimProblem, SimResult,
+                                        make_synthetic, simulate_amtl,
+                                        simulate_smtl)
 
 __all__ = [
     "AMTLConfig", "AMTLEngine", "AMTLResult", "BatchAMTLState",
@@ -25,4 +28,6 @@ __all__ = [
     "forward_backward", "km_block_update", "km_step", "rollback_columns",
     "rollback_columns_batch", "rollback_columns_shard", "apply_prox",
     "get_regularizer", "sketch_width", "svt", "svt_randomized",
+    "NetworkModel", "SimProblem", "SimResult", "make_synthetic",
+    "simulate_amtl", "simulate_smtl",
 ]

@@ -21,13 +21,18 @@ Two engines of the reference are ported:
 
 With `prox_rank` (nuclear norm only) the refresh is the randomized SVT,
 whose sketch and reconstruction are the `gauss_sketch` and
-`svt_reconstruct` kernels.  engine="dense" and engine="sharded", SGD
-(`batch_size`) and ragged problems (`row_counts`) are later slices of the
-port; `make_engine` refuses them.
+`svt_reconstruct` kernels.  With `batch_size` (SGD-AMTL, paper §V) every
+activation's gradient is the (n_t/bsz)-scaled seeded minibatch gradient
+(`MTLProblem.task_grad_sampled`: the `lstsq_grad_sampled` kernel for
+lstsq, the `sample_mask` kernel's keep bits otherwise); the seed is folded
+off the pre-event chain key, so the event stream is unchanged.  Ragged
+problems (`row_counts`) run on both engines.  engine="dense" and
+engine="sharded" are later slices of the port; `make_engine` refuses them.
 
 Host and device.  The event stream — each event's (task, staleness), the
-sketch seeds, the delay history and the per-event eta_k — depends only on
-the PRNG key, the event counter, `delay_offsets` and the config, never on
+sketch seeds, the delay history, the per-event eta_k and the minibatch
+scalar block (seed, cut_h, cut_i, n_t) — depends only on the PRNG key, the
+event counter, `delay_offsets`, the row counts and the config, never on
 V; so does which undo-log entry restores which column.  `plan_events`
 replays all of it on the host (the reference's threefry chain, bit for
 bit, `core.prng`) before any device work, and `apply_plan` then issues
@@ -64,7 +69,7 @@ from repro_torch.core.operators import (amtl_max_step, backward,
                                         fixed_point_residual,
                                         restore_columns, rollback_winners)
 from repro_torch.core.prox import svt_randomized
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 Tensor = torch.Tensor
 
@@ -88,7 +93,7 @@ class AMTLConfig(NamedTuple):
     event_batch: int = 1
     # engine="sharded" only: "replicated" or "distributed" server prox.
     prox_mode: str = "replicated"
-    # SGD-AMTL minibatch size (paper §V); not yet ported.
+    # SGD-AMTL minibatch size (paper §V): None = full gradients.
     batch_size: int | None = None
 
 
@@ -261,6 +266,7 @@ class EventPlan(NamedTuple):
     rb_slots: np.ndarray       # flat rollback ring slots, same order
     rb_offsets: np.ndarray     # (S + 1,) step s owns rb_*[off[s]:off[s+1]]
     ring_slots: np.ndarray     # (S, keep) ring slot of each kept undo entry
+    scalars: np.ndarray | None  # (N, 4) uint32 minibatch scalar blocks
     task_ring: np.ndarray      # host state after the run
     ptr: int
     event: int
@@ -291,6 +297,8 @@ def plan_events(problem: MTLProblem, cfg: AMTLConfig, state,
     rb_cols, rb_slots, rb_offsets = [], [], [0]
     ring_slots = np.empty((steps, keep), np.int64)
     tail = np.arange(per_step - keep, per_step)
+    sgd = cfg.batch_size is not None
+    seeds = np.empty((steps * per_step,), np.uint32)
     for s in range(steps):
         first = s * per_step
         refresh[s] = aligned or event % cfg.prox_every == 0
@@ -298,6 +306,9 @@ def plan_events(problem: MTLProblem, cfg: AMTLConfig, state,
             # folded off the step's first pre-event key, as the reference
             sketch_keys[s] = prng.fold_in_pair(pair, 7)
         for i in range(per_step):
+            if sgd:
+                # folded off the pre-event key, as `_minibatch_seed`
+                seeds[first + i] = prng.bits_pair(prng.fold_in_pair(pair, 11))
             pair, t, nu = _sample_pair(cfg, offs, pair, num_tasks, event + i)
             history.record_(t, nu)
             tasks[first + i] = t
@@ -315,6 +326,13 @@ def plan_events(problem: MTLProblem, cfg: AMTLConfig, state,
         ring[ring_slots[s]] = tasks[first + tail]
         ptr = (ptr + per_step) % depth
         event += per_step
+    scalars = None
+    if sgd:
+        # The row counts cross to the host once per run, never per event.
+        n_ts = None if problem.row_counts is None \
+            else problem.host_row_counts()[tasks]
+        scalars = ref.sample_scalars(problem.xs.shape[1], cfg.batch_size,
+                                     seeds, n_ts)
     empty = np.zeros((0,), np.int64)
     return EventPlan(
         tasks=tasks, eta_ks=eta_ks, refresh=refresh,
@@ -322,7 +340,7 @@ def plan_events(problem: MTLProblem, cfg: AMTLConfig, state,
         rb_cols=np.concatenate(rb_cols) if rb_cols else empty,
         rb_slots=np.concatenate(rb_slots) if rb_slots else empty,
         rb_offsets=np.asarray(rb_offsets, np.int64), ring_slots=ring_slots,
-        task_ring=ring, ptr=ptr, event=event, history=history,
+        scalars=scalars, task_ring=ring, ptr=ptr, event=event, history=history,
         key=prng.to_key(pair))
 
 
@@ -346,6 +364,14 @@ def apply_plan(problem: MTLProblem, cfg: AMTLConfig, state,
     randomized = cfg.prox_rank is not None and problem.reg_name == "nuclear"
     carried = cfg.prox_every > per_step
     thresh = cfg.eta * problem.lam
+
+    def grad(e: int, p_t: Tensor) -> Tensor:
+        """Forward-step gradient of event e at its task's prox column."""
+        t = int(plan.tasks[e])
+        if plan.scalars is None:
+            return problem.task_grad(t, p_t)
+        return problem.task_grad_sampled(t, p_t, plan.scalars[e],
+                                         cfg.batch_size)
 
     v = state.v.clone()
     ring = state.delta_ring.clone()
@@ -374,7 +400,7 @@ def apply_plan(problem: MTLProblem, cfg: AMTLConfig, state,
                 p_cache = p
         if cfg.engine == "delta":
             p_t = p[:, t0].contiguous()
-            g_t = problem.task_grad(t0, p_t)
+            g_t = grad(first, p_t)
             v_new, old = ops.amtl_event(v[:, t0].contiguous(), p_t, g_t,
                                         cfg.eta, float(plan.eta_ks[first]))
             v[:, t0] = v_new
@@ -385,8 +411,7 @@ def apply_plan(problem: MTLProblem, cfg: AMTLConfig, state,
             p_rows = p_cols.T.contiguous()                       # (B, d)
             g_rows = torch.empty_like(p_rows)
             for i in range(per_step):
-                g_rows[i] = problem.task_grad(int(plan.tasks[first + i]),
-                                              p_rows[i])
+                g_rows[i] = grad(first + i, p_rows[i])
             _, undo = ops.amtl_event_batch(
                 v, p_cols, g_rows.T.contiguous(), ts, cfg.eta,
                 eta_ks_dev[first:first + per_step])
@@ -454,19 +479,16 @@ def validate_config(cfg: AMTLConfig, reg_name: str | None = None) -> None:
 
 
 def _refuse_unported(problem: MTLProblem, cfg: AMTLConfig) -> None:
+    if cfg.engine == "dense" and problem.row_counts is not None:
+        raise ValueError(
+            "engine='dense' is the exact uniform seed baseline; ragged "
+            "problems (row_counts set) require engine='delta', 'batch', "
+            "or 'sharded'")
     if cfg.engine in ("dense", "sharded"):
         raise NotImplementedError(
             f"engine={cfg.engine!r} is not ported yet: the "
             + ("dense-engine" if cfg.engine == "dense" else "sharded-engine")
             + " slice of the port brings it; use 'delta' or 'batch'")
-    if cfg.batch_size is not None:
-        raise NotImplementedError(
-            "batch_size (SGD-AMTL) arrives with the SGD/ragged slice of "
-            "the port")
-    if problem.row_counts is not None:
-        raise NotImplementedError(
-            "ragged problems (row_counts) arrive with the SGD/ragged slice "
-            "of the port")
 
 
 def _iterate_metrics(problem: MTLProblem, cfg: AMTLConfig, v: Tensor):
@@ -506,7 +528,9 @@ def make_engine(problem: MTLProblem, cfg: AMTLConfig,
     validate_config(cfg, problem.reg_name)
     _refuse_unported(problem, cfg)
     dev = resolve_device(device)
-    if problem.xs.device != dev or problem.ys.device != dev:
+    counts = problem.row_counts
+    if problem.xs.device != dev or problem.ys.device != dev or (
+            counts is not None and counts.device != dev):
         raise ValueError(f"the problem's tensors are on {problem.xs.device}; "
                          f"the engine runs on {dev}")
     num_tasks = problem.num_tasks

@@ -2,12 +2,14 @@
 
 Each task t has data (x_t, y_t) and a convex loss: least squares for
 regression, logistic for binary classification.  The problem is stacked:
-X (T, n, d), Y (T, n), every task with the same n and d.  Iterates are
-(d, T), one column per task, as in the reference.
+X (T, n, d), Y (T, n), every task with the same capacity n and d.
+Iterates are (d, T), one column per task, as in the reference.
 
-Ragged cohorts (`row_counts`) and the seeded minibatch gradient
-(`task_grad_sampled`) belong to the SGD/ragged slice of the port; until
-then a problem with `row_counts` set is refused.
+Ragged cohorts: with `row_counts` set, task t owns only its first
+row_counts[t] rows, and every loss, gradient and minibatch selection masks
+the rest (in the residual or the per-row loss, never in X).  The seeded
+minibatch gradient (`task_grad_sampled`) takes the event's host scalar
+block (seed, cut_h, cut_i, n_t), planned by `kernels.ref.sample_scalars`.
 """
 from __future__ import annotations
 
@@ -25,6 +27,11 @@ class TaskLoss(NamedTuple):
     grad: Callable[[Tensor, Tensor, Tensor], Tensor]    # (x, y, w) -> (d,)
     lipschitz: Callable[[np.ndarray], float]            # (x,) -> L bound
     predict: Callable[[Tensor], Tensor]                 # linear score -> output
+    # ragged variants over a padded row buffer: rows >= n_t (a host int or a
+    # 0-d tensor) are masked out of the per-row loss/residual; with n_t == n
+    # the all-true mask passes the bits through.
+    value_masked: Callable[[Tensor, Tensor, Tensor, Tensor], Tensor]
+    grad_masked: Callable[[Tensor, Tensor, Tensor, Tensor], Tensor]
 
 
 # -- least squares: ||x w - y||_2^2, gradient 2 x^T (x w - y) ---------------
@@ -46,6 +53,21 @@ def lstsq_lipschitz(x: np.ndarray) -> float:
 def lstsq_predict(score: Tensor) -> Tensor:
     """Regression serves the raw linear score x·w."""
     return score
+
+
+def _row_mask(x: Tensor, n_t) -> Tensor:
+    """(n,) bool: row index < n_t."""
+    return torch.arange(x.shape[0], device=x.device) < n_t
+
+
+def lstsq_value_masked(x: Tensor, y: Tensor, w: Tensor, n_t) -> Tensor:
+    r = torch.where(_row_mask(x, n_t), x @ w - y, 0.0)
+    return torch.sum(r * r)
+
+
+def lstsq_grad_masked(x: Tensor, y: Tensor, w: Tensor, n_t) -> Tensor:
+    r = torch.where(_row_mask(x, n_t), x @ w - y, 0.0)
+    return 2.0 * (x.T @ r)
 
 
 # -- logistic: sum log(1 + exp(-y x w)), y in {-1, +1} ----------------------
@@ -71,11 +93,26 @@ def logistic_predict(score: Tensor) -> Tensor:
     return torch.sigmoid(score)
 
 
+def logistic_value_masked(x: Tensor, y: Tensor, w: Tensor, n_t) -> Tensor:
+    # A zero row is NOT neutral for the logistic value (log 2), so the
+    # per-row loss itself is masked, not the data.
+    z = y * (x @ w)
+    per_row = torch.logaddexp(torch.zeros_like(z), -z)
+    return torch.sum(torch.where(_row_mask(x, n_t), per_row, 0.0))
+
+
+def logistic_grad_masked(x: Tensor, y: Tensor, w: Tensor, n_t) -> Tensor:
+    z = y * (x @ w)
+    s = torch.sigmoid(-z)
+    return -(x.T @ torch.where(_row_mask(x, n_t), s * y, 0.0))
+
+
 LOSSES: dict[str, TaskLoss] = {
     "lstsq": TaskLoss("lstsq", lstsq_value, lstsq_grad, lstsq_lipschitz,
-                      lstsq_predict),
+                      lstsq_predict, lstsq_value_masked, lstsq_grad_masked),
     "logistic": TaskLoss("logistic", logistic_value, logistic_grad,
-                         logistic_lipschitz, logistic_predict),
+                         logistic_lipschitz, logistic_predict,
+                         logistic_value_masked, logistic_grad_masked),
 }
 
 
@@ -84,11 +121,14 @@ def get_loss(name: str) -> TaskLoss:
 
 
 class MTLProblem(NamedTuple):
-    """A stacked multi-task problem: T equal-capacity tasks on one device.
+    """A stacked multi-task problem: T padded equal-capacity tasks.
 
     xs: (T, n, d)  ys: (T, n)  float32 tensors on the device the engine
-    runs on.  `row_counts` keeps the reference's field; a problem that
-    sets it is refused until the ragged slice is ported.
+    runs on.  `row_counts` (optional, (T,) int32, on the same device) makes
+    the problem ragged: task t owns its first row_counts[t] rows, the rest
+    are padding or appended-but-unpublished rows.  None means every row is
+    valid.  The masks read row_counts on the device, so no method here
+    waits for the card; the engines read it to the host once per `run`.
     """
 
     xs: Tensor
@@ -110,30 +150,65 @@ class MTLProblem(NamedTuple):
     def device(self) -> torch.device:
         return self.xs.device
 
-    def _uniform(self) -> None:
-        if self.row_counts is not None:
-            raise NotImplementedError(
-                "ragged problems (row_counts) arrive with the SGD/ragged "
-                "slice of the port")
+    def host_row_counts(self) -> np.ndarray:
+        """(T,) int64 valid-row counts on the host (n everywhere when the
+        problem is uniform).  Reads the device once."""
+        if self.row_counts is None:
+            return np.full((self.num_tasks,), self.xs.shape[1], np.int64)
+        return np.asarray(torch.as_tensor(self.row_counts).cpu(), np.int64)
+
+    def _per_task(self, fn: str, w_cols: Tensor) -> list[Tensor]:
+        loss = get_loss(self.loss_name)
+        if self.row_counts is None:
+            f = getattr(loss, fn)
+            return [f(self.xs[t], self.ys[t], w_cols[:, t])
+                    for t in range(self.num_tasks)]
+        f = getattr(loss, fn + "_masked")
+        return [f(self.xs[t], self.ys[t], w_cols[:, t], self.row_counts[t])
+                for t in range(self.num_tasks)]
 
     def loss_value(self, w_cols: Tensor) -> Tensor:
         """f(W) = sum_t ell_t(w_t); w_cols is (d, T)."""
-        self._uniform()
-        loss = get_loss(self.loss_name)
-        return torch.stack([loss.value(self.xs[t], self.ys[t], w_cols[:, t])
-                            for t in range(self.num_tasks)]).sum()
+        return torch.stack(self._per_task("value", w_cols)).sum()
 
     def task_grad(self, t: int, w_t: Tensor) -> Tensor:
         """grad of task t's loss at w_t (a host task index)."""
-        self._uniform()
-        return get_loss(self.loss_name).grad(self.xs[t], self.ys[t], w_t)
+        loss = get_loss(self.loss_name)
+        if self.row_counts is None:
+            return loss.grad(self.xs[t], self.ys[t], w_t)
+        return loss.grad_masked(self.xs[t], self.ys[t], w_t,
+                                self.row_counts[t])
+
+    def task_grad_sampled(self, t: int, w_t: Tensor, scalars,
+                          batch_size: int) -> Tensor:
+        """Unbiased seeded-minibatch gradient of task t's loss at w_t.
+
+        `scalars` is the event's host scalar block (seed, cut_h, cut_i,
+        n_t): the minibatch is the exactly-bsz rows (bsz = min(batch_size,
+        n_t)) of smallest counter hash, and the gradient is scaled by
+        n_t/bsz.  lstsq goes to `ops.lstsq_grad_sampled`; other losses take
+        the keep bits from `ops.sample_mask`, zero the dropped rows of x (a
+        zero row adds nothing to any x^T(...) gradient) and scale the same
+        way.  On a CUDA problem both are kernels.
+        """
+        from repro_torch.kernels import ops
+
+        x_t, y_t = self.xs[t], self.ys[t]
+        if self.loss_name == "lstsq":
+            return ops.lstsq_grad_sampled(x_t, w_t, y_t, scalars, batch_size)
+        n = x_t.shape[0]
+        mask = ops.sample_mask(n, scalars, x_t.device)
+        x_s = torch.where(mask[:, None], x_t, 0.0)
+        grad = get_loss(self.loss_name).grad(x_s, y_t, w_t)
+        if self.row_counts is None:
+            return (n / min(batch_size, n)) * grad
+        n_t = int(scalars[3])
+        bsz = min(batch_size, n_t)
+        return float(np.float32(n_t) / np.float32(max(bsz, 1))) * grad
 
     def full_grad(self, w_cols: Tensor) -> Tensor:
         """nabla f(W) column-stacked, (d, T) — paper Eq. III.2."""
-        self._uniform()
-        loss = get_loss(self.loss_name)
-        return torch.stack([loss.grad(self.xs[t], self.ys[t], w_cols[:, t])
-                            for t in range(self.num_tasks)], dim=1)
+        return torch.stack(self._per_task("grad", w_cols), dim=1)
 
     def objective(self, w_cols: Tensor) -> Tensor:
         from repro_torch.core.prox import get_regularizer
@@ -141,8 +216,10 @@ class MTLProblem(NamedTuple):
         return self.loss_value(w_cols) + self.lam * reg.value(w_cols)
 
     def lipschitz(self) -> float:
-        """max_t L_t — the coordinate-wise Lipschitz bound used for eta."""
-        self._uniform()
+        """max_t L_t — the coordinate-wise Lipschitz bound used for eta,
+        over each task's valid rows only."""
         loss = get_loss(self.loss_name)
         xs = self.xs.detach().cpu().numpy()
-        return max(loss.lipschitz(xs[t]) for t in range(self.num_tasks))
+        counts = self.host_row_counts()
+        return max(loss.lipschitz(xs[t][:int(counts[t])])
+                   for t in range(self.num_tasks))

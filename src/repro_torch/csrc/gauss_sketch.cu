@@ -22,6 +22,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "counter_hash.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -29,13 +31,6 @@ constexpr int kTileT = 32;
 constexpr int kMaxP = 256;
 constexpr int kMaxAcc = 8;                  // outputs held per thread
 constexpr int kMaxRows = 32;
-
-__device__ __forceinline__ uint32_t counter_hash(uint32_t seed, uint32_t ctr) {
-  uint32_t x = (ctr * 0x9E3779B9u) ^ seed;
-  x = (x ^ (x >> 16)) * 0x7FEB352Du;
-  x = (x ^ (x >> 15)) * 0x846CA68Bu;
-  return x ^ (x >> 16);
-}
 
 __device__ __forceinline__ float gauss(uint32_t seed, uint32_t ctr) {
   const uint32_t c2 = ctr * 2u;

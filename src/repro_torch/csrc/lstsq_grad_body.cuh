@@ -1,0 +1,143 @@
+// The two-phase body shared by lstsq_grad.cu and lstsq_grad_sampled.cu:
+//
+//     g = scale2 * X_K^T (X_K w - y_K),   K = the rows whose keep bit is set
+//
+// Phase 1 (residual_kernel): one block per row.  A kept row's block reads
+//   its X row once (float4 loads when d % 4 == 0 and the rows are 16-byte
+//   aligned), reduces x_i . w in a fixed tree (per-thread strided fmas,
+//   a warp xor-shuffle tree, then the per-warp sums in warp order) and
+//   writes r_i = x_i . w - y_i into an (n,) scratch.  A dropped row writes
+//   r_i = 0 and never reads its X row.
+// Phase 2 (column_kernel): one thread per output column j.  Each block
+//   walks the rows in chunks of its width, compacts the chunk's kept rows
+//   (ballot + popc, so in ascending row order) into shared memory with
+//   their residuals, and every thread accumulates
+//   g_j += x_ij r_i over them, so reads of an X row are coalesced across j
+//   and dropped rows are never read.  g_j = scale2 * (sum).
+//
+// No atomics: every sum runs in an order fixed by the launch shape alone,
+// so the same inputs give the same bits on every launch.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kRowThreads = 256;
+constexpr int kColThreads = 128;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  }
+  return v;
+}
+
+template <class Keep>
+__global__ void __launch_bounds__(kRowThreads)
+residual_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ y, float* __restrict__ r, int d,
+                Keep keep, bool vec4) {
+  __shared__ float part[kRowThreads / 32];
+  const int row = blockIdx.x;
+  if (!keep(row)) {
+    if (threadIdx.x == 0) r[row] = 0.0f;
+    return;
+  }
+  const float* xr = x + (size_t)row * d;
+  float acc = 0.0f;
+  if (vec4) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    const float4* w4 = reinterpret_cast<const float4*>(w);
+    for (int k = threadIdx.x; k < d / 4; k += blockDim.x) {
+      const float4 a = x4[k];
+      const float4 b = w4[k];
+      acc = __fmaf_rn(a.x, b.x, acc);
+      acc = __fmaf_rn(a.y, b.y, acc);
+      acc = __fmaf_rn(a.z, b.z, acc);
+      acc = __fmaf_rn(a.w, b.w, acc);
+    }
+  } else {
+    for (int k = threadIdx.x; k < d; k += blockDim.x) {
+      acc = __fmaf_rn(xr[k], w[k], acc);
+    }
+  }
+  acc = warp_sum(acc);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) part[warp] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    float v = lane < (int)(blockDim.x >> 5) ? part[lane] : 0.0f;
+    v = warp_sum(v);
+    if (lane == 0) r[row] = __fsub_rn(v, y[row]);
+  }
+}
+
+template <class Keep>
+__global__ void __launch_bounds__(kColThreads)
+column_kernel(const float* __restrict__ x, const float* __restrict__ r,
+              float* __restrict__ g, int n, int d, Keep keep) {
+  __shared__ int rows[kColThreads];
+  __shared__ float res[kColThreads];
+  __shared__ int warp_base[kColThreads / 32 + 1];
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int num_warps = blockDim.x >> 5;
+  float acc = 0.0f;
+  for (int base = 0; base < n; base += blockDim.x) {
+    const int row = base + threadIdx.x;
+    const bool k = row < n && keep(row);
+    const unsigned m = __ballot_sync(0xffffffffu, k);
+    if (lane == 0) warp_base[warp] = __popc(m);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int s = 0;
+      for (int q = 0; q < num_warps; ++q) {
+        const int c = warp_base[q];
+        warp_base[q] = s;
+        s += c;
+      }
+      warp_base[num_warps] = s;
+    }
+    __syncthreads();
+    if (k) {
+      const int at = warp_base[warp] + __popc(m & ((1u << lane) - 1u));
+      rows[at] = row;
+      res[at] = r[row];
+    }
+    const int count = warp_base[num_warps];
+    __syncthreads();
+    if (j < d) {
+      for (int e = 0; e < count; ++e) {
+        acc = __fmaf_rn(x[(size_t)rows[e] * d + j], res[e], acc);
+      }
+    }
+    __syncthreads();
+  }
+  if (j < d) g[j] = __fmul_rn(keep.scale2(), acc);
+}
+
+// Phase 1 then phase 2 on `stream`; returns cudaGetLastError().
+template <class Keep>
+int launch_two_phase(const float* x, const float* w, const float* y,
+                     float* r, float* g, int n, int d, Keep keep,
+                     cudaStream_t stream) {
+  if (n < 0 || d < 0) return (int)cudaErrorInvalidValue;
+  const bool vec4 = (d % 4 == 0) &&
+                    ((reinterpret_cast<uintptr_t>(x) |
+                      reinterpret_cast<uintptr_t>(w)) % 16 == 0);
+  if (n > 0 && d > 0) {
+    residual_kernel<Keep><<<n, kRowThreads, 0, stream>>>(x, w, y, r, d, keep,
+                                                         vec4);
+  }
+  if (d > 0) {
+    const int blocks = (d + kColThreads - 1) / kColThreads;
+    column_kernel<Keep><<<blocks, kColThreads, 0, stream>>>(x, r, g, n, d,
+                                                            keep);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -2,9 +2,15 @@
 
 Everything crosses as numpy arrays, so the port never sees a JAX array:
 
-    problem_from_numpy(xs, ys, loss_name, reg_name, lam, device)
+    problem_from_numpy(xs, ys, loss_name, reg_name, lam, device,
+                       row_counts=None)
     state_from_numpy(kind, leaves, device)     # kind: "delta" or "batch"
     state_to_numpy(state) -> leaves
+
+A TaskStore crosses as its `TaskStoreState` leaves (xs, ys, row_counts),
+host numpy on both sides: `store.state()` gives them, and
+`TaskStore(*leaves, loss_name, reg_name, lam)` takes them, in either
+package.
 
 `leaves` is the flat list of a reference `DeltaAMTLState`/`BatchAMTLState`
 in its pytree order (`jax.tree_util.tree_leaves`):
@@ -33,14 +39,18 @@ _STATES = {"delta": DeltaAMTLState, "batch": BatchAMTLState}
 
 
 def problem_from_numpy(xs, ys, loss_name: str, reg_name: str, lam: float,
-                       device: torch.device | str | None = None) -> MTLProblem:
+                       device: torch.device | str | None = None,
+                       row_counts=None) -> MTLProblem:
     """A stacked problem from (T, n, d) and (T, n) arrays, as float32 on
-    `device` (CUDA unless the caller passes "cpu")."""
+    `device` (CUDA unless the caller passes "cpu"); `row_counts` (T,)
+    makes it ragged, as int32 on the same device."""
     dev = resolve_device(device)
     return MTLProblem(
         torch.as_tensor(np.array(xs, np.float32), device=dev),
         torch.as_tensor(np.array(ys, np.float32), device=dev),
-        loss_name, reg_name, float(lam))
+        loss_name, reg_name, float(lam),
+        None if row_counts is None else torch.as_tensor(
+            np.array(row_counts, np.int32), device=dev))
 
 
 def state_from_numpy(kind: str, leaves, device: torch.device | str | None = None):

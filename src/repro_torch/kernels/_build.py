@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-All sources in `repro_torch/csrc/*.cu` are compiled by ONE `nvcc` call into
+Each source in `repro_torch/csrc/*.cu` is compiled by its own `nvcc`
+process, all started together, and one more `nvcc` links the objects into
 a shared library with a plain C interface, loaded with `ctypes`.  The
 library lands in `build/repro_torch_kernels/` at the repository root,
-named by a hash of the sources and flags, so an unchanged tree reuses it
-and a changed one rebuilds.  Nothing is built when a module is imported:
-the first kernel launch builds.
+named by a hash of the sources, the shared headers (`csrc/*.cuh`) and the
+flags, so an unchanged tree reuses it and a changed one, a header
+included, rebuilds.  Nothing is built when a module is imported: the
+first kernel launch builds.
 
 Every C entry point returns `cudaGetLastError()` after its launch, and
 `check` raises on anything but 0, so a refused launch (too many threads,
@@ -26,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lib: ctypes.CDLL | None = None
 
@@ -45,9 +47,13 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
@@ -64,16 +70,30 @@ def build(verbose: bool = False) -> tuple[Path, float]:
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sources())]
+    ptxas = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in sources():
+        obj = tmp.with_name(f"{src.stem}.{os.getpid()}.o")
+        cmd = [nvcc(), *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
+    reports = [(cmd, proc.communicate()[0], proc.returncode)
+               for cmd, proc in procs]
+    link = [nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    if all(rc == 0 for _, _, rc in reports):
+        res = subprocess.run(link, capture_output=True, text=True)
+        reports.append((link, res.stdout + res.stderr, res.returncode))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
+    for cmd, text, rc in reports:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
     if verbose:
-        print(res.stdout + res.stderr, flush=True)
+        print("".join(text for _, text, _ in reports), flush=True)
     os.replace(tmp, out)       # atomic: a concurrent build never sees half a file
     return out, secs
 
@@ -133,3 +153,23 @@ def host_scalar(name: str, x) -> float:
         raise ValueError(f"{name}: scalar must be a host number, not a "
                          f"{x.device} tensor")
     return float(x)
+
+
+def scalar_block(name: str, scalars) -> tuple[int, int, int, int]:
+    """The four uint32 (seed, cut_h, cut_i, n_t) of an event's scalar block,
+    as Python ints, from host values (a sequence or a numpy row)."""
+    vals = [int(s) for s in scalars]
+    if len(vals) != 4 or any(not 0 <= s <= 0xFFFFFFFF for s in vals):
+        raise ValueError(f"{name}: the scalar block is four uint32 (seed, "
+                         f"cut_h, cut_i, n_t); got {vals}")
+    return vals[0], vals[1], vals[2], vals[3]
+
+
+def lstsq_shapes(name: str, x: torch.Tensor, w: torch.Tensor,
+                 y: torch.Tensor) -> tuple[int, int]:
+    """(n, d) of a least-squares gradient's X (n, d), w (d,), y (n,)."""
+    if x.dim() != 2 or w.shape != (x.shape[1],) or y.shape != (x.shape[0],):
+        raise ValueError(f"{name} expects x (n, d), w (d,), y (n,); got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(y.shape)}")
+    return x.shape[0], x.shape[1]

@@ -16,7 +16,10 @@ import torch
 from repro_torch.kernels import amtl_event as _amtl_event
 from repro_torch.kernels import amtl_event_batch as _amtl_event_batch
 from repro_torch.kernels import gauss_sketch as _gauss_sketch
+from repro_torch.kernels import lstsq_grad as _lstsq_grad
+from repro_torch.kernels import lstsq_grad_sampled as _lstsq_grad_sampled
 from repro_torch.kernels import ref
+from repro_torch.kernels import sample_mask as _sample_mask
 from repro_torch.kernels import svt_reconstruct as _svt_reconstruct
 
 KERNELS = {
@@ -24,16 +27,20 @@ KERNELS = {
     "amtl_event_batch": _amtl_event_batch,
     "gauss_sketch": _gauss_sketch,
     "svt_reconstruct": _svt_reconstruct,
+    "lstsq_grad_sampled": _lstsq_grad_sampled,
+    "sample_mask": _sample_mask,
+    "lstsq_grad": _lstsq_grad,
 }
 
 
-def _on_cuda(name: str, t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
+def _on_cuda(name: str, where: torch.Tensor | torch.device | str) -> bool:
+    dev = where.device if isinstance(where, torch.Tensor) \
+        else torch.device(where)
+    if dev.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if dev.type == "cpu":
         return False
-    raise ValueError(f"{name}: no kernel or plain version for device "
-                     f"{t.device}")
+    raise ValueError(f"{name}: no kernel or plain version for device {dev}")
 
 
 def launch_counts() -> dict[str, int]:
@@ -81,3 +88,35 @@ def svt_reconstruct(qu: torch.Tensor, s: torch.Tensor,
     if _on_cuda("svt_reconstruct", qu):
         return _svt_reconstruct.svt_reconstruct(qu, s, vt)
     return ref.svt_reconstruct_ref(qu, s, vt)
+
+
+def lstsq_grad(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
+               n_t: int | None = None) -> torch.Tensor:
+    """Fused 2 X^T (X w - y); a host `n_t` masks a ragged buffer's rows
+    >= n_t out of the residual."""
+    if _on_cuda("lstsq_grad", x):
+        return _lstsq_grad.lstsq_grad(x, w, y, n_t)
+    if n_t is None:
+        return ref.lstsq_grad_ref(x, w, y)
+    return ref.lstsq_grad_masked_ref(x, w, y, n_t)
+
+
+def lstsq_grad_sampled(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
+                       scalars, batch_size: int) -> torch.Tensor:
+    """Unbiased seeded-minibatch gradient (n_t/bsz) * 2 X_S^T (X_S w - y_S)
+    for the event's host scalar block (seed, cut_h, cut_i, n_t), planned by
+    `ref.sample_scalars`.  batch_size >= n is the masked full gradient
+    (the plain version's own short cut; the kernel's cutoff saturates)."""
+    if _on_cuda("lstsq_grad_sampled", x):
+        return _lstsq_grad_sampled.lstsq_grad_sampled(x, w, y, scalars,
+                                                      batch_size)
+    seed, _, _, n_t = (int(s) for s in scalars)
+    return ref.lstsq_grad_sampled_masked_ref(x, w, y, seed, batch_size, n_t)
+
+
+def sample_mask(n: int, scalars, device: torch.device | str) -> torch.Tensor:
+    """(n,) bool minibatch keep bits of a host scalar block, on `device`;
+    exactly min(batch_size, n_t) are set, all below n_t."""
+    if _on_cuda("sample_mask", device):
+        return _sample_mask.sample_mask(n, scalars, device)
+    return ref.keep_bits_ref(n, scalars, device)

@@ -3,6 +3,9 @@
 Each function is the semantic ground truth for its CUDA kernel and the
 port of the function of the same name in the reference package's
 `kernels/ref.py`.  They run on any device; `ops` sends CPU tensors here.
+The minibatch cutoffs (`sample_cutoff`, `sample_cutoff_masked`,
+`sample_scalars`) are host functions in numpy uint32: the engines plan
+them on the host, before any device work.
 
 The KM update is written as the two fused multiply-adds that XLA's CPU
 backend emits for `v + eta_k*(p - eta*g - v)`:
@@ -164,3 +167,176 @@ def gauss_sketch_ref(w: Tensor, seed: int, row_offset: int, p: int) -> Tensor:
     """(d, p) float32 sketch W @ Omega with Omega materialized."""
     omega = gauss_omega_ref(w.shape[1], p, seed, row_offset, w.device)
     return w.to(torch.float32) @ omega
+
+
+# ------------------------------------------------------ gradient kernels ---
+
+def lstsq_grad_ref(x: Tensor, w: Tensor, y: Tensor) -> Tensor:
+    """Fused least-squares gradient 2 X^T (X w - y) (paper forward step)."""
+    x32, w32, y32 = (a.to(torch.float32) for a in (x, w, y))
+    return (2.0 * (x32.T @ (x32 @ w32 - y32))).to(w.dtype)
+
+
+def lstsq_grad_masked_ref(x: Tensor, w: Tensor, y: Tensor, n_t) -> Tensor:
+    """Ragged least-squares gradient: rows >= n_t masked out of the
+    residual (never out of X).  With n_t == n the all-true `where` passes
+    the residual's bits through, so this is `lstsq_grad_ref` bitwise."""
+    x32, w32, y32 = (a.to(torch.float32) for a in (x, w, y))
+    rows = torch.arange(x.shape[0], device=x.device)
+    r = torch.where(rows < n_t, x32 @ w32 - y32, 0.0)
+    return (2.0 * (x32.T @ r)).to(w.dtype)
+
+
+# ------------------------------------------------ counter-based sampling ---
+#
+# The minibatch of an event is the exactly-bsz rows whose counter_hash(seed,
+# row) ranks smallest, ties broken by row index (a stable argsort of the
+# hashes IS the (hash, row) order).  The cut is summarized by the bsz-th
+# smallest pair (cut_h, cut_i); with the event's seed and valid-row count
+# n_t it forms the (seed, cut_h, cut_i, n_t) uint32 scalar block from which
+# every row's keep bit is a local predicate (`keep_bits_ref`, and
+# `keep_bit` in csrc/counter_hash.cuh).
+
+_SAT = 0xFFFFFFFF
+_CHUNK = 1024            # events hashed at once by `sample_scalars`
+
+
+def counter_hash_np(seed, ctr) -> np.ndarray:
+    """`counter_hash` in numpy uint32 (wrapping) arithmetic, broadcast over
+    `seed` and `ctr`."""
+    x = (np.asarray(ctr, np.uint32) * np.uint32(0x9E3779B9)) \
+        ^ np.asarray(seed, np.uint32)
+    x = (x ^ (x >> np.uint32(16))) * np.uint32(0x7FEB352D)
+    x = (x ^ (x >> np.uint32(15))) * np.uint32(0x846CA68B)
+    return x ^ (x >> np.uint32(16))
+
+
+def sample_scalars(n: int, batch_size: int, seeds,
+                   n_ts=None) -> np.ndarray:
+    """(N, 4) uint32 scalar blocks (seed, cut_h, cut_i, n_t) of N events.
+
+    The port of the reference's `_scalars`: the cutoff over the valid rows
+    (`sample_cutoff_masked`), or over all n rows when `n_ts` is None (then
+    n_t = n, which gives `sample_cutoff`'s pair).  Events with
+    batch_size >= n_t saturate to (0xFFFFFFFF, n - 1).
+
+    For a fixed seed the hash is a bijection of the row (odd multiplies,
+    xors and xorshifts), so no two rows tie and the (hash, row) order of
+    the reference's stable argsort is the hash order: the cut is the
+    bsz-th smallest of the keys hash + 2^32 * (row >= n_t), found by a
+    partial sort.
+    """
+    seeds = np.asarray(seeds, np.uint32).reshape(-1)
+    count = seeds.shape[0]
+    n_ts = (np.full((count,), n, np.int64) if n_ts is None
+            else np.asarray(n_ts, np.int64).reshape(-1))
+    out = np.empty((count, 4), np.uint32)
+    out[:, 0] = seeds
+    out[:, 1] = _SAT
+    out[:, 2] = max(n - 1, 0)
+    out[:, 3] = n_ts
+    todo = np.flatnonzero(batch_size < n_ts)
+    rows = np.arange(n, dtype=np.uint32)
+    for lo in range(0, todo.shape[0], _CHUNK):
+        ev = todo[lo:lo + _CHUNK]
+        keys = counter_hash_np(seeds[ev, None], rows[None, :]).astype(
+            np.uint64)
+        keys |= (rows[None, :] >= n_ts[ev, None]).astype(np.uint64) << 32
+        kth = np.partition(keys, batch_size - 1, axis=1)[:, batch_size - 1]
+        out[ev, 1] = kth & _SAT
+        out[ev, 2] = np.argmax(keys == kth[:, None], axis=1)
+    return out
+
+
+def sample_cutoff(n: int, batch_size: int, seed) -> tuple[int, int]:
+    """(cut_h, cut_i): the bsz-th smallest (hash, row) pair of all n rows,
+    bsz = min(batch_size, n); saturated when batch_size >= n."""
+    row = sample_scalars(n, batch_size, [seed])[0]
+    return int(row[1]), int(row[2])
+
+
+def sample_cutoff_masked(n: int, batch_size: int, seed,
+                         n_t: int) -> tuple[int, int]:
+    """(cut_h, cut_i) among the valid rows < n_t of an n-row buffer,
+    bsz = min(batch_size, n_t); saturated when batch_size >= n_t."""
+    row = sample_scalars(n, batch_size, [seed], [n_t])[0]
+    return int(row[1]), int(row[2])
+
+
+def keep_bits_ref(n: int, scalars, device="cpu") -> Tensor:
+    """(n,) bool keep bits of one scalar block (seed, cut_h, cut_i, n_t):
+    h_i < cut_h or (h_i == cut_h and i <= cut_i), and i < n_t."""
+    seed, cut_h, cut_i, n_t = (int(s) for s in scalars)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    h = counter_hash(seed, idx)
+    keep = (h < cut_h) | ((h == cut_h) & (idx <= cut_i))
+    return keep & (idx < n_t)
+
+
+def sample_mask_ref(n: int, batch_size: int, seed,
+                    device="cpu") -> Tensor:
+    """(n,) bool keep bits; exactly min(batch_size, n) are set."""
+    return keep_bits_ref(n, sample_scalars(n, batch_size, [seed])[0], device)
+
+
+def sample_mask_masked_ref(n: int, batch_size: int, seed, n_t: int,
+                           device="cpu") -> Tensor:
+    """(n,) bool keep bits over a padded buffer; min(batch_size, n_t) set,
+    all below n_t."""
+    return keep_bits_ref(n, sample_scalars(n, batch_size, [seed], [n_t])[0],
+                         device)
+
+
+def _hash_order(seed, n: int, device) -> Tensor:
+    """Row indices in (hash, row) order (a stable sort of the hashes)."""
+    h = counter_hash(int(seed), torch.arange(n, dtype=torch.int64,
+                                             device=device))
+    return torch.sort(h, stable=True).indices
+
+
+def lstsq_grad_sampled_ref(x: Tensor, w: Tensor, y: Tensor, seed,
+                           batch_size: int) -> Tensor:
+    """Unbiased seeded-minibatch gradient (n/bsz) * 2 X_S^T (X_S w - y_S).
+
+    bsz = min(batch_size, n); S is the prefix of the (hash, row) order,
+    gathered, so the contraction is O(bsz d).  batch_size >= n is
+    `lstsq_grad_ref`, the same call.
+    """
+    n = x.shape[0]
+    bsz = min(batch_size, n)
+    if bsz >= n:
+        return lstsq_grad_ref(x, w, y)
+    sel = _hash_order(seed, n, x.device)[:bsz]
+    x32 = x[sel].to(torch.float32)
+    y32 = y[sel].to(torch.float32)
+    r = x32 @ w.to(torch.float32) - y32
+    return ((2.0 * (n / bsz)) * (x32.T @ r)).to(w.dtype)
+
+
+def lstsq_grad_sampled_masked_ref(x: Tensor, w: Tensor, y: Tensor, seed,
+                                  batch_size: int, n_t: int) -> Tensor:
+    """Ragged minibatch gradient (n_t/bsz) * 2 X_S^T (X_S w - y_S).
+
+    bsz = min(batch_size, n_t).  The gather keeps a static height of
+    bsz_max = min(batch_size, n) rows in (hash, row) order, valid rows
+    first (stable), and rows at rank >= bsz are masked out of the
+    RESIDUAL, never out of the gathered X.  The scale is
+    2 * (f32(n_t) / f32(max(bsz, 1))): for integers below 2^24 it has the
+    bits of the uniform path's 2 * (n / bsz) rounded to float32, so with
+    n_t == n this is `lstsq_grad_sampled_ref` bitwise; n_t == 0 gives the
+    zero vector.  batch_size >= n is `lstsq_grad_masked_ref`.
+    """
+    n = x.shape[0]
+    bsz_max = min(batch_size, n)
+    if bsz_max >= n:
+        return lstsq_grad_masked_ref(x, w, y, n_t)
+    order = _hash_order(seed, n, x.device)
+    invalid = (order >= n_t).to(torch.uint8)
+    sel = order[torch.sort(invalid, stable=True).indices[:bsz_max]]
+    bsz = min(batch_size, int(n_t))
+    x32 = x[sel].to(torch.float32)
+    y32 = y[sel].to(torch.float32)
+    row_ok = torch.arange(bsz_max, device=x.device) < bsz
+    r = torch.where(row_ok, x32 @ w.to(torch.float32) - y32, 0.0)
+    scale = float(2 * (np.float32(n_t) / np.float32(max(bsz, 1))))
+    return (scale * (x32.T @ r)).to(w.dtype)

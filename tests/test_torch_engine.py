@@ -197,19 +197,36 @@ def test_validate_config_prox_rank_needs_nuclear():
     dict(engine="delta", batch_size=8),
 ])
 def test_unported_engines_refused(problems, case):
+    """The dense and sharded engines wait for their slices; SGD
+    (`batch_size`) is ported and runs."""
     _, tp = problems
-    with pytest.raises(NotImplementedError):
-        rt.make_engine(tp, rt.AMTLConfig(eta=0.1, eta_k=0.5, tau=2, **case),
-                       device="cpu")
+    cfg = rt.AMTLConfig(eta=0.1, eta_k=0.5, tau=2, **case)
+    if case["engine"] in ("dense", "sharded"):
+        with pytest.raises(NotImplementedError):
+            rt.make_engine(tp, cfg, device="cpu")
+        return
+    eng = rt.make_engine(tp, cfg, device="cpu")
+    s = eng.run(eng.init(np.zeros((tp.dim, tp.num_tasks), np.float32),
+                         rt.core.prng.key_from_seed(0)), None, 4)
+    assert s.event == 4 and bool(torch.isfinite(s.v).all())
 
 
 def test_ragged_problem_refused_and_bad_event_count(problems):
+    """A ragged problem (`row_counts`) is ported and runs on the batch
+    engine (only the dense engine refuses it); a run whose event count is
+    not a multiple of event_batch is refused."""
     _, tp = problems
     cfg = rt.AMTLConfig(eta=0.1, eta_k=0.5, tau=2, engine="batch",
                         event_batch=4, prox_every=4)
-    ragged = tp._replace(row_counts=torch.full((tp.num_tasks,), 10))
-    with pytest.raises(NotImplementedError):
-        rt.make_engine(ragged, cfg, device="cpu")
+    ragged = tp._replace(row_counts=torch.full((tp.num_tasks,), 10,
+                                               dtype=torch.int32))
+    with pytest.raises(ValueError, match="dense"):
+        rt.make_engine(ragged, cfg._replace(engine="dense", event_batch=1,
+                                            prox_every=1), device="cpu")
+    s = rt.amtl_events_only(ragged, cfg,
+                            np.zeros((tp.dim, tp.num_tasks), np.float32),
+                            rt.core.prng.key_from_seed(0), 8, device="cpu")
+    assert s.event == 8 and bool(torch.isfinite(s.v).all())
     eng = rt.make_engine(tp, cfg, device="cpu")
     s = eng.init(np.zeros((tp.dim, tp.num_tasks), np.float32),
                  rt.core.prng.key_from_seed(0))

@@ -21,6 +21,10 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import amtl_event as k_event  # noqa: E402
 from repro_torch.kernels import amtl_event_batch as k_batch  # noqa: E402
 from repro_torch.kernels import gauss_sketch as k_sketch  # noqa: E402
+from repro_torch.kernels import lstsq_grad as k_grad  # noqa: E402
+from repro_torch.kernels import lstsq_grad_sampled as k_sampled  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import sample_mask as k_mask  # noqa: E402
 from repro_torch.kernels import svt_reconstruct as k_recon  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -31,9 +35,15 @@ import numpy as np
 import repro_torch as rt
 p = rt.problem_from_numpy(np.ones((3, 4, 5)), np.ones((3, 4)), "lstsq",
                           "nuclear", 0.1, device="cpu")
-for kw in (dict(engine="delta", prox_every=2, prox_rank=2),
-           dict(engine="batch", event_batch=2, prox_every=2)):
-    e = rt.make_engine(p, rt.AMTLConfig(eta=0.01, eta_k=0.5, tau=2, **kw),
+r = rt.stack_ragged([np.ones((2, 5)), np.ones((4, 5)), np.ones((1, 5))],
+                    [np.ones(2), np.ones(4), np.ones(1)], "logistic",
+                    "nuclear", 0.1, device="cpu")
+for q, kw in ((p, dict(engine="delta", prox_every=2, prox_rank=2)),
+              (p, dict(engine="batch", event_batch=2, prox_every=2)),
+              (r, dict(engine="delta", batch_size=2)),
+              (r, dict(engine="batch", event_batch=2, prox_every=2,
+                       batch_size=1))):
+    e = rt.make_engine(q, rt.AMTLConfig(eta=0.01, eta_k=0.5, tau=2, **kw),
                        device="cpu")
     e.run(e.init(np.zeros((5, 3), np.float32), np.array([0, 1], np.uint32)),
           None, 4)
@@ -90,6 +100,12 @@ def test_cpu_tensors_take_plain_versions_and_launch_nothing():
                          torch.rand(3))
     ops.gauss_sketch(v, 7, 0, 3)
     ops.svt_reconstruct(torch.randn(16, 3), torch.rand(3), torch.randn(3, 4))
+    x, y = torch.randn(16, 4), torch.randn(16)
+    block = ref.sample_scalars(16, 3, [9], [11])[0]
+    ops.lstsq_grad_sampled(x, v[0], y, block, 3)
+    assert ops.sample_mask(16, block, "cpu").sum() == 3
+    ops.lstsq_grad(x, v[0], y, 11)
+    ops.lstsq_grad(x, v[0], y)
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 
@@ -109,6 +125,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         k_recon.svt_reconstruct(torch.zeros(8, 2), torch.zeros(2),
                                 torch.zeros(2, 3))
+    x, y = torch.zeros(8, 2), torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_sampled.lstsq_grad_sampled(x, torch.zeros(2), y, (1, 2, 3, 8), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_grad.lstsq_grad(x, torch.zeros(2), y, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_mask.sample_mask(8, (1, 2, 3, 8), "cpu")
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 
@@ -119,5 +142,44 @@ def test_kernel_library_is_named_by_its_sources():
     assert path.parent == SRC.parent / "build" / "repro_torch_kernels"
     assert {p.name for p in _build.sources()} == {
         "amtl_event.cu", "amtl_event_batch.cu", "gauss_sketch.cu",
-        "svt_reconstruct.cu"}
+        "svt_reconstruct.cu", "lstsq_grad.cu", "lstsq_grad_sampled.cu"}
+    assert {p.name for p in _build.headers()} == {
+        "counter_hash.cuh", "lstsq_grad_body.cuh"}
     assert path.name.startswith("librepro_torch_kernels-")
+
+
+def test_kernel_library_name_follows_the_shared_headers(tmp_path,
+                                                        monkeypatch):
+    """An edit to a shared header (`csrc/*.cuh`) names a new library, so a
+    stale build is never reused."""
+    for src in _build.sources() + _build.headers():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path()
+    header = tmp_path / "counter_hash.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path() != before
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    """One compiler process per source, then one link, with a stand-in
+    compiler that records its arguments and writes its output file."""
+    fake = tmp_path / "nvcc"
+    log = tmp_path / "calls.log"
+    fake.write_text(
+        "#!" + sys.executable + "\n"
+        "import sys\n"
+        f"open({str(log)!r}, 'a').write(' '.join(sys.argv[1:]) + '\\n')\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'w').write('lib')\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    path, _ = _build.build()
+    assert path.exists() and path.parent == tmp_path / "build"
+    calls = log.read_text().splitlines()
+    compiles = [c for c in calls if " -c " in c]
+    assert len(compiles) == len(_build.sources())
+    assert calls[-1].split().count("-shared") == 1
+    assert "sm_90a" in calls[-1]
+    assert not list((tmp_path / "build").glob("*.o"))
+    assert _build.build() == (path, 0.0)         # reused, not rebuilt
