@@ -6,10 +6,13 @@
 Builds the port's CUDA kernels from `src/repro_torch/csrc/`, holds each
 kernel against its plain PyTorch version on the card, drives the port's
 main paths at full width — the AMTL engine session (batch engine with the
-randomized-SVT prox, delta engine), and SGD-AMTL on ragged task cohorts
+randomized-SVT prox, delta engine), SGD-AMTL on ragged task cohorts
 published by a TaskStore (batch, delta and logistic sessions, a store
-append between two chunks) — holds the card's runs against the port's
-own CPU runs of the same states, and times each kernel.  Any failed
+append between two chunks), and gemma2-2b serving (prefill and greedy
+decode through `repro_torch.launch.serve`, every attention call in the
+flash-attention kernel) — holds the card's runs against the port's own
+CPU runs or plain-attention runs of the same states, and times each
+kernel.  Any failed
 phase exits non-zero.  The last three lines of standard output are the
 kernel table as JSON, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
@@ -34,6 +37,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 dense tensor cores
 
 # The `batch` row of the reference's engine bench, at full width: lstsq
 # loss, nuclear norm, lam 0.1, d 8192, T 128, tau 8, eta 0.05, event_batch
@@ -67,6 +71,23 @@ GRAD_RTOL = 1e-5
 # gradients' and the prox's matrix products (cuBLAS/cuSOLVER against the
 # CPU's), carried through 64 events.
 SESSION_RTOL = 1e-3
+
+# gemma2-2b serving at its published width (configs/gemma2_2b.py: 26
+# layers, d_model 2304, 8 query and 4 kv heads of 256, window 4096,
+# softcaps 50 and 30, vocab 256000, bfloat16, 2614M parameters), random
+# weights from --seed.  Batch 2, a prompt of 5000 tokens (it crosses the
+# 4096 window and is a multiple of neither the window nor the kernel's
+# 64-query tile), 32 greedy decode steps.
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 5000, 32
+# The flash kernel against its plain version: float32 sums in another
+# order (2e-5); in bfloat16 both round the float32 result once, so they
+# differ by at most one bf16 ulp of the output (2e-2 at |o| < 2).
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# The served logits through the kernel against the plain run, relative to
+# max |logits|: bf16 rounding differences carried through 26 layers; and
+# in float32 (TF32 off), where bf16 noise cannot hide a kernel error.
+SERVE_RTOL = 3e-2
+SERVE_F32_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -118,9 +139,10 @@ def cuda_ms(fn, reps: int = 21, inner: int = 10, warmup: int = 3,
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             flop_rate: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -225,6 +247,7 @@ def check_kernels(dev, gen) -> dict:
     log(f"svt_reconstruct: within {RECON_RTOL} x sum|qu s||vt| of its "
         f"plain version (d=8192 p={p_main} m=128, d=1000 p=7 m=100)")
     info.update(check_sgd_kernels(dev, gen))
+    info.update(check_flash_kernel(dev, gen))
     ops.reset_launch_counts()
     return info
 
@@ -307,6 +330,296 @@ def check_sgd_kernels(dev, gen) -> dict:
         "d=8192, d=1000, ragged n_t, saturated b, n_t=0 exactly zero); two "
         "launches give the same bits")
     return info
+
+
+def check_flash_kernel(dev, gen) -> dict:
+    """The flash-attention kernel against its plain versions on the card,
+    in float32 and bfloat16: at the served shapes (prefill of a global and
+    of a local layer, decode on the ring and on the global cache), through
+    the (S, H, hd) entry point, and at edge cases.  Returns the bfloat16
+    served cases for the timing phase."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash_attention as k_flash
+    s, s_max, w = SERVE_PROMPT, SERVE_PROMPT + SERVE_GEN, 4096
+    # (label, B, Sq, Skv, H, Hkv, hd, causal, window, softcap, q_offset,
+    #  kv_len)
+    cases = [
+        ("prefill global", 2, s, s, 8, 4, 256, True, None, 50.0, 0, None),
+        ("prefill local", 2, s, s, 8, 4, 256, True, w, 50.0, 0, None),
+        ("decode ring", 2, 1, w, 8, 4, 256, False, None, 50.0, s + 10, w),
+        ("decode global", 2, 1, s_max, 8, 4, 256, False, None, 50.0, s + 10,
+         s + 11),
+        ("S 37 < 64, Hkv 1, hd 64", 1, 37, 37, 4, 1, 64, True, None, None, 0,
+         None),
+        ("window 300 >= S 200", 3, 200, 200, 4, 2, 64, True, 300, 30.0, 0,
+         None),
+        ("hd 72, window 16", 1, 130, 130, 2, 2, 72, True, 16, None, 0, None),
+        ("q_offset 48, kv_len 64", 1, 16, 80, 4, 2, 128, True, 32, None, 48,
+         64),
+        ("non-causal, kv_len 100", 2, 65, 129, 4, 4, 32, False, None, 50.0, 0,
+         100),
+    ]
+    served, worst = {}, {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        for label, b, sq, skv, h, hkv, hd, causal, window, cap, qo, kvl \
+                in cases:
+            q = torch.randn(b, sq, h, hd, generator=gen, device=dev).to(dt)
+            k = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dt)
+            v = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dt)
+            kw = dict(causal=causal, window=window, softcap=cap, q_offset=qo,
+                      kv_len=kvl)
+            got = k_flash.flash_attention(q, k, v, **kw)
+            want = ref.mha_ref(q, k, v, causal=causal, window=window,
+                               softcap=cap, q_offset=qo, kv_valid_len=kvl)
+            err = (got.float() - want.float()).abs().max().item()
+            if got.dtype != dt or not err <= FLASH_TOL[dt_name]:
+                fail(f"flash_attention {label} {dt_name}: max |diff| "
+                     f"{err:.3g} > {FLASH_TOL[dt_name]} (or dtype "
+                     f"{got.dtype})")
+            worst[dt_name] = max(worst.get(dt_name, 0.0), err)
+            if dt_name == "bfloat16" and label.startswith(("prefill",
+                                                           "decode")):
+                served[label] = dict(args=(q, k, v, kw), err=err)
+    # the (S, H, hd) entry point against the O(S^2) oracle
+    q, k, v, _ = served["prefill local"]["args"]
+    got = ops.flash_attention(q[0], k[0], v[0], causal=True, window=4096,
+                              softcap=50.0)
+    want = ref.sliding_flash_attention_ref(
+        q[0], k[0].repeat_interleave(2, dim=1),
+        v[0].repeat_interleave(2, dim=1), window=4096, softcap=50.0)
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= FLASH_TOL["bfloat16"]:
+        fail(f"ops.flash_attention (S 5000, H 8, Hkv 4, hd 256, window "
+             f"4096): max |diff| {err:.3g} against the O(S^2) oracle")
+    log(f"flash_attention: within {FLASH_TOL} of its plain version (float32 "
+        f"max |diff| {worst['float32']:.3g}, bfloat16 "
+        f"{worst['bfloat16']:.3g}) at the served shapes (B 2, S 5000, H 8, "
+        "Hkv 4, hd 256: prefill with window 4096 and none, softcap 50; "
+        "decode on a 4096-slot ring and a 5032-slot cache) and edge cases "
+        "(S 37 < 64, Hkv 1, hd 64/72/128, window >= S, q_offset, kv_len); "
+        "ops.flash_attention against the O(S^2) oracle")
+    return {"flash_attention": dict(served["prefill global"], served=served)}
+
+
+def flash_times(served: dict) -> None:
+    """Device time, bound and plain time of the flash kernel at each served
+    shape (bfloat16)."""
+    from repro_torch.kernels import flash_attention as k_flash
+    saved = k_flash.launches
+    for label, case in served.items():
+        spec = kernel_spec("flash_attention", case["args"], None)
+        k_ms = cuda_ms(spec["kfn"], reps=11)
+        p_ms = cuda_ms(spec["pfn"], reps=5, inner=1, backlog=False)
+        bnd, by = bound_ms(spec["nbytes"], spec["flops"], spec["rate"])
+        log(f"phase 12 flash_attention {label}: {k_ms * 1e3:.2f} us on the "
+            f"device, bound {bnd * 1e3:.2f} us by {by} "
+            f"({spec['flops'] / 1e9:.2f} GFLOP, {spec['nbytes'] / 1e6:.2f} "
+            f"MB; {spec['flops'] / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s), plain "
+            f"{p_ms * 1e3:.1f} us")
+    k_flash.launches = saved
+
+
+def kept_pairs(sq: int, kv_len: int, causal: bool, window, q_offset: int) -> int:
+    """(query, key) pairs that the masks keep, for one (batch, head)."""
+    i = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(kv_len, i + 1) if causal else np.full(sq, kv_len)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_cost(args_) -> tuple[float, float]:
+    """(bytes, operations) of one flash-attention call: q, the kv_len valid
+    rows of k and v, and o, each once; 4 hd operations a kept pair."""
+    q, k, v, kw = args_
+    b, sq, h, hd = q.shape
+    kv_len = k.shape[1] if kw["kv_len"] is None else kw["kv_len"]
+    el = q.element_size()
+    nbytes = el * (2 * q.numel() + 2 * b * kv_len * k.shape[2] * hd)
+    pairs = kept_pairs(sq, kv_len, kw["causal"], kw["window"],
+                       kw["q_offset"])
+    return nbytes, 4.0 * hd * pairs * b * h
+
+
+def flex_library(args_, dev):
+    """torch.nn.attention's flex_attention under torch.compile, with the
+    softcap as a score_mod and the masks as a block mask: a yardstick, never
+    called by the port.  Returns (callable, max |diff| against the plain
+    version, None) or (None, None, the reason it does not run)."""
+    import torch
+    from repro_torch.kernels import ref
+    q, k, v, kw = args_
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        cap, window = kw["softcap"], kw["window"]
+
+        def score_mod(score, b, h, q_idx, kv_idx):
+            return cap * torch.tanh(score / cap)
+
+        def mask_mod(b, h, q_idx, kv_idx):
+            keep = q_idx >= kv_idx
+            if window:
+                keep = keep & (q_idx - kv_idx < window)
+            return keep
+
+        sq = q.shape[1]
+        mask = create_block_mask(mask_mod, None, None, sq, sq, device=dev)
+        fa = torch.compile(flex_attention)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def lib():
+            return fa(qt, kt, vt, score_mod=score_mod, block_mask=mask,
+                      enable_gqa=True)
+        out = lib().transpose(1, 2)
+        want = ref.mha_ref(q, k, v, causal=True, window=window, softcap=cap)
+        err = (out.float() - want.float()).abs().max().item()
+        return lib, err, None
+    except Exception as e:      # a yardstick that does not run is reported
+        return None, None, f"{type(e).__name__}: {str(e)[:300]}"
+
+
+# ---------------------------------------------------------- phases 10-11 --
+
+def cast_tree(tree: dict, dtype) -> dict:
+    return {k: cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def serve_profile(fn, label: str) -> None:
+    """Device time by kernel of fn() from torch.profiler's CUDA activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+    except RuntimeError as e:       # no CUPTI tracing on this machine
+        log(f"phase 10 {label} device time by kernel: not measured ({e})")
+        return
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    total = sum(t for _, t, _ in rows)
+    flash = sum(t for k, t, _ in rows if "flash_attention" in k)
+    log(f"phase 10 {label} device time {total / 1e3:.1f} ms, of which the "
+        f"flash-attention kernel {flash / 1e3:.1f} ms "
+        f"({100 * flash / max(total, 1e-9):.1f}%), torch.profiler; top: "
+        + "; ".join(f"{k[:50]} {t / 1e3:.1f} ms x{n}" for k, t, n in rows[:8]))
+
+
+def serve_phase(dev, seed: int, card: str) -> dict:
+    """gemma2-2b at full width through the port's serve driver, then the
+    same weights with ops.mha replaced by its plain version: the kernel's
+    prefill and teacher-forced decode logits against the plain run's, and a
+    float32 prefill of batch 1 held tighter."""
+    import dataclasses
+    from unittest import mock
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import LM, init_params
+
+    cfg = serve.serve_config("gemma2-2b")
+    b, p, g = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=seed, device=dev)
+    sync(dev)
+    log(f"phase 10 gemma2-2b: {model.num_params() / 1e6:.1f}M parameters "
+        f"({cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.dtype}) "
+        f"initialized on the card in {time.perf_counter() - t0:.2f} s")
+    prompts = torch.as_tensor(serve.make_prompts(cfg, b, p, seed),
+                              device=dev)
+    serve.generate(model, prompts[:, :128], 2)      # warm up
+
+    ops.reset_launch_counts()
+    run = serve.generate(model, prompts, g)
+    counts = ops.launch_counts()
+    want = cfg.num_layers * g
+    if counts["flash_attention"] != want or \
+            any(n for k, n in counts.items() if k != "flash_attention"):
+        fail(f"serve: launches {counts}, want flash_attention = "
+             f"{cfg.num_layers} + {cfg.num_layers} x {g - 1} = {want}")
+    toks = run["tokens"]
+    if tuple(toks.shape) != (b, g) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        fail(f"serve: tokens of shape {tuple(toks.shape)} or out of range")
+    prefill_tps = b * p / run["prefill_s"]
+    decode_tps = b * (g - 1) / run["decode_s"]
+    log(f"phase 10 serve gemma2-2b B {b} prompt {p} gen {g}: prefill "
+        f"{run['prefill_s']:.3f} s ({prefill_tps:.1f} tokens/s), decode "
+        f"{g - 1} steps in {run['decode_s']:.3f} s ({decode_tps:.1f} "
+        f"tokens/s, {1e3 * run['decode_s'] / (g - 1):.2f} ms a step), "
+        f"flash_attention launches {counts['flash_attention']} = "
+        f"{cfg.num_layers} + {cfg.num_layers} x {g - 1}; card {card}")
+
+    prefill = make_prefill_step(cfg, s_max=p + g)
+    decode = make_decode_step(cfg)
+    ops.reset_launch_counts()
+    with mock.patch.object(ops, "mha", ref.mha_ref):
+        lg, cache = prefill(model, prompts)
+        plain_logits, plain_toks = [lg], [lg[:, -1].argmax(-1)[:, None]]
+        for i in range(g - 1):
+            lg, cache = decode(model, cache, plain_toks[-1], p + i)
+            plain_logits.append(lg)
+            plain_toks.append(lg[:, -1].argmax(-1)[:, None])
+    del cache
+    if ops.launch_counts()["flash_attention"]:
+        fail("serve: the plain run launched the kernel")
+
+    lg, cache = prefill(model, prompts)
+    errs = [rel_err(lg, plain_logits[0])]
+    for i in range(g - 1):
+        lg, cache = decode(model, cache, plain_toks[i], p + i)
+        errs.append(rel_err(lg, plain_logits[i + 1]))
+    finite = all(bool(torch.isfinite(x).all()) for x in plain_logits + [lg])
+    if not finite or not max(errs) <= SERVE_RTOL:
+        fail(f"serve: kernel against plain logits, max |diff| / max|logits| "
+             f"prefill {errs[0]:.3g}, decode {max(errs[1:]):.3g} > "
+             f"{SERVE_RTOL} (or not finite)")
+    agree = float((toks == torch.cat(plain_toks, 1)).float().mean())
+    log(f"phase 10 serve: kernel against the plain-attention run on the same "
+        f"weights, max |diff| / max|logits| (max|logits| "
+        f"{float(plain_logits[0].abs().max()):.3g}): prefill {errs[0]:.3g}, "
+        f"decode (teacher-forced, {g - 1} steps) {max(errs[1:]):.3g} <= "
+        f"{SERVE_RTOL}; the greedy run's tokens equal the plain run's at "
+        f"{100 * agree:.1f}% of positions: PASS")
+    serve_profile(lambda: (prefill(model, prompts), sync(dev)),
+                  f"prefill (B {b}, S {p})")
+    serve_profile(lambda: ([decode(model, cache, plain_toks[i], p + i)
+                            for i in range(g - 4, g - 1)], sync(dev)),
+                  "3 decode steps")
+    del cache
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = LM(cfg32, cast_tree(model.tree(), torch.float32))
+    del model
+    prefill32 = make_prefill_step(cfg32, s_max=p)
+    ops.reset_launch_counts()
+    lk, _ = prefill32(model32, prompts[:1])
+    if ops.launch_counts()["flash_attention"] != cfg.num_layers:
+        fail("serve float32: the prefill did not launch the kernel once a "
+             "layer")
+    with mock.patch.object(ops, "mha", ref.mha_ref):
+        lp, _ = prefill32(model32, prompts[:1])
+    e32 = rel_err(lk, lp)
+    if not e32 <= SERVE_F32_RTOL or not bool(torch.isfinite(lk).all()):
+        fail(f"serve float32: kernel against plain prefill logits "
+             f"{e32:.3g} > {SERVE_F32_RTOL} of max|logits|")
+    log(f"phase 11 serve float32 prefill (B 1, S {p}, TF32 off): kernel "
+        f"against plain within {e32:.3g} of max|logits| <= "
+        f"{SERVE_F32_RTOL}: PASS")
+    del model32
+    torch.cuda.empty_cache()
+    return dict(counts=counts, prefill_tps=prefill_tps,
+                decode_tps=decode_tps, errs=errs, e32=e32)
 
 
 # ------------------------------------------------------------- phases 4-6 --
@@ -645,6 +958,17 @@ def kernel_spec(name: str, args_, dev) -> dict:
         lib = None
         src = "lstsq_grad_sampled.cu"
         rep = "src/repro/kernels/lstsq_grad_sampled.py:165"
+    elif name == "flash_attention":
+        q, k, v, kw = args_
+        nbytes, flops = flash_cost(args_)
+        kfn = lambda: kern.flash_attention(q, k, v, **kw)
+        pfn = lambda: ref.mha_ref(
+            q, k, v, causal=kw["causal"], window=kw["window"],
+            softcap=kw["softcap"], q_offset=kw["q_offset"],
+            kv_valid_len=kw["kv_len"])
+        lib = None                  # flex_library, timed by the caller
+        src = "flash_attention.cu"
+        rep = "src/repro/kernels/flash_attention.py:96"
     else:
         x, w, y, n_t = args_
         d = x.shape[1]
@@ -654,8 +978,10 @@ def kernel_spec(name: str, args_, dev) -> dict:
         xv, yv = x[:n_t], y[:n_t]
         lib = lambda: 2 * (xv.T @ (xv @ w - yv))
         src, rep = "lstsq_grad.cu", "src/repro/kernels/lstsq_grad.py:104"
+    rate = BF16_FLOP_PER_S if name == "flash_attention" \
+        and args_[0].dtype == torch.bfloat16 else FP32_FLOP_PER_S
     return dict(kern=kern, nbytes=nbytes, flops=flops, kfn=kfn, pfn=pfn,
-                lib=lib, src=src, rep=rep)
+                lib=lib, src=src, rep=rep, rate=rate)
 
 
 LIBRARY_CALLS = {
@@ -664,6 +990,8 @@ LIBRARY_CALLS = {
     "lstsq_grad_sampled": "composite: index_select of the kept rows + two "
                           "cuBLAS matvecs",
     "lstsq_grad": "composite: 2 * (x.T @ (x @ w - y)) on the valid rows",
+    "flash_attention": "flex_attention under torch.compile, softcap as "
+                       "score_mod, causal mask as a block mask",
 }
 
 
@@ -853,35 +1181,50 @@ def main() -> None:
             ("ragged SGD delta", rp, sgd_delta, DELTA_EVENTS, rd)):
         report_busy(label, prob, cfg, v0, key, offs, n, r["device"], dev)
 
+    # phases 10-11: gemma2-2b serving at full width
+    sv = serve_phase(dev, args.seed, card)
+
     kernels = []
     launches = {k: (dl if k == "amtl_event" else b)["counts"][k]
                 for k in ("amtl_event", "amtl_event_batch", "gauss_sketch",
                           "svt_reconstruct")}
     launches.update(lstsq_grad_sampled=rb["counts"]["lstsq_grad_sampled"],
                     sample_mask=rl["counts"]["sample_mask"],
-                    lstsq_grad=sg_counts["lstsq_grad"])
+                    lstsq_grad=sg_counts["lstsq_grad"],
+                    flash_attention=sv["counts"]["flash_attention"])
     where = {"amtl_event": "delta session", "sample_mask":
              "logistic SGD delta session", "lstsq_grad": "store gradients",
-             "lstsq_grad_sampled": "ragged SGD batch session"}
+             "lstsq_grad_sampled": "ragged SGD batch session",
+             "flash_attention": "gemma2-2b serve (B 2, prompt 5000, gen 32)"}
     for name in ("amtl_event_batch", "gauss_sketch", "svt_reconstruct",
                  "amtl_event", "lstsq_grad_sampled", "sample_mask",
-                 "lstsq_grad"):
+                 "lstsq_grad", "flash_attention"):
         spec = kernel_spec(name, info[name]["args"], dev)
         kern = spec["kern"]
         saved = kern.launches
         k_ms = cuda_ms(spec["kfn"])
         issue_ms = cuda_ms(spec["kfn"], backlog=False)
         p_ms = cuda_ms(spec["pfn"], inner=1, backlog=False)
-        l_ms = cuda_ms(spec["lib"]) if spec["lib"] is not None else None
+        if name == "flash_attention":
+            lib_fn, lib_err, why = flex_library(info[name]["args"], dev)
+            if lib_fn is None:
+                log(f"phase 12 flash_attention library: null ({why})")
+            else:
+                log(f"phase 12 flash_attention library: flex_attention "
+                    f"compiled, max |diff| {lib_err:.3g} against the plain "
+                    "version")
+            l_ms = cuda_ms(lib_fn) if lib_fn is not None else None
+        else:
+            l_ms = cuda_ms(spec["lib"]) if spec["lib"] is not None else None
         kern.launches = saved           # timing launches are not the path's
-        bnd, by = bound_ms(spec["nbytes"], spec["flops"])
+        bnd, by = bound_ms(spec["nbytes"], spec["flops"], spec["rate"])
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/csrc/{spec['src']}",
             replaces=spec["rep"], launches=launches[name],
             max_abs_err=info[name]["err"], ms=k_ms, plain_ms=p_ms,
             bound_ms=bnd, bound_by=by, library_ms=l_ms))
-        log(f"phase 9 {name}: {k_ms * 1e3:.2f} us on the device (bound "
+        log(f"phase 12 {name}: {k_ms * 1e3:.2f} us on the device (bound "
             f"{bnd * 1e3:.2f} us by {by}; {issue_ms * 1e3:.2f} us a call "
             f"when the host issues them one by one), plain "
             f"{p_ms * 1e3:.1f} us, library "
@@ -889,6 +1232,7 @@ def main() -> None:
                f"{l_ms * 1e3:.2f} us ({LIBRARY_CALLS[name]})")
             + f", {launches[name]} launches on the "
             f"{where.get(name, 'batch session')}")
+    flash_times(info["flash_attention"]["served"])
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -69,6 +69,7 @@ from repro_torch.core.operators import (amtl_max_step, backward,
                                         fixed_point_residual,
                                         restore_columns, rollback_winners)
 from repro_torch.core.prox import svt_randomized
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
 
 Tensor = torch.Tensor
@@ -127,31 +128,6 @@ class AMTLResult(NamedTuple):
     w: Tensor              # final primal W = prox(V) (one extra backward)
     objectives: Tensor     # objective of prox(V) per recorded epoch
     residuals: Tensor      # BF fixed-point residual per recorded epoch
-
-
-def resolve_device(device: torch.device | str | None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller asks for
-    the CPU.  Raises when CUDA is asked for (or implied) and absent; never
-    falls back to the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the card; pass "
-                "device='cpu' to run the plain PyTorch versions")
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device} requested but CUDA is not "
-                               "available")
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        # float32 throughout: no TF32 in matmuls or convolutions.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    elif device.type != "cpu":
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 def _prox_cache_init(cfg: AMTLConfig, v0: Tensor) -> Tensor:

@@ -27,7 +27,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.amtl import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.core.losses import MTLProblem
 
 

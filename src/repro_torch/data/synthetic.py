@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.amtl import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.core.losses import MTLProblem
 from repro_torch.core.simulator import SimProblem
 

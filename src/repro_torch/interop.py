@@ -7,6 +7,19 @@ Everything crosses as numpy arrays, so the port never sees a JAX array:
     state_from_numpy(kind, leaves, device)     # kind: "delta" or "batch"
     state_to_numpy(state) -> leaves
 
+An LM's parameters and KV cache cross as flat dicts keyed by the
+'.'-joined pytree path of the reference's tree (for example
+"group0.b1.attn.wq" or "group0.b0.k"), which are the port's state_dict
+keys and cache paths too:
+
+    lm_params_from_numpy(cfg, flat, device) -> models.LM
+    kv_cache_to_numpy(cache) -> flat
+    kv_cache_from_numpy(cfg, flat, device) -> cache
+
+A bfloat16 array may come with ml_dtypes' `bfloat16` dtype (what
+`np.asarray` of a JAX bfloat16 array gives) or as its raw uint16 bits;
+either way its bits are carried unchanged.
+
 A TaskStore crosses as its `TaskStoreState` leaves (xs, ys, row_counts),
 host numpy on both sides: `store.state()` gives them, and
 `TaskStore(*leaves, loss_name, reg_name, lam)` takes them, in either
@@ -27,10 +40,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.amtl import (BatchAMTLState, DeltaAMTLState,
-                                   resolve_device)
+from repro_torch.core.amtl import BatchAMTLState, DeltaAMTLState
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.dynamic_step import DelayHistory
 from repro_torch.core.losses import MTLProblem
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import KVCache
+from repro_torch.models.transformer import LM, param_shapes
 
 LEAVES = ("v", "delta_ring", "task_ring", "ptr", "event", "p_cache",
           "history.buf", "history.count", "key")
@@ -87,3 +103,78 @@ def state_to_numpy(state) -> list[np.ndarray]:
             host(state.p_cache), np.array(state.history.buf, np.float32),
             np.array(state.history.count, np.int32),
             np.array(state.key, np.uint32)]
+
+
+def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A host array as `dtype` on `device`; bfloat16 bits pass unchanged."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or (dtype == torch.bfloat16
+                                      and a.dtype == np.uint16):
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device=device, dtype=dtype)
+    return torch.as_tensor(np.array(a), device=device).to(dtype)
+
+
+def _nest(flat: dict) -> dict:
+    tree: dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        *parents, name = path.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = leaf
+    return tree
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def lm_params_from_numpy(cfg: ArchConfig, flat: dict,
+                         device: torch.device | str | None = None) -> LM:
+    """The port's model from the reference's parameter leaves, keyed by
+    path; every leaf becomes cfg.dtype on `device` (the card unless the
+    caller passes "cpu").  The keys must be exactly the port's."""
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    want = param_shapes(cfg)
+    got = {k: tuple(np.shape(a)) for k, a in flat.items()}
+    if got != want:
+        raise ValueError(f"parameter paths or shapes differ: missing "
+                         f"{sorted(set(want) - set(got))}, unexpected "
+                         f"{sorted(set(got) - set(want))}, shapes "
+                         f"{ {k: (got[k], want[k]) for k in got if k in want and got[k] != want[k]} }")
+    return LM(cfg, _nest({k: _tensor(a, dtype, dev)
+                          for k, a in flat.items()}))
+
+
+def kv_cache_to_numpy(cache: dict) -> dict:
+    """The cache's k and v leaves as float32 host arrays (an exact upcast
+    of bfloat16), keyed by path ("group0.b0.k", ...)."""
+    flat = {}
+    for path, kv in _flatten(cache).items():
+        flat[f"{path}.k"] = kv.k.float().cpu().numpy()
+        flat[f"{path}.v"] = kv.v.float().cpu().numpy()
+    return flat
+
+
+def kv_cache_from_numpy(cfg: ArchConfig, flat: dict,
+                        device: torch.device | str | None = None) -> dict:
+    """A cache from leaves keyed as `kv_cache_to_numpy` gives them, or as
+    the reference's KVCache paths; cast to cfg.dtype on `device`."""
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    tree = _nest({k: _tensor(a, dtype, dev) for k, a in flat.items()})
+
+    def build(node: dict):
+        if set(node) == {"k", "v"}:
+            return KVCache(k=node["k"], v=node["v"])
+        return {k: build(v) for k, v in node.items()}
+
+    return build(tree)

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels import amtl_event as _amtl_event
 from repro_torch.kernels import amtl_event_batch as _amtl_event_batch
+from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import gauss_sketch as _gauss_sketch
 from repro_torch.kernels import lstsq_grad as _lstsq_grad
 from repro_torch.kernels import lstsq_grad_sampled as _lstsq_grad_sampled
@@ -30,6 +31,7 @@ KERNELS = {
     "lstsq_grad_sampled": _lstsq_grad_sampled,
     "sample_mask": _sample_mask,
     "lstsq_grad": _lstsq_grad,
+    "flash_attention": _flash_attention,
 }
 
 
@@ -120,3 +122,35 @@ def sample_mask(n: int, scalars, device: torch.device | str) -> torch.Tensor:
     if _on_cuda("sample_mask", device):
         return _sample_mask.sample_mask(n, scalars, device)
     return ref.keep_bits_ref(n, scalars, device)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None) -> torch.Tensor:
+    """q (S, H, hd); k, v (S, Hkv, hd): attention of one sequence with GQA,
+    causal and sliding-window masks and a logit softcap; (S, H, hd)."""
+    if _on_cuda("flash_attention", q):
+        return _flash_attention.flash_attention(
+            q[None], k[None], v[None], causal=causal, window=window,
+            softcap=softcap)[0]
+    rep = q.shape[1] // k.shape[1]
+    return ref.sliding_flash_attention_ref(
+        q, k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1),
+        window=window, causal=causal, softcap=softcap)
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+        window: int | None = None, softcap: float | None = None,
+        q_offset: int = 0, kv_valid_len: int | None = None,
+        kv_chunk: int = 1024) -> torch.Tensor:
+    """The model's attention: q (B, Sq, H, hd), k, v (B, Skv, Hkv, hd) ->
+    (B, Sq, H, hd), with a query offset and a valid key count (host ints).
+    `kv_chunk` is the plain version's chunk of keys (the order of its sums);
+    the kernel walks 64-key tiles whatever it is."""
+    if _on_cuda("flash_attention", q):
+        return _flash_attention.flash_attention(
+            q, k, v, causal=causal, window=window, softcap=softcap,
+            q_offset=q_offset, kv_len=kv_valid_len)
+    return ref.mha_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                       q_offset=q_offset, kv_valid_len=kv_valid_len,
+                       kv_chunk=kv_chunk)

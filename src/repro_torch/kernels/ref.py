@@ -340,3 +340,95 @@ def lstsq_grad_sampled_masked_ref(x: Tensor, w: Tensor, y: Tensor, seed,
     r = torch.where(row_ok, x32 @ w.to(torch.float32) - y32, 0.0)
     scale = float(2 * (np.float32(n_t) / np.float32(max(bsz, 1))))
     return (scale * (x32.T @ r)).to(w.dtype)
+
+
+# ------------------------------------------------------------ attention ---
+
+NEG_INF = -1e30
+
+
+def sliding_flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
+                                window: int | None, causal: bool = True,
+                                softcap: float | None = None) -> Tensor:
+    """O(S^2) attention with an optional sliding window and logit softcap.
+
+    q, k, v: (S, H, D), one batch element, kv heads already repeated to H.
+    Key j is kept for query i iff (not causal or j <= i) and (no window or
+    j > i - window).  Returns (S, H, D) in q's dtype.
+    """
+    s, _, d = q.shape
+    scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32))
+    logits = torch.einsum("qhd,khd->hqk", q.float(), k.float()) \
+        * scale.to(q.device)
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    pos = torch.arange(s, device=q.device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    logits = torch.where(mask[None], logits,
+                         torch.tensor(NEG_INF, device=q.device))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("hqk,khd->qhd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def mha_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+            window: int | None = None, softcap: float | None = None,
+            q_offset: int = 0, kv_valid_len: int | None = None,
+            kv_chunk: int = 1024) -> Tensor:
+    """Online-softmax attention over kv chunks (the reference model's `mha`).
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, Hkv, hd); query head h reads kv head
+    h // (H / Hkv).  Query row r sits at position q_offset + r; key j is
+    kept iff j < kv_valid_len (default Skv), and (not causal or j <= i),
+    and (no window or j > i - window).  Masked logits are NEG_INF; the
+    running (m, l, acc) are float32, and the output is acc / max(l, 1e-30)
+    in q's dtype.
+    """
+    b, sq, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    dev = q.device
+    qg = q.reshape(b, sq, hkv, g, hd).float()
+    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+    scale = scale.to(dev)
+    kc = min(kv_chunk, skv)
+    n_chunks = (skv + kc - 1) // kc
+    valid = skv if kv_valid_len is None else int(kv_valid_len)
+    q_pos = int(q_offset) + torch.arange(sq, device=dev)
+    neg = torch.tensor(NEG_INF, device=dev)
+
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, g, sq, hd), dtype=torch.float32, device=dev)
+    for c in range(n_chunks):
+        lo, hi = c * kc, min((c + 1) * kc, skv)
+        k_c = k[:, lo:hi].float()
+        v_c = v[:, lo:hi].float()
+        if hi - lo < kc:           # the reference pads the last chunk
+            pad = (0, 0, 0, 0, 0, kc - (hi - lo))
+            k_c = torch.nn.functional.pad(k_c, pad)
+            v_c = torch.nn.functional.pad(v_c, pad)
+        kv_pos = lo + torch.arange(kc, device=dev)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_c) * scale
+        if softcap is not None:
+            logits = softcap * torch.tanh(logits / softcap)
+        mask = (kv_pos[None, :] < valid).expand(sq, kc)
+        if causal:
+            mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+        logits = torch.where(mask, logits, neg)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p,
+                                                   v_c)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+    return out.to(q.dtype)

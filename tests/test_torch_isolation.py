@@ -20,14 +20,19 @@ from repro_torch.interop import problem_from_numpy  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import amtl_event as k_event  # noqa: E402
 from repro_torch.kernels import amtl_event_batch as k_batch  # noqa: E402
+from repro_torch.kernels import flash_attention as k_flash  # noqa: E402
 from repro_torch.kernels import gauss_sketch as k_sketch  # noqa: E402
 from repro_torch.kernels import lstsq_grad as k_grad  # noqa: E402
 from repro_torch.kernels import lstsq_grad_sampled as k_sampled  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import sample_mask as k_mask  # noqa: E402
 from repro_torch.kernels import svt_reconstruct as k_recon  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+CHIP_SMOKE = SRC.parent / "chip_smoke.py"
 
 _CHILD = """
 import sys
@@ -47,9 +52,12 @@ for q, kw in ((p, dict(engine="delta", prox_every=2, prox_rank=2)),
                        device="cpu")
     e.run(e.init(np.zeros((5, 3), np.float32), np.array([0, 1], np.uint32)),
           None, 4)
+from repro_torch.launch import serve
+serve.main(["--arch", "gemma2-2b", "--reduced", "--device", "cpu",
+            "--batch", "1", "--prompt-len", "5", "--gen", "2"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(",".join(bad))
+print("loaded:" + ",".join(bad))
 """
 
 
@@ -58,7 +66,9 @@ def test_import_and_cpu_engine_load_no_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", _CHILD], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "", f"loaded: {out.stdout.strip()}"
+    lines = out.stdout.strip().splitlines()
+    assert lines[-2].startswith("  req0:"), out.stdout
+    assert lines[-1] == "loaded:", lines[-1]
 
 
 def test_sources_name_no_jax_or_reference():
@@ -73,6 +83,40 @@ def test_sources_name_no_jax_or_reference():
             for n in names:
                 assert n.split(".")[0] not in ("jax", "jaxlib", "repro"), \
                     f"{path}: imports {n}"
+
+
+def test_chip_smoke_names_no_jax_or_reference():
+    for node in ast.walk(ast.parse(CHIP_SMOKE.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                f"chip_smoke.py imports {n}"
+
+
+def test_lm_entry_points_without_device_need_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    cfg = get_config("gemma2-2b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "gemma2-2b", "--reduced", "--batch", "1",
+                    "--prompt-len", "4", "--gen", "2"])
+    assert init_params(cfg, device="cpu").device.type == "cpu"
+
+
+def test_unported_archs_raise_naming_their_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("rwkv6-3b")
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
 
 
 def test_make_engine_without_device_needs_cuda():
@@ -106,6 +150,9 @@ def test_cpu_tensors_take_plain_versions_and_launch_nothing():
     assert ops.sample_mask(16, block, "cpu").sum() == 3
     ops.lstsq_grad(x, v[0], y, 11)
     ops.lstsq_grad(x, v[0], y)
+    q, kv = torch.randn(5, 4, 8), torch.randn(5, 2, 8)
+    ops.flash_attention(q, kv, kv, causal=True, window=3, softcap=20.0)
+    ops.mha(q[None], kv[None], kv[None], causal=False, kv_valid_len=4)
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 
@@ -132,6 +179,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         k_grad.lstsq_grad(x, torch.zeros(2), y, 4)
     with pytest.raises(ValueError, match="CUDA"):
         k_mask.sample_mask(8, (1, 2, 3, 8), "cpu")
+    q = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_flash.flash_attention(q, q, q, causal=True)
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 
@@ -142,7 +192,8 @@ def test_kernel_library_is_named_by_its_sources():
     assert path.parent == SRC.parent / "build" / "repro_torch_kernels"
     assert {p.name for p in _build.sources()} == {
         "amtl_event.cu", "amtl_event_batch.cu", "gauss_sketch.cu",
-        "svt_reconstruct.cu", "lstsq_grad.cu", "lstsq_grad_sampled.cu"}
+        "svt_reconstruct.cu", "lstsq_grad.cu", "lstsq_grad_sampled.cu",
+        "flash_attention.cu"}
     assert {p.name for p in _build.headers()} == {
         "counter_hash.cuh", "lstsq_grad_body.cuh"}
     assert path.name.startswith("librepro_torch_kernels-")
