@@ -13,12 +13,12 @@ from repro_torch.configs.base import (ArchConfig, MLACfg, MoECfg, MTLCfg,
 
 _MODULES = {
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
 }
 
 # Archs of the reference that the port does not serve yet, with the item of
 # ROADMAP.md (Queue 1, item 11) that brings each.
 _PENDING = {
-    "rwkv6-3b": "the RWKV-6 time mix and the rwkv6_scan kernel (next slice)",
     "deepseek-v3-671b": "MLA attention and the MoE FFN",
     "dbrx-132b": "the MoE FFN",
     "nemotron-4-15b": "the relu2 dense path",

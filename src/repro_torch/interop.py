@@ -7,13 +7,14 @@ Everything crosses as numpy arrays, so the port never sees a JAX array:
     state_from_numpy(kind, leaves, device)     # kind: "delta" or "batch"
     state_to_numpy(state) -> leaves
 
-An LM's parameters and KV cache cross as flat dicts keyed by the
+An LM's parameters and serving cache cross as flat dicts keyed by the
 '.'-joined pytree path of the reference's tree (for example
-"group0.b1.attn.wq" or "group0.b0.k"), which are the port's state_dict
-keys and cache paths too:
+"group0.b1.attn.wq", "group0.b0.k" or, for an RWKV cache,
+"group0.b0.x_prev_att" and "group0.b0.wkv"), which are the port's
+state_dict keys and cache paths too:
 
     lm_params_from_numpy(cfg, flat, device) -> models.LM
-    kv_cache_to_numpy(cache) -> flat
+    kv_cache_to_numpy(cache) -> flat           # KVCache and RWKVState
     kv_cache_from_numpy(cfg, flat, device) -> cache
 
 A bfloat16 array may come with ml_dtypes' `bfloat16` dtype (what
@@ -46,7 +47,8 @@ from repro_torch.core.dynamic_step import DelayHistory
 from repro_torch.core.losses import MTLProblem
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import KVCache
-from repro_torch.models.transformer import LM, param_shapes
+from repro_torch.models.rwkv import RWKVState
+from repro_torch.models.transformer import LM, param_dtypes, param_shapes
 
 LEAVES = ("v", "delta_ring", "task_ring", "ptr", "event", "p_cache",
           "history.buf", "history.count", "key")
@@ -139,10 +141,12 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
 def lm_params_from_numpy(cfg: ArchConfig, flat: dict,
                          device: torch.device | str | None = None) -> LM:
     """The port's model from the reference's parameter leaves, keyed by
-    path; every leaf becomes cfg.dtype on `device` (the card unless the
-    caller passes "cpu").  The keys must be exactly the port's."""
+    path; each leaf takes the reference's dtype for it (`param_dtypes`:
+    cfg.dtype, but float32 for the rwkv w0 and u) on `device` (the card
+    unless the caller passes "cpu").  The keys must be exactly the
+    port's."""
     dev = resolve_device(device)
-    dtype = getattr(torch, cfg.dtype)
+    dtypes = param_dtypes(cfg)
     want = param_shapes(cfg)
     got = {k: tuple(np.shape(a)) for k, a in flat.items()}
     if got != want:
@@ -150,31 +154,38 @@ def lm_params_from_numpy(cfg: ArchConfig, flat: dict,
                          f"{sorted(set(want) - set(got))}, unexpected "
                          f"{sorted(set(got) - set(want))}, shapes "
                          f"{ {k: (got[k], want[k]) for k in got if k in want and got[k] != want[k]} }")
-    return LM(cfg, _nest({k: _tensor(a, dtype, dev)
+    return LM(cfg, _nest({k: _tensor(a, dtypes[k], dev)
                           for k, a in flat.items()}))
 
 
+_CACHES = {frozenset(t._fields): t for t in (KVCache, RWKVState)}
+
+
 def kv_cache_to_numpy(cache: dict) -> dict:
-    """The cache's k and v leaves as float32 host arrays (an exact upcast
-    of bfloat16), keyed by path ("group0.b0.k", ...)."""
+    """The cache's leaves (KVCache k, v; RWKVState x_prev_att, x_prev_ffn,
+    wkv) as float32 host arrays (an exact upcast of bfloat16), keyed by
+    path ("group0.b0.k", "group0.b0.wkv", ...)."""
     flat = {}
-    for path, kv in _flatten(cache).items():
-        flat[f"{path}.k"] = kv.k.float().cpu().numpy()
-        flat[f"{path}.v"] = kv.v.float().cpu().numpy()
+    for path, c in _flatten(cache).items():
+        for field, leaf in c._asdict().items():
+            flat[f"{path}.{field}"] = leaf.float().cpu().numpy()
     return flat
 
 
 def kv_cache_from_numpy(cfg: ArchConfig, flat: dict,
                         device: torch.device | str | None = None) -> dict:
     """A cache from leaves keyed as `kv_cache_to_numpy` gives them, or as
-    the reference's KVCache paths; cast to cfg.dtype on `device`."""
+    the reference's KVCache and RWKVState paths, on `device`: cast to
+    cfg.dtype, except the WKV state, which stays float32."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
-    tree = _nest({k: _tensor(a, dtype, dev) for k, a in flat.items()})
+    tree = _nest({k: _tensor(a, torch.float32 if k.endswith(".wkv")
+                             else dtype, dev) for k, a in flat.items()})
 
     def build(node: dict):
-        if set(node) == {"k", "v"}:
-            return KVCache(k=node["k"], v=node["v"])
+        cls = _CACHES.get(frozenset(node))
+        if cls is not None:
+            return cls(**node)
         return {k: build(v) for k, v in node.items()}
 
     return build(tree)

@@ -20,6 +20,7 @@ from repro_torch.kernels import gauss_sketch as _gauss_sketch
 from repro_torch.kernels import lstsq_grad as _lstsq_grad
 from repro_torch.kernels import lstsq_grad_sampled as _lstsq_grad_sampled
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_scan as _rwkv6_scan
 from repro_torch.kernels import sample_mask as _sample_mask
 from repro_torch.kernels import svt_reconstruct as _svt_reconstruct
 
@@ -32,6 +33,7 @@ KERNELS = {
     "sample_mask": _sample_mask,
     "lstsq_grad": _lstsq_grad,
     "flash_attention": _flash_attention,
+    "rwkv6_scan": _rwkv6_scan,
 }
 
 
@@ -154,3 +156,30 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     return ref.mha_ref(q, k, v, causal=causal, window=window, softcap=softcap,
                        q_offset=q_offset, kv_valid_len=kv_valid_len,
                        kv_chunk=kv_chunk)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """r, k, v, w (S, H, D); u (H, D): the WKV recurrence of one sequence
+    from a zero state; (S, H, D) in r's dtype.  On the card w and u are
+    taken as float32 (exact from bfloat16) and the kernel runs with B 1."""
+    if _on_cuda("rwkv6_scan", r):
+        s, h, d = r.shape
+        state = torch.zeros((1, h, d, d), dtype=torch.float32,
+                            device=r.device)
+        return _rwkv6_scan.wkv(r[None], k[None], v[None],
+                               w.float().contiguous()[None],
+                               u.float().contiguous(), state)[0]
+    return ref.rwkv6_scan_ref(r, k, v, w, u)
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+        u: torch.Tensor, state: torch.Tensor, *, chunk: int) -> torch.Tensor:
+    """The model's WKV: r, k, v (B, L, H, D), w (B, L, H, D) float32, u
+    (H, D) float32, from `state` (B, H, D, D) float32, which is overwritten
+    with the state after the last token; returns out (B, L, H, D) in r's
+    dtype.  `chunk` is the plain version's chunk (the order of its sums);
+    the kernel walks the tokens one by one whatever it is."""
+    if _on_cuda("rwkv6_scan", r):
+        return _rwkv6_scan.wkv(r, k, v, w, u, state)
+    return ref.wkv_inplace_ref(r, k, v, w, u, state, chunk=chunk)

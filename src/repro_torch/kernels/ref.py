@@ -432,3 +432,112 @@ def mha_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
     return out.to(q.dtype)
+
+
+# ------------------------------------------------------------------ WKV ---
+
+def rwkv6_scan_ref(r: Tensor, k: Tensor, v: Tensor, w: Tensor,
+                   u: Tensor) -> Tensor:
+    """RWKV-6 (Finch) WKV recurrence of one sequence, from a zero state.
+
+    r, k, v, w: (S, H, D), w the per-step decay in (0, 1); u: (H, D), the
+    bonus of the current token.  With S_h in R^{D x D} the state before
+    token t:
+        out_t = r_t . (S + u * k_t v_t^T);   S <- diag(w_t) S + k_t v_t^T
+    in float32.  Returns (S, H, D) in r's dtype.
+    """
+    out, _ = wkv_ref(r[None], k[None], v[None], w[None], u, None)
+    return out[0].to(r.dtype)
+
+
+def wkv_ref(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+            state: Tensor | None) -> tuple[Tensor, Tensor]:
+    """The WKV recurrence of `rwkv6_scan_ref`, batched and from a state: the
+    exact definition of the CUDA kernel.
+
+    r, k, v, w: (B, L, H, D); u: (H, D); state: (B, H, D, D) (None: zeros),
+    the state before the first token.  Token by token in float32, as the
+    reference's decode step writes it: kv = k v^T, out = r . (S + u kv),
+    S <- w S + kv.  Returns (out (B, L, H, D) float32, the state after the
+    last token (B, H, D, D) float32); `state` itself is not written.
+    """
+    b, ell, h, d = r.shape
+    s = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+         if state is None else state.to(torch.float32))
+    u32 = u.to(torch.float32)[None, :, :, None]
+    r32, k32, v32, w32 = (t.to(torch.float32) for t in (r, k, v, w))
+    outs = []
+    for t in range(ell):
+        kv = k32[:, t, :, :, None] * v32[:, t, :, None, :]       # (B,H,D,D)
+        outs.append(torch.einsum("bhd,bhde->bhe", r32[:, t], s + u32 * kv))
+        s = w32[:, t, :, :, None] * s + kv
+    return torch.stack(outs, dim=1), s
+
+
+def wkv_chunked_ref(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+                    chunk: int, state0: Tensor | None = None
+                    ) -> tuple[Tensor, Tensor]:
+    """The reference model's chunked WKV (`_wkv_chunked`), step for step.
+
+    r, k, v, w: (B, L, H, D); u: (H, D); state0: (B, H, D, D) or None.
+    The sequence is padded to a multiple of the chunk with k = 0 and w = 1
+    (no contribution, no decay); within a chunk the decays are carried as
+    log-space cumulative sums, re-centred at half the chunk's total, the
+    intra-chunk terms are two einsums, and a loop over chunks carries the
+    state.  Returns (out (B, L, H, D) float32, final state float32).
+    Agrees with `wkv_ref` to float32 rounding (exp/log of cumulative decays
+    against repeated products); for decays whose chunk total underflows
+    (w near 1e-3 over 128 steps) it overflows, as the reference does.
+    """
+    b, ell0, h, d = r.shape
+    q = min(chunk, ell0)
+    pad = (-ell0) % q
+    if pad:
+        pads = (0, 0, 0, 0, 0, pad)
+        r, k, v = (torch.nn.functional.pad(t, pads) for t in (r, k, v))
+        w = torch.nn.functional.pad(w, pads, value=1.0)
+    ell = ell0 + pad
+    nc = ell // q
+
+    def rs(t):
+        return t.reshape(b, nc, q, h, d).to(torch.float32)
+
+    rc, kc, vc, wc = rs(r), rs(k), rs(v), rs(w)
+    logw = torch.log(torch.clamp_min(wc, 1e-30))
+    cum = torch.cumsum(logw, dim=2)
+    cum_excl = cum - logw
+    mid = 0.5 * cum[:, :, -1:]
+    r_intra = rc * torch.exp(cum_excl - mid)
+    k_intra = kc * torch.exp(mid - cum)
+    att = torch.einsum("bcshd,bcthd->bchst", r_intra, k_intra)
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                   device=r.device), diagonal=-1)
+    att = torch.where(causal, att, 0.0)
+    y_intra = torch.einsum("bchst,bcthd->bcshd", att, vc)
+    bonus = torch.einsum("bcshd,hd,bcshd->bcsh", rc, u.to(torch.float32), kc)
+    y_intra = y_intra + bonus[..., None] * vc
+
+    k_tail = kc * torch.exp(cum[:, :, -1:] - cum)
+    chunk_kv = torch.einsum("bcthd,bcthe->bchde", k_tail, vc)
+    chunk_decay = torch.exp(cum[:, :, -1])                # (B, nc, H, D)
+    s = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+         if state0 is None else state0.to(torch.float32))
+    s_prevs = []
+    for c in range(nc):
+        s_prevs.append(s)
+        s = s * chunk_decay[:, c, :, :, None] + chunk_kv[:, c]
+    s_prevs = torch.stack(s_prevs, dim=1)                 # (B, nc, H, D, D)
+    y_inter = torch.einsum("bcshd,bchde->bcshe", rc * torch.exp(cum_excl),
+                           s_prevs)
+    out = (y_intra + y_inter).reshape(b, ell, h, d)[:, :ell0]
+    return out, s
+
+
+def wkv_inplace_ref(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+                    state: Tensor, *, chunk: int) -> Tensor:
+    """`ops.wkv`'s contract in plain PyTorch: `wkv_chunked_ref` from
+    `state`, whose final state is written back into `state`; returns the
+    output (B, L, H, D) in r's dtype."""
+    out, s = wkv_chunked_ref(r, k, v, w, u, chunk, state)
+    state.copy_(s)
+    return out.to(r.dtype)

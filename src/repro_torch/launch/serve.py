@@ -2,15 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --reduced --device cpu                       # plain versions, CPU
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --batch 2 --prompt-len 5000 --gen 32         # full width, the card
 
 Port of `repro/launch/serve.py` on one device (sharded serving waits for
 ROADMAP.md Queue 1 item 9).  Prompts come from numpy seeded by --seed, the
 weights from the port's init with a torch.Generator seeded by --seed on the
 device.  On the card every attention call of prefill and decode runs the
-flash-attention CUDA kernel.  Without --device cpu and without a CUDA
-device it raises.
+flash-attention CUDA kernel, and every WKV recurrence of rwkv6-3b the
+rwkv6_scan kernel (its O(1) state ignores the prompt and generation
+lengths).  Without --device cpu and without a CUDA device it raises.
 """
 from __future__ import annotations
 

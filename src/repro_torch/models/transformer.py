@@ -1,9 +1,9 @@
 """Transformer assembly: scan groups of blocks, embedding and LM head.
 
-Port of the dense part of `repro/models/transformer.py` for the block kinds
-attn, local and global.  The model is a `torch.nn.Module` whose parameter
-tree mirrors the reference's pytree: a scan group's leaves are stacked over
-its repeat count, as `jax.vmap(init_period)` stacks them, so
+Port of `repro/models/transformer.py` for the block kinds attn, local,
+global (dense attention) and rwkv.  The model is a `torch.nn.Module` whose
+parameter tree mirrors the reference's pytree: a scan group's leaves are
+stacked over its repeat count, as `jax.vmap(init_period)` stacks them, so
 
     embed (V, D), final_norm.scale (D,),
     group{gi}.b{i}.norm1.scale (n, D), group{gi}.b{i}.attn.wq (n, D, H*hd),
@@ -12,7 +12,7 @@ its repeat count, as `jax.vmap(init_period)` stacks them, so
 are both the state_dict keys here and the '.'-joined pytree paths there
 (`interop.lm_params_from_numpy` maps one to the other).  Layer l of a group
 reads the views leaf[l].  Training (`forward`, `cross_entropy`), MoE, SSM,
-RWKV, shared and cross attention are later slices and raise.
+shared and cross attention are later slices and raise.
 """
 from __future__ import annotations
 
@@ -25,13 +25,14 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig, BlockKind
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.layers import (apply_ffn, apply_norm, dense_init,
                                        embed_init, init_ffn, init_norm,
                                        is_gated, softcap)
 
 Tensor = torch.Tensor
 
-DENSE_KINDS = ("attn", "local", "global")
+PORTED_KINDS = ("attn", "local", "global", "rwkv")
 
 
 class ScanGroup(NamedTuple):
@@ -58,10 +59,10 @@ def scan_groups(cfg: ArchConfig) -> list[ScanGroup]:
     return groups
 
 
-def require_dense(cfg: ArchConfig) -> None:
-    """Raise for a config that needs a block kind or feature the port does
-    not have yet."""
-    kinds = set(cfg.layer_kinds) - set(DENSE_KINDS)
+def require_ported(cfg: ArchConfig) -> None:
+    """Raise for a config that needs a block kind (other than attn, local,
+    global and rwkv) or a feature the port does not have yet."""
+    kinds = set(cfg.layer_kinds) - set(PORTED_KINDS)
     if kinds or cfg.moe or cfg.mla or cfg.feature_dim or cfg.mtp \
             or cfg.kv_cache_dtype != "model":
         raise NotImplementedError(
@@ -98,6 +99,10 @@ def layer(tree: dict, i: int) -> dict:
 def _init_block(kind: BlockKind, cfg: ArchConfig, dtype: torch.dtype,
                 gen: torch.Generator, n: int) -> dict:
     d, dev, lead = cfg.d_model, gen.device, (n,)
+    if kind == "rwkv":
+        return {"norm1": init_norm(cfg.norm, d, dtype, dev, lead),
+                "norm2": init_norm(cfg.norm, d, dtype, dev, lead),
+                "rwkv": rwkv_lib.init_rwkv(cfg, dtype, gen, lead)}
     return {"norm1": init_norm(cfg.norm, d, dtype, dev, lead),
             "attn": attn_lib.init_attn(cfg, dtype, gen, lead),
             "norm2": init_norm(cfg.norm, d, dtype, dev, lead),
@@ -124,7 +129,7 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     """Random weights from a seeded torch.Generator on `device` (the card
     unless the caller passes "cpu"), with the reference's distributions:
     truncated-normal fan-in matrices, N(0, 1/D) embeddings, unit norms."""
-    require_dense(cfg)
+    require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = getattr(torch, cfg.dtype)
@@ -143,7 +148,7 @@ def init_params(cfg: ArchConfig, seed: int = 0,
 
 def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
     """The path and shape of every parameter `init_params` makes."""
-    require_dense(cfg)
+    require_ported(cfg)
     d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     shapes = {"embed": (cfg.vocab_size, d)}
     if not cfg.tie_embeddings:
@@ -153,15 +158,21 @@ def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
         shapes["final_norm.bias"] = (d,)
     for gi, group in enumerate(scan_groups(cfg)):
         n = group.n
-        for i in range(len(group.period)):
+        for i, kind in enumerate(group.period):
             pre = f"group{gi}.b{i}."
-            block = {"attn.wq": (d, h * hd), "attn.wk": (d, hkv * hd),
-                     "attn.wv": (d, hkv * hd), "attn.wo": (h * hd, d),
-                     "ffn.w_in": (d, cfg.d_ff), "ffn.w_out": (cfg.d_ff, d)}
-            if is_gated(cfg.activation):
-                block["ffn.w_gate"] = (d, cfg.d_ff)
-            if cfg.qk_norm:
-                block["attn.q_norm.scale"] = block["attn.k_norm.scale"] = (hd,)
+            if kind == "rwkv":
+                block = {f"rwkv.{k}": v
+                         for k, v in rwkv_lib.param_shapes(cfg).items()}
+            else:
+                block = {"attn.wq": (d, h * hd), "attn.wk": (d, hkv * hd),
+                         "attn.wv": (d, hkv * hd), "attn.wo": (h * hd, d),
+                         "ffn.w_in": (d, cfg.d_ff),
+                         "ffn.w_out": (cfg.d_ff, d)}
+                if is_gated(cfg.activation):
+                    block["ffn.w_gate"] = (d, cfg.d_ff)
+                if cfg.qk_norm:
+                    block["attn.q_norm.scale"] = \
+                        block["attn.k_norm.scale"] = (hd,)
             for nm in ("norm1", "norm2"):
                 block[f"{nm}.scale"] = (d,)
                 if cfg.norm == "layernorm":
@@ -170,14 +181,28 @@ def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+def param_dtypes(cfg: ArchConfig) -> dict[str, torch.dtype]:
+    """The dtype of every parameter `init_params` makes: cfg.dtype, except
+    the rwkv leaves the reference keeps in float32 (w0, u)."""
+    dtype = getattr(torch, cfg.dtype)
+    f32 = tuple(f".rwkv.{name}" for name in rwkv_lib.FLOAT32_LEAVES)
+    return {path: torch.float32 if path.endswith(f32) else dtype
+            for path in param_shapes(cfg)}
+
+
 def _window(cfg: ArchConfig, kind: BlockKind):
     return cfg.sliding_window if kind == "local" else None
 
 
 def apply_block(kind: BlockKind, p: dict, x: Tensor,
                 cfg: ArchConfig) -> Tensor:
-    """One pre-norm block: x + attn(norm1 x), then + ffn(norm2 x)."""
+    """One pre-norm block: x + attn(norm1 x), then + ffn(norm2 x); for
+    rwkv, the time mix and the channel mix in their places."""
     h = apply_norm(cfg.norm, p["norm1"], x)
+    if kind == "rwkv":
+        x = x + rwkv_lib.rwkv_time_mix(p["rwkv"], h, cfg)
+        h = apply_norm(cfg.norm, p["norm2"], x)
+        return x + rwkv_lib.rwkv_channel_mix(p["rwkv"], h)
     x = x + attn_lib.attn_forward(p["attn"], h, cfg,
                                   window=_window(cfg, kind))
     h = apply_norm(cfg.norm, p["norm2"], x)
@@ -186,7 +211,7 @@ def apply_block(kind: BlockKind, p: dict, x: Tensor,
 
 def backbone_forward(params: dict, x: Tensor, cfg: ArchConfig) -> Tensor:
     """Run all scan groups over x (B, S, D), layer by layer."""
-    require_dense(cfg)
+    require_ported(cfg)
     for gi, group in enumerate(scan_groups(cfg)):
         stacked = params[f"group{gi}"]
         for li in range(group.n):

@@ -25,6 +25,7 @@ from repro_torch.kernels import gauss_sketch as k_sketch  # noqa: E402
 from repro_torch.kernels import lstsq_grad as k_grad  # noqa: E402
 from repro_torch.kernels import lstsq_grad_sampled as k_sampled  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as k_rwkv  # noqa: E402
 from repro_torch.kernels import sample_mask as k_mask  # noqa: E402
 from repro_torch.kernels import svt_reconstruct as k_recon  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -54,6 +55,8 @@ for q, kw in ((p, dict(engine="delta", prox_every=2, prox_rank=2)),
           None, 4)
 from repro_torch.launch import serve
 serve.main(["--arch", "gemma2-2b", "--reduced", "--device", "cpu",
+            "--batch", "1", "--prompt-len", "5", "--gen", "2"])
+serve.main(["--arch", "rwkv6-3b", "--reduced", "--device", "cpu",
             "--batch", "1", "--prompt-len", "5", "--gen", "2"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -101,20 +104,21 @@ def test_chip_smoke_names_no_jax_or_reference():
 def test_lm_entry_points_without_device_need_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is the card")
-    cfg = get_config("gemma2-2b").reduced()
-    with pytest.raises(RuntimeError, match="CUDA"):
-        init_params(cfg)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        init_params(cfg, device="cuda")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        serve.main(["--arch", "gemma2-2b", "--reduced", "--batch", "1",
-                    "--prompt-len", "4", "--gen", "2"])
-    assert init_params(cfg, device="cpu").device.type == "cpu"
+    for arch in ("gemma2-2b", "rwkv6-3b"):
+        cfg = get_config(arch).reduced()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_params(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_params(cfg, device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--arch", arch, "--reduced", "--batch", "1",
+                        "--prompt-len", "4", "--gen", "2"])
+        assert init_params(cfg, device="cpu").device.type == "cpu"
 
 
 def test_unported_archs_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("rwkv6-3b")
+        get_config("zamba2-7b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
@@ -153,6 +157,12 @@ def test_cpu_tensors_take_plain_versions_and_launch_nothing():
     q, kv = torch.randn(5, 4, 8), torch.randn(5, 2, 8)
     ops.flash_attention(q, kv, kv, causal=True, window=3, softcap=20.0)
     ops.mha(q[None], kv[None], kv[None], causal=False, kv_valid_len=4)
+    r = torch.randn(1, 6, 2, 32)
+    state = torch.zeros(1, 2, 32, 32)
+    ops.wkv(r, r, r, torch.rand(1, 6, 2, 32), torch.randn(2, 32), state,
+            chunk=4)
+    assert bool(state.any())                 # written in place
+    ops.rwkv6_scan(r[0], r[0], r[0], torch.rand(6, 2, 32), torch.randn(2, 32))
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 
@@ -182,6 +192,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.zeros(1, 4, 2, 8)
     with pytest.raises(ValueError, match="CUDA"):
         k_flash.flash_attention(q, q, q, causal=True)
+    r = torch.zeros(1, 4, 2, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_rwkv.wkv(r, r, r, r, torch.zeros(2, 32), torch.zeros(1, 2, 32, 32))
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 
@@ -193,7 +206,7 @@ def test_kernel_library_is_named_by_its_sources():
     assert {p.name for p in _build.sources()} == {
         "amtl_event.cu", "amtl_event_batch.cu", "gauss_sketch.cu",
         "svt_reconstruct.cu", "lstsq_grad.cu", "lstsq_grad_sampled.cu",
-        "flash_attention.cu"}
+        "flash_attention.cu", "rwkv6_scan.cu"}
     assert {p.name for p in _build.headers()} == {
         "counter_hash.cuh", "lstsq_grad_body.cuh"}
     assert path.name.startswith("librepro_torch_kernels-")
