@@ -11,9 +11,12 @@ published by a TaskStore (batch, delta and logistic sessions, a store
 append between two chunks), gemma2-2b serving (prefill and greedy
 decode through `repro_torch.launch.serve`, every attention call in the
 flash-attention kernel) and rwkv6-3b serving (every WKV recurrence of
-prefill and decode in the rwkv6_scan kernel) — holds the card's runs
-against the port's own CPU runs or plain-kernel runs of the same states,
-and times each kernel.  Any failed
+prefill and decode in the rwkv6_scan kernel), the dense engine and the
+l2,1 (joint feature learning) formulation (dense sessions with the
+km_update and l21_prox kernels, dense == delta bitwise, a batch l2,1
+session, FISTA's reference optimum) — holds the card's runs against the
+port's own CPU runs or plain-kernel runs of the same states, and times
+each kernel.  Any failed
 phase exits non-zero.  The last three lines of standard output are the
 kernel table as JSON, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
@@ -111,6 +114,24 @@ NOISE_FACTOR = 1.5
 WKV_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 WKV_STATE_RTOL = 1e-5
 WKV_CHUNK = 128
+
+# The l2,1 (joint feature learning) formulation at the engine cells' width
+# (lstsq, d 8192, T 128, n 256, tau 8, eta 0.05, lam 0.1: threshold
+# eta*lam), and the dense engine of the reference's engine bench (its
+# `dense` row: the nuclear norm with an exact SVD each event).  Dense
+# sessions of 256 events (l2,1) and 64 (nuclear), the delta engine at
+# prox_every 1 over the same 256 events, a batch l2,1 session of 4096
+# events (event_batch 32, prox_every 32), and FISTA from zero.
+DENSE_L21_EVENTS, DENSE_NUCLEAR_EVENTS = 256, 64
+FISTA_ITERS, FISTA_CPU_ITERS = 300, 10
+# The l2,1 kernel against its plain version: float32 within L21_RTOL of
+# max|w| (a row's squares summed in another order); bf16 within one bf16
+# ulp of the output (both round a float32 result once).  The KM update
+# kernel writes the plain version's two fmas: bitwise, float32 and bf16.
+L21_RTOL = 1e-6
+# FISTA's objectives on the card against the port's CPU run: float32
+# matrix products summed in another order, over 10 iterations.
+FISTA_RTOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -270,6 +291,7 @@ def check_kernels(dev, gen) -> dict:
     log(f"svt_reconstruct: within {RECON_RTOL} x sum|qu s||vt| of its "
         f"plain version (d=8192 p={p_main} m=128, d=1000 p=7 m=100)")
     info.update(check_sgd_kernels(dev, gen))
+    info.update(check_l21_km_kernels(dev, gen))
     info.update(check_flash_kernel(dev, gen))
     info.update(check_rwkv_kernel(dev, gen))
     ops.reset_launch_counts()
@@ -353,6 +375,104 @@ def check_sgd_kernels(dev, gen) -> dict:
         "|X_K|^T |r_K| of their plain versions (main 240 of 399 rows at "
         "d=8192, d=1000, ragged n_t, saturated b, n_t=0 exactly zero); two "
         "launches give the same bits")
+    return info
+
+
+def bits(x):
+    """x's raw bits, as integers of its width."""
+    import torch
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def bf16_ulp(x):
+    """One bf16 ulp (8 significant bits) of |x|, in float32."""
+    import torch
+    _, e = torch.frexp(x.abs().clamp_min(torch.finfo(torch.float32).tiny))
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def check_l21_km_kernels(dev, gen) -> dict:
+    """The l2,1 prox and the KM update kernels against their plain versions
+    on the card: l21_prox at the path's (8192, 128), the bench's (8192,
+    64) and edge shapes (a warp a row, a block a row at T 1000, 16-byte and
+    scalar loads), zero rows, t 0, t above every row norm, bf16, and two
+    launches on one input bitwise; km_update bitwise in float32 and bf16.
+    Returns the path's inputs for the timing phase."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import km_update as k_km
+    from repro_torch.kernels import l21_prox as k_l21
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    thresh = ref.to_f32(ETA * LAM)
+    # (label, d, T, dtype, t): t None is "above every row norm"
+    cases = [("path", D, T, "float32", thresh),
+             ("bench", D, 64, "float32", thresh),
+             ("1x1", 1, 1, "float32", 0.5), ("1023x3", 1023, 3, "float32", 0.5),
+             ("600x7", 600, 7, "float32", 0.5),
+             ("300x130", 300, 130, "float32", 0.5),
+             ("64x1000 (a block a row)", 64, 1000, "float32", 0.5),
+             ("zero rows", 600, 7, "float32", 0.5),
+             ("t 0", D, T, "float32", 0.0),
+             ("t above every norm", 300, 130, "float32", None),
+             ("bf16 path", D, T, "bfloat16", thresh),
+             ("bf16 600x7", 600, 7, "bfloat16", 0.5),
+             ("bf16 300x130", 300, 130, "bfloat16", 0.5),
+             ("bf16 64x1000", 64, 1000, "bfloat16", 0.5)]
+    info, worst = {}, {}
+    for label, d, tt, dt, t in cases:
+        w = (2.0 * randn(d, tt)).to(getattr(torch, dt))
+        if label == "zero rows":
+            w[::7] = 0.0
+        if t is None:
+            t = 1.01 * float(torch.linalg.vector_norm(w.float(), dim=1).max())
+        k1, k2 = k_l21.l21_prox(w, t), k_l21.l21_prox(w, t)
+        r = ref.l21_prox_ref(w, t)
+        torch.cuda.synchronize()
+        if not torch.equal(bits(k1), bits(k2)):
+            fail(f"l21_prox {label}: two launches on one input gave "
+                 "different bits")
+        err = (k1.float() - r.float()).abs()
+        if dt == "float32":
+            ok = bool(err.max() <= L21_RTOL * w.abs().max())
+        else:
+            ok = bool((err <= bf16_ulp(torch.maximum(k1.float().abs(),
+                                                     r.float().abs()))).all())
+        special = {"zero rows": lambda: not k1[::7].any(),
+                   "t 0": lambda: torch.equal(bits(k1), bits(w)),
+                   "t above every norm": lambda: not k1.any()}
+        if k1.dtype != w.dtype or not ok \
+                or not special.get(label, lambda: True)():
+            fail(f"l21_prox {label} {dt}: max |diff| {err.max().item():.3g} "
+                 f"(max|w| {w.abs().max().item():.3g}), or dtype {k1.dtype}, "
+                 "or its edge case wrong")
+        worst[dt] = max(worst.get(dt, 0.0), err.max().item())
+        if label in ("path", "bench"):
+            info["l21_prox" if label == "path" else "l21_prox bench"] = \
+                dict(args=(w, t), err=err.max().item())
+    log(f"l21_prox: float32 within {L21_RTOL} x max|w| of its plain version "
+        f"(max |diff| {worst['float32']:.3g}), bf16 within one bf16 ulp "
+        f"(max |diff| {worst['bfloat16']:.3g}), at (8192, 128), (8192, 64), "
+        "1x1, 1023x3, 600x7, 300x130, 64x1000, zero rows, t 0 (w exactly), "
+        "t above every norm (zeros); two launches give the same bits")
+
+    eta_k = 0.37
+    for dt in ("float32", "bfloat16"):
+        for shape in ((D,), (D, 1), (D, T), (300, 130), (7, 1)):
+            v, p, g = (randn(*shape).to(getattr(torch, dt)) for _ in range(3))
+            k = k_km.km_update(v, p, g, ETA, eta_k)
+            r = ref.km_update_ref(v, p, g, ETA, eta_k)
+            torch.cuda.synchronize()
+            if k.dtype != v.dtype or not torch.equal(bits(k), bits(r)):
+                fail(f"km_update {shape} {dt}: not bitwise (max |diff| "
+                     f"{(k.float() - r.float()).abs().max().item():.3g})")
+            if dt == "float32" and shape in ((D,), (D, T)):
+                slot = "km_update" if shape == (D,) else "km_update block"
+                info[slot] = dict(args=(v, p, g, ETA, eta_k), err=0.0)
+    log("km_update: bitwise against its plain version in float32 and bf16 at "
+        "(8192,), (8192, 1), (8192, 128), (300, 130), (7, 1)")
     return info
 
 
@@ -894,9 +1014,11 @@ def objective(problem, cfg, v) -> float:
 
 
 def compare_states(label: str, card, cpu) -> float:
-    """Host fields bitwise, tensors to SESSION_RTOL of their scale."""
+    """Host fields bitwise, tensors to SESSION_RTOL of their scale (the
+    dense state: its ring; it has no task ring)."""
     import numpy as np
-    for f in ("task_ring", "key"):
+    dense = "ring" in card._fields
+    for f in ("key",) if dense else ("task_ring", "key"):
         if not np.array_equal(getattr(card, f), getattr(cpu, f)):
             fail(f"{label}: {f} differs between the card and the CPU")
     if (card.ptr, card.event) != (cpu.ptr, cpu.event):
@@ -905,7 +1027,7 @@ def compare_states(label: str, card, cpu) -> float:
             and np.array_equal(card.history.count, cpu.history.count)):
         fail(f"{label}: delay history differs between the card and the CPU")
     worst = 0.0
-    for f in ("v", "delta_ring"):
+    for f in ("ring",) if dense else ("v", "delta_ring"):
         a = getattr(card, f).cpu().double()
         b = getattr(cpu, f).double()
         rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
@@ -1048,23 +1170,24 @@ def store_gradients(problem, w, dev) -> tuple[dict, float]:
     return launches, worst
 
 
-def report_session(label: str, r: dict, n: int, n_split: int) -> None:
+def report_session(label: str, r: dict, n: int, n_split: int,
+                   phase: int = 9) -> None:
     """Events/s of the run of n events, and the host plan against the
     device work of n_split events (the same run re-split, or one chunk)."""
-    log(f"phase 9 {label}: {n / r['wall']:.1f} events/s end to end "
+    log(f"phase {phase} {label}: {n / r['wall']:.1f} events/s end to end "
         f"({n} events in {r['wall']:.3f} s); host plan of {n_split} events "
         f"{r['host']:.3f} s ({n_split / r['host']:.1f} events/s), device "
         f"work {r['device']:.3f} s ({n_split / r['device']:.1f} events/s)")
 
 
 def report_busy(label: str, problem, cfg, v0, key, offs, n, device_s,
-                dev) -> None:
+                dev, phase: int = 9) -> None:
     try:
         busy, top = device_profile(problem, cfg, v0, key, offs, n, dev)
     except RuntimeError as e:       # no CUPTI tracing on this machine
-        log(f"phase 9 {label} device busy share: not measured ({e})")
+        log(f"phase {phase} {label} device busy share: not measured ({e})")
         return
-    log(f"phase 9 {label} device busy {busy:.4f} s of the {device_s:.3f} s "
+    log(f"phase {phase} {label} device busy {busy:.4f} s of the {device_s:.3f} s "
         f"device-work window ({100 * busy / device_s:.1f}%), "
         "torch.profiler; top: "
         + "; ".join(f"{k[:60]} {t / 1e3:.1f} ms" for k, t in top))
@@ -1159,6 +1282,26 @@ def kernel_spec(name: str, args_, dev) -> dict:
         pfn = lambda: ref.wkv_ref(r, k, v, w, u, s_p)
         lib = lambda: ref.wkv_chunked_ref(r, k, v, w, u, WKV_CHUNK, s_l)
         src, rep = "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:64"
+    elif name == "l21_prox":
+        w, t = args_
+        d, tt = w.shape
+        # a read and a write an element; a square-add and a scale an
+        # element, a root, a division and a subtraction a row
+        nbytes, flops = 2 * w.element_size() * w.numel(), 3 * d * tt + 3 * d
+        kfn = lambda: kern.l21_prox(w, t)
+        pfn = lambda: ref.l21_prox_ref(w, t)
+        lib = lambda: w * torch.clamp(1.0 - t / torch.clamp(
+            torch.linalg.vector_norm(w, dim=1, keepdim=True), min=1e-12),
+            min=0.0)
+        src, rep = "l21_prox.cu", "src/repro/kernels/l21_prox.py:45"
+    elif name == "km_update":
+        v, p, g, eta, eta_k = args_
+        # three reads and a write an element; two fmas an element
+        nbytes, flops = 4 * v.element_size() * v.numel(), 4 * v.numel()
+        kfn = lambda: kern.km_update(v, p, g, eta, eta_k)
+        pfn = lambda: ref.km_update_ref(v, p, g, eta, eta_k)
+        lib = lambda: v + eta_k * (p - eta * g - v)
+        src, rep = "km_update.cu", "src/repro/kernels/km_update.py:55"
     else:
         x, w, y, n_t = args_
         d = x.shape[1]
@@ -1185,7 +1328,184 @@ LIBRARY_CALLS = {
     "rwkv6_scan": "composite: the chunked form wkv_chunked_ref (einsums and "
                   "a loop over 128-token chunks); no one PyTorch call "
                   "computes the recurrence",
+    "l21_prox": "composite: w * clamp(1 - t / clamp(vector_norm(w, dim=1), "
+                "1e-12), 0), float32; no one PyTorch call computes the prox",
+    "km_update": "composite: v + eta_k * (p - eta*g - v), four elementwise "
+                 "ops; no one PyTorch call computes the update",
 }
+
+
+def expect_launches(label: str, counts: dict, want: dict) -> None:
+    """Fail unless each kernel launched exactly want.get(kernel, 0) times."""
+    if any(n != want.get(k, 0) for k, n in counts.items()):
+        fail(f"{label}: launches {counts}, want {want} and no other kernel")
+
+
+def l21_km_times(info: dict) -> None:
+    """Device time, bound, plain and composite time of the two kernels at
+    the kernels bench's shapes (the path's shapes are in the table)."""
+    for key, name, shape in (("km_update block", "km_update", "(8192, 128)"),
+                             ("l21_prox bench", "l21_prox", "(8192, 64)")):
+        spec = kernel_spec(name, info[key]["args"], None)
+        saved = spec["kern"].launches
+        k_ms = cuda_ms(spec["kfn"])
+        p_ms = cuda_ms(spec["pfn"], inner=1, backlog=False)
+        l_ms = cuda_ms(spec["lib"])
+        spec["kern"].launches = saved
+        bnd, by = bound_ms(spec["nbytes"], spec["flops"], spec["rate"])
+        log(f"phase 12 {name} {shape} float32: {k_ms * 1e3:.2f} us on the "
+            f"device, bound {bnd * 1e3:.2f} us by {by} "
+            f"({spec['nbytes'] / 1e6:.2f} MB), plain {p_ms * 1e3:.1f} us, "
+            f"library {l_ms * 1e3:.2f} us ({LIBRARY_CALLS[name]})")
+
+
+def l21_configs():
+    """The dense engine, its delta twin (prox_every 1) and the batch
+    engine (event_batch 32, prox_every 32), at the engine cells' steps."""
+    from repro_torch.core import AMTLConfig
+    from repro_torch.core.operators import amtl_max_step
+    base = AMTLConfig(eta=ETA, eta_k=amtl_max_step(TAU, T, 0.9), tau=TAU)
+    return (base._replace(engine="dense"), base._replace(engine="delta"),
+            base._replace(engine="batch", event_batch=BATCH,
+                          prox_every=BATCH))
+
+
+def l21_phases(problem, problem_cpu, v0, key, offs, dev) -> dict:
+    """Phases 15-19: the dense engine (l2,1 and nuclear with its exact
+    SVD), dense == delta bitwise on the card, the batch engine on the l2,1
+    formulation, the card against the port's CPU run, and FISTA's
+    reference optimum.  Returns the dense l2,1 session's launch counts."""
+    import torch
+    from repro_torch.core import (current_iterate, fista_solve,
+                                  reference_optimum)
+    from repro_torch.core.operators import backward
+    from repro_torch.kernels import ops
+    l21p = problem._replace(reg_name="l21")
+    dense_cfg, delta_cfg, batch_cfg = l21_configs()
+    n, nn = DENSE_L21_EVENTS, DENSE_NUCLEAR_EVENTS
+
+    # phase 15: dense sessions at full width
+    obj0 = objective(l21p, dense_cfg, v0)
+    dn = run_session(l21p, dense_cfg, v0, key, offs, n, dev)
+    expect_launches("dense l21 session", dn["counts"],
+                    {"km_update": n, "l21_prox": n})
+    ops.reset_launch_counts()
+    obj1 = objective(l21p, dense_cfg, dn["v"])
+    metric = ops.launch_counts()["l21_prox"]
+    if tuple(dn["v"].shape) != (D, T) or not bool(
+            torch.isfinite(dn["v"]).all()) or not obj1 < obj0 or metric != 1:
+        fail(f"dense l21 session: iterate not finite, objective {obj0} -> "
+             f"{obj1} did not fall, or the metric's prox launched {metric} "
+             "times")
+    log(f"phase 15 dense l21 session: {n} events, launches {dn['counts']} "
+        f"(one km_update and one l21_prox an event, no amtl_event), plus "
+        f"{metric} l21_prox for the objective, {obj0:.6g} -> {obj1:.6g}: PASS")
+    report_session("dense l21", dn, n, n, phase=15)
+    report_busy("dense l21", l21p, dense_cfg, v0, key, offs, n, dn["device"],
+                dev, phase=15)
+    dnn = run_session(problem, dense_cfg, v0, key, offs, nn, dev)
+    expect_launches("dense nuclear session", dnn["counts"], {"km_update": nn})
+    obj_n = objective(problem, dense_cfg, dnn["v"])
+    if not bool(torch.isfinite(dnn["v"]).all()) \
+            or not obj_n < objective(problem, dense_cfg, v0):
+        fail("dense nuclear session: iterate not finite or objective did not "
+             "fall")
+    log(f"phase 15 dense nuclear session (exact SVD each event): {nn} events, "
+        f"launches {dnn['counts']}, objective {obj_n:.6g}: PASS")
+    report_session("dense nuclear", dnn, nn, nn, phase=15)
+    report_busy("dense nuclear", problem, dense_cfg, v0, key, offs, nn,
+                dnn["device"], dev, phase=15)
+
+    # phase 16: dense == delta, bitwise, on the card
+    dl = run_session(l21p, delta_cfg, v0, key, offs, n, dev)
+    expect_launches("delta l21 session", dl["counts"],
+                    {"amtl_event": n, "l21_prox": n})
+    ds, ls = dn["state"], dl["state"]
+    if not (torch.equal(bits(current_iterate(ds)), bits(ls.v))
+            and (ds.ptr, ds.event) == (ls.ptr, ls.event)
+            and np.array_equal(ds.key, ls.key)
+            and np.array_equal(ds.history.buf, ls.history.buf)):
+        fail("dense and delta l21 sessions differ on the card at prox_every 1 "
+             f"(max |diff| {(current_iterate(ds) - ls.v).abs().max().item()})")
+    log(f"phase 16 dense == delta (l21, prox_every 1, {n} events, the same "
+        f"key and delay offsets): iterates bitwise equal on the card; delta "
+        f"launches {dl['counts']}: PASS")
+    report_session("delta l21", dl, n, n, phase=16)
+    report_busy("delta l21", l21p, delta_cfg, v0, key, offs, n, dl["device"],
+                dev, phase=16)
+
+    # phase 17: the batch engine on the l2,1 formulation
+    nb = BATCH_EVENTS
+    bl = run_session(l21p, batch_cfg, v0, key, offs, nb, dev)
+    expect_launches("batch l21 session", bl["counts"],
+                    {"amtl_event_batch": nb // BATCH, "l21_prox": nb // BATCH})
+    w = backward(l21p, bl["v"], ETA)
+    zeroed = float((w == 0).all(dim=1).float().mean())
+    obj_b = float(l21p.objective(w))
+    if not bool(torch.isfinite(w).all()) or not obj_b < obj0:
+        fail(f"batch l21 session: prox(V) not finite or objective {obj0} -> "
+             f"{obj_b} did not fall")
+    log(f"phase 17 batch l21 session: {nb} events, launches {bl['counts']} "
+        f"(no gauss_sketch), objective {obj0:.6g} -> {obj_b:.6g}, "
+        f"{100 * zeroed:.2f}% of the rows of prox(V) zeroed by the threshold "
+        f"{ETA * LAM:g}: PASS")
+    report_session("batch l21", bl, nb, nb, phase=17)
+    report_busy("batch l21", l21p, batch_cfg, v0, key, offs, nb,
+                bl["device"], dev, phase=17)
+
+    # phase 18: the card against the port's CPU run of the same state
+    cpu = torch.device("cpu")
+    l21_cpu = problem_cpu._replace(reg_name="l21")
+    worst = {}
+    for label, cfg in (("dense l21", dense_cfg), ("batch l21", batch_cfg)):
+        card_s = run_session(l21p, cfg, v0, key, offs, CPU_EVENTS,
+                             dev)["state"]
+        cpu_s = run_session(l21_cpu, cfg, v0.cpu(), key, offs, CPU_EVENTS,
+                            cpu)["state"]
+        worst[label] = compare_states(label, card_s, cpu_s)
+    log(f"phase 18 l21 card vs CPU ({CPU_EVENTS} events): event streams "
+        f"bitwise, max relative |diff| of the ring/v/delta_ring {worst} <= "
+        f"{SESSION_RTOL}: PASS")
+
+    # phase 19: FISTA's optimum, the quality anchor of the l21 sessions
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, obj_star = reference_optimum(l21p, eta=ETA, num_iters=FISTA_ITERS,
+                                    device=dev)
+    obj_star = float(obj_star)
+    secs = time.perf_counter() - t0
+    fista_counts = ops.launch_counts()
+    expect_launches("reference_optimum", fista_counts,
+                    {"l21_prox": FISTA_ITERS})
+    if not np.isfinite(obj_star) or not obj_star < obj0:
+        fail(f"reference_optimum: objective {obj_star} not finite or not "
+             f"below the start's {obj0}")
+    z = torch.zeros((D, T), device=dev)
+    card_f = fista_solve(l21p, z, ETA, FISTA_CPU_ITERS, device=dev)
+    cpu_f = fista_solve(l21_cpu, z.cpu(), ETA, FISTA_CPU_ITERS, device=cpu)
+    rel = float(((card_f.objectives.cpu().double()
+                  - cpu_f.objectives.double()).abs()
+                 / cpu_f.objectives.double().abs()).max())
+    if not rel <= FISTA_RTOL:
+        fail(f"fista_solve: card objectives {rel:.3g} relative from the "
+             f"CPU's > {FISTA_RTOL}")
+    log(f"phase 19 reference_optimum (FISTA, l21, {FISTA_ITERS} iterations "
+        f"from zero, eta {ETA}): objective {obj_star:.6g} in {secs:.3f} s "
+        f"({fista_counts['l21_prox']} l21_prox launches); gap of the "
+        f"batch l21 session {obj_b - obj_star:.6g} "
+        f"({100 * (obj_b - obj_star) / abs(obj_star):.3f}%), of the dense "
+        f"l21 session {obj1 - obj_star:.6g}; {FISTA_CPU_ITERS} iterations on "
+        f"the card and the CPU: objectives within {rel:.3g} <= {FISTA_RTOL} "
+        "relative: PASS")
+    t0 = time.perf_counter()
+    fista_solve(l21p, z, ETA, FISTA_CPU_ITERS, device=dev)
+    sync(dev)
+    log(f"phase 19 FISTA: {FISTA_CPU_ITERS} iterations in "
+        f"{time.perf_counter() - t0:.3f} s of wall time, profiled next")
+    serve_profile(lambda: (fista_solve(l21p, z, ETA, FISTA_CPU_ITERS,
+                                       device=dev), sync(dev)),
+                  f"FISTA ({FISTA_CPU_ITERS} iterations)", "l21_", 19)
+    return dn["counts"]
 
 
 def main() -> None:
@@ -1374,6 +1694,11 @@ def main() -> None:
             ("ragged SGD delta", rp, sgd_delta, DELTA_EVENTS, rd)):
         report_busy(label, prob, cfg, v0, key, offs, n, r["device"], dev)
 
+    # phases 15-19: the dense engine and the l2,1 formulation
+    dense_counts = l21_phases(problem, problem_cpu, v0, key, offs, dev)
+    del problem_cpu
+    torch.cuda.empty_cache()
+
     # phases 10-11: gemma2-2b serving at full width; 13-14: rwkv6-3b
     sv = serve_phase(dev, args.seed, card, "gemma2-2b")
     torch.cuda.empty_cache()
@@ -1388,15 +1713,20 @@ def main() -> None:
                     sample_mask=rl["counts"]["sample_mask"],
                     lstsq_grad=sg_counts["lstsq_grad"],
                     flash_attention=sv["counts"]["flash_attention"],
-                    rwkv6_scan=rw["counts"]["rwkv6_scan"])
+                    rwkv6_scan=rw["counts"]["rwkv6_scan"],
+                    km_update=dense_counts["km_update"],
+                    l21_prox=dense_counts["l21_prox"])
     where = {"amtl_event": "delta session", "sample_mask":
              "logistic SGD delta session", "lstsq_grad": "store gradients",
              "lstsq_grad_sampled": "ragged SGD batch session",
              "flash_attention": "gemma2-2b serve (B 2, prompt 5000, gen 32)",
-             "rwkv6_scan": "rwkv6-3b serve (B 2, prompt 5000, gen 32)"}
+             "rwkv6_scan": "rwkv6-3b serve (B 2, prompt 5000, gen 32)",
+             "km_update": "dense l21 session (one (8192,) column an event)",
+             "l21_prox": "dense l21 session"}
     for name in ("amtl_event_batch", "gauss_sketch", "svt_reconstruct",
                  "amtl_event", "lstsq_grad_sampled", "sample_mask",
-                 "lstsq_grad", "flash_attention", "rwkv6_scan"):
+                 "lstsq_grad", "km_update", "l21_prox", "flash_attention",
+                 "rwkv6_scan"):
         spec = kernel_spec(name, info[name]["args"], dev)
         kern = spec["kern"]
         saved = kern.launches
@@ -1435,6 +1765,7 @@ def main() -> None:
             f"{where.get(name, 'batch session')}")
     flash_times(info["flash_attention"]["served"])
     rwkv_times(info["rwkv6_scan"]["served"])
+    l21_km_times(info)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

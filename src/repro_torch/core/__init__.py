@@ -1,9 +1,9 @@
 """AMTL core in PyTorch: the engine session and the pieces it runs on."""
 from repro_torch.core.amtl import (AMTLConfig, AMTLEngine, AMTLResult,
-                                   BatchAMTLState, DeltaAMTLState,
+                                   AMTLState, BatchAMTLState, DeltaAMTLState,
                                    amtl_events_only, amtl_solve,
                                    current_iterate, default_config,
-                                   make_engine, validate_config)
+                                   init_state, make_engine, validate_config)
 from repro_torch.core.dynamic_step import DelayHistory, dynamic_multiplier
 from repro_torch.core.losses import MTLProblem, get_loss
 from repro_torch.core.operators import (amtl_max_step, backward,
@@ -13,21 +13,25 @@ from repro_torch.core.operators import (amtl_max_step, backward,
                                         km_step, rollback_columns,
                                         rollback_columns_batch,
                                         rollback_columns_shard)
-from repro_torch.core.prox import (apply_prox, get_regularizer, sketch_width,
-                                   svt, svt_randomized)
+from repro_torch.core.prox import (apply_prox, get_regularizer, l21_prox,
+                                   sketch_width, svt, svt_randomized)
 from repro_torch.core.simulator import (NetworkModel, SimProblem, SimResult,
                                         make_synthetic, simulate_amtl,
                                         simulate_smtl)
+from repro_torch.core.smtl import (SolveResult, fista_solve,
+                                   reference_optimum, smtl_solve)
 
 __all__ = [
-    "AMTLConfig", "AMTLEngine", "AMTLResult", "BatchAMTLState",
+    "AMTLConfig", "AMTLEngine", "AMTLResult", "AMTLState", "BatchAMTLState",
     "DeltaAMTLState", "amtl_events_only", "amtl_solve", "current_iterate",
-    "default_config", "make_engine", "validate_config", "DelayHistory",
-    "dynamic_multiplier", "MTLProblem", "get_loss", "amtl_max_step",
-    "backward", "backward_forward", "fixed_point_residual", "forward",
-    "forward_backward", "km_block_update", "km_step", "rollback_columns",
-    "rollback_columns_batch", "rollback_columns_shard", "apply_prox",
-    "get_regularizer", "sketch_width", "svt", "svt_randomized",
+    "default_config", "init_state", "make_engine", "validate_config",
+    "DelayHistory", "dynamic_multiplier", "MTLProblem", "get_loss",
+    "amtl_max_step", "backward", "backward_forward", "fixed_point_residual",
+    "forward", "forward_backward", "km_block_update", "km_step",
+    "rollback_columns", "rollback_columns_batch", "rollback_columns_shard",
+    "apply_prox", "get_regularizer", "l21_prox", "sketch_width", "svt",
+    "svt_randomized",
     "NetworkModel", "SimProblem", "SimResult", "make_synthetic",
-    "simulate_amtl", "simulate_smtl",
+    "simulate_amtl", "simulate_smtl", "SolveResult", "fista_solve",
+    "reference_optimum", "smtl_solve",
 ]

@@ -7,8 +7,16 @@ prox_{eta*lam*g} on that stale copy, and the node applies the forward step
 on its column with KM relaxation eta_k (Eq. III.4), optionally scaled by
 the delay-adaptive multiplier (Eq. III.5/III.6).
 
-Two engines of the reference are ported:
+Three engines of the reference are ported:
 
+  engine="dense" — the seed engine: a (tau+1, d, T) ring of full
+      iterates.  Event k reads ring[(ptr - nu) % depth] with the task's
+      own column taken from the newest slot ring[ptr], runs the exact prox
+      on it, and writes the new iterate (the newest one with the task's
+      column updated by the `km_update` kernel) into slot ptr + 1.  It is
+      the equivalence baseline: the delta engine equals it bitwise at
+      prox_every = 1, on the card too (the two column kernels write the
+      same fmas).
   engine="delta" (default) — one iterate V (d, T) and a (tau+1, d) undo
       log; the stale read at staleness nu is rebuilt by rolling back the
       nu newest log entries.  Each event's column update and undo-log
@@ -26,19 +34,23 @@ activation's gradient is the (n_t/bsz)-scaled seeded minibatch gradient
 (`MTLProblem.task_grad_sampled`: the `lstsq_grad_sampled` kernel for
 lstsq, the `sample_mask` kernel's keep bits otherwise); the seed is folded
 off the pre-event chain key, so the event stream is unchanged.  Ragged
-problems (`row_counts`) run on both engines.  engine="dense" and
-engine="sharded" are later slices of the port; `make_engine` refuses them.
+problems (`row_counts`) run on the delta and batch engines; the dense
+engine is the exact uniform baseline and refuses them, and SGD, as in the
+reference.  With reg_name="l21" every prox is the `l21_prox` kernel.
+engine="sharded" is a later slice of the port; `make_engine` refuses it.
 
 Host and device.  The event stream — each event's (task, staleness), the
 sketch seeds, the delay history, the per-event eta_k and the minibatch
 scalar block (seed, cut_h, cut_i, n_t) — depends only on the PRNG key, the
 event counter, `delay_offsets`, the row counts and the config, never on
-V; so does which undo-log entry restores which column.  `plan_events`
-replays all of it on the host (the reference's threefry chain, bit for
-bit, `core.prng`) before any device work, and `apply_plan` then issues
-only V work, with no device-to-host synchronization per event.  The
+V; so does which undo-log entry restores which column, and which dense
+ring slot each stale read comes from.  `plan_events` replays all of it on
+the host (the reference's threefry chain, bit for bit, `core.prng`)
+before any device work, and `apply_plan` then issues only V work, with no
+device-to-host synchronization per event.  The
 state's `task_ring`, `ptr`, `event`, `history` and `key` are host values;
-`v`, `delta_ring` and `p_cache` are tensors on the engine's device.
+`v`, `delta_ring`, `p_cache` and the dense `ring` are tensors on the
+engine's device.
 
 The session API is the reference's:
 
@@ -48,10 +60,11 @@ The session API is the reference's:
     v      = engine.iterate(state)
 
 `run` never mutates the state it is given: it clones `v` and `delta_ring`
-once on entry and updates the clones in place, so `run(s, n + m)` equals
-`run(run(s, n), m)` bitwise, and `s` stays valid.  On the CPU (the plain
-versions of the kernels) the batch engine equals the delta engine bitwise
-at a matched prox cadence, as in the reference.
+(the dense engine: `ring`) once on entry and updates the clones in
+place, so `run(s, n + m)` equals `run(run(s, n), m)` bitwise, and `s`
+stays valid.  On the CPU (the plain versions of the kernels) the batch
+engine equals the delta engine bitwise at a matched prox cadence, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -67,7 +80,8 @@ from repro_torch.core.dynamic_step import DelayHistory, dynamic_multiplier
 from repro_torch.core.losses import MTLProblem
 from repro_torch.core.operators import (amtl_max_step, backward,
                                         fixed_point_residual,
-                                        restore_columns, rollback_winners)
+                                        km_block_update, restore_columns,
+                                        rollback_winners)
 from repro_torch.core.prox import svt_randomized
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
@@ -83,8 +97,8 @@ class AMTLConfig(NamedTuple):
     delay_window: int = 5      # paper averages the last 5 delays
     # The sampled delay is min(round(offset_t + U[0,1) * jitter), tau).
     delay_jitter: float = 1.0
-    # "delta" and "batch" are ported; "dense" and "sharded" validate but
-    # are refused by make_engine until their slices.
+    # "dense", "delta" and "batch" are ported; "sharded" validates but is
+    # refused by make_engine until its slice.
     engine: str = "delta"
     # Server prox amortization (paper §III-C): refresh every K events.
     prox_every: int = 1
@@ -96,6 +110,15 @@ class AMTLConfig(NamedTuple):
     prox_mode: str = "replicated"
     # SGD-AMTL minibatch size (paper §V): None = full gradients.
     batch_size: int | None = None
+
+
+class AMTLState(NamedTuple):
+    """Dense-engine state: the seed full-iterate staleness ring."""
+    ring: Tensor           # (tau+1, d, T) past iterates, ring[ptr] newest
+    ptr: int               # slot of the newest iterate (host)
+    event: int             # global event counter (host)
+    history: DelayHistory  # per-task recent delays (host)
+    key: np.ndarray        # raw uint32[2] PRNG key (host)
 
 
 class DeltaAMTLState(NamedTuple):
@@ -147,6 +170,14 @@ def _init_fields(cfg: AMTLConfig, v0: Tensor, num_tasks: int, key) -> tuple:
             _prox_cache_init(cfg, v0),
             DelayHistory.create(num_tasks, cfg.delay_window),
             prng.to_key(prng.to_pair(key)))
+
+
+def init_state(cfg: AMTLConfig, v0: Tensor, num_tasks: int,
+               key) -> AMTLState:
+    """Every ring slot a copy of v0."""
+    return AMTLState(v0.unsqueeze(0).repeat(cfg.tau + 1, 1, 1), 0, 0,
+                     DelayHistory.create(num_tasks, cfg.delay_window),
+                     prng.to_key(prng.to_pair(key)))
 
 
 def init_delta_state(cfg: AMTLConfig, v0: Tensor, num_tasks: int,
@@ -242,6 +273,8 @@ class EventPlan(NamedTuple):
     rb_slots: np.ndarray       # flat rollback ring slots, same order
     rb_offsets: np.ndarray     # (S + 1,) step s owns rb_*[off[s]:off[s+1]]
     ring_slots: np.ndarray     # (S, keep) ring slot of each kept undo entry
+    #                            (dense: the slot the new iterate goes to)
+    read_slots: np.ndarray     # (S,) dense ring slot of the step's stale read
     scalars: np.ndarray | None  # (N, 4) uint32 minibatch scalar blocks
     task_ring: np.ndarray      # host state after the run
     ptr: int
@@ -253,6 +286,7 @@ class EventPlan(NamedTuple):
 def plan_events(problem: MTLProblem, cfg: AMTLConfig, state,
                 delay_offsets, num_events: int) -> EventPlan:
     """Replay the host side of `num_events` events (no device work)."""
+    dense = cfg.engine == "dense"
     per_step = cfg.event_batch if cfg.engine == "batch" else 1
     steps = num_events // per_step
     depth = cfg.tau + 1
@@ -264,7 +298,9 @@ def plan_events(problem: MTLProblem, cfg: AMTLConfig, state,
 
     pair = prng.to_pair(state.key)
     history = state.history.copy()
-    ring = np.array(state.task_ring, np.int32)
+    # the dense state has no task ring; a scratch one keeps the loop alike
+    ring = np.zeros((depth,), np.int32) if dense \
+        else np.array(state.task_ring, np.int32)
     ptr, event = int(state.ptr), int(state.event)
     tasks = np.empty((steps * per_step,), np.int64)
     eta_ks = np.empty((steps * per_step,), np.float32)
@@ -272,6 +308,7 @@ def plan_events(problem: MTLProblem, cfg: AMTLConfig, state,
     sketch_keys = np.zeros((steps, 2), np.uint32)
     rb_cols, rb_slots, rb_offsets = [], [], [0]
     ring_slots = np.empty((steps, keep), np.int64)
+    read_slots = np.empty((steps,), np.int64)
     tail = np.arange(per_step - keep, per_step)
     sgd = cfg.batch_size is not None
     seeds = np.empty((steps * per_step,), np.uint32)
@@ -291,7 +328,8 @@ def plan_events(problem: MTLProblem, cfg: AMTLConfig, state,
             eta_ks[first + i] = _eta_k(cfg, history, t)
             if i == 0:
                 nu0 = nu             # the refresh reads at the first staleness
-        if refresh[s] and cfg.tau > 0:
+        read_slots[s] = (ptr - nu0) % depth
+        if refresh[s] and cfg.tau > 0 and not dense:
             cols, slots = rollback_winners(ring, ptr, nu0, cfg.tau)
             rb_cols.append(cols)
             rb_slots.append(slots)
@@ -316,13 +354,42 @@ def plan_events(problem: MTLProblem, cfg: AMTLConfig, state,
         rb_cols=np.concatenate(rb_cols) if rb_cols else empty,
         rb_slots=np.concatenate(rb_slots) if rb_slots else empty,
         rb_offsets=np.asarray(rb_offsets, np.int64), ring_slots=ring_slots,
-        scalars=scalars, task_ring=ring, ptr=ptr, event=event, history=history,
-        key=prng.to_key(pair))
+        read_slots=read_slots, scalars=scalars, task_ring=ring, ptr=ptr,
+        event=event, history=history, key=prng.to_key(pair))
 
 
 def _to(device: torch.device, a: np.ndarray, dtype: torch.dtype) -> Tensor:
     return torch.as_tensor(a).to(device=device, dtype=dtype,
                                  non_blocking=True)
+
+
+def _apply_dense(problem: MTLProblem, cfg: AMTLConfig, state: AMTLState,
+                 plan: EventPlan) -> AMTLState:
+    """The dense engine's device side (the reference's `_one_event_dense`).
+
+    Per event: the stale read ring[(ptr - nu) % depth] with the task's own
+    column from the newest slot, the exact prox, the task's gradient at
+    its (contiguous) prox column, the `km_update` kernel on the task's
+    column, and the new iterate written into slot ptr + 1.  `state.ring`
+    is cloned once and the clone updated in place.
+    """
+    depth = cfg.tau + 1
+    ring = state.ring.clone()
+    for e in range(plan.tasks.shape[0]):
+        t = int(plan.tasks[e])
+        new = int(plan.ring_slots[e, 0])
+        cur = ring[(new - 1) % depth]
+        v_hat = ring[int(plan.read_slots[e])].clone()
+        v_hat[:, t] = cur[:, t]
+        p_t = backward(problem, v_hat, cfg.eta)[:, t].contiguous()
+        g_t = problem.task_grad(t, p_t)
+        v_t = km_block_update(cur[:, t].contiguous(), p_t, g_t, cfg.eta,
+                              float(plan.eta_ks[e]))
+        if depth > 1:                  # tau = 0 rewrites its one slot
+            ring[new] = cur
+        ring[new, :, t] = v_t
+    return AMTLState(ring=ring, ptr=plan.ptr, event=plan.event,
+                     history=plan.history, key=plan.key)
 
 
 def apply_plan(problem: MTLProblem, cfg: AMTLConfig, state,
@@ -331,8 +398,11 @@ def apply_plan(problem: MTLProblem, cfg: AMTLConfig, state,
 
     `state.v` and `state.delta_ring` are cloned once; the clones are
     updated in place (column writes, ring writes and the in-place
-    `amtl_event_batch` kernel) and become the new state's tensors.
+    `amtl_event_batch` kernel) and become the new state's tensors.  The
+    dense engine clones its ring instead (`_apply_dense`).
     """
+    if cfg.engine == "dense":
+        return _apply_dense(problem, cfg, state, plan)
     dev = state.v.device
     per_step = cfg.event_batch if cfg.engine == "batch" else 1
     steps = plan.refresh.shape[0]
@@ -460,11 +530,10 @@ def _refuse_unported(problem: MTLProblem, cfg: AMTLConfig) -> None:
             "engine='dense' is the exact uniform seed baseline; ragged "
             "problems (row_counts set) require engine='delta', 'batch', "
             "or 'sharded'")
-    if cfg.engine in ("dense", "sharded"):
+    if cfg.engine == "sharded":
         raise NotImplementedError(
-            f"engine={cfg.engine!r} is not ported yet: the "
-            + ("dense-engine" if cfg.engine == "dense" else "sharded-engine")
-            + " slice of the port brings it; use 'delta' or 'batch'")
+            "engine='sharded' is not ported yet: the sharded-engine slice "
+            "of the port brings it; use 'dense', 'delta' or 'batch'")
 
 
 def _iterate_metrics(problem: MTLProblem, cfg: AMTLConfig, v: Tensor):
@@ -493,6 +562,15 @@ class AMTLEngine(NamedTuple):
     device: torch.device
 
 
+def require_problem_on(problem: MTLProblem, dev: torch.device) -> None:
+    """Raise unless every tensor of the problem is on `dev`."""
+    counts = problem.row_counts
+    if problem.xs.device != dev or problem.ys.device != dev or (
+            counts is not None and counts.device != dev):
+        raise ValueError(f"the problem's tensors are on {problem.xs.device}; "
+                         f"the entry point runs on {dev}")
+
+
 def make_engine(problem: MTLProblem, cfg: AMTLConfig,
                 device: torch.device | str | None = None) -> AMTLEngine:
     """Build the resumable session engine for `cfg` (the public API).
@@ -504,14 +582,11 @@ def make_engine(problem: MTLProblem, cfg: AMTLConfig,
     validate_config(cfg, problem.reg_name)
     _refuse_unported(problem, cfg)
     dev = resolve_device(device)
-    counts = problem.row_counts
-    if problem.xs.device != dev or problem.ys.device != dev or (
-            counts is not None and counts.device != dev):
-        raise ValueError(f"the problem's tensors are on {problem.xs.device}; "
-                         f"the engine runs on {dev}")
+    require_problem_on(problem, dev)
     num_tasks = problem.num_tasks
     per_step = cfg.event_batch if cfg.engine == "batch" else 1
-    init_fn = init_batch_state if cfg.engine == "batch" else init_delta_state
+    init_fn = {"dense": init_state, "delta": init_delta_state,
+               "batch": init_batch_state}[cfg.engine]
 
     def init(v0, key):
         v0 = torch.as_tensor(v0, dtype=torch.float32, device=dev).clone()
@@ -522,9 +597,10 @@ def make_engine(problem: MTLProblem, cfg: AMTLConfig,
             raise ValueError(
                 f"num_events ({num_events}) must be a multiple of "
                 f"event_batch ({per_step}) for engine={cfg.engine!r}")
-        if state.v.device != dev:
-            raise ValueError(f"the state is on {state.v.device}; the engine "
-                             f"runs on {dev}")
+        on = current_iterate(state).device
+        if on != dev:
+            raise ValueError(f"the state is on {on}; the engine runs on "
+                             f"{dev}")
         if delay_offsets is None:
             offs = np.zeros((num_tasks,), np.float32)
         elif isinstance(delay_offsets, torch.Tensor):
@@ -580,6 +656,8 @@ def amtl_events_only(problem: MTLProblem, cfg: AMTLConfig, v0, key,
 
 def current_iterate(state) -> Tensor:
     """The newest iterate V held by an engine's state."""
+    if isinstance(state, AMTLState):
+        return state.ring[state.ptr]
     return state.v
 
 

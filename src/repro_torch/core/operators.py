@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core.losses import MTLProblem
 from repro_torch.core.prox import get_regularizer
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
 
@@ -59,8 +59,9 @@ def km_step(v: Tensor, op_v: Tensor, eta_k: float) -> Tensor:
 def km_block_update(v_t: Tensor, prox_t: Tensor, grad_t: Tensor,
                     eta: float, eta_k: float) -> Tensor:
     """Paper Eq. III.4 — the fused per-task-block AMTL update, in the fma
-    form of `ref.km_update_ref`."""
-    return ref.km_update_ref(v_t, prox_t, grad_t, eta, eta_k)
+    form, by `ops.km_update` (the `km_update` kernel on the card,
+    `ref.km_update_ref` on the CPU); the operands are contiguous."""
+    return ops.km_update(v_t, prox_t, grad_t, eta, eta_k)
 
 
 def rollback_columns(v: Tensor, delta_ring: Tensor, task_ring, ptr: int,

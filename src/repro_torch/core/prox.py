@@ -6,7 +6,8 @@ Registry keys match the reference (MALSAR formulations):
 
   nuclear      - shared subspace learning, ||W||_*  (SVT; randomized SVT
                  through the `gauss_sketch` and `svt_reconstruct` kernels)
-  l21          - joint feature learning, sum_i ||w^i||_2
+  l21          - joint feature learning, sum_i ||w^i||_2  (the `l21_prox`
+                 kernel)
   l1           - elementwise sparsity
   elastic_net  - l1 + ridge
   ridge        - squared Frobenius
@@ -97,12 +98,10 @@ def l21_value(w: Tensor) -> Tensor:
 
 
 def l21_prox(w: Tensor, t: float) -> Tensor:
-    """Row-wise group soft-threshold: w^i * max(0, 1 - t/||w^i||_2)."""
-    w32 = w.to(torch.float32)
-    norms = torch.linalg.vector_norm(w32, dim=1, keepdim=True)
-    scale = torch.clamp(1.0 - to_f32(t) / torch.clamp(norms, min=1e-12),
-                        min=0.0)
-    return (w32 * scale).to(w.dtype)
+    """Row-wise group soft-threshold: w^i * max(0, 1 - t/||w^i||_2), by
+    `ops.l21_prox` (the `l21_prox` kernel on the card, its plain version
+    `ref.l21_prox_ref` on the CPU)."""
+    return ops.l21_prox(w.contiguous(), t)
 
 
 # ---------------------------------------------------------------------------

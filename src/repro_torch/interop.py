@@ -4,7 +4,7 @@ Everything crosses as numpy arrays, so the port never sees a JAX array:
 
     problem_from_numpy(xs, ys, loss_name, reg_name, lam, device,
                        row_counts=None)
-    state_from_numpy(kind, leaves, device)     # kind: "delta" or "batch"
+    state_from_numpy(kind, leaves, device)  # kind: "dense", "delta", "batch"
     state_to_numpy(state) -> leaves
 
 An LM's parameters and serving cache cross as flat dicts keyed by the
@@ -34,14 +34,17 @@ in its pytree order (`jax.tree_util.tree_leaves`):
 
 with the reference's dtypes (float32 tensors, int32 counters, a raw
 uint32[2] key), so `tree_unflatten` of `state_to_numpy(s)` on the
-reference's treedef gives a state the reference engine can run on.
+reference's treedef gives a state the reference engine can run on.  A
+dense-engine `AMTLState` crosses the same way, as its `DENSE_LEAVES`:
+
+    ring, ptr, event, history.buf, history.count, key
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.amtl import BatchAMTLState, DeltaAMTLState
+from repro_torch.core.amtl import AMTLState, BatchAMTLState, DeltaAMTLState
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.dynamic_step import DelayHistory
 from repro_torch.core.losses import MTLProblem
@@ -53,7 +56,11 @@ from repro_torch.models.transformer import LM, param_dtypes, param_shapes
 LEAVES = ("v", "delta_ring", "task_ring", "ptr", "event", "p_cache",
           "history.buf", "history.count", "key")
 
-_STATES = {"delta": DeltaAMTLState, "batch": BatchAMTLState}
+DENSE_LEAVES = ("ring", "ptr", "event", "history.buf", "history.count",
+                "key")
+
+_STATES = {"dense": AMTLState, "delta": DeltaAMTLState,
+           "batch": BatchAMTLState}
 
 
 def problem_from_numpy(xs, ys, loss_name: str, reg_name: str, lam: float,
@@ -75,16 +82,24 @@ def state_from_numpy(kind: str, leaves, device: torch.device | str | None = None
     """The port's engine state from the leaves of a reference state."""
     if kind not in _STATES:
         raise ValueError(f"kind must be one of {sorted(_STATES)}, got {kind!r}")
-    if len(leaves) != len(LEAVES):
-        raise ValueError(f"expected {len(LEAVES)} leaves {LEAVES}, got "
+    names = DENSE_LEAVES if kind == "dense" else LEAVES
+    if len(leaves) != len(names):
+        raise ValueError(f"expected {len(names)} leaves {names}, got "
                          f"{len(leaves)}")
     dev = resolve_device(device)
-    v, ring, task_ring, ptr, event, p_cache, buf, count, key = \
-        (np.asarray(a) for a in leaves)
 
     def tensor(a):
         return torch.as_tensor(np.array(a, np.float32), device=dev)
 
+    if kind == "dense":
+        ring, ptr, event, buf, count, key = (np.asarray(a) for a in leaves)
+        return AMTLState(
+            ring=tensor(ring), ptr=int(ptr), event=int(event),
+            history=DelayHistory(np.array(buf, np.float32),
+                                 np.array(count, np.int32)),
+            key=np.array(key, np.uint32))
+    v, ring, task_ring, ptr, event, p_cache, buf, count, key = \
+        (np.asarray(a) for a in leaves)
     return _STATES[kind](
         v=tensor(v), delta_ring=tensor(ring),
         task_ring=np.array(task_ring, np.int32), ptr=int(ptr),
@@ -99,12 +114,16 @@ def state_to_numpy(state) -> list[np.ndarray]:
     def host(t: torch.Tensor) -> np.ndarray:
         return t.detach().cpu().numpy().astype(np.float32)
 
+    tail = [np.array(state.history.buf, np.float32),
+            np.array(state.history.count, np.int32),
+            np.array(state.key, np.uint32)]
+    if isinstance(state, AMTLState):
+        return [host(state.ring), np.asarray(state.ptr, np.int32),
+                np.asarray(state.event, np.int32), *tail]
     return [host(state.v), host(state.delta_ring),
             np.array(state.task_ring, np.int32),
             np.asarray(state.ptr, np.int32), np.asarray(state.event, np.int32),
-            host(state.p_cache), np.array(state.history.buf, np.float32),
-            np.array(state.history.count, np.int32),
-            np.array(state.key, np.uint32)]
+            host(state.p_cache), *tail]
 
 
 def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:

@@ -17,6 +17,8 @@ from repro_torch.kernels import amtl_event as _amtl_event
 from repro_torch.kernels import amtl_event_batch as _amtl_event_batch
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import gauss_sketch as _gauss_sketch
+from repro_torch.kernels import km_update as _km_update
+from repro_torch.kernels import l21_prox as _l21_prox
 from repro_torch.kernels import lstsq_grad as _lstsq_grad
 from repro_torch.kernels import lstsq_grad_sampled as _lstsq_grad_sampled
 from repro_torch.kernels import ref
@@ -34,6 +36,8 @@ KERNELS = {
     "lstsq_grad": _lstsq_grad,
     "flash_attention": _flash_attention,
     "rwkv6_scan": _rwkv6_scan,
+    "km_update": _km_update,
+    "l21_prox": _l21_prox,
 }
 
 
@@ -54,6 +58,23 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
+
+
+def km_update(v: torch.Tensor, p: torch.Tensor, g: torch.Tensor, eta: float,
+              eta_k: float) -> torch.Tensor:
+    """Fused Eq. III.4 elementwise, v + eta_k*(p - eta*g - v) in the fma
+    form, on contiguous tensors of one shape (the dense engine's column)."""
+    if _on_cuda("km_update", v):
+        return _km_update.km_update(v, p, g, eta, eta_k)
+    return ref.km_update_ref(v, p, g, eta, eta_k)
+
+
+def l21_prox(w: torch.Tensor, t: float) -> torch.Tensor:
+    """Row-group soft threshold of a contiguous (d, T) matrix:
+    w_i * max(0, 1 - t/max(||w_i||_2, 1e-12)), in float32."""
+    if _on_cuda("l21_prox", w):
+        return _l21_prox.l21_prox(w, t)
+    return ref.l21_prox_ref(w, t)
 
 
 def amtl_event(v_t: torch.Tensor, p_t: torch.Tensor, g_t: torch.Tensor,

@@ -121,6 +121,16 @@ def svt_reconstruct_ref(qu: Tensor, s: Tensor, vt: Tensor) -> Tensor:
             @ vt.to(torch.float32)).to(qu.dtype)
 
 
+def l21_prox_ref(w: Tensor, t: float) -> Tensor:
+    """Row-group soft threshold: w^i * max(0, 1 - t/max(||w^i||_2, 1e-12)),
+    in float32, cast back to w's dtype."""
+    w32 = w.to(torch.float32)
+    norms = torch.linalg.vector_norm(w32, dim=-1, keepdim=True)
+    scale = torch.clamp(1.0 - to_f32(t) / torch.clamp(norms, min=1e-12),
+                        min=0.0)
+    return (w32 * scale).to(w.dtype)
+
+
 # ------------------------------------------------ counter-based normals ---
 #
 # uint32 arithmetic in int64 tensors: every product is split so that it

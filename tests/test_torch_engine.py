@@ -196,19 +196,19 @@ def test_validate_config_prox_rank_needs_nuclear():
     dict(engine="sharded", event_batch=2, prox_every=2),
     dict(engine="delta", batch_size=8),
 ])
-def test_unported_engines_refused(problems, case):
-    """The dense and sharded engines wait for their slices; SGD
-    (`batch_size`) is ported and runs."""
+def test_ported_engines_run_and_sharded_refused(problems, case):
+    """The sharded engine waits for its slice; the dense engine and SGD
+    (`batch_size`) are ported and run."""
     _, tp = problems
     cfg = rt.AMTLConfig(eta=0.1, eta_k=0.5, tau=2, **case)
-    if case["engine"] in ("dense", "sharded"):
+    if case["engine"] == "sharded":
         with pytest.raises(NotImplementedError):
             rt.make_engine(tp, cfg, device="cpu")
         return
     eng = rt.make_engine(tp, cfg, device="cpu")
     s = eng.run(eng.init(np.zeros((tp.dim, tp.num_tasks), np.float32),
                          rt.core.prng.key_from_seed(0)), None, 4)
-    assert s.event == 4 and bool(torch.isfinite(s.v).all())
+    assert s.event == 4 and bool(torch.isfinite(eng.iterate(s)).all())
 
 
 def test_ragged_problem_refused_and_bad_event_count(problems):

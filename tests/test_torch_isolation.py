@@ -22,6 +22,8 @@ from repro_torch.kernels import amtl_event as k_event  # noqa: E402
 from repro_torch.kernels import amtl_event_batch as k_batch  # noqa: E402
 from repro_torch.kernels import flash_attention as k_flash  # noqa: E402
 from repro_torch.kernels import gauss_sketch as k_sketch  # noqa: E402
+from repro_torch.kernels import km_update as k_km  # noqa: E402
+from repro_torch.kernels import l21_prox as k_l21  # noqa: E402
 from repro_torch.kernels import lstsq_grad as k_grad  # noqa: E402
 from repro_torch.kernels import lstsq_grad_sampled as k_sampled  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -48,11 +50,17 @@ for q, kw in ((p, dict(engine="delta", prox_every=2, prox_rank=2)),
               (p, dict(engine="batch", event_batch=2, prox_every=2)),
               (r, dict(engine="delta", batch_size=2)),
               (r, dict(engine="batch", event_batch=2, prox_every=2,
-                       batch_size=1))):
+                       batch_size=1)),
+              (p._replace(reg_name="l21"), dict(engine="dense")),
+              (p._replace(reg_name="l21"), dict(engine="batch",
+                                                event_batch=2,
+                                                prox_every=2))):
     e = rt.make_engine(q, rt.AMTLConfig(eta=0.01, eta_k=0.5, tau=2, **kw),
                        device="cpu")
     e.run(e.init(np.zeros((5, 3), np.float32), np.array([0, 1], np.uint32)),
           None, 4)
+rt.reference_optimum(p._replace(reg_name="l21"), eta=0.01, num_iters=3,
+                     device="cpu")
 from repro_torch.launch import serve
 serve.main(["--arch", "gemma2-2b", "--reduced", "--device", "cpu",
             "--batch", "1", "--prompt-len", "5", "--gen", "2"])
@@ -134,6 +142,8 @@ def test_make_engine_without_device_needs_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         make_engine(p, cfg, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
+        make_engine(p._replace(reg_name="l21"), cfg._replace(engine="dense"))
+    with pytest.raises(RuntimeError, match="CUDA"):
         problem_from_numpy(np.ones((2, 3, 4)), np.ones((2, 3)), "lstsq",
                            "nuclear", 0.1)
 
@@ -163,6 +173,10 @@ def test_cpu_tensors_take_plain_versions_and_launch_nothing():
             chunk=4)
     assert bool(state.any())                 # written in place
     ops.rwkv6_scan(r[0], r[0], r[0], torch.rand(6, 2, 32), torch.randn(2, 32))
+    ops.km_update(v, v, v, 0.1, 0.5)
+    ops.km_update(v.bfloat16(), v.bfloat16(), v.bfloat16(), 0.1, 0.5)
+    ops.l21_prox(v, 0.3)
+    ops.l21_prox(v.bfloat16(), 0.3)
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 
@@ -195,6 +209,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     r = torch.zeros(1, 4, 2, 32)
     with pytest.raises(ValueError, match="CUDA"):
         k_rwkv.wkv(r, r, r, r, torch.zeros(2, 32), torch.zeros(1, 2, 32, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        k_km.km_update(v, v, v, 0.1, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_l21.l21_prox(torch.zeros(8, 2), 0.3)
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 
@@ -206,7 +224,8 @@ def test_kernel_library_is_named_by_its_sources():
     assert {p.name for p in _build.sources()} == {
         "amtl_event.cu", "amtl_event_batch.cu", "gauss_sketch.cu",
         "svt_reconstruct.cu", "lstsq_grad.cu", "lstsq_grad_sampled.cu",
-        "flash_attention.cu", "rwkv6_scan.cu"}
+        "flash_attention.cu", "rwkv6_scan.cu", "km_update.cu",
+        "l21_prox.cu"}
     assert {p.name for p in _build.headers()} == {
         "counter_hash.cuh", "lstsq_grad_body.cuh"}
     assert path.name.startswith("librepro_torch_kernels-")
