@@ -9,8 +9,9 @@ main paths at full width — the AMTL engine session (batch engine with the
 randomized-SVT prox, delta engine), SGD-AMTL on ragged task cohorts
 published by a TaskStore (batch, delta and logistic sessions, a store
 append between two chunks), gemma2-2b serving (prefill and greedy
-decode through `repro_torch.launch.serve`, every attention call in the
-flash-attention kernel) and rwkv6-3b serving (every WKV recurrence of
+decode through `repro_torch.launch.serve`, every bf16 prefill attention
+call in the tensor-core flash kernel and every decode call in the split-KV
+kernel) and rwkv6-3b serving (every WKV recurrence of
 prefill and decode in the rwkv6_scan kernel), the dense engine and the
 l2,1 (joint feature learning) formulation (dense sessions with the
 km_update and l21_prox kernels, dense == delta bitwise, a batch l2,1
@@ -87,6 +88,20 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 5000, 32
 # order (2e-5); in bfloat16 both round the float32 result once, so they
 # differ by at most one bf16 ulp of the output (2e-2 at |o| < 2).
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# The same, relative to each output row (a (batch, query, head) row: its
+# max |diff| over hd over its max |o|), on the rows that keep a key.  With
+# randn inputs a row of N kept keys has |o| ~ sqrt(e / N), 0.02 at N 5000,
+# so FLASH_TOL alone would not see a 64-key tile left out or a window edge
+# off by a tile, which move such a row by about its own size.  `sm90` is
+# held against the plain version in its own order and rounding (64-key
+# chunks, P rounded to bf16 for the tensor cores), the other routes
+# against `mha_ref`.  On an H100 the sound readings were at most 0.0078
+# in bf16 (a one-ulp flip of the output's rounding at the row's max,
+# 2^-7) and 5.9e-6 in float32, so the limits are 2^-6 and 2e-5; the
+# controls, which must fail, read 0.14 (a 64-key tile left out of the
+# 4096-slot ring) to 0.95 (the local prefill's window a tile wide).
+FLASH_ROW_TOL = {"float32": 2e-5, "bfloat16": 2.0 ** -6}
+SM90_CHUNK = 64            # csrc/flash_attention_sm90.cu's BK: its sum order
 # The served logits through the kernel against the plain run, relative to
 # max |logits|: bf16 rounding differences carried through 26 layers; and
 # in float32 (TF32 off), where bf16 noise cannot hide a kernel error.
@@ -476,12 +491,91 @@ def check_l21_km_kernels(dev, gen) -> dict:
     return info
 
 
+def keep_mask(sq: int, skv: int, causal: bool, window, q_offset: int,
+              kv_len, dev):
+    """(Sq, Skv) bool: whether query row r keeps key j, by mha_ref's
+    masks."""
+    import torch
+    i = q_offset + torch.arange(sq, device=dev)[:, None]
+    j = torch.arange(skv, device=dev)[None, :]
+    keep = (j < (skv if kv_len is None else kv_len)).expand(sq, skv)
+    if causal:
+        keep = keep & (j <= i)
+    if window:
+        keep = keep & (j > i - window)
+    return keep.contiguous()
+
+
+def row_err(got, want, rows, relative: bool = True) -> float:
+    """Max over the (batch, row, head) rows whose query row is set in
+    `rows` (Sq,) of max |got - want| along hd, over max |want| along hd if
+    `relative`."""
+    d = (got.float() - want.float()).abs().amax(-1)
+    if relative:
+        d = d / want.float().abs().amax(-1).clamp_min(1e-30)
+    return d[:, rows].max().item() if bool(rows.any()) else 0.0
+
+
+def masked_attention(q, k, v, keep, softcap):
+    """Dense softmax attention with an explicit (Sq, Skv) keep mask, in
+    float32, out in q's dtype; a row with no kept key gives 0.  The flash
+    gate's controls: the served masks with a tile changed."""
+    import torch
+    b, sq, h, hd = q.shape
+    hkv = k.shape[2]
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+    kf, vf = k.float(), v.float()
+    outs = []
+    for r0 in range(0, sq, 1024):
+        qg = q[:, r0:r0 + 1024].float().reshape(b, -1, hkv, h // hkv, hd)
+        x = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+        if softcap is not None:
+            x = softcap * torch.tanh(x / softcap)
+        x = x.masked_fill(~keep[r0:r0 + 1024], float("-inf"))
+        p = torch.softmax(x, dim=-1).nan_to_num(0.0)
+        o = torch.einsum("bhgqk,bkhd->bhgqd", p, vf)
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, -1, h, hd))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def flash_controls(label: str, args_, plain, keep, limit: float) -> str:
+    """At a served bf16 shape: the dense plain version with the true masks
+    must pass the row gate against `plain` (the route's plain version), and
+    with a key tile left out (prefill global, decode ring) or the window's
+    edge a tile further out (prefill local) must fail it."""
+    q, k, v, kw = args_
+    sq, skv = q.shape[1], k.shape[1]
+    rows = keep.any(1)
+    if label == "prefill local":
+        what = "window edge a tile wide"
+        bad = keep_mask(sq, skv, kw["causal"], kw["window"] + SM90_CHUNK,
+                        kw["q_offset"], kw["kv_len"], q.device)
+    else:
+        t0 = (skv // 2) // SM90_CHUNK * SM90_CHUNK
+        what = f"keys {t0}-{t0 + SM90_CHUNK - 1} left out"
+        bad = keep.clone()
+        bad[:, t0:t0 + SM90_CHUNK] = False
+    sound = row_err(masked_attention(q, k, v, keep, kw["softcap"]), plain,
+                    rows)
+    wrong = row_err(masked_attention(q, k, v, bad, kw["softcap"]), plain,
+                    rows)
+    if not sound <= limit:
+        fail(f"flash control {label}: the dense plain version with the true "
+             f"masks is {sound:.3g} from the route's plain version > {limit}")
+    if not wrong > limit:
+        fail(f"flash control {label} ({what}): {wrong:.3g} <= {limit}: the "
+             f"row gate does not see it")
+    return f"{label}: true masks {sound:.3g}, {what} {wrong:.3g}"
+
+
 def check_flash_kernel(dev, gen) -> dict:
-    """The flash-attention kernel against its plain versions on the card,
-    in float32 and bfloat16: at the served shapes (prefill of a global and
-    of a local layer, decode on the ring and on the global cache), through
-    the (S, H, hd) entry point, and at edge cases.  Returns the bfloat16
-    served cases for the timing phase."""
+    """The flash-attention kernels against their plain versions on the
+    card, in float32 and bfloat16: at the served shapes (prefill of a global
+    and of a local layer, decode on the ring and on the global cache), and
+    at edge cases, each route that takes a case forced in turn, by FLASH_TOL
+    and by FLASH_ROW_TOL (with its controls at the served shapes); the
+    (S, H, hd) entry point.  Returns the bfloat16 served cases (on the
+    routes the wrapper picks) for the timing phase."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import flash_attention as k_flash
@@ -503,8 +597,29 @@ def check_flash_kernel(dev, gen) -> dict:
          64),
         ("non-causal, kv_len 100", 2, 65, 129, 4, 4, 32, False, None, 50.0, 0,
          100),
+        ("Sq 1, kv_len 1", 2, 1, 64, 8, 4, 256, False, None, 50.0, 0, 1),
+        ("decode, last splits past the causal edge", 2, 1, w, 8, 4, 256, True,
+         None, 50.0, 100, w),
+        ("decode, window 500 empties splits", 2, 1, w, 8, 4, 256, False, 500,
+         50.0, 3000, w),
+        ("hd 128", 2, 300, 300, 8, 4, 128, True, None, 50.0, 0, None),
+        ("hd 64, window 64", 1, 200, 200, 4, 2, 64, True, 64, None, 0, None),
+        ("Sq 129", 1, 129, 129, 8, 4, 256, True, None, 50.0, 0, None),
+        ("GQA 8:1", 1, 300, 300, 8, 1, 128, True, None, None, 0, None),
+        ("GQA 8:1 decode", 2, 1, 1000, 8, 1, 256, False, None, 50.0, 900, 901),
+        ("Sq 3 decode, causal", 2, 3, 1000, 8, 4, 256, True, None, 50.0, 900,
+         903),
+        ("q_offset 256, kv_len 456", 1, 200, 456, 8, 4, 256, True, None, 50.0,
+         256, 456),
+        # rows 164-255 keep no key (past kv_len, behind the window)
+        ("rows with no kept key", 1, 256, 256, 8, 4, 256, True, 64, 50.0, 0,
+         100),
+        # 64 rows a kv head; rows 23-31 keep no key
+        ("Sq 32, rows with no kept key", 2, 32, 256, 8, 4, 256, True, 64,
+         50.0, 140, 100),
     ]
-    served, worst = {}, {}
+    served, worst, row_worst, split_worst, runs = {}, {}, {}, {}, 0
+    controls, empty = [], 0
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
         for label, b, sq, skv, h, hkv, hd, causal, window, cap, qo, kvl \
@@ -514,18 +629,72 @@ def check_flash_kernel(dev, gen) -> dict:
             v = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dt)
             kw = dict(causal=causal, window=window, softcap=cap, q_offset=qo,
                       kv_len=kvl)
-            got = k_flash.flash_attention(q, k, v, **kw)
+            keep = keep_mask(sq, skv, causal, window, qo, kvl, dev)
+            rows = keep.any(1)
             want = ref.mha_ref(q, k, v, causal=causal, window=window,
                                softcap=cap, q_offset=qo, kv_valid_len=kvl)
-            err = (got.float() - want.float()).abs().max().item()
-            if got.dtype != dt or not err <= FLASH_TOL[dt_name]:
-                fail(f"flash_attention {label} {dt_name}: max |diff| "
-                     f"{err:.3g} > {FLASH_TOL[dt_name]} (or dtype "
-                     f"{got.dtype})")
-            worst[dt_name] = max(worst.get(dt_name, 0.0), err)
-            if dt_name == "bfloat16" and label.startswith(("prefill",
-                                                           "decode")):
+            plains = {}
+            for route in k_flash.ROUTES:
+                if not k_flash.accepts(route, dt, sq, h, hkv, hd):
+                    continue
+                got = k_flash.flash_attention(q, k, v, route=route, **kw)
+                err = row_err(got, want, rows, relative=False)
+                if got.dtype != dt or not err <= FLASH_TOL[dt_name]:
+                    fail(f"flash_attention {label} {dt_name} route {route}: "
+                         f"max |diff| {err:.3g} > {FLASH_TOL[dt_name]} (or "
+                         f"dtype {got.dtype})")
+                if route == "sm90":
+                    plains[route] = ref.mha_ref(
+                        q, k, v, causal=causal, window=window, softcap=cap,
+                        q_offset=qo, kv_valid_len=kvl, kv_chunk=SM90_CHUNK,
+                        p_dtype=torch.bfloat16)
+                else:
+                    plains[route] = want
+                rerr = row_err(got, plains[route], rows)
+                if not rerr <= FLASH_ROW_TOL[dt_name]:
+                    fail(f"flash_attention {label} {dt_name} route {route}: "
+                         f"max |diff| {rerr:.3g} of a row's max |o| > "
+                         f"{FLASH_ROW_TOL[dt_name]}")
+                if route != "simt" and not bool(rows.all()):
+                    # simt (PR 13) gives such rows the mean of the values
+                    # of the edge tiles it walks, as mha_ref's chunk scan
+                    # gives them the mean of its chunks' values
+                    if bool(got[:, ~rows].any()):
+                        fail(f"flash_attention {label} {dt_name} route "
+                             f"{route}: a row with no kept key is not 0")
+                    empty += 1
+                key = (route, dt_name)
+                worst[key] = max(worst.get(key, 0.0), err)
+                row_worst[key] = max(row_worst.get(key, 0.0), rerr)
+                runs += 1
+                if route == "split":
+                    # the kernel's own split plan, computed the plain way
+                    ns, chunk = k_flash.split_plan_for(
+                        q, k, skv if kvl is None else kvl)
+                    plain = ref.mha_split_ref(
+                        q, k, v, causal=causal, window=window, softcap=cap,
+                        q_offset=qo, kv_valid_len=kvl, num_splits=ns,
+                        chunk=chunk)
+                    err = (got.float() - plain.float()).abs().max().item()
+                    if not err <= FLASH_TOL[dt_name]:
+                        fail(f"flash_attention {label} {dt_name}: split "
+                             f"against mha_split_ref ({ns} splits of "
+                             f"{chunk}) max |diff| {err:.3g}")
+                    split_worst[dt_name] = max(split_worst.get(dt_name, 0.0),
+                                               err)
+            if dt_name == "bfloat16" and label in ("prefill global",
+                                                   "prefill local",
+                                                   "decode ring",
+                                                   "decode global"):
+                got = k_flash.flash_attention(q, k, v, **kw)
+                err = (got.float() - want.float()).abs().max().item()
                 served[label] = dict(args=(q, k, v, kw), err=err)
+                if label != "decode global":
+                    route = k_flash.route(dt, b, sq, skv, h, hkv, hd,
+                                          skv if kvl is None else kvl)
+                    controls.append(flash_controls(
+                        label, (q, k, v, kw), plains[route], keep,
+                        FLASH_ROW_TOL[dt_name]))
     # the (S, H, hd) entry point against the O(S^2) oracle
     q, k, v, _ = served["prefill local"]["args"]
     got = ops.flash_attention(q[0], k[0], v[0], causal=True, window=4096,
@@ -537,13 +706,25 @@ def check_flash_kernel(dev, gen) -> dict:
     if not err <= FLASH_TOL["bfloat16"]:
         fail(f"ops.flash_attention (S 5000, H 8, Hkv 4, hd 256, window "
              f"4096): max |diff| {err:.3g} against the O(S^2) oracle")
-    log(f"flash_attention: within {FLASH_TOL} of its plain version (float32 "
-        f"max |diff| {worst['float32']:.3g}, bfloat16 "
-        f"{worst['bfloat16']:.3g}) at the served shapes (B 2, S 5000, H 8, "
-        "Hkv 4, hd 256: prefill with window 4096 and none, softcap 50; "
-        "decode on a 4096-slot ring and a 5032-slot cache) and edge cases "
-        "(S 37 < 64, Hkv 1, hd 64/72/128, window >= S, q_offset, kv_len); "
-        "ops.flash_attention against the O(S^2) oracle")
+    log(f"flash_attention: {runs} (case, dtype, route) runs within "
+        f"{FLASH_TOL} of mha_ref and {FLASH_ROW_TOL} of a row's max |o| "
+        f"(sm90 against mha_ref in 64-key chunks with P in bf16); max |diff| "
+        "by route and dtype: "
+        + ", ".join(f"{r} {d} {e:.3g}" for (r, d), e in sorted(worst.items()))
+        + "; of a row's max |o|: "
+        + ", ".join(f"{r} {d} {e:.3g}"
+                    for (r, d), e in sorted(row_worst.items()))
+        + "; split against mha_split_ref with the kernel's plan: "
+        + ", ".join(f"{d} {e:.3g}" for d, e in sorted(split_worst.items()))
+        + f"; rows with no kept key exactly 0 in {empty} sm90/split runs"
+        + "; row-gate controls (bf16, dense plain version against the "
+        "route's): " + "; ".join(controls)
+        + "; at the served shapes (B 2, S 5000, H 8, Hkv 4, hd 256: prefill "
+        "with window 4096 and none, softcap 50; decode on a 4096-slot ring "
+        "and a 5032-slot cache) and edge cases (S 37, 129; Hkv 1, GQA 8:1; hd "
+        "64/72/128; window >= S, window emptying splits; q_offset; kv_len 1, "
+        "64, 100; splits past the causal edge; Sq 3 decode; rows with no "
+        "kept key); ops.flash_attention against the O(S^2) oracle")
     return {"flash_attention": dict(served["prefill global"], served=served)}
 
 
@@ -666,22 +847,91 @@ def rwkv_times(served: dict) -> None:
     k_rwkv.launches = saved
 
 
-def flash_times(served: dict) -> None:
-    """Device time, bound and plain time of the flash kernel at each served
-    shape (bfloat16)."""
+FLASH_SOURCES = {r: f"src/repro_torch/csrc/{f}" for r, f in (
+    ("sm90", "flash_attention_sm90.cu"), ("split", "flash_decode.cu"),
+    ("simt", "flash_attention.cu"))}
+
+
+def flash_times(served: dict, dev) -> dict:
+    """Device time, bound, plain, library and simt times of each flash
+    route at its served shapes: `sm90` at the two bfloat16 prefill layers,
+    `split` at the two decode caches (L2-cold: the call walks five distinct
+    caches in turn, as the 26 layers' caches are met in serving; and warm),
+    `simt` at the float32 prefill of phase 11 (B 1, S 5000).  Returns each
+    route's figures for the kernels line."""
+    import itertools
+    import torch
     from repro_torch.kernels import flash_attention as k_flash
-    saved = k_flash.launches
-    for label, case in served.items():
-        spec = kernel_spec("flash_attention", case["args"], None)
-        k_ms = cuda_ms(spec["kfn"], reps=11)
-        p_ms = cuda_ms(spec["pfn"], reps=5, inner=1, backlog=False)
+    saved = k_flash.launches, k_flash.route_counts()
+    routes = {}
+    for label in ("prefill global", "prefill local", "decode ring",
+                  "decode global"):
+        q, k, v, kw = served[label]["args"]
+        spec = kernel_spec("flash_attention", (q, k, v, kw), dev)
         bnd, by = bound_ms(spec["nbytes"], spec["flops"], spec["rate"])
-        log(f"phase 12 flash_attention {label}: {k_ms * 1e3:.2f} us on the "
-            f"device, bound {bnd * 1e3:.2f} us by {by} "
+        route = k_flash.route(q.dtype, *q.shape[:2], k.shape[1], q.shape[2],
+                              k.shape[2], q.shape[3], k.shape[1])
+        prep, call, what = flex_library((q, k, v, kw), dev)
+        if route == "split":
+            caches = [(k, v)] + [(torch.randn_like(k), torch.randn_like(v))
+                                 for _ in range(4)]
+            ring = itertools.cycle(caches)
+            k_ms = cuda_ms(lambda: k_flash.flash_attention(
+                q, *next(ring), **kw))
+            warm_ms = cuda_ms(spec["kfn"])
+            if prep is not None:
+                libs = itertools.cycle([prep(q, kc, vc) for kc, vc in caches])
+                l_ms = cuda_ms(lambda: call(*next(libs)))
+            temp = f"L2-cold over 5 caches ({5 * 2 * k.numel() * 2 / 1e6:.0f}"\
+                f" MB), {warm_ms * 1e3:.2f} us L2-warm"
+        else:
+            k_ms = cuda_ms(spec["kfn"], reps=11)
+            if prep is not None:
+                args_ = prep(q, k, v)
+                l_ms = cuda_ms(lambda: call(*args_), reps=11)
+            temp = "each call reads more than the L2 holds"
+        if prep is None:
+            l_ms = None
+        p_ms = cuda_ms(spec["pfn"], reps=5, inner=1, backlog=False)
+        simt_ms = cuda_ms(lambda: k_flash.flash_attention(
+            q, k, v, route="simt", **kw), reps=3, inner=3)
+        log(f"phase 12 flash_attention {label} ({route}): {k_ms * 1e3:.2f} "
+            f"us on the device ({temp}), bound {bnd * 1e3:.2f} us by {by} "
             f"({spec['flops'] / 1e9:.2f} GFLOP, {spec['nbytes'] / 1e6:.2f} "
-            f"MB; {spec['flops'] / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s), plain "
-            f"{p_ms * 1e3:.1f} us")
-    k_flash.launches = saved
+            f"MB; {spec['flops'] / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+            f"{spec['nbytes'] / (k_ms * 1e-3) / 1e12:.3f} TB/s); simt route "
+            f"{simt_ms * 1e3:.2f} us; plain {p_ms * 1e3:.1f} us; library "
+            + ("null" if l_ms is None else f"{l_ms * 1e3:.2f} us")
+            + f" ({what})")
+        if label in ("prefill global", "decode ring"):
+            routes[route] = dict(source=FLASH_SOURCES[route], shape=label,
+                                 ms=k_ms, bound_ms=bnd, library_ms=l_ms)
+    # simt's served call: the float32 prefill of phase 11
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(1, SERVE_PROMPT, 8, 256, generator=g, device=dev)
+    k = torch.randn(1, SERVE_PROMPT, 4, 256, generator=g, device=dev)
+    v = torch.randn(1, SERVE_PROMPT, 4, 256, generator=g, device=dev)
+    kw = dict(causal=True, window=None, softcap=50.0, q_offset=0, kv_len=None)
+    spec = kernel_spec("flash_attention", (q, k, v, kw), dev)
+    bnd, by = bound_ms(spec["nbytes"], spec["flops"], spec["rate"])
+    k_ms = cuda_ms(spec["kfn"], reps=3, inner=3)
+    prep, call, what = flex_library((q, k, v, kw), dev)
+    l_ms = None
+    if prep is not None:
+        args_ = prep(q, k, v)
+        l_ms = cuda_ms(lambda: call(*args_), reps=3, inner=3)
+    log(f"phase 12 flash_attention float32 prefill global B 1 (simt): "
+        f"{k_ms * 1e3:.2f} us on the device, bound {bnd * 1e3:.2f} us by {by}"
+        "; library " + ("null" if l_ms is None else f"{l_ms * 1e3:.2f} us")
+        + f" ({what}; TF32 "
+        + ("on" if torch.backends.cuda.matmul.allow_tf32 else "off") + ")")
+    routes["simt"] = dict(source=FLASH_SOURCES["simt"],
+                          shape="float32 prefill global, B 1", ms=k_ms,
+                          bound_ms=bnd, library_ms=l_ms)
+    k_flash.launches = saved[0]
+    k_flash.launches_sm90, k_flash.launches_split, k_flash.launches_simt = (
+        saved[1]["sm90"], saved[1]["split"], saved[1]["simt"])
+    return routes
 
 
 def kept_pairs(sq: int, kv_len: int, causal: bool, window, q_offset: int) -> int:
@@ -706,41 +956,77 @@ def flash_cost(args_) -> tuple[float, float]:
 
 
 def flex_library(args_, dev):
-    """torch.nn.attention's flex_attention under torch.compile, with the
-    softcap as a score_mod and the masks as a block mask: a yardstick, never
-    called by the port.  Returns (callable, max |diff| against the plain
-    version, None) or (None, None, the reason it does not run)."""
+    """The flash yardstick for one call's masks, never called by the port:
+    torch.nn.attention's flex_attention under torch.compile, with the
+    softcap as a score_mod and the masks (causal, window, q_offset, kv_len)
+    as a block mask; where it does not compile (a decode's single query
+    row), the bf16 composite softmax(cap tanh(q k^T scale / cap)) v over
+    the kv_len valid keys.  Returns (prep, call, what): prep(q, k, v) gives
+    call's arguments (layout changes, outside any timing), and call(...)
+    the output in flex's layout; what names the yardstick and its max
+    |diff| against the plain version.  (None, None, reason) if neither
+    runs."""
     import torch
     from repro_torch.kernels import ref
     q, k, v, kw = args_
+    b, sq, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    cap, window, causal = kw["softcap"], kw["window"], kw["causal"]
+    qo = kw["q_offset"]
+    kvl = skv if kw["kv_len"] is None else kw["kv_len"]
+    want = ref.mha_ref(q, k, v, causal=causal, window=window, softcap=cap,
+                       q_offset=qo, kv_valid_len=kw["kv_len"])
+
+    def diff(out):
+        return (out.transpose(1, 2).float() - want.float()).abs().max().item()
+
+    why = None
     try:
         from torch.nn.attention.flex_attention import (create_block_mask,
                                                        flex_attention)
-        cap, window = kw["softcap"], kw["window"]
 
-        def score_mod(score, b, h, q_idx, kv_idx):
+        def score_mod(score, b_, h_, q_idx, kv_idx):
             return cap * torch.tanh(score / cap)
 
-        def mask_mod(b, h, q_idx, kv_idx):
-            keep = q_idx >= kv_idx
+        def mask_mod(b_, h_, q_idx, kv_idx):
+            keep = kv_idx < kvl
+            if causal:
+                keep = keep & (kv_idx <= q_idx + qo)
             if window:
-                keep = keep & (q_idx - kv_idx < window)
+                keep = keep & (kv_idx > q_idx + qo - window)
             return keep
 
-        sq = q.shape[1]
-        mask = create_block_mask(mask_mod, None, None, sq, sq, device=dev)
+        mask = create_block_mask(mask_mod, None, None, sq, skv, device=dev)
         fa = torch.compile(flex_attention)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
-        def lib():
+        def prep(q_, k_, v_):
+            return tuple(t.transpose(1, 2).contiguous() for t in (q_, k_, v_))
+
+        def call(qt, kt, vt):
             return fa(qt, kt, vt, score_mod=score_mod, block_mask=mask,
                       enable_gqa=True)
-        out = lib().transpose(1, 2)
-        want = ref.mha_ref(q, k, v, causal=True, window=window, softcap=cap)
-        err = (out.float() - want.float()).abs().max().item()
-        return lib, err, None
+        err = diff(call(*prep(q, k, v)))
+        return prep, call, f"flex_attention under torch.compile, max |diff| "\
+            f"{err:.3g}"
     except Exception as e:      # a yardstick that does not run is reported
-        return None, None, f"{type(e).__name__}: {str(e)[:300]}"
+        why = f"flex_attention: {type(e).__name__}: {str(e)[:200]}"
+    if causal or window or sq != 1:
+        return None, None, why
+    g = h // hkv
+    scale = 1.0 / hd ** 0.5
+
+    def prep(q_, k_, v_):
+        return (q_.reshape(b, hkv, g, hd), k_[:, :kvl].permute(0, 2, 3, 1),
+                v_[:, :kvl].permute(0, 2, 1, 3))
+
+    def call(qg, kt, vt):
+        x = (qg @ kt) * scale
+        x = cap * torch.tanh(x / cap)
+        return (torch.softmax(x.float(), dim=-1).to(qg.dtype) @ vt).reshape(
+            b, h, 1, hd)
+    err = diff(call(*prep(q, k, v)))
+    return prep, call, f"composite softmax(cap tanh(q k^T scale / cap)) v in "\
+        f"bf16 (flex did not compile: {why}), max |diff| {err:.3g}"
 
 
 # ---------------------------------------------------------- phases 10-11 --
@@ -755,9 +1041,10 @@ def rel_err(got, want) -> float:
                  / want.float().abs().max())
 
 
-def serve_profile(fn, label: str, kernel: str, phase: int) -> None:
+def serve_profile(fn, label: str, parts: dict, phase: int) -> None:
     """Device time by kernel of fn() from torch.profiler's CUDA activity,
-    and the share of the CUDA kernel whose name holds `kernel`."""
+    and the share of each part: `parts` maps a label to the substrings of
+    the CUDA kernel names that make it up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -772,10 +1059,13 @@ def serve_profile(fn, label: str, kernel: str, phase: int) -> None:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
     total = sum(t for _, t, _ in rows)
-    kern = sum(t for k, t, _ in rows if kernel in k)
+    shares = []
+    for part, names in parts.items():
+        t = sum(t for k, t, _ in rows if any(n in k for n in names))
+        shares.append(f"{part} {t / 1e3:.1f} ms "
+                      f"({100 * t / max(total, 1e-9):.1f}%)")
     log(f"phase {phase} {label} device time {total / 1e3:.1f} ms, of which "
-        f"the {kernel} kernel {kern / 1e3:.1f} ms "
-        f"({100 * kern / max(total, 1e-9):.1f}%), torch.profiler; top: "
+        + ", ".join(shares) + ", torch.profiler; top: "
         + "; ".join(f"{k[:50]} {t / 1e3:.1f} ms x{n}" for k, t, n in rows[:8]))
 
 
@@ -796,6 +1086,17 @@ SERVED = {"gemma2-2b": ("flash_attention", "mha", "mha_ref", None,
                         (10, 11)),
           "rwkv6-3b": ("rwkv6_scan", "wkv", "wkv_inplace_ref",
                        wkv_sequential_inplace, (13, 14))}
+# The CUDA kernels of each arch's kernel module, by the substrings of
+# their names in a profile: flash attention's three routes.
+PROFILE_PARTS = {
+    "gemma2-2b": {"flash sm90": ("flash_sm90_kernel",),
+                  "flash split": ("flash_decode_kernel",
+                                  "flash_decode_combine"),
+                  "flash simt": ("flash_attention_kernel",)},
+    "rwkv6-3b": {"rwkv6_scan": ("rwkv6_scan",)}}
+# The routes a served bf16 run of gemma2-2b must take: every prefill
+# layer on sm90, every decode call on split.
+SERVE_ROUTES = {"sm90": 1, "split": SERVE_GEN - 1, "simt": 0}
 
 
 def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
@@ -807,7 +1108,8 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
     from unittest import mock
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.launch import serve
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.launch import host_time, serve
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import LM, init_params
 
@@ -833,6 +1135,14 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
             any(n for k, n in counts.items() if k != kname):
         fail(f"serve {arch}: launches {counts}, want {kname} = "
              f"{cfg.num_layers} + {cfg.num_layers} x {g - 1} = {want}")
+    routes = ""
+    if kname == "flash_attention":
+        got = k_flash.route_counts()
+        want_r = {r: cfg.num_layers * n for r, n in SERVE_ROUTES.items()}
+        if got != want_r:
+            fail(f"serve {arch}: flash routes {got}, want {want_r} (every "
+                 "prefill layer on sm90, every decode call on split)")
+        routes = f" (routes {got}: prefill on sm90, decode on split)"
     toks = run["tokens"]
     if tuple(toks.shape) != (b, g) or int(toks.min()) < 0 \
             or int(toks.max()) >= cfg.vocab_size:
@@ -845,7 +1155,16 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
         f"{g - 1} steps in {run['decode_s']:.3f} s ({decode_tps:.1f} "
         f"tokens/s, {1e3 * run['decode_s'] / (g - 1):.2f} ms a step), "
         f"{kname} launches {counts[kname]} = "
-        f"{cfg.num_layers} + {cfg.num_layers} x {g - 1}; card {card}")
+        f"{cfg.num_layers} + {cfg.num_layers} x {g - 1}{routes}; card {card}")
+    if kname == "flash_attention":
+        ht = host_time.measure(model, prompts, reps=10)
+        log(f"phase {ph} {arch} decode step: {ht['step_host_ms']:.2f} ms of "
+            f"host time (every launch queued) of {ht['step_wall_ms']:.2f} ms "
+            f"wall, median of 10 steps; ops.mha {ht['mha_ring_host_us']:.1f} "
+            f"us of host time a call on the ring, "
+            f"{ht['mha_global_host_us']:.1f} on the global cache "
+            f"({cfg.num_layers // 2} calls of each a step; "
+            "repro_torch/launch/host_time.py)")
 
     prefill = make_prefill_step(cfg, s_max=p + g)
     decode = make_decode_step(cfg)
@@ -894,10 +1213,10 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
         f"{tol:.3g}{noise}; the greedy run's tokens equal the plain run's "
         f"at {100 * agree:.1f}% of positions: PASS")
     serve_profile(lambda: (prefill(model, prompts), sync(dev)),
-                  f"prefill (B {b}, S {p})", kname, ph)
+                  f"prefill (B {b}, S {p})", PROFILE_PARTS[arch], ph)
     serve_profile(lambda: ([decode(model, cache, plain_toks[i], p + i)
                             for i in range(g - 4, g - 1)], sync(dev)),
-                  "3 decode steps", kname, ph)
+                  "3 decode steps", PROFILE_PARTS[arch], ph)
     del cache
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -909,6 +1228,11 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
     if ops.launch_counts()[kname] != cfg.num_layers:
         fail(f"serve {arch} float32: the prefill did not launch the kernel "
              "once a layer")
+    if kname == "flash_attention" and \
+            k_flash.route_counts()["simt"] != cfg.num_layers:
+        fail(f"serve {arch} float32: routes {k_flash.route_counts()}, want "
+             f"simt {cfg.num_layers} (float32 prefill stays on the CUDA "
+             "cores)")
     with mock.patch.object(ops, op, plain):
         lp, _ = prefill32(model32, prompts[:1])
     e32 = rel_err(lk, lp)
@@ -1272,7 +1596,7 @@ def kernel_spec(name: str, args_, dev) -> dict:
             softcap=kw["softcap"], q_offset=kw["q_offset"],
             kv_valid_len=kw["kv_len"])
         lib = None                  # flex_library, timed by the caller
-        src = "flash_attention.cu"
+        src = "flash_attention_sm90.cu"     # the route of the main shape
         rep = "src/repro/kernels/flash_attention.py:96"
     elif name == "rwkv6_scan":
         r, k, v, w, u, s0 = args_
@@ -1324,7 +1648,7 @@ LIBRARY_CALLS = {
                           "cuBLAS matvecs",
     "lstsq_grad": "composite: 2 * (x.T @ (x @ w - y)) on the valid rows",
     "flash_attention": "flex_attention under torch.compile, softcap as "
-                       "score_mod, causal mask as a block mask",
+                       "score_mod, the masks as a block mask",
     "rwkv6_scan": "composite: the chunked form wkv_chunked_ref (einsums and "
                   "a loop over 128-token chunks); no one PyTorch call "
                   "computes the recurrence",
@@ -1504,7 +1828,8 @@ def l21_phases(problem, problem_cpu, v0, key, offs, dev) -> dict:
         f"{time.perf_counter() - t0:.3f} s of wall time, profiled next")
     serve_profile(lambda: (fista_solve(l21p, z, ETA, FISTA_CPU_ITERS,
                                        device=dev), sync(dev)),
-                  f"FISTA ({FISTA_CPU_ITERS} iterations)", "l21_", 19)
+                  f"FISTA ({FISTA_CPU_ITERS} iterations)",
+                  {"the l21_prox kernel": ("l21_",)}, 19)
     return dn["counts"]
 
 
@@ -1737,14 +2062,7 @@ def main() -> None:
         p_ms = cuda_ms(spec["pfn"], reps=3 if slow else 21,
                        warmup=1 if slow else 3, inner=1, backlog=False)
         if name == "flash_attention":
-            lib_fn, lib_err, why = flex_library(info[name]["args"], dev)
-            if lib_fn is None:
-                log(f"phase 12 flash_attention library: null ({why})")
-            else:
-                log(f"phase 12 flash_attention library: flex_attention "
-                    f"compiled, max |diff| {lib_err:.3g} against the plain "
-                    "version")
-            l_ms = cuda_ms(lib_fn) if lib_fn is not None else None
+            l_ms = None     # flash_times times it with each route, below
         else:
             l_ms = cuda_ms(spec["lib"]) if spec["lib"] is not None else None
         kern.launches = saved           # timing launches are not the path's
@@ -1763,7 +2081,9 @@ def main() -> None:
                f"{l_ms * 1e3:.2f} us ({LIBRARY_CALLS[name]})")
             + f", {launches[name]} launches on the "
             f"{where.get(name, 'batch session')}")
-    flash_times(info["flash_attention"]["served"])
+    flash = kernels[[k["name"] for k in kernels].index("flash_attention")]
+    flash["routes"] = flash_times(info["flash_attention"]["served"], dev)
+    flash["library_ms"] = flash["routes"]["sm90"]["library_ms"]
     rwkv_times(info["rwkv6_scan"]["served"])
     l21_km_times(info)
 

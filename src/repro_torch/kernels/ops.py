@@ -7,7 +7,8 @@ a CUDA tensor reaches its kernel or an exception.
 
 Each kernel module keeps an integer `launches`, raised by one at each
 launch; `launch_counts` reads them and `reset_launch_counts` zeroes them,
-so a run can show which kernels its path went through.
+so a run can show which kernels its path went through.  Flash attention
+also counts each of its three routes (`flash_attention.route_counts`).
 """
 from __future__ import annotations
 
@@ -58,6 +59,7 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
+    _flash_attention.reset_route_counts()
 
 
 def km_update(v: torch.Tensor, p: torch.Tensor, g: torch.Tensor, eta: float,
@@ -169,7 +171,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     """The model's attention: q (B, Sq, H, hd), k, v (B, Skv, Hkv, hd) ->
     (B, Sq, H, hd), with a query offset and a valid key count (host ints).
     `kv_chunk` is the plain version's chunk of keys (the order of its sums);
-    the kernel walks 64-key tiles whatever it is."""
+    on the card `flash_attention.route` picks the kernel, whatever it is."""
     if _on_cuda("flash_attention", q):
         return _flash_attention.flash_attention(
             q, k, v, causal=causal, window=window, softcap=softcap,

@@ -25,6 +25,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.kernels import flash_attention
+
 Tensor = torch.Tensor
 
 _M32 = 0xFFFFFFFF
@@ -388,7 +390,8 @@ def sliding_flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
 def mha_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
             window: int | None = None, softcap: float | None = None,
             q_offset: int = 0, kv_valid_len: int | None = None,
-            kv_chunk: int = 1024) -> Tensor:
+            kv_chunk: int = 1024, p_dtype: torch.dtype | None = None
+            ) -> Tensor:
     """Online-softmax attention over kv chunks (the reference model's `mha`).
 
     q: (B, Sq, H, hd); k, v: (B, Skv, Hkv, hd); query head h reads kv head
@@ -396,7 +399,10 @@ def mha_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     kept iff j < kv_valid_len (default Skv), and (not causal or j <= i),
     and (no window or j > i - window).  Masked logits are NEG_INF; the
     running (m, l, acc) are float32, and the output is acc / max(l, 1e-30)
-    in q's dtype.
+    in q's dtype.  `p_dtype` (default None: float32) rounds each chunk's
+    p to that dtype before the P V product, l still summing the float32 p:
+    with kv_chunk 64 and bfloat16 that is the order and the rounding of the
+    tensor-core route (csrc/flash_attention_sm90.cu), for chip_smoke.py.
     """
     b, sq, h, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -436,10 +442,83 @@ def mha_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
         p = torch.exp(logits - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
+        if p_dtype is not None:
+            p = p.to(p_dtype).float()
         acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p,
                                                    v_c)
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+    return out.to(q.dtype)
+
+
+def mha_split_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                  window: int | None = None, softcap: float | None = None,
+                  q_offset: int = 0, kv_valid_len: int | None = None,
+                  num_splits: int, chunk: int | None = None) -> Tensor:
+    """`mha_ref`'s function computed as the split route computes it
+    (csrc/flash_decode.cu): split s takes the keys [s * chunk, min((s + 1)
+    * chunk, kv_valid_len)) (chunk default ceil(Skv / num_splits), so
+    splits past kv_valid_len are empty) and gives its (m_s, l_s, acc_s) in
+    float32, a masked key weighing 0, a split with no kept key m_s = -1e30,
+    l_s = 0, acc_s = 0; the splits are then merged in order: M = max m_s,
+    L = sum l_s exp(m_s - M), o = sum acc_s exp(m_s - M) / max(L, 1e-30),
+    the acc sum in the combine kernel's order (flash_attention.SPLIT_RUNS
+    interleaved runs over the splits, each in order, then the runs in
+    order; L is summed in split order, the kernel's tree order being a
+    rounding apart).  A row
+    with no kept key at all gives 0.  For tests and chip_smoke.py; the
+    port's main path never calls it."""
+    b, sq, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    dev = q.device
+    valid = skv if kv_valid_len is None else int(kv_valid_len)
+    chunk = -(-skv // num_splits) if chunk is None else int(chunk)
+    if num_splits < 1 or num_splits * chunk < valid:
+        raise ValueError(f"mha_split_ref: {num_splits} splits of {chunk} "
+                         f"keys do not cover kv_valid_len {valid}")
+    qg = q.reshape(b, sq, hkv, g, hd).float()
+    scale = (1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))).to(dev)
+    q_pos = int(q_offset) + torch.arange(sq, device=dev)
+    parts = []
+    for s in range(num_splits):
+        lo, hi = s * chunk, min((s + 1) * chunk, valid)
+        m_s = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32,
+                         device=dev)
+        l_s = torch.zeros_like(m_s)
+        acc_s = torch.zeros((b, hkv, g, sq, hd), dtype=torch.float32,
+                            device=dev)
+        if hi > lo:
+            k_c, v_c = k[:, lo:hi].float(), v[:, lo:hi].float()
+            kv_pos = lo + torch.arange(hi - lo, device=dev)
+            logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_c) * scale
+            if softcap is not None:
+                logits = softcap * torch.tanh(logits / softcap)
+            mask = torch.ones((sq, hi - lo), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= kv_pos[None, :] <= q_pos[:, None]
+            if window is not None:
+                mask &= kv_pos[None, :] > q_pos[:, None] - window
+            logits = torch.where(mask, logits,
+                                 torch.tensor(NEG_INF, device=dev))
+            m_s = logits.amax(dim=-1)
+            p = torch.where(mask, torch.exp(logits - m_s[..., None]), 0.0)
+            l_s = p.sum(dim=-1)
+            acc_s = torch.einsum("bhgqk,bkhd->bhgqd", p, v_c)
+        parts.append((m_s, l_s, acc_s))
+    big = torch.stack([m_s for m_s, _, _ in parts]).amax(dim=0)
+    den = torch.zeros_like(big)
+    n_runs = flash_attention.SPLIT_RUNS
+    runs = [torch.zeros_like(parts[0][2]) for _ in range(n_runs)]
+    for s, (m_s, l_s, acc_s) in enumerate(parts):
+        w = torch.exp(m_s - big)
+        den = den + l_s * w
+        runs[s % n_runs] = runs[s % n_runs] + acc_s * w[..., None]
+    acc = runs[0]
+    for run in runs[1:]:
+        acc = acc + run
+    out = acc / torch.clamp_min(den, 1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
     return out.to(q.dtype)
 

@@ -206,6 +206,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.zeros(1, 4, 2, 8)
     with pytest.raises(ValueError, match="CUDA"):
         k_flash.flash_attention(q, q, q, causal=True)
+    for route in k_flash.ROUTES:        # a forced route is no way round it
+        with pytest.raises(ValueError, match="CUDA"):
+            k_flash.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(),
+                                    causal=True, route=route)
     r = torch.zeros(1, 4, 2, 32)
     with pytest.raises(ValueError, match="CUDA"):
         k_rwkv.wkv(r, r, r, r, torch.zeros(2, 32), torch.zeros(1, 2, 32, 32))
@@ -224,8 +228,8 @@ def test_kernel_library_is_named_by_its_sources():
     assert {p.name for p in _build.sources()} == {
         "amtl_event.cu", "amtl_event_batch.cu", "gauss_sketch.cu",
         "svt_reconstruct.cu", "lstsq_grad.cu", "lstsq_grad_sampled.cu",
-        "flash_attention.cu", "rwkv6_scan.cu", "km_update.cu",
-        "l21_prox.cu"}
+        "flash_attention.cu", "flash_attention_sm90.cu", "flash_decode.cu",
+        "rwkv6_scan.cu", "km_update.cu", "l21_prox.cu"}
     assert {p.name for p in _build.headers()} == {
         "counter_hash.cuh", "lstsq_grad_body.cuh"}
     assert path.name.startswith("librepro_torch_kernels-")
