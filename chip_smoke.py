@@ -17,7 +17,8 @@ l2,1 (joint feature learning) formulation (dense sessions with the
 km_update and l21_prox kernels, dense == delta bitwise, a batch l2,1
 session, FISTA's reference optimum) — holds the card's runs against the
 port's own CPU runs or plain-kernel runs of the same states, and times
-each kernel.  Any failed
+each kernel (the prox's two kernels L2-cold too, and one prox refresh by
+part, with the calls that synchronize the host).  Any failed
 phase exits non-zero.  The last three lines of standard output are the
 kernel table as JSON, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
@@ -214,8 +215,6 @@ def check_kernels(dev, gen) -> dict:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import amtl_event as k_event
     from repro_torch.kernels import amtl_event_batch as k_batch
-    from repro_torch.kernels import gauss_sketch as k_sketch
-    from repro_torch.kernels import svt_reconstruct as k_recon
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -270,46 +269,114 @@ def check_kernels(dev, gen) -> dict:
     log("amtl_event_batch: bitwise against its plain version (main shape, "
         "duplicates, sentinel id, eta_k=0, d=1000)")
 
-    # gauss_sketch: main shape (p = rank + 8), ragged edge with an offset
+    info.update(check_sketch_recon(dev, gen))
+    info.update(check_sgd_kernels(dev, gen))
+    info.update(check_l21_km_kernels(dev, gen))
+    info.update(check_flash_kernel(dev, gen))
+    info.update(check_rwkv_kernel(dev, gen))
+    ops.reset_launch_counts()
+    return info
+
+
+# The sketch's and the reconstruction's edge shapes: every (d, t, p) and
+# (d, p, m) of these, besides the main shape.  A p past 256 and an m past
+# one block's columns take the kernels' chunked paths.
+EDGE_D, EDGE_T, EDGE_P = (1, 1000, 8193), (1, 100, 300, 4096), (1, 7, 257)
+
+
+def wrap_offset(t: int, p: int) -> int:
+    """A row_offset whose counters (row_offset + r) * p + c cross 2^32
+    inside the t rows."""
+    return 2**32 // p - t // 2
+
+
+def check_sketch_recon(dev, gen) -> dict:
+    """gauss_sketch and svt_reconstruct against their plain versions at the
+    main shape and every edge shape, and two launches bitwise equal."""
+    import itertools
+    import torch
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import gauss_sketch as k_sketch
+    from repro_torch.kernels import svt_reconstruct as k_recon
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def same_bits(a, b) -> bool:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    info = {}
+    sms = _build.sm_count(dev)
     p_main = min(RANK + 8, min(D, T))
-    for d, tt, p, off in ((D, T, p_main, 0), (1000, 100, 7, 5)):
-        w = randn(d, tt)
+    # (d, t, p, row_offset, W 4 bytes past a 16-byte boundary): the main
+    # shape; two that reach the plan's other instances, 3 rows a lane and 6
+    # rows a lane over 16 chunks of T; T % 4 != 0 over two and 33 chunks
+    # (W by 4-byte copies); and a misaligned W (4-byte copies at T % 4 ==
+    # 0), at the main shape and past one chunk of T and of p
+    cases = [(D, T, p_main, 0, False), (D, T, 13, 5, False),
+             (8193, 4096, p_main, wrap_offset(4096, p_main), False),
+             (1000, 130, p_main, 5, False),
+             (8193, 4097, 7, wrap_offset(4097, 7), False),
+             (D, T, p_main, 5, True), (1000, 300, 257, 5, True)]
+    for i, (d, tt, p) in enumerate(itertools.product(EDGE_D, EDGE_T,
+                                                     EDGE_P)):
+        wraps = tt * p > 1 and i % 2 == 0
+        cases.append((d, tt, p, wrap_offset(tt, p) if wraps else 5, False))
+    for d, tt, p, off, shifted in cases:
+        if shifted:
+            w = randn(d * tt + 1)[1:].view(d, tt)
+            if w.data_ptr() % 16 == 0:
+                fail("gauss_sketch: the shifted W is 16-byte aligned")
+        else:
+            w = randn(d, tt)
         seed = int(torch.randint(0, 2**31, (1,), generator=gen,
                                  device=dev).item())
         k = k_sketch.gauss_sketch(w, seed, off, p)
+        again = k_sketch.gauss_sketch(w, seed, off, p)
         r = ref.gauss_sketch_ref(w, seed, off, p)
         scale = (w.abs() @ ref.gauss_omega_ref(tt, p, seed, off, dev).abs())
         err = (k - r).abs()
         if not bool((err <= SKETCH_RTOL * scale).all()):
-            fail(f"gauss_sketch d={d} t={tt} p={p}: max |diff| "
-                 f"{err.max().item():.3g} > {SKETCH_RTOL} * sum|w||omega|")
-        if d == D:
+            fail(f"gauss_sketch d={d} t={tt} p={p} row_offset {off} "
+                 f"shifted {shifted}: max |diff| {err.max().item():.3g} > "
+                 f"{SKETCH_RTOL} * sum|w||omega|")
+        if not same_bits(k, again):
+            fail(f"gauss_sketch d={d} t={tt} p={p} shifted {shifted}: two "
+                 "launches differ")
+        if (d, tt, p, off, shifted) == (D, T, p_main, 0, False):
             info["gauss_sketch"] = dict(args=(w, seed, 0, p),
                                         err=err.max().item())
     log(f"gauss_sketch: within {SKETCH_RTOL} x sum|w||omega| of its plain "
-        f"version (d=8192 p={p_main}, d=1000 t=100 p=7 offset 5)")
+        f"version and two launches bitwise equal at d=8192 t=128 p={p_main} "
+        f"(plan {k_sketch.plan(D, T, p_main, sms)}), d=8192 t=128 p=13, "
+        f"d=8193 t=4096 p={p_main}, d=1000 t=130 p={p_main}, d=8193 t=4097 "
+        f"p=7, W 4 bytes off 16-byte alignment at d=8192 t=128 p={p_main} "
+        f"and d=1000 t=300 p=257, and every d in {EDGE_D}, t in {EDGE_T}, "
+        f"p in {EDGE_P} (row_offset 5, or one whose counters wrap past "
+        "2^32)")
 
-    for d, p, m in ((D, p_main, T), (1000, 7, 100)):
+    cases = [(D, p_main, T)] + list(itertools.product(EDGE_D, EDGE_P, EDGE_T))
+    for d, p, m in cases:
         qu, vt = randn(d, p), randn(p, m)
         s = torch.rand(p, generator=gen, device=dev) * 3.0
-        s[1] = 0.0
+        s[min(1, p - 1)] = 0.0
         k = k_recon.svt_reconstruct(qu, s, vt)
+        again = k_recon.svt_reconstruct(qu, s, vt)
         r = ref.svt_reconstruct_ref(qu, s, vt)
         scale = (qu.abs() * s) @ vt.abs()
         err = (k - r).abs()
         if not bool((err <= RECON_RTOL * scale + 1e-30).all()):
             fail(f"svt_reconstruct d={d} p={p} m={m}: max |diff| "
                  f"{err.max().item():.3g} > {RECON_RTOL} * sum|qu s||vt|")
-        if d == D:
+        if not same_bits(k, again):
+            fail(f"svt_reconstruct d={d} p={p} m={m}: two launches differ")
+        if (d, m) == (D, T):
             info["svt_reconstruct"] = dict(args=(qu, s, vt),
                                            err=err.max().item())
     log(f"svt_reconstruct: within {RECON_RTOL} x sum|qu s||vt| of its "
-        f"plain version (d=8192 p={p_main} m=128, d=1000 p=7 m=100)")
-    info.update(check_sgd_kernels(dev, gen))
-    info.update(check_l21_km_kernels(dev, gen))
-    info.update(check_flash_kernel(dev, gen))
-    info.update(check_rwkv_kernel(dev, gen))
-    ops.reset_launch_counts()
+        f"plain version and two launches bitwise equal at d=8192 "
+        f"p={p_main} m=128 (plan {k_recon.plan(D, p_main, T, sms)}) and every d "
+        f"in {EDGE_D}, p in {EDGE_P}, m in {EDGE_T}")
     return info
 
 
@@ -655,10 +722,7 @@ def check_flash_kernel(dev, gen) -> dict:
                     fail(f"flash_attention {label} {dt_name} route {route}: "
                          f"max |diff| {rerr:.3g} of a row's max |o| > "
                          f"{FLASH_ROW_TOL[dt_name]}")
-                if route != "simt" and not bool(rows.all()):
-                    # simt (PR 13) gives such rows the mean of the values
-                    # of the edge tiles it walks, as mha_ref's chunk scan
-                    # gives them the mean of its chunks' values
+                if not bool(rows.all()):
                     if bool(got[:, ~rows].any()):
                         fail(f"flash_attention {label} {dt_name} route "
                              f"{route}: a row with no kept key is not 0")
@@ -716,7 +780,7 @@ def check_flash_kernel(dev, gen) -> dict:
                     for (r, d), e in sorted(row_worst.items()))
         + "; split against mha_split_ref with the kernel's plan: "
         + ", ".join(f"{d} {e:.3g}" for d, e in sorted(split_worst.items()))
-        + f"; rows with no kept key exactly 0 in {empty} sm90/split runs"
+        + f"; rows with no kept key exactly 0 in {empty} runs of every route"
         + "; row-gate controls (bf16, dense plain version against the "
         "route's): " + "; ".join(controls)
         + "; at the served shapes (B 2, S 5000, H 8, Hkv 4, hd 256: prefill "
@@ -1659,6 +1723,159 @@ LIBRARY_CALLS = {
 }
 
 
+# L2-cold timing of the prox's two kernels: each call takes the next of
+# COLD_INPUTS distinct main-shape inputs (13 x 4 MB > the H100's 50 MB L2),
+# as the batch cell's refreshes each meet a new iterate.
+COLD_INPUTS = 13
+
+
+def sketch_recon_cold(name: str, args_, dev) -> dict:
+    """L2-cold device time of gauss_sketch or svt_reconstruct and of its
+    library call at the main shape, and the kernel's launch plan.  Each
+    call walks COLD_INPUTS distinct inputs in turn; svt_reconstruct's calls
+    also write distinct outputs (the last COLD_INPUTS are kept alive, so
+    the allocator hands each call a buffer written 13 calls before)."""
+    import collections
+    import itertools
+    import torch
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import gauss_sketch as k_sketch
+    from repro_torch.kernels import svt_reconstruct as k_recon
+    if name == "gauss_sketch":
+        w, seed, off, p = args_
+        ws = [w] + [torch.randn_like(w) for _ in range(COLD_INPUTS - 1)]
+        omega = ref.gauss_omega_ref(w.shape[1], p, seed, off, dev)
+        ring, lib_ring = itertools.cycle(ws), itertools.cycle(ws)
+        kfn = lambda: k_sketch.gauss_sketch(next(ring), seed, off, p)
+        lfn = lambda: torch.matmul(next(lib_ring), omega)
+        pl = dict(k_sketch.plan(*w.shape, p, _build.sm_count(dev))._asdict(),
+                  cols=k_sketch.COLS)
+    else:
+        qu, s, vt = args_
+        qus = [qu] + [torch.randn_like(qu) for _ in range(COLD_INPUTS - 1)]
+        ring, lib_ring = itertools.cycle(qus), itertools.cycle(qus)
+        outs = collections.deque(maxlen=COLD_INPUTS)
+        kfn = lambda: outs.append(k_recon.svt_reconstruct(next(ring), s, vt))
+        lfn = lambda: outs.append((next(lib_ring) * s) @ vt)
+        pl = dict(k_recon.plan(*qu.shape, vt.shape[1],
+                               _build.sm_count(dev))._asdict(),
+                  cols=k_recon.COL_TILE)
+    saved = k_sketch.launches, k_recon.launches
+    cold = dict(l2_cold_ms=cuda_ms(kfn), library_l2_cold_ms=cuda_ms(lfn),
+                plan=dict(pl, threads=256))
+    k_sketch.launches, k_recon.launches = saved  # not the path's launches
+    return cold
+
+
+# The profiler's device timestamps can lag its host clock by hundreds of
+# microseconds, so the parts are told apart on the device's own timeline:
+# each part runs as one burst, PART_GAP_S after the last.
+PART_GAP_S = 0.05
+
+
+def profile_parts(parts: dict, inputs: list) -> dict:
+    """{part: (device ms a call, device events a call)} from one
+    torch.profiler session in which each part makes one pass over
+    `inputs`, ended by a synchronize and PART_GAP_S of idle device.  The
+    device events (kernels, copies) fall into one burst a part, split at
+    the idle gaps; fails unless there is exactly one burst a part."""
+    import time
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PART_GAP_S)
+        for fn in parts.values():
+            for x in inputs:
+                fn(x)
+            torch.cuda.synchronize()
+            time.sleep(PART_GAP_S)
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
+                 key=lambda e: e.time_range.start)
+    bursts = []
+    for e in evs:
+        if not bursts or e.time_range.start - bursts[-1][-1].time_range.end \
+                > PART_GAP_S * 1e6 / 5:
+            bursts.append([])
+        bursts[-1].append(e)
+    if len(bursts) != len(parts):
+        fail(f"prox refresh: the profiler recorded {len(bursts)} bursts of "
+             f"device events, want one for each of the {len(parts)} parts")
+    return {name: (sum(e.time_range.elapsed_us() for e in b)
+                   / len(inputs) / 1e3, len(b) / len(inputs))
+            for name, b in zip(parts, bursts)}
+
+
+def prox_refresh_breakdown(dev, seed: int) -> dict:
+    """One randomized-SVT refresh (`prox.svt_randomized`) at the batch
+    cell's shape (d 8192, T 128, rank 16, p 24), L2-cold: each call takes
+    the next of COLD_INPUTS distinct iterates.  For the whole refresh and
+    each of its parts: the stream time a call (CUDA events behind the
+    device sleep, as the kernels are timed: the device time of a part that
+    does not synchronize the host; one that does pays its host time there
+    too), the parts that synchronize the host, from
+    torch.cuda.set_sync_debug_mode("warn") around one call of each, and
+    the device time a call from torch.profiler (`profile_parts`)."""
+    import itertools
+    import warnings
+    import torch
+    from repro_torch.core import prng, prox
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import gauss_sketch as k_sketch
+    from repro_torch.kernels import svt_reconstruct as k_recon
+    saved = k_sketch.launches, k_recon.launches
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    key = prng.key_from_seed(seed)
+    sd = prox._sketch_seed(key)
+    p = prox.sketch_width(RANK, D, T)
+    thresh = ETA * LAM
+    inputs = []
+    for _ in range(COLD_INPUTS):
+        w = torch.randn(D, T, generator=g, device=dev)
+        y = ops.gauss_sketch(w, sd, 0, p)
+        q, _ = torch.linalg.qr(y)
+        b = q.T @ w
+        ub, sv, vt = torch.linalg.svd(b, full_matrices=False)
+        sv = torch.clamp(sv - thresh, min=0.0).contiguous()
+        inputs.append(dict(w=w, y=y, q=q, b=b, ub=ub, s=sv,
+                           vt=vt.contiguous(), qub=(q @ ub).contiguous()))
+    parts = {
+        "refresh": lambda x: prox.svt_randomized(x["w"], thresh, rank=RANK,
+                                                 key=key),
+        "gauss_sketch": lambda x: ops.gauss_sketch(x["w"], sd, 0, p),
+        "qr": lambda x: torch.linalg.qr(x["y"]),
+        "q.T @ w": lambda x: x["q"].T @ x["w"],
+        "svd (24, 128)": lambda x: torch.linalg.svd(x["b"],
+                                                    full_matrices=False),
+        "q @ ub": lambda x: x["q"] @ x["ub"],
+        "svt_reconstruct": lambda x: ops.svt_reconstruct(x["qub"], x["s"],
+                                                         x["vt"]),
+    }
+    out = {}
+    for name, fn in parts.items():
+        ring = itertools.cycle(inputs)
+        stream_ms = cuda_ms(lambda: fn(next(ring)), reps=11)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn(inputs[0])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(c.message) for c in caught)
+        out[name] = dict(stream_ms=stream_ms, host_syncs=syncs)
+
+    for name, (device_ms, events) in profile_parts(parts, inputs).items():
+        out[name].update(device_ms=device_ms, device_events=events)
+    k_sketch.launches, k_recon.launches = saved
+    return out
+
+
 def expect_launches(label: str, counts: dict, want: dict) -> None:
     """Fail unless each kernel launched exactly want.get(kernel, 0) times."""
     if any(n != want.get(k, 0) for k, n in counts.items()):
@@ -2081,11 +2298,30 @@ def main() -> None:
                f"{l_ms * 1e3:.2f} us ({LIBRARY_CALLS[name]})")
             + f", {launches[name]} launches on the "
             f"{where.get(name, 'batch session')}")
+        if name in ("gauss_sketch", "svt_reconstruct"):
+            cold = sketch_recon_cold(name, info[name]["args"], dev)
+            kernels[-1].update(cold)
+            log(f"phase 12 {name} L2-cold ({COLD_INPUTS} distinct inputs in "
+                f"turn): {cold['l2_cold_ms'] * 1e3:.2f} us on the device, "
+                f"library {cold['library_l2_cold_ms'] * 1e3:.2f} us; "
+                f"L2-warm {k_ms * 1e3:.2f} us, library {l_ms * 1e3:.2f} us; "
+                f"plan {cold['plan']}")
     flash = kernels[[k["name"] for k in kernels].index("flash_attention")]
     flash["routes"] = flash_times(info["flash_attention"]["served"], dev)
     flash["library_ms"] = flash["routes"]["sm90"]["library_ms"]
     rwkv_times(info["rwkv6_scan"]["served"])
     l21_km_times(info)
+    parts = prox_refresh_breakdown(dev, args.seed)
+    log(f"phase 12 prox refresh (svt_randomized, d {D}, T {T}, rank {RANK}, "
+        f"p {RANK + 8}), L2-cold over {COLD_INPUTS} iterates: "
+        + "; ".join(f"{k} {v['stream_ms'] * 1e3:.2f} us stream, "
+                    f"{v['device_ms'] * 1e3:.2f} us in "
+                    f"{v['device_events']:.1f} profiled device events, "
+                    f"{v['host_syncs']} host syncs"
+                    for k, v in parts.items())
+        + "; synchronizing the host: "
+        + (", ".join(k for k, v in parts.items() if v["host_syncs"]) or "none"))
+    log("prox_refresh " + json.dumps(parts))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

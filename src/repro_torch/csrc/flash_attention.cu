@@ -229,12 +229,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = ty * 4 + i;
     const int row = q0 + r;
     if (row >= sq) continue;
+    // a row whose running max is still the mask value kept no key: 0
+    const bool kept = m_s[r] != NEG_INF;
     const float den = fmaxf(l_s[r], 1e-30f);
     T* dst = ob + ((int64_t)row * h + head) * hd;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int col = tx + 16 * j;
-      if (col < hd) store(dst + col, acc[i][j] / den);
+      if (col < hd) store(dst + col, kept ? acc[i][j] / den : 0.0f);
     }
   }
 }

@@ -16,6 +16,7 @@ too much shared memory, no kernel image for the card) is never silent.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -123,6 +124,19 @@ def check(err: int, kernel: str) -> None:
 def stream(device: torch.device) -> int:
     """The raw handle of PyTorch's current stream on `device`."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of the card `device`, which the launch plans
+    size their grids by."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return _sm_count(index)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def require_cuda(name: str, **tensors: torch.Tensor) -> torch.device:

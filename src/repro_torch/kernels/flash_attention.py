@@ -50,7 +50,6 @@ _SM90_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
 _SPLIT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
     + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_float] \
     + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-_sm_counts: dict[int, int] = {}
 
 
 def softmax_scale(hd: int) -> float:
@@ -112,16 +111,7 @@ def split_plan_for(q: torch.Tensor, k: torch.Tensor,
     hd) and k (B, Skv, Hkv, hd) with `kv_len` valid keys, on q's card."""
     b, sq, h, _ = q.shape
     return split_plan(kv_len, split_groups(b, sq, h, k.shape[2]),
-                      _sm_count(q.device))
-
-
-def _sm_count(dev: torch.device) -> int:
-    index = dev.index if dev.index is not None else \
-        torch.cuda.current_device()
-    if index not in _sm_counts:
-        _sm_counts[index] = \
-            torch.cuda.get_device_properties(index).multi_processor_count
-    return _sm_counts[index]
+                      _build.sm_count(q.device))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
