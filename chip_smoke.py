@@ -11,11 +11,11 @@ published by a TaskStore (batch, delta and logistic sessions, a store
 append between two chunks), gemma2-2b serving (prefill and greedy
 decode through `repro_torch.launch.serve`, every bf16 prefill attention
 call in the tensor-core flash kernel and every decode call in the split-KV
-kernel) and rwkv6-3b serving (every WKV recurrence of
-prefill and decode in the rwkv6_scan kernel), the dense engine and the
-l2,1 (joint feature learning) formulation (dense sessions with the
-km_update and l21_prox kernels, dense == delta bitwise, a batch l2,1
-session, FISTA's reference optimum) — holds the card's runs against the
+kernel) and rwkv6-3b serving (every bf16 prefill WKV in the chunked
+tensor-core kernel and every decode WKV in the recurrent one), the dense
+engine and the l2,1 (joint feature learning) formulation (dense sessions
+with the km_update and l21_prox kernels, dense == delta bitwise, a batch
+l2,1 session, FISTA's reference optimum) — holds the card's runs against the
 port's own CPU runs or plain-kernel runs of the same states, and times
 each kernel (the prox's two kernels L2-cold too, and one prox refresh by
 part, with the calls that synchronize the host).  Any failed
@@ -44,6 +44,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 dense tensor cores
+TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 dense tensor cores
 
 # The `batch` row of the reference's engine bench, at full width: lstsq
 # loss, nuclear norm, lam 0.1, d 8192, T 128, tau 8, eta 0.05, event_batch
@@ -130,6 +131,26 @@ NOISE_FACTOR = 1.5
 WKV_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 WKV_STATE_RTOL = 1e-5
 WKV_CHUNK = 128
+# The chunked WKV route (csrc/rwkv6_chunked.cu, bf16 r, k, v and out)
+# against its own plain version (`ref.wkv_subchunk_ref`: its factorisation
+# and its rounding) and against the exact recurrence (`ref.wkv_ref`), by
+# output row (a (b, t, h) row of D: its max |diff| over its max |out|,
+# the plain versions' float32 output as the yardstick) and by state (max
+# |diff| over max |state|).  Against its own plain version the kernel's
+# output differs by its bf16 rounding (at most 2^-8 of a row's max,
+# 3.9e-3) and float32 sums in another order, the state by the order of the
+# tensor cores' float32 sums (~1e-6 over 313 steps at the served decays):
+# limits 4e-3 and 1e-4.  Against the exact recurrence the TF32 operands add
+# ~2^-11 of each product, about 3.4e-4 of the output's scale and 3.2e-4 of
+# the state's over 400 tokens (tests/test_torch_rwkv6_chunked.py): limits
+# 8e-3 (twice the bf16 rounding) and 1e-3.  (With S rounded once to TF32
+# the kernel read 9.0e-3 of a row at w near 1e-6 on an H100, rows whose
+# r . k cancels; it now takes S as a TF32 hi and a bf16 lo term, and the
+# plain version does too.)  Controls, which must exceed a limit against
+# each yardstick: the state dropped at one sub-chunk boundary, the decays
+# read one token late, the bonus left out.
+WKV_CHUNKED_ROW_TOL = {"plain": 4e-3, "exact": 8e-3}
+WKV_CHUNKED_STATE_TOL = {"plain": 1e-4, "exact": 1e-3}
 
 # The l2,1 (joint feature learning) formulation at the engine cells' width
 # (lstsq, d 8192, T 128, n 256, tau 8, eta 0.05, lam 0.1: threshold
@@ -806,6 +827,135 @@ def wkv_inputs(gen, dev, b, ell, h, d, dtype, log_w0, state_scale):
     return r, k, v, w, 0.5 * randn(h, d), state_scale * randn(b, h, d, d)
 
 
+def wkv_row_err(got, want) -> float:
+    """Largest relative error of an output row: max over (b, t, h) of the
+    row's max |diff| over the row's max |want| (rows of want all zero
+    compare absolutely)."""
+    d = (got.float() - want.float()).abs().amax(-1)
+    return float((d / want.float().abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def wkv_chunked_readings(out, state, plain, exact) -> dict:
+    """(row, state) readings of a chunked-route output and final state
+    against the plain version's and the exact recurrence's (out, state)."""
+    rel = lambda a, b: float((a.float() - b.float()).abs().max()
+                             / b.float().abs().max().clamp_min(1e-30))
+    return {name: (wkv_row_err(out, ref_out), rel(state, ref_state))
+            for name, (ref_out, ref_state) in (("plain", plain),
+                                               ("exact", exact))}
+
+
+def wkv_gate_fails(readings: dict) -> dict:
+    """For each yardstick, whether a reading exceeds its limit."""
+    return {name: not (row <= WKV_CHUNKED_ROW_TOL[name]
+                       and st <= WKV_CHUNKED_STATE_TOL[name])
+            for name, (row, st) in readings.items()}
+
+
+def wkv_controls(args_, plain, exact) -> dict:
+    """The chunked gate's controls, built from the plain version on the
+    same inputs: the state dropped at the sub-chunk boundary nearest the
+    middle, the decays read one token late, the bonus left out.  Returns
+    each control's readings."""
+    import torch
+    from repro_torch.kernels import ref
+    r, k, v, w, u, s0 = args_
+    ell = r.shape[1]
+    cut = max(16, (ell // 2) // 16 * 16)
+    o1, _ = ref.wkv_subchunk_ref(r[:, :cut], k[:, :cut], v[:, :cut],
+                                 w[:, :cut], u, s0)
+    o2, s2 = ref.wkv_subchunk_ref(r[:, cut:], k[:, cut:], v[:, cut:],
+                                  w[:, cut:], u, None)
+    late = torch.cat([w[:, :1], w[:, :-1]], dim=1)
+    ol, sl = ref.wkv_subchunk_ref(r, k, v, late, u, s0)
+    ob, sb = ref.wkv_subchunk_ref(r, k, v, w, torch.zeros_like(u), s0)
+    controls = {"state dropped": (torch.cat([o1, o2], 1), s2),
+                "decays one token late": (ol, sl),
+                "bonus left out": (ob, sb)}
+    return {name: wkv_chunked_readings(o.to(r.dtype), st, plain, exact)
+            for name, (o, st) in controls.items()}
+
+
+def check_rwkv_chunked(dev, gen) -> dict:
+    """The chunked route against its plain version and the exact
+    recurrence: the served prefill, a non-zero state, the edge lengths
+    through the forced route, w near 1e-3 and 1e-6, w = 1, two launches
+    bitwise, and the controls, which must fail the gate.  Returns the
+    worst readings."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rwkv6_scan as k_rwkv
+    p = SERVE_PROMPT
+    # (label, B, L, H, log_w0 (None: w = 1), state scale, controls)
+    cases = [("prefill", 2, p, 40, -6.0, 0.0, True),
+             ("prefill from a state", 2, 1000, 40, -6.0, 1.0, False)]
+    cases += [(f"L {ell}", 2, ell, 3, -1.0, 0.3, ell == 200)
+              for ell in (1, 15, 16, 17, 63, 64, 65, 200)]
+    cases += [("w near 1e-3", 1, 200, 3, 1.9, 0.3, False),
+              ("w near 1e-6", 1, 200, 3, 2.63, 0.3, False),
+              ("w = 1", 1, 300, 3, None, 0.3, False)]
+    worst, controls, served = {}, {}, None
+    for label, b, ell, h, log_w0, scale, with_controls in cases:
+        args_ = wkv_inputs(gen, dev, b, ell, h, 64, torch.bfloat16,
+                           -6.0 if log_w0 is None else log_w0, scale)
+        if log_w0 is None:
+            args_ = args_[:3] + (torch.ones_like(args_[3]),) + args_[4:]
+        r, k, v, w, u, s0 = args_
+        state = s0.clone()
+        out = k_rwkv.wkv(r, k, v, w, u, state, route="chunked")
+        state2 = s0.clone()
+        out2 = k_rwkv.wkv(r, k, v, w, u, state2, route="chunked")
+        plain = ref.wkv_subchunk_ref(r, k, v, w, u, s0)
+        exact = ref.wkv_ref(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        if out.dtype != torch.bfloat16 or not bool(
+                torch.isfinite(out).all() & torch.isfinite(state).all()):
+            fail(f"rwkv6_scan chunked {label}: output of dtype {out.dtype} "
+                 "or not finite")
+        if not (torch.equal(out, out2) and torch.equal(state, state2)):
+            fail(f"rwkv6_scan chunked {label}: two launches differ")
+        readings = wkv_chunked_readings(out, state, plain, exact)
+        if any(wkv_gate_fails(readings).values()):
+            fail(f"rwkv6_scan chunked {label}: (row, state) readings "
+                 f"{readings} above the limits {WKV_CHUNKED_ROW_TOL} (row) "
+                 f"and {WKV_CHUNKED_STATE_TOL} (state)")
+        worst[label] = readings
+        if with_controls:
+            for name, got in wkv_controls(args_, plain, exact).items():
+                if not all(wkv_gate_fails(got).values()):
+                    fail(f"rwkv6_scan chunked {label}: the control '{name}' "
+                         f"passes the gate ({got})")
+                controls[f"{label}: {name}"] = got
+        if label == "prefill":
+            served = dict(args=args_, err=float(
+                (out.float() - exact[0]).abs().max()))
+    # ops.rwkv6_scan at a shape of the reference's Pallas tests, in bf16:
+    # the route picks the chunked kernel
+    g = torch.Generator(device=dev).manual_seed(3)
+    r = (0.3 * torch.randn(200, 3, 64, generator=g, device=dev)).bfloat16()
+    w = torch.sigmoid(torch.randn(200, 3, 64, generator=g, device=dev))
+    u = 0.3 * torch.randn(3, 64, generator=g, device=dev)
+    before = k_rwkv.route_counts()["chunked"]
+    got = ops.rwkv6_scan(r, r, r, w, u)
+    if k_rwkv.route_counts()["chunked"] != before + 1:
+        fail("ops.rwkv6_scan (200, 3, 64) bf16 did not take the chunked "
+             "route")
+    want, _ = ref.wkv_ref(r[None], r[None], r[None], w[None], u, None)
+    e_scan = wkv_row_err(got, want[0])
+    if not e_scan <= WKV_CHUNKED_ROW_TOL["exact"]:
+        fail(f"ops.rwkv6_scan (200, 3, 64) bf16: {e_scan:.3g} of a row "
+             f"against wkv_ref > {WKV_CHUNKED_ROW_TOL['exact']}")
+    fmt = lambda rd: ", ".join(f"{k} {a:.3g}/{b:.3g}"
+                               for k, (a, b) in rd.items())
+    log("rwkv6_scan chunked: (row, state) against its plain version and "
+        "wkv_ref, two launches bitwise each: "
+        + "; ".join(f"{k} {fmt(v)}" for k, v in worst.items())
+        + f"; ops.rwkv6_scan (200, 3, 64) bf16 {e_scan:.3g}; controls "
+        "(each above a limit against both): "
+        + "; ".join(f"{k} {fmt(v)}" for k, v in controls.items()))
+    return served
+
+
 def check_rwkv_kernel(dev, gen) -> dict:
     """The WKV kernel against its plain versions on the card: at the served
     prefill shape against the chunked form the model's CPU path runs, and
@@ -836,7 +986,7 @@ def check_rwkv_kernel(dev, gen) -> dict:
         r, k, v, w, u, s0 = wkv_inputs(gen, dev, b, ell, h, d,
                                        getattr(torch, dt), log_w0, scale)
         state = s0.clone()
-        out = k_rwkv.wkv(r, k, v, w, u, state)
+        out = k_rwkv.wkv(r, k, v, w, u, state, route="recurrent")
         if plain == "chunked":
             want, want_state = ref.wkv_chunked_ref(r, k, v, w, u, WKV_CHUNK,
                                                    s0)
@@ -864,51 +1014,138 @@ def check_rwkv_kernel(dev, gen) -> dict:
     r = torch.randn(200, 3, 64, generator=gen, device=dev)
     w = torch.sigmoid(torch.randn(200, 3, 64, generator=gen, device=dev))
     u = torch.randn(3, 64, generator=gen, device=dev)
-    e_scan = rel(ops.rwkv6_scan(r, r, r, w, u),
+    e_scan = rel(ops.rwkv6_scan(r, r, r, w, u),       # float32: recurrent
                  ref.rwkv6_scan_ref(r, r, r, w, u))
     if not e_scan <= WKV_RTOL["float32"]:
         fail(f"ops.rwkv6_scan (200, 3, 64): {e_scan:.3g} of max|out| against "
              "rwkv6_scan_ref")
-    log("rwkv6_scan: output and state against the chunked plain version at "
+    chunked = check_rwkv_chunked(dev, gen)
+    log("rwkv6_scan recurrent: output and state against the chunked plain "
+        "version at "
         f"the served prefill (B 2, L {p}, H 40, D 64; bf16 and float32) and "
         "against the sequential one at decode (L 1, non-zero state), L 77, "
         "D 32 (float32 and bf16) and w near 1e-3, state bitwise there; "
         "(output, state) relative errors "
         + ", ".join(f"{k} {a:.3g}/{b:.3g}" for k, (a, b) in worst.items())
         + f"; ops.rwkv6_scan (200, 3, 64) {e_scan:.3g}")
-    return {"rwkv6_scan": dict(served["prefill"], served=served)}
+    return {"rwkv6_scan": dict(chunked, served=served)}
 
 
-def wkv_cost(args_) -> tuple[float, float]:
-    """(bytes, operations) of one WKV call: r, k, v and out in their dtype,
-    w and u float32, the state read and written; 5 D^2 + 5 D float32
-    operations a (token, head) -- r.S (2 D^2), the decayed state plus
-    k v^T (3 D^2), the bonus r.(u k) v (5 D)."""
+def wkv_cost(args_, route: str) -> tuple[float, list]:
+    """(bytes, [(operations, rate), ...]) of one WKV call on `route`.
+    Bytes: r, k, v and out in their dtype, w and u float32, the state read
+    and written.  Operations a (token, head): `recurrent`, 5 D^2 + 5 D
+    float32 (r.S 2 D^2, the decayed state plus k v^T 3 D^2, the bonus
+    r.(u k) v 5 D); `chunked`, its own: 2 (2 D^2 + 16 D + 24 D) on the
+    tensor cores in TF32 ((r * E).S's hi term and the state step D^2 each,
+    A v 16 D, the 16 x 24 scores across blocks 24 D), 2 D^2 in bf16 (S's
+    lo term), and 15.5 D float32 on the CUDA cores (8.75 D for the decays
+    and scaled rows, 6.75 D for the scores within blocks)."""
     r, _, _, w, u, state = args_
     b, ell, h, d = r.shape
     el = r.element_size()
     nbytes = el * 4 * r.numel() + 4 * (w.numel() + u.numel()
                                        + 2 * state.numel())
-    return nbytes, float(b * ell * h * (5 * d * d + 5 * d))
+    th = b * ell * h
+    if route == "chunked":
+        return nbytes, [(float(th * 2 * (2 * d * d + 40 * d)),
+                         TF32_FLOP_PER_S),
+                        (float(th * 2 * d * d), BF16_FLOP_PER_S),
+                        (float(th * 15.5 * d), FP32_FLOP_PER_S)]
+    return nbytes, [(float(th * (5 * d * d + 5 * d)), FP32_FLOP_PER_S)]
 
 
-def rwkv_times(served: dict) -> None:
-    """Device time, bound, plain and composite library time of the WKV
-    kernel at the decode shape (the prefill shape is in the kernel table)."""
+def wkv_bound(args_, route: str) -> tuple[float, str, str]:
+    """(bound ms, what bounds it, the parts) of one WKV call on `route`:
+    the larger of its bytes over the memory rate and, for each type of
+    operation, its count over that type's peak."""
+    nbytes, ops_ = wkv_cost(args_, route)
+    parts = [(nbytes / HBM_BYTES_PER_S * 1e3, "bytes")] + [
+        (f / rate * 1e3, "operations") for f, rate in ops_]
+    t, by = max(parts)
+    detail = f"{nbytes / 1e6:.1f} MB {parts[0][0] * 1e3:.2f} us; " + \
+        "; ".join(f"{f / 1e9:.3f} GFLOP at {rate / 1e12:.0f} TFLOP/s "
+                  f"{f / rate * 1e6:.2f} us" for f, rate in ops_)
+    return t, by, detail
+
+
+WKV_SOURCES = {"chunked": "src/repro_torch/csrc/rwkv6_chunked.cu",
+               "recurrent": "src/repro_torch/csrc/rwkv6_scan.cu"}
+
+
+def rwkv_times(info: dict, counts: dict) -> dict:
+    """Each WKV route's device time beside its bound, plain version and
+    composite: at the served prefill (B 2, L 5000, H 40, D 64, bf16) the
+    chunked route and the recurrent one on the same inputs (the A/B), and
+    the decode call (L 1) on the recurrent route; then both routes over
+    lengths 1 to 256, the evidence for CHUNKED_MIN_LEN.  Returns each
+    route's figures for the kernels line; `counts` are the serve's launches
+    of each route."""
+    import torch
+    from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_scan as k_rwkv
-    saved = k_rwkv.launches
-    case = served["decode"]
-    spec = kernel_spec("rwkv6_scan", case["args"], None)
+    saved = k_rwkv.launches, k_rwkv.route_counts()
+    r, k, v, w, u, s0 = info["args"]
+    st = s0.clone()
+    routes = {}
+    chunk_ms = cuda_ms(lambda: k_rwkv.wkv(r, k, v, w, u, st,
+                                          route="chunked"))
+    rec_ms = cuda_ms(lambda: k_rwkv.wkv(r, k, v, w, u, st,
+                                        route="recurrent"), reps=7, inner=3)
+    chunk_ms2 = cuda_ms(lambda: k_rwkv.wkv(r, k, v, w, u, st,
+                                           route="chunked"))
+    sub_ms = cuda_ms(lambda: ref.wkv_subchunk_ref(r, k, v, w, u, s0),
+                     reps=3, warmup=1, inner=1, backlog=False)
+    seq_ms = cuda_ms(lambda: ref.wkv_ref(r, k, v, w, u, s0), reps=3,
+                     warmup=1, inner=1, backlog=False)
+    lib_ms = cuda_ms(lambda: ref.wkv_chunked_ref(r, k, v, w, u, WKV_CHUNK,
+                                                 s0), reps=7, inner=3)
+    for route, ms, plain_ms in (("chunked", chunk_ms, sub_ms),
+                                ("recurrent", rec_ms, seq_ms)):
+        bnd, by, detail = wkv_bound(info["args"], route)
+        routes[route] = dict(source=WKV_SOURCES[route],
+                             shape=f"prefill B 2, L {SERVE_PROMPT}, H 40, "
+                                   "D 64, bf16",
+                             ms=ms, bound_ms=bnd, bound_by=by,
+                             plain_ms=plain_ms, library_ms=lib_ms,
+                             launches=counts[route])
+        log(f"phase 12 rwkv6_scan {route} prefill (B 2, L {SERVE_PROMPT}, "
+            f"H 40, D 64, bf16): {ms * 1e3:.2f} us on the device, bound "
+            f"{bnd * 1e3:.2f} us by {by} ({detail}); plain {plain_ms:.1f} ms "
+            f"({'wkv_subchunk_ref' if route == 'chunked' else 'wkv_ref'}), "
+            f"composite {lib_ms * 1e3:.2f} us ({LIBRARY_CALLS['rwkv6_scan']})"
+            f", {counts[route]} launches on the rwkv6-3b serve")
+    log(f"phase 12 rwkv6_scan A/B at the served prefill, same inputs, in "
+        f"turns: chunked {chunk_ms * 1e3:.2f} and {chunk_ms2 * 1e3:.2f} us, "
+        f"recurrent {rec_ms * 1e3:.2f} us ({rec_ms / chunk_ms:.2f}x)")
+    dec = info["served"]["decode"]
+    spec = kernel_spec("rwkv6_scan", dec["args"], None)
     k_ms = cuda_ms(spec["kfn"])
     p_ms = cuda_ms(spec["pfn"], inner=1, backlog=False)
     l_ms = cuda_ms(spec["lib"])
-    bnd, by = bound_ms(spec["nbytes"], spec["flops"], spec["rate"])
-    log(f"phase 12 rwkv6_scan decode (B 2, L 1, H 40, D 64, bf16): "
-        f"{k_ms * 1e3:.2f} us on the device, bound {bnd * 1e3:.2f} us by {by} "
-        f"({spec['nbytes'] / 1e6:.2f} MB, {spec['flops'] / 1e6:.2f} MFLOP), "
-        f"plain {p_ms * 1e3:.1f} us, library {l_ms * 1e3:.1f} us "
-        f"({LIBRARY_CALLS['rwkv6_scan']})")
-    k_rwkv.launches = saved
+    bnd, by, detail = wkv_bound(dec["args"], "recurrent")
+    log(f"phase 12 rwkv6_scan recurrent decode (B 2, L 1, H 40, D 64, bf16):"
+        f" {k_ms * 1e3:.2f} us on the device, bound {bnd * 1e3:.2f} us by "
+        f"{by} ({detail}), plain {p_ms * 1e3:.1f} us, library "
+        f"{l_ms * 1e3:.1f} us ({LIBRARY_CALLS['rwkv6_scan']})")
+    routes["recurrent"].update(decode_ms=k_ms, decode_bound_ms=bnd,
+                               decode_plain_ms=p_ms, decode_library_ms=l_ms)
+    sweep = []
+    for ell in (1, 4, 8, 16, 32, 64, 256):
+        args_ = wkv_inputs(torch.Generator(device=r.device).manual_seed(ell),
+                           r.device, 2, ell, 40, 64, torch.bfloat16, -6.0,
+                           0.0)
+        st2 = args_[5].clone()
+        times = [cuda_ms(lambda rt=rt: k_rwkv.wkv(*args_[:5], st2, route=rt),
+                         reps=11) for rt in ("chunked", "recurrent")]
+        sweep.append(f"L {ell} {times[0] * 1e3:.2f} / {times[1] * 1e3:.2f}")
+    log("phase 12 rwkv6_scan chunked / recurrent us by length (B 2, H 40, D "
+        f"64, bf16; CHUNKED_MIN_LEN {k_rwkv.CHUNKED_MIN_LEN}): "
+        + ", ".join(sweep))
+    k_rwkv.launches = saved[0]
+    k_rwkv.launches_chunked, k_rwkv.launches_recurrent = (
+        saved[1]["chunked"], saved[1]["recurrent"])
+    return routes
 
 
 FLASH_SOURCES = {r: f"src/repro_torch/csrc/{f}" for r, f in (
@@ -1151,16 +1388,21 @@ SERVED = {"gemma2-2b": ("flash_attention", "mha", "mha_ref", None,
           "rwkv6-3b": ("rwkv6_scan", "wkv", "wkv_inplace_ref",
                        wkv_sequential_inplace, (13, 14))}
 # The CUDA kernels of each arch's kernel module, by the substrings of
-# their names in a profile: flash attention's three routes.
+# their names in a profile: flash attention's three routes, the WKV's two.
 PROFILE_PARTS = {
     "gemma2-2b": {"flash sm90": ("flash_sm90_kernel",),
                   "flash split": ("flash_decode_kernel",
                                   "flash_decode_combine"),
                   "flash simt": ("flash_attention_kernel",)},
-    "rwkv6-3b": {"rwkv6_scan": ("rwkv6_scan",)}}
-# The routes a served bf16 run of gemma2-2b must take: every prefill
-# layer on sm90, every decode call on split.
-SERVE_ROUTES = {"sm90": 1, "split": SERVE_GEN - 1, "simt": 0}
+    "rwkv6-3b": {"wkv chunked": ("rwkv6_chunked_kernel",),
+                 "wkv recurrent": ("rwkv6_scan_kernel",)}}
+# The routes a served bf16 run must take, in launches a layer: gemma2-2b
+# every prefill layer on sm90, every decode call on split; rwkv6-3b every
+# prefill layer on chunked, every decode call on recurrent.  Each arch's
+# float32 prefill takes the last route named.
+SERVE_ROUTES = {"gemma2-2b": {"sm90": 1, "split": SERVE_GEN - 1, "simt": 0},
+                "rwkv6-3b": {"chunked": 1, "recurrent": SERVE_GEN - 1}}
+SERVE_F32_ROUTE = {"gemma2-2b": "simt", "rwkv6-3b": "recurrent"}
 
 
 def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
@@ -1172,7 +1414,6 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
     from unittest import mock
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import flash_attention as k_flash
     from repro_torch.launch import host_time, serve
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import LM, init_params
@@ -1199,14 +1440,16 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
             any(n for k, n in counts.items() if k != kname):
         fail(f"serve {arch}: launches {counts}, want {kname} = "
              f"{cfg.num_layers} + {cfg.num_layers} x {g - 1} = {want}")
-    routes = ""
-    if kname == "flash_attention":
-        got = k_flash.route_counts()
-        want_r = {r: cfg.num_layers * n for r, n in SERVE_ROUTES.items()}
-        if got != want_r:
-            fail(f"serve {arch}: flash routes {got}, want {want_r} (every "
-                 "prefill layer on sm90, every decode call on split)")
-        routes = f" (routes {got}: prefill on sm90, decode on split)"
+    kmod = ops.KERNELS[kname]
+    got_routes = kmod.route_counts()
+    want_r = {r: cfg.num_layers * n for r, n in SERVE_ROUTES[arch].items()}
+    on_prefill, on_decode = list(SERVE_ROUTES[arch])[:2]
+    if got_routes != want_r:
+        fail(f"serve {arch}: {kname} routes {got_routes}, want {want_r} "
+             f"(every prefill layer on {on_prefill}, every decode call on "
+             f"{on_decode})")
+    routes = (f" (routes {got_routes}: prefill on {on_prefill}, decode on "
+              f"{on_decode})")
     toks = run["tokens"]
     if tuple(toks.shape) != (b, g) or int(toks.min()) < 0 \
             or int(toks.max()) >= cfg.vocab_size:
@@ -1292,11 +1535,11 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
     if ops.launch_counts()[kname] != cfg.num_layers:
         fail(f"serve {arch} float32: the prefill did not launch the kernel "
              "once a layer")
-    if kname == "flash_attention" and \
-            k_flash.route_counts()["simt"] != cfg.num_layers:
-        fail(f"serve {arch} float32: routes {k_flash.route_counts()}, want "
-             f"simt {cfg.num_layers} (float32 prefill stays on the CUDA "
-             "cores)")
+    f32_route = SERVE_F32_ROUTE[arch]
+    if kmod.route_counts()[f32_route] != cfg.num_layers:
+        fail(f"serve {arch} float32: routes {kmod.route_counts()}, want "
+             f"{f32_route} {cfg.num_layers} (float32 prefill stays on the "
+             "CUDA cores)")
     with mock.patch.object(ops, op, plain):
         lp, _ = prefill32(model32, prompts[:1])
     e32 = rel_err(lk, lp)
@@ -1308,7 +1551,7 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
         f"{SERVE_F32_RTOL}: PASS")
     del model32
     torch.cuda.empty_cache()
-    return dict(counts=counts, prefill_tps=prefill_tps,
+    return dict(counts=counts, routes=got_routes, prefill_tps=prefill_tps,
                 decode_tps=decode_tps, errs=errs, e32=e32, tol=tol)
 
 
@@ -1664,12 +1907,16 @@ def kernel_spec(name: str, args_, dev) -> dict:
         rep = "src/repro/kernels/flash_attention.py:96"
     elif name == "rwkv6_scan":
         r, k, v, w, u, s0 = args_
-        nbytes, flops = wkv_cost(args_)
+        route = kern.route(r.dtype, *r.shape)
+        nbytes, ops_ = wkv_cost(args_, route)
+        flops, wkv_rate = ops_[0]
         s_k, s_p, s_l = s0.clone(), s0.clone(), s0.clone()
         kfn = lambda: kern.wkv(r, k, v, w, u, s_k)
-        pfn = lambda: ref.wkv_ref(r, k, v, w, u, s_p)
+        plain = ref.wkv_subchunk_ref if route == "chunked" else ref.wkv_ref
+        pfn = lambda: plain(r, k, v, w, u, s_p)
         lib = lambda: ref.wkv_chunked_ref(r, k, v, w, u, WKV_CHUNK, s_l)
-        src, rep = "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:64"
+        src = WKV_SOURCES[route].rsplit("/", 1)[1]
+        rep = "src/repro/kernels/rwkv6_scan.py:64"
     elif name == "l21_prox":
         w, t = args_
         d, tt = w.shape
@@ -1701,6 +1948,8 @@ def kernel_spec(name: str, args_, dev) -> dict:
         src, rep = "lstsq_grad.cu", "src/repro/kernels/lstsq_grad.py:104"
     rate = BF16_FLOP_PER_S if name == "flash_attention" \
         and args_[0].dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    if name == "rwkv6_scan":
+        rate = wkv_rate
     return dict(kern=kern, nbytes=nbytes, flops=flops, kfn=kfn, pfn=pfn,
                 lib=lib, src=src, rep=rep, rate=rate)
 
@@ -1713,9 +1962,9 @@ LIBRARY_CALLS = {
     "lstsq_grad": "composite: 2 * (x.T @ (x @ w - y)) on the valid rows",
     "flash_attention": "flex_attention under torch.compile, softcap as "
                        "score_mod, the masks as a block mask",
-    "rwkv6_scan": "composite: the chunked form wkv_chunked_ref (einsums and "
-                  "a loop over 128-token chunks); no one PyTorch call "
-                  "computes the recurrence",
+    "rwkv6_scan": "composite: the log-space chunked form wkv_chunked_ref "
+                  "(einsums and a loop over 128-token chunks); no one "
+                  "PyTorch call computes the recurrence",
     "l21_prox": "composite: w * clamp(1 - t / clamp(vector_norm(w, dim=1), "
                 "1e-12), 0), float32; no one PyTorch call computes the prox",
     "km_update": "composite: v + eta_k * (p - eta*g - v), four elementwise "
@@ -2309,7 +2558,8 @@ def main() -> None:
     flash = kernels[[k["name"] for k in kernels].index("flash_attention")]
     flash["routes"] = flash_times(info["flash_attention"]["served"], dev)
     flash["library_ms"] = flash["routes"]["sm90"]["library_ms"]
-    rwkv_times(info["rwkv6_scan"]["served"])
+    wkv = kernels[[k["name"] for k in kernels].index("rwkv6_scan")]
+    wkv["routes"] = rwkv_times(info["rwkv6_scan"], rw["routes"])
     l21_km_times(info)
     parts = prox_refresh_breakdown(dev, args.seed)
     log(f"phase 12 prox refresh (svt_randomized, d {D}, T {T}, rank {RANK}, "

@@ -8,7 +8,8 @@ a CUDA tensor reaches its kernel or an exception.
 Each kernel module keeps an integer `launches`, raised by one at each
 launch; `launch_counts` reads them and `reset_launch_counts` zeroes them,
 so a run can show which kernels its path went through.  Flash attention
-also counts each of its three routes (`flash_attention.route_counts`).
+and the WKV also count each of their routes (`flash_attention.route_counts`,
+`rwkv6_scan.route_counts`).
 """
 from __future__ import annotations
 
@@ -60,6 +61,7 @@ def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
     _flash_attention.reset_route_counts()
+    _rwkv6_scan.reset_route_counts()
 
 
 def km_update(v: torch.Tensor, p: torch.Tensor, g: torch.Tensor, eta: float,
@@ -185,7 +187,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """r, k, v, w (S, H, D); u (H, D): the WKV recurrence of one sequence
     from a zero state; (S, H, D) in r's dtype.  On the card w and u are
-    taken as float32 (exact from bfloat16) and the kernel runs with B 1."""
+    taken as float32 (exact from bfloat16) and the kernel of
+    `rwkv6_scan.route` runs with B 1."""
     if _on_cuda("rwkv6_scan", r):
         s, h, d = r.shape
         state = torch.zeros((1, h, d, d), dtype=torch.float32,
@@ -202,7 +205,9 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     (H, D) float32, from `state` (B, H, D, D) float32, which is overwritten
     with the state after the last token; returns out (B, L, H, D) in r's
     dtype.  `chunk` is the plain version's chunk (the order of its sums);
-    the kernel walks the tokens one by one whatever it is."""
+    on the card `rwkv6_scan.route` picks the kernel (the sub-chunked
+    tensor-core route for bf16 prefill, the token-by-token recurrence for
+    the rest) whatever it is."""
     if _on_cuda("rwkv6_scan", r):
         return _rwkv6_scan.wkv(r, k, v, w, u, state)
     return ref.wkv_inplace_ref(r, k, v, w, u, state, chunk=chunk)

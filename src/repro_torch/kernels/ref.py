@@ -622,6 +622,138 @@ def wkv_chunked_ref(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
     return out, s
 
 
+OPERANDS = ("float32", "tf32", "bfloat16")
+
+
+def round_operand(x: Tensor, operands: str) -> Tensor:
+    """x (float32) as a tensor-core operand of `operands`: float32 as it
+    is; tf32 rounded to 10 mantissa bits, to nearest with ties away from
+    zero (`cvt.rna.tf32.f32`); bfloat16 to nearest even."""
+    if operands == "float32":
+        return x
+    if operands == "tf32":
+        bits = x.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    if operands == "bfloat16":
+        return x.to(torch.bfloat16).to(torch.float32)
+    raise ValueError(f"operands must be one of {OPERANDS}, got {operands!r}")
+
+
+WKV_SUB = 16                # csrc/rwkv6_chunked.cu's SUB: tokens a state step
+
+
+def wkv_subchunk_ref(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+                     state: Tensor | None, *,
+                     operands: str = "tf32") -> tuple[Tensor, Tensor]:
+    """The WKV in the factorisation of the chunked route
+    (csrc/rwkv6_chunked.cu), step for step.
+
+    r, k, v, w: (B, L, H, D); u: (H, D); state: (B, H, D, D) or None.  The
+    tokens are cut into sub-chunks of `sub` = WKV_SUB (the last padded
+    with r = k = v = 0, w = 1: no contribution, no decay).  Within
+    a sub-chunk, with S the state at its start, every decay is a running
+    product of the w's (never a quotient of cumulative decays, so nothing
+    overflows where the decays underflow):
+        E_s = prod_{j<s} w_j,  F_t = prod_{t<j<sub} w_j,  E = prod_j w_j
+        A[s, t] = sum_i r_s,i k_t,i prod_{t<j<s} w_j,i  (t < s)
+        A[s, s] = sum_i r_s,i u_i k_s,i
+        out_s = (r_s * E_s) . S + sum_{t<=s} A[s, t] v_t
+        S <- diag(E) S + sum_t (k_t * F_t) v_t^T
+    A pair in one block of 4 tokens is summed as it stands; a pair across
+    blocks is factored at the start g of the query's block, as the
+    product X_s . Y_t of X_s = r_s prod_{g<=j<s} w_j and Y_t = k_t
+    prod_{t<j<g} w_j (the decays of t's block, then each whole block
+    between, multiplied in that order).  The products' operands are
+    rounded as the kernel rounds them (`round_operand(., operands)`):
+    r * E, X, Y, A, v and k * F; S goes as two terms, hi = round(S) times
+    r * E, and lo = S - hi times r * E, both in bfloat16 (float32 when
+    `operands` is float32); sums are float32.  Returns (out (B, L,
+    H, D) float32, the final state float32); `state` itself is not written.
+    """
+    sub = WKV_SUB
+    b, ell, h, d = r.shape
+    pad = (-ell) % sub
+    r32, k32, v32, w32 = (t.to(torch.float32) for t in (r, k, v, w))
+    if pad:
+        pads = (0, 0, 0, 0, 0, pad)
+        r32, k32, v32 = (torch.nn.functional.pad(t, pads)
+                         for t in (r32, k32, v32))
+        w32 = torch.nn.functional.pad(w32, pads, value=1.0)
+    n = (ell + pad) // sub
+
+    def split(t):                       # (B, L, H, D) -> (B, H, n, sub, D)
+        return t.reshape(b, n, sub, h, d).permute(0, 3, 1, 2, 4)
+
+    rs, ks, vs, ws = split(r32), split(k32), split(v32), split(w32)
+    u32 = u.to(torch.float32)[None, :, None, :]          # (1, H, 1, D)
+
+    prod = torch.ones_like(ws[..., 0, :])                 # running products
+    e_rows = []
+    for s in range(sub):
+        e_rows.append(prod)
+        prod = prod * ws[..., s, :]
+    e_all = prod                                          # (B, H, n, D)
+    prod = torch.ones_like(prod)
+    f_rows = [None] * sub
+    for s in reversed(range(sub)):
+        f_rows[s] = prod
+        prod = prod * ws[..., s, :]
+    rt = round_operand(rs * torch.stack(e_rows, dim=-2), operands)
+    kt = round_operand(ks * torch.stack(f_rows, dim=-2), operands)
+
+    a = torch.zeros((b, h, n, sub, sub), dtype=torch.float32,
+                    device=r.device)
+    for t in range(sub):                # within blocks of 4, and the bonus
+        p = ks[..., t, :]
+        a[..., t, t] = (rs[..., t, :] * u32 * p).sum(-1)
+        for s in range(t + 1, 4 * (t // 4) + 4):
+            a[..., s, t] = (rs[..., s, :] * p).sum(-1)
+            p = p * ws[..., s, :]
+    x_rows, block_w = [], []            # across blocks
+    for g in range(0, sub, 4):
+        prod = torch.ones_like(ws[..., 0, :])
+        for s in range(g, g + 4):
+            x_rows.append(rs[..., s, :] * prod)
+            prod = prod * ws[..., s, :]
+        prod = torch.ones_like(prod)    # the block's product, last w first
+        for s in reversed(range(g, g + 4)):
+            prod = prod * ws[..., s, :]
+        block_w.append(prod)
+    xs = round_operand(torch.stack(x_rows, dim=-2), operands)
+    for t in range(sub - 4):
+        prod = torch.ones_like(ws[..., 0, :])
+        for j in reversed(range(t + 1, 4 * (t // 4) + 4)):
+            prod = prod * ws[..., j, :]
+        y = ks[..., t, :] * prod
+        for g in range(4 * (t // 4) + 4, sub, 4):
+            if g > 4 * (t // 4) + 4:
+                y = y * block_w[g // 4 - 1]
+            yr = round_operand(y, operands)
+            a[..., g:g + 4, t] = torch.einsum("bhnsd,bhnd->bhns",
+                                              xs[..., g:g + 4, :], yr)
+    a = round_operand(a, operands)
+    vo = round_operand(vs, operands)
+
+    st = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+          if state is None else state.to(torch.float32))
+    lo_operands = "float32" if operands == "float32" else "bfloat16"
+    outs = []
+    for c in range(n):
+        s_hi = round_operand(st, operands)
+        s_lo = round_operand(st - s_hi, lo_operands)
+        outs.append((torch.einsum("bhsi,bhij->bhsj", rt[:, :, c], s_hi)
+                     + torch.einsum("bhsi,bhij->bhsj",
+                                    round_operand(rt[:, :, c], lo_operands),
+                                    s_lo))
+                    + torch.einsum("bhst,bhtj->bhsj", a[:, :, c],
+                                   vo[:, :, c]))
+        st = st * e_all[:, :, c, :, None] + torch.einsum(
+            "bhti,bhtj->bhij", kt[:, :, c], vo[:, :, c])
+    out = torch.stack(outs, dim=2)                        # (B, H, n, sub, D)
+    out = out.permute(0, 2, 3, 1, 4).reshape(b, n * sub, h, d)
+    return out[:, :ell], st
+
+
 def wkv_inplace_ref(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
                     state: Tensor, *, chunk: int) -> Tensor:
     """`ops.wkv`'s contract in plain PyTorch: `wkv_chunked_ref` from

@@ -9,9 +9,10 @@ Port of `repro/launch/serve.py` on one device (sharded serving waits for
 ROADMAP.md Queue 1 item 9).  Prompts come from numpy seeded by --seed, the
 weights from the port's init with a torch.Generator seeded by --seed on the
 device.  On the card every attention call of prefill and decode runs the
-flash-attention CUDA kernel, and every WKV recurrence of rwkv6-3b the
-rwkv6_scan kernel (its O(1) state ignores the prompt and generation
-lengths).  Without --device cpu and without a CUDA device it raises.
+flash-attention CUDA kernels, and every WKV recurrence of rwkv6-3b one of
+the rwkv6_scan kernels: the chunked tensor-core route in a bf16 prefill,
+the recurrent one in decode (its O(1) state ignores the prompt and
+generation lengths).  Without --device cpu and without a CUDA device it raises.
 """
 from __future__ import annotations
 

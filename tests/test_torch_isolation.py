@@ -213,6 +213,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     r = torch.zeros(1, 4, 2, 32)
     with pytest.raises(ValueError, match="CUDA"):
         k_rwkv.wkv(r, r, r, r, torch.zeros(2, 32), torch.zeros(1, 2, 32, 32))
+    r = torch.zeros(1, 4, 2, 64)
+    for route in k_rwkv.ROUTES:         # a forced route is no way round it
+        with pytest.raises(ValueError, match="CUDA"):
+            k_rwkv.wkv(r.bfloat16(), r.bfloat16(), r.bfloat16(), r,
+                       torch.zeros(2, 64), torch.zeros(1, 2, 64, 64),
+                       route=route)
     with pytest.raises(ValueError, match="CUDA"):
         k_km.km_update(v, v, v, 0.1, 0.5)
     with pytest.raises(ValueError, match="CUDA"):
@@ -229,7 +235,7 @@ def test_kernel_library_is_named_by_its_sources():
         "amtl_event.cu", "amtl_event_batch.cu", "gauss_sketch.cu",
         "svt_reconstruct.cu", "lstsq_grad.cu", "lstsq_grad_sampled.cu",
         "flash_attention.cu", "flash_attention_sm90.cu", "flash_decode.cu",
-        "rwkv6_scan.cu", "km_update.cu", "l21_prox.cu"}
+        "rwkv6_scan.cu", "rwkv6_chunked.cu", "km_update.cu", "l21_prox.cu"}
     assert {p.name for p in _build.headers()} == {
         "counter_hash.cuh", "lstsq_grad_body.cuh"}
     assert path.name.startswith("librepro_torch_kernels-")
