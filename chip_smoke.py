@@ -235,7 +235,6 @@ def check_kernels(dev, gen) -> dict:
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import amtl_event as k_event
-    from repro_torch.kernels import amtl_event_batch as k_batch
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -259,8 +258,33 @@ def check_kernels(dev, gen) -> dict:
     log("amtl_event: bitwise against its plain version (d=8192, d=1000, "
         "eta_k=0)")
 
-    # amtl_event_batch: main shape with the run's duplicates, forced
-    # duplicates, a sentinel id T (dropped), eta_k 0, d=1000
+    info.update(check_event_batch(dev, gen))
+    info.update(check_sketch_recon(dev, gen))
+    info.update(check_sgd_kernels(dev, gen))
+    info.update(check_l21_km_kernels(dev, gen))
+    info.update(check_flash_kernel(dev, gen))
+    info.update(check_rwkv_kernel(dev, gen))
+    ops.reset_launch_counts()
+    return info
+
+
+def check_event_batch(dev, gen) -> dict:
+    """amtl_event_batch against its plain version on the card, bitwise,
+    in both write-back modes; returns the main shape's inputs."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import amtl_event_batch as k_batch
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def same_bits(a, b) -> bool:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    info = {}
+    # amtl_event_batch: main shape with the run's duplicates, forced duplicates, a sentinel id T (dropped), eta_k 0,
+    # d=1000, d below a block's 32 rows, all 32 events on one task, all 32
+    # sentinels (T and T+1, chained)
     cases = []
     tasks = torch.randint(0, T, (BATCH,), generator=gen, device=dev,
                           dtype=torch.int32)
@@ -271,14 +295,18 @@ def check_kernels(dev, gen) -> dict:
     dup[21] = T
     cases.append(("duplicates+sentinel", D, dup, 11))
     cases.append(("d=1000", 1000, tasks, None))
+    cases.append(("d=20", 20, dup, None))
+    cases.append(("one task", D, torch.full_like(tasks, T - 1), None))
+    cases.append(("all sentinels", D, T + (torch.arange(
+        BATCH, device=dev, dtype=torch.int32) % 2), None))
     for label, d, ts, zero_at in cases:
         v = randn(d, T)
         p, g = randn(d, BATCH), randn(d, BATCH)
         eks = torch.rand(BATCH, generator=gen, device=dev)
         if zero_at is not None:
             eks[zero_at] = 0.0
-        kv, kundo = k_batch.amtl_event_batch(v.clone(), p, g, ts, ETA, eks)
         rv, rundo = ref.amtl_event_batch_ref(v.clone(), p, g, ts, ETA, eks)
+        kv, kundo = k_batch.amtl_event_batch(v.clone(), p, g, ts, ETA, eks)
         torch.cuda.synchronize()
         if not (same_bits(kv, rv) and same_bits(kundo, rundo)):
             fail(f"amtl_event_batch {label}: not bitwise "
@@ -288,14 +316,9 @@ def check_kernels(dev, gen) -> dict:
             info["amtl_event_batch"] = dict(args=(v, p, g, ts, ETA, eks),
                                             err=0.0)
     log("amtl_event_batch: bitwise against its plain version (main shape, "
-        "duplicates, sentinel id, eta_k=0, d=1000)")
+        "duplicates, sentinel id, eta_k=0, d=1000, d=20, one task, all "
+        "sentinels)")
 
-    info.update(check_sketch_recon(dev, gen))
-    info.update(check_sgd_kernels(dev, gen))
-    info.update(check_l21_km_kernels(dev, gen))
-    info.update(check_flash_kernel(dev, gen))
-    info.update(check_rwkv_kernel(dev, gen))
-    ops.reset_launch_counts()
     return info
 
 
@@ -474,11 +497,113 @@ def check_sgd_kernels(dev, gen) -> dict:
                 info[name] = dict(
                     args=(x, w, y, block, b) if name == "lstsq_grad_sampled"
                     else (x, w, y, n_t), err=err.max().item())
-    log(f"lstsq_grad_sampled, lstsq_grad: within {GRAD_RTOL} x scale2 "
-        "|X_K|^T |r_K| of their plain versions (main 240 of 399 rows at "
-        "d=8192, d=1000, ragged n_t, saturated b, n_t=0 exactly zero); two "
-        "launches give the same bits")
+    log(f"lstsq_grad_sampled (one event, B = 1), lstsq_grad: within "
+        f"{GRAD_RTOL} x scale2 |X_K|^T |r_K| of their plain versions (main "
+        "240 of 399 rows at d=8192, d=1000, ragged n_t, saturated b, n_t=0 "
+        "exactly zero); two launches give the same bits")
+    single = info["lstsq_grad_sampled"]
+    info["lstsq_grad_sampled"] = check_sampled_batch(dev, gen)
+    info["lstsq_grad_sampled"]["single"] = single
     return info
+
+
+def sampled_batch_inputs(gen, dev, num_t: int, d: int, b: int, events: int,
+                         tasks=None, n_ts=None, n: int = 399) -> tuple:
+    """A batch of `events` minibatch-gradient events on `num_t` ragged
+    cohorts of an n-row buffer (cohort sizes 80..399 unless `n_ts`),
+    on random or given tasks: (xs, ys, tasks, w_rows, scalars, b) with the
+    scalar blocks (B, 4) uint32 on the card, and their host copy."""
+    import torch
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(int(torch.randint(
+        0, 2**31, (1,), generator=gen, device=dev).item()))
+    if n_ts is None:
+        n_ts = rng.integers(COHORT_LO, n + 1, num_t)
+    if tasks is None:
+        tasks = rng.integers(0, num_t, events)
+        tasks[-1] = tasks[0]              # at least one duplicate
+    xs = torch.randn(num_t, n, d, generator=gen, device=dev)
+    ys = torch.randn(num_t, n, generator=gen, device=dev)
+    w_rows = torch.randn(events, d, generator=gen, device=dev)
+    seeds = rng.integers(0, 2**32, events, dtype=np.uint64)
+    picked = [ref.task_index(int(t), num_t) for t in tasks]
+    host = ref.sample_scalars(n, b, seeds, np.asarray(n_ts)[picked])
+    return (xs, ys, torch.as_tensor(tasks, dtype=torch.int32, device=dev),
+            w_rows, torch.from_numpy(host).to(dev), b), host
+
+
+def check_sampled_batch(dev, gen) -> dict:
+    """The batched minibatch gradient (one launch for B events) against its
+    plain version per event, row e bitwise the B = 1 launch of event e and
+    the single-event call, two launches bitwise.  Returns the main case."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import lstsq_grad_sampled as k_sampled
+
+    one_task = np.full(BATCH, 7)
+    # (label, T, d, b, B, tasks, n_ts): the main batch (the run's duplicate
+    # tasks, ragged n_t, a 399-row buffer, d 8192), d = 1000, a saturated
+    # b = 300 >= n_t, empty cohorts, B = 1, all 32 events on one task, ids
+    # outside [0, T) (picked as the reference's dynamic index picks them).
+    n_ts_zero = np.array([0, 250, 0, 399, 81, 0, 33, 0])
+    outside = np.array([-1, 16, 19, -17, -2, 3, 16, -16])
+    cases = (("main", T, D, SGD_BATCH, BATCH, None, None),
+             ("d=1000", 16, 1000, SGD_BATCH, BATCH, None, None),
+             ("saturated b=300", 16, D, 300, BATCH, None, None),
+             ("n_t=0", 8, D, SGD_BATCH, BATCH, None, n_ts_zero),
+             ("B=1", 16, D, SGD_BATCH, 1, None, None),
+             ("one task", 16, D, SGD_BATCH, BATCH, one_task, None),
+             ("ids outside [0, T)", 16, D, SGD_BATCH, 8, outside, None))
+    main = None
+    for label, num_t, d, b, events, tasks, n_ts in cases:
+        args_, host = sampled_batch_inputs(gen, dev, num_t, d, b, events,
+                                           tasks, n_ts)
+        xs, ys, ts, w_rows, scal, _ = args_
+        g1 = k_sampled.lstsq_grad_sampled_batch(*args_)
+        g2 = k_sampled.lstsq_grad_sampled_batch(*args_)
+        want = ref.lstsq_grad_sampled_batch_ref(*args_)
+        torch.cuda.synchronize()
+        if not torch.equal(g1.view(torch.int32), g2.view(torch.int32)):
+            fail(f"lstsq_grad_sampled batch {label}: two launches on the "
+                 "same inputs gave different bits")
+        worst = 0.0
+        for e in range(events):
+            t = ref.task_index(int(ts[e]), num_t)
+            n_t = int(host[e, 3])
+            keep = ref.keep_bits_ref(xs.shape[1], host[e], dev)
+            xk = xs[t][keep].double()
+            res = xk @ w_rows[e].double() - ys[t][keep].double()
+            s2 = 2 * float(np.float32(n_t) / np.float32(max(min(b, n_t), 1)))
+            scale = s2 * (xk.abs().T @ res.abs())
+            err = (g1[e].double() - want[e].double()).abs()
+            if not bool((err <= GRAD_RTOL * scale).all()):
+                fail(f"lstsq_grad_sampled batch {label} event {e}: max |diff|"
+                     f" {err.max().item():.3g} > {GRAD_RTOL} * scale2 "
+                     "|X_K|^T |r_K|")
+            if n_t == 0 and bool(g1[e].any()):
+                fail(f"lstsq_grad_sampled batch {label} event {e}: n_t = 0 "
+                     "must give exactly zero")
+            worst = max(worst, err.max().item())
+            alone = k_sampled.lstsq_grad_sampled_batch(
+                xs, ys, ts[e:e + 1], w_rows[e:e + 1], scal[e:e + 1], b)
+            single = k_sampled.lstsq_grad_sampled(xs[t], w_rows[e], ys[t],
+                                                  host[e], b)
+            if not (torch.equal(alone[0].view(torch.int32),
+                                g1[e].view(torch.int32))
+                    and torch.equal(single.view(torch.int32),
+                                    g1[e].view(torch.int32))):
+                fail(f"lstsq_grad_sampled batch {label}: row {e} differs "
+                     "from the B = 1 launch of its event")
+        if label == "main":
+            main = dict(args=args_, host=host, err=worst)
+    log(f"lstsq_grad_sampled batched: within {GRAD_RTOL} x scale2 "
+        "|X_K|^T |r_K| of its plain version event by event (main B 32 on "
+        "399-row ragged cohorts at d=8192 with the run's duplicates, d=1000, "
+        "saturated b=300, n_t=0 exactly zero, B=1, one task, ids outside "
+        "[0, T)); row e bitwise "
+        "the B = 1 launch and the single-event call of event e; two launches "
+        "give the same bits")
+    return main
 
 
 def bits(x):
@@ -1871,19 +1996,28 @@ def kernel_spec(name: str, args_, dev) -> dict:
         src = "svt_reconstruct.cu"
         rep = "src/repro/kernels/svt_reconstruct.py:72"
     elif name == "lstsq_grad_sampled":
-        x, w, y, block, b = args_
-        d = x.shape[1]
-        seed, n_t = int(block[0]), int(block[3])
-        kept = torch.nonzero(ref.keep_bits_ref(x.shape[0], block, dev))[:, 0]
-        k = int(kept.numel())
-        scale2 = 2 * float(np.float32(n_t) / np.float32(max(min(b, n_t), 1)))
-        nbytes, flops = 4 * (k * d + d + k + d), 4 * k * d
-        kfn = lambda: kern.lstsq_grad_sampled(x, w, y, block, b)
-        pfn = lambda: ref.lstsq_grad_sampled_masked_ref(x, w, y, seed, b, n_t)
+        xs, ys, ts, w_rows, scal, b = args_
+        nbytes, flops, kept, scale2 = sampled_cost(args_, dev)
+        kfn = lambda: kern.lstsq_grad_sampled_batch(*args_)
+        pfn = lambda: ref.lstsq_grad_sampled_batch_ref(*args_)
+        # each event's kept rows gathered from the flat buffer (the keep
+        # bits taken as given), then two batched products
+        kmax = max(int(k.numel()) for k in kept)
+        n = xs.shape[1]
+        idx = torch.zeros((len(kept), kmax), dtype=torch.int64, device=dev)
+        mask = torch.zeros((len(kept), kmax), device=dev)
+        for e, k in enumerate(kept):
+            idx[e, :k.numel()] = int(ts[e]) * n + k
+            mask[e, :k.numel()] = 1.0
+        flat_x, flat_y = xs.view(-1, xs.shape[2]), ys.view(-1)
+        s2 = torch.tensor(scale2, device=dev)
 
         def lib():
-            xk = x.index_select(0, kept)
-            return scale2 * (xk.T @ (xk @ w - y.index_select(0, kept)))
+            xk = flat_x.index_select(0, idx.view(-1)).view(*idx.shape, -1)
+            r = (torch.bmm(xk, w_rows[:, :, None])[..., 0]
+                 - flat_y.index_select(0, idx.view(-1)).view(idx.shape)) * mask
+            return s2[:, None] * torch.bmm(xk.transpose(1, 2),
+                                           r[:, :, None])[..., 0]
         src = "lstsq_grad_sampled.cu"
         rep = "src/repro/kernels/lstsq_grad_sampled.py:131"
     elif name == "sample_mask":
@@ -1954,11 +2088,46 @@ def kernel_spec(name: str, args_, dev) -> dict:
                 lib=lib, src=src, rep=rep, rate=rate)
 
 
+def sampled_cost(args_, dev) -> tuple:
+    """(bytes, operations, kept rows, scale2) of a batch of minibatch
+    gradients: each event's kept rows of X and their y read once, its w
+    read and its G written, its (B, 4) block read; 4 k d operations an
+    event of k kept rows (the products and the sums)."""
+    import torch
+    from repro_torch.kernels import ref
+    xs, ys, ts, w_rows, scal, b = args_
+    d = xs.shape[2]
+    host = scal.cpu().numpy()
+    kept = [torch.nonzero(ref.keep_bits_ref(xs.shape[1], host[e], dev))[:, 0]
+            for e in range(host.shape[0])]
+    ks = [int(k.numel()) for k in kept]
+    nbytes = sum(4 * (k * d + k + 2 * d) + 16 for k in ks) + 4 * len(ks)
+    scale2 = [2 * float(np.float32(h[3]) / np.float32(max(min(b, int(h[3])),
+                                                          1)))
+              for h in host]
+    return nbytes, sum(4 * k * d for k in ks), kept, scale2
+
+
+def batch_layout_floor(args_) -> float:
+    """The bytes amtl_event_batch must move in V's row-major (d, T) layout:
+    every 32-byte sector of a row that holds a touched column read and
+    written, besides p, g and undo, in ms at the card's memory rate."""
+    import torch
+    v, p, g, ts, eta, eks = args_
+    d, num_t = v.shape
+    cols = torch.unique(ts[(ts >= 0) & (ts < num_t)]).long()
+    rows = torch.arange(d, device=v.device)[:, None]
+    sectors = torch.unique(((rows * num_t + cols[None, :]) * 4) // 32).numel()
+    nbytes = 2 * 32 * sectors + 4 * (3 * d * p.shape[1] + 2 * p.shape[1])
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 LIBRARY_CALLS = {
     "gauss_sketch": "torch.matmul against a stored Omega",
     "svt_reconstruct": "(qu * s) @ vt",
-    "lstsq_grad_sampled": "composite: index_select of the kept rows + two "
-                          "cuBLAS matvecs",
+    "lstsq_grad_sampled": "composite: each event's kept rows by "
+                          "index_select, then two torch.bmm, for the B "
+                          "events of a batch step",
     "lstsq_grad": "composite: 2 * (x.T @ (x @ w - y)) on the valid rows",
     "flash_attention": "flex_attention under torch.compile, softcap as "
                        "score_mod, the masks as a block mask",
@@ -1970,6 +2139,36 @@ LIBRARY_CALLS = {
     "km_update": "composite: v + eta_k * (p - eta*g - v), four elementwise "
                  "ops; no one PyTorch call computes the update",
 }
+
+
+def sampled_single_times(info: dict, dev) -> dict:
+    """The minibatch gradient kernel at B = 1 (one event of the main batch,
+    and the single-event case of phase 3), beside the batched launch."""
+    from repro_torch.kernels import ops
+    kern = ops.KERNELS["lstsq_grad_sampled"]
+    xs, ys, ts, w_rows, scal, b = info["args"]
+    one = (xs, ys, ts[:1], w_rows[:1], scal[:1], b)
+    x, w, y, block, b1 = info["single"]["args"]
+    saved = kern.launches
+    one_ms = cuda_ms(lambda: kern.lstsq_grad_sampled_batch(*one))
+    single_ms = cuda_ms(lambda: kern.lstsq_grad_sampled(x, w, y, block, b1))
+    kern.launches = saved
+    nbytes, flops, _, _ = sampled_cost(one, dev)
+    bnd, _ = bound_ms(nbytes, flops)
+    log(f"phase 12 lstsq_grad_sampled B = 1: {one_ms * 1e3:.2f} us on the "
+        f"device for event 0 of the main batch (bound {bnd * 1e3:.2f} us), "
+        f"{single_ms * 1e3:.2f} us for phase 3's single event (240 of 399 "
+        "rows, d 8192) through the single-event call")
+    return dict(b1_ms=one_ms, b1_bound_ms=bnd, single_event_ms=single_ms)
+
+
+def event_batch_times(args_, ms: float) -> dict:
+    """amtl_event_batch's layout floor, beside its time."""
+    floor = batch_layout_floor(args_)
+    log(f"phase 12 amtl_event_batch {ms * 1e3:.2f} us; layout floor "
+        f"{floor * 1e3:.2f} us (every 32-byte sector of V holding a touched "
+        f"column read and written)")
+    return dict(layout_floor_ms=floor)
 
 
 # L2-cold timing of the prox's two kernels: each call takes the next of
@@ -2393,7 +2592,7 @@ def main() -> None:
     if not bool(torch.isfinite(rb["v"]).all()):
         fail("ragged batch session: iterate not finite")
     batches = BATCH_EVENTS // BATCH
-    want = {"lstsq_grad_sampled": BATCH_EVENTS, "amtl_event_batch": batches,
+    want = {"lstsq_grad_sampled": batches, "amtl_event_batch": batches,
             "gauss_sketch": batches, "svt_reconstruct": batches}
     for k, n in want.items():
         if rb["counts"][k] != n:
@@ -2509,7 +2708,8 @@ def main() -> None:
                     l21_prox=dense_counts["l21_prox"])
     where = {"amtl_event": "delta session", "sample_mask":
              "logistic SGD delta session", "lstsq_grad": "store gradients",
-             "lstsq_grad_sampled": "ragged SGD batch session",
+             "lstsq_grad_sampled": "ragged SGD batch session (one launch "
+                                   "a batch step of 32 events)",
              "flash_attention": "gemma2-2b serve (B 2, prompt 5000, gen 32)",
              "rwkv6_scan": "rwkv6-3b serve (B 2, prompt 5000, gen 32)",
              "km_update": "dense l21 session (one (8192,) column an event)",
@@ -2547,6 +2747,10 @@ def main() -> None:
                f"{l_ms * 1e3:.2f} us ({LIBRARY_CALLS[name]})")
             + f", {launches[name]} launches on the "
             f"{where.get(name, 'batch session')}")
+        if name == "lstsq_grad_sampled":
+            kernels[-1].update(sampled_single_times(info[name], dev))
+        if name == "amtl_event_batch":
+            kernels[-1].update(event_batch_times(info[name]["args"], k_ms))
         if name in ("gauss_sketch", "svt_reconstruct"):
             cold = sketch_recon_cold(name, info[name]["args"], dev)
             kernels[-1].update(cold)

@@ -424,10 +424,15 @@ def apply_plan(problem: MTLProblem, cfg: AMTLConfig, state,
     p_cache = state.p_cache
     rb_cols = _to(dev, plan.rb_cols, torch.int64)
     rb_slots = _to(dev, plan.rb_slots, torch.int64)
+    # lstsq SGD batches take their B gradients in one call a step
+    batched_grads = cfg.engine == "batch" and plan.scalars is not None \
+        and problem.loss_name == "lstsq"
     if cfg.engine == "batch":
         tasks_dev = _to(dev, plan.tasks, torch.int32)
         eta_ks_dev = _to(dev, plan.eta_ks, torch.float32)
         ring_slots_dev = _to(dev, plan.ring_slots, torch.int64)
+    if batched_grads:
+        scalars_dev = _to(dev, plan.scalars, torch.uint32)
 
     p = p_cache
     for s in range(steps):
@@ -455,9 +460,14 @@ def apply_plan(problem: MTLProblem, cfg: AMTLConfig, state,
             ts = tasks_dev[first:first + per_step]
             p_cols = p.index_select(1, ts)                       # (d, B)
             p_rows = p_cols.T.contiguous()                       # (B, d)
-            g_rows = torch.empty_like(p_rows)
-            for i in range(per_step):
-                g_rows[i] = grad(first + i, p_rows[i])
+            if batched_grads:
+                g_rows = problem.task_grads_sampled(
+                    ts, p_rows, scalars_dev[first:first + per_step],
+                    cfg.batch_size)
+            else:
+                g_rows = torch.empty_like(p_rows)
+                for i in range(per_step):
+                    g_rows[i] = grad(first + i, p_rows[i])
             _, undo = ops.amtl_event_batch(
                 v, p_cols, g_rows.T.contiguous(), ts, cfg.eta,
                 eta_ks_dev[first:first + per_step])

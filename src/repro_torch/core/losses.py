@@ -206,6 +206,23 @@ class MTLProblem(NamedTuple):
         bsz = min(batch_size, n_t)
         return float(np.float32(n_t) / np.float32(max(bsz, 1))) * grad
 
+    def task_grads_sampled(self, tasks: Tensor, w_rows: Tensor,
+                           scalars: Tensor, batch_size: int) -> Tensor:
+        """(B, d) seeded-minibatch gradients of B events of a lstsq problem
+        in one call: row e is `task_grad_sampled(tasks[e], w_rows[e],
+        scalars[e], batch_size)`, bit for bit.  `tasks` (B,) int32 and
+        `scalars` (B, 4) uint32 are tensors on the problem's device (the
+        batch engine uploads a plan's blocks once a run); on the card this
+        is one launch of the gradient kernel.  The reference computes the
+        same B functions one event at a time in its step's scan."""
+        from repro_torch.kernels import ops
+
+        if self.loss_name != "lstsq":
+            raise ValueError("task_grads_sampled takes lstsq problems; "
+                             f"got loss {self.loss_name!r}")
+        return ops.lstsq_grad_sampled_batch(self.xs, self.ys, tasks, w_rows,
+                                            scalars, batch_size)
+
     def full_grad(self, w_cols: Tensor) -> Tensor:
         """nabla f(W) column-stacked, (d, T) — paper Eq. III.2."""
         return torch.stack(self._per_task("grad", w_cols), dim=1)

@@ -1,5 +1,5 @@
 // The counter hash and the minibatch keep bit, shared by every kernel that
-// draws from them (gauss_sketch.cu, lstsq_grad_sampled.cu, lstsq_grad.cu),
+// draws from them (gauss_sketch.cu, lstsq_grad_sampled.cu),
 // so the selection and the sketch can never drift between kernels.
 //
 // counter_hash is the reference's lowbias32 finalizer over (seed, counter)

@@ -1,4 +1,4 @@
-// The two-phase body shared by lstsq_grad.cu and lstsq_grad_sampled.cu:
+// The two-phase body of lstsq_grad.cu:
 //
 //     g = scale2 * X_K^T (X_K w - y_K),   K = the rows whose keep bit is set
 //

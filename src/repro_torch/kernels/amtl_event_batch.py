@@ -4,10 +4,14 @@ Port of `repro/kernels/amtl_event_batch.py :: amtl_event_batch`; the
 kernel is `repro_torch/csrc/amtl_event_batch.cu`.  It updates V IN PLACE:
 the batch engine owns the (d, T) iterate it passes (a clone made once per
 `run`), so no (d, T) copy is made per batch.
+
+A block takes a tile of rows of V, staged whole in shared memory, and
+writes the tile back whole, coalesced.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -26,7 +30,7 @@ def amtl_event_batch(v: torch.Tensor, p_cols: torch.Tensor,
 
     p_cols/g_cols: (d, B) float32; tasks: (B,) int32; eta_ks: (B,) float32,
     all contiguous on one CUDA device.  Duplicate tasks serialize in event
-    order; ids >= T are dropped (see the kernel's note).
+    order; ids outside [0, T) are dropped (see the kernel's note).
     """
     global launches
     name = "amtl_event_batch"
@@ -45,6 +49,9 @@ def amtl_event_batch(v: torch.Tensor, p_cols: torch.Tensor,
         raise ValueError(f"{name}: p_cols/g_cols must be ({d}, {b}) and "
                          f"eta_ks ({b},); got {tuple(p_cols.shape)}, "
                          f"{tuple(g_cols.shape)}, {tuple(eta_ks.shape)}")
+    if _tile_rows(num_t, b) == 0:
+        raise ValueError(f"{name}: a row of V ({num_t}) with its p and g "
+                         f"({b}) does not fit in a block's shared memory")
     undo = torch.empty((b, d), dtype=v.dtype, device=dev)
     fn = _build.function("amtl_event_batch_launch", _ARGTYPES)
     err = fn(v.data_ptr(), p_cols.data_ptr(), g_cols.data_ptr(),
@@ -54,3 +61,10 @@ def amtl_event_batch(v: torch.Tensor, p_cols: torch.Tensor,
     _build.check(err, name)
     launches += 1
     return v, undo
+
+
+@functools.cache
+def _tile_rows(num_t: int, b: int) -> int:
+    """The rows of V a block takes at (T, B); 0 if not one fits."""
+    return _build.function("amtl_event_batch_rows",
+                           [ctypes.c_int, ctypes.c_int])(num_t, b)

@@ -143,6 +143,22 @@ def lstsq_grad_sampled(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
     return ref.lstsq_grad_sampled_masked_ref(x, w, y, seed, batch_size, n_t)
 
 
+def lstsq_grad_sampled_batch(xs: torch.Tensor, ys: torch.Tensor,
+                             tasks: torch.Tensor, w_rows: torch.Tensor,
+                             scalars: torch.Tensor,
+                             batch_size: int) -> torch.Tensor:
+    """(B, d) minibatch gradients of B events in one call: row e is
+    `lstsq_grad_sampled` of task tasks[e] (int32) at w_rows[e] with the
+    scalar block scalars[e] ((B, 4) uint32), on the buffers xs (T, n, d)
+    and ys (T, n).  On the card one launch; row e has the bits of the
+    single event's call."""
+    if _on_cuda("lstsq_grad_sampled", xs):
+        return _lstsq_grad_sampled.lstsq_grad_sampled_batch(
+            xs, ys, tasks, w_rows, scalars, batch_size)
+    return ref.lstsq_grad_sampled_batch_ref(xs, ys, tasks, w_rows, scalars,
+                                            batch_size)
+
+
 def sample_mask(n: int, scalars, device: torch.device | str) -> torch.Tensor:
     """(n,) bool minibatch keep bits of a host scalar block, on `device`;
     exactly min(batch_size, n_t) are set, all below n_t."""

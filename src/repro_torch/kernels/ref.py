@@ -354,6 +354,31 @@ def lstsq_grad_sampled_masked_ref(x: Tensor, w: Tensor, y: Tensor, seed,
     return (scale * (x32.T @ r)).to(w.dtype)
 
 
+def task_index(t: int, num_t: int) -> int:
+    """The task a dynamic index by id t picks among num_t, as the
+    reference's `lax.dynamic_index_in_dim` picks it: a negative id counts
+    from the end, then the id is clamped into [0, num_t)."""
+    if t < 0:
+        t += num_t
+    return min(max(t, 0), num_t - 1)
+
+
+def lstsq_grad_sampled_batch_ref(xs: Tensor, ys: Tensor, tasks: Tensor,
+                                 w_rows: Tensor, scalars: Tensor,
+                                 batch_size: int) -> Tensor:
+    """(B, d) minibatch gradients of B events: row e is
+    `lstsq_grad_sampled_masked_ref` of task tasks[e] at w_rows[e] with the
+    seed and n_t of scalars[e] (the event loop of the reference's step,
+    each row with the single event's bits).  An id outside [0, T) picks
+    its task by `task_index`."""
+    rows = []
+    for e, t in enumerate(task_index(int(t), xs.shape[0])
+                          for t in tasks.tolist()):
+        seed, _, _, n_t = (int(s) for s in scalars[e].tolist())
+        rows.append(lstsq_grad_sampled_masked_ref(xs[t], w_rows[e], ys[t],
+                                                  seed, batch_size, n_t))
+    return torch.stack(rows)
+
 # ------------------------------------------------------------ attention ---
 
 NEG_INF = -1e30

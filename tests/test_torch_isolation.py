@@ -161,6 +161,11 @@ def test_cpu_tensors_take_plain_versions_and_launch_nothing():
     x, y = torch.randn(16, 4), torch.randn(16)
     block = ref.sample_scalars(16, 3, [9], [11])[0]
     ops.lstsq_grad_sampled(x, v[0], y, block, 3)
+    blocks = torch.from_numpy(ref.sample_scalars(16, 3, [9, 4], [11, 16]))
+    rows = ops.lstsq_grad_sampled_batch(
+        torch.stack([x, x]), torch.stack([y, y]),
+        torch.tensor([1, 0], dtype=torch.int32), v[:2].contiguous(), blocks, 3)
+    assert rows.shape == (2, 4)
     assert ops.sample_mask(16, block, "cpu").sum() == 3
     ops.lstsq_grad(x, v[0], y, 11)
     ops.lstsq_grad(x, v[0], y)
@@ -199,6 +204,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     x, y = torch.zeros(8, 2), torch.zeros(8)
     with pytest.raises(ValueError, match="CUDA"):
         k_sampled.lstsq_grad_sampled(x, torch.zeros(2), y, (1, 2, 3, 8), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_sampled.lstsq_grad_sampled_batch(
+            x[None], y[None], torch.zeros(1, dtype=torch.int32),
+            torch.zeros(1, 2), torch.zeros((1, 4), dtype=torch.uint32), 2)
     with pytest.raises(ValueError, match="CUDA"):
         k_grad.lstsq_grad(x, torch.zeros(2), y, 4)
     with pytest.raises(ValueError, match="CUDA"):
