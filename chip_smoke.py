@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/`, holds each
-kernel against its plain PyTorch version on the card, drives the port's
+kernel against its plain PyTorch version on the card (the delta and dense
+engines' in-place state updates too), drives the port's
 main paths at full width — the AMTL engine session (batch engine with the
 randomized-SVT prox, delta engine), SGD-AMTL on ragged task cohorts
 published by a TaskStore (batch, delta and logistic sessions, a store
@@ -17,8 +18,9 @@ engine and the l2,1 (joint feature learning) formulation (dense sessions
 with the km_update and l21_prox kernels, dense == delta bitwise, a batch
 l2,1 session, FISTA's reference optimum) — holds the card's runs against the
 port's own CPU runs or plain-kernel runs of the same states, and times
-each kernel (the prox's two kernels L2-cold too, and one prox refresh by
-part, with the calls that synchronize the host).  Any failed
+each kernel (the prox's two kernels and the engines' state updates
+L2-cold too, and one prox refresh by part, with the calls that
+synchronize the host).  Any failed
 phase exits non-zero.  The last three lines of standard output are the
 kernel table as JSON, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
@@ -254,10 +256,12 @@ def check_kernels(dev, gen) -> dict:
             fail(f"amtl_event d={d} eta_k={eta_k}: not bitwise "
                  f"(max |diff| {(kv - rv).abs().max().item():.3g})")
         if d == D and eta_k:
-            info["amtl_event"] = dict(args=(v, p, g, ETA, eta_k), err=0.0)
+            info["amtl_event contiguous"] = dict(args=(v, p, g, ETA, eta_k),
+                                                 err=0.0)
     log("amtl_event: bitwise against its plain version (d=8192, d=1000, "
         "eta_k=0)")
 
+    info.update(check_engine_forms(dev, gen))
     info.update(check_event_batch(dev, gen))
     info.update(check_sketch_recon(dev, gen))
     info.update(check_sgd_kernels(dev, gen))
@@ -265,6 +269,118 @@ def check_kernels(dev, gen) -> dict:
     info.update(check_flash_kernel(dev, gen))
     info.update(check_rwkv_kernel(dev, gen))
     ops.reset_launch_counts()
+    return info
+
+
+def check_engine_forms(dev, gen) -> dict:
+    """The engines' one-launch state updates against their plain versions
+    on the card, bitwise and in place: `amtl_event_inplace` on V (8192,
+    128) with a depth-9 undo ring, `km_update_slot` on a (9, 8192, 128)
+    dense ring, each at the main shapes and at the edges (the first and
+    last column, T odd, d not a multiple of 4, a ring of one slot, eta_k
+    0; for the slot update also the word path of a ring 4 bytes off
+    16-byte alignment and a tail of vectors).  Every other column and slot
+    must keep its bits, and a bad index must raise with no launch
+    counted.  Returns the main shapes' arguments for the timing phase."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import amtl_event as k_event
+    from repro_torch.kernels import km_update as k_km
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    info = {}
+    depth = TAU + 1
+    # (d, T, depth, t, slot, eta_k); the first is the main shape
+    for d, tt, dp, t, slot, eta_k in (
+            (D, T, depth, 37, 5, 0.37), (D, T, depth, 0, 8, 0.37),
+            (D, T, depth, T - 1, 0, 0.37), (1000, 5, 4, 4, 3, 0.37),
+            (D, T, 1, 5, 0, 0.37), (D, T, depth, 3, 2, 0.0)):
+        v, ring, p, g = randn(d, tt), randn(dp, d), randn(d), randn(d)
+        kv, kr, rv, rr = v.clone(), ring.clone(), v.clone(), ring.clone()
+        k_event.amtl_event_inplace(kv, t, p, g, ETA, eta_k, kr, slot)
+        ref.amtl_event_inplace_ref(rv, t, p, g, ETA, eta_k, rr, slot)
+        torch.cuda.synchronize()
+        others = torch.arange(tt, device=dev) != t
+        rest = torch.arange(dp, device=dev) != slot
+        if not (torch.equal(bits(kv), bits(rv)) and torch.equal(bits(kr),
+                                                               bits(rr))
+                and torch.equal(bits(kv[:, others]), bits(v[:, others]))
+                and torch.equal(bits(kr[slot]), bits(v[:, t]))
+                and torch.equal(bits(kr[rest]), bits(ring[rest]))):
+            fail(f"amtl_event_inplace d={d} T={tt} depth={dp} t={t} "
+                 f"slot={slot} eta_k={eta_k}: not bitwise its plain version, "
+                 "or another column or slot changed (max |diff| "
+                 f"{(kv - rv).abs().max().item():.3g})")
+        if not info:
+            info["amtl_event"] = dict(args=(v, t, p, g, ETA, eta_k, ring,
+                                            slot), err=0.0)
+    log("amtl_event_inplace: bitwise against its plain version in place "
+        "(V 8192x128 with a depth-9 undo ring; t 0 and T-1; 1000x5; depth "
+        "1; eta_k 0), other columns and slots untouched")
+
+    # (depth, d, T, src, dst, t, eta_k, words of offset); the first is main
+    for dp, d, tt, src, dst, t, eta_k, off in (
+            (depth, D, T, 3, 4, 37, 0.37, 0), (depth, D, T, 8, 0, 0, 0.37, 0),
+            (depth, D, T, 0, 1, T - 1, 0.37, 0),
+            (4, 1000, 5, 1, 2, 4, 0.37, 0), (3, 1000, 6, 0, 1, 5, 0.37, 0),
+            (3, 1001, 12, 2, 0, 11, 0.37, 0), (1, D, T, 0, 0, 5, 0.37, 0),
+            (depth, D, T, 2, 3, 10, 0.0, 0), (depth, 300, T, 5, 6, 64, 0.37, 1)):
+        flat = randn(dp * d * tt + off)
+        ring = flat[off:].view(dp, d, tt)
+        p, g = randn(d), randn(d)
+        kr, rr = ring.clone(), ring.clone()
+        if off:                        # keep the kernel's copy misaligned
+            kflat = flat.clone()
+            kr = kflat[off:].view(dp, d, tt)
+        k_km.km_update_slot(kr, src, dst, t, p, g, ETA, eta_k)
+        ref.km_update_slot_ref(rr, src, dst, t, p, g, ETA, eta_k)
+        torch.cuda.synchronize()
+        others = torch.arange(tt, device=dev) != t
+        rest = torch.arange(dp, device=dev) != dst
+        if not (torch.equal(bits(kr), bits(rr))
+                and torch.equal(bits(kr[dst][:, others]),
+                                bits(ring[src][:, others]))
+                and torch.equal(bits(kr[rest]), bits(ring[rest]))):
+            fail(f"km_update_slot depth={dp} d={d} T={tt} src={src} dst={dst}"
+                 f" t={t} eta_k={eta_k} offset={off}: not bitwise its plain "
+                 "version, or another column or slot changed (max |diff| "
+                 f"{(kr - rr).abs().max().item():.3g})")
+        if "km_update" not in info:
+            info["km_update"] = dict(args=(ring, src, dst, t, p, g, ETA,
+                                           eta_k), err=0.0)
+    log("km_update_slot: bitwise against its plain version in place "
+        "((9, 8192, 128) ring; dst 0 and t 0, t T-1, T 5 and 6 (words), "
+        "1001x12 (a tail of vectors), depth 1 (the column in place), eta_k "
+        "0, a ring 4 bytes off 16-byte alignment (words)), other columns "
+        "and slots untouched")
+
+    v, t, p, g, eta, eta_k, ring, slot = info["amtl_event"]["args"]
+    dense = info["km_update"]["args"][0]
+    before = ops.launch_counts()
+    for bad in (lambda: k_event.amtl_event_inplace(v, T, p, g, eta, eta_k,
+                                                   ring, slot),
+                lambda: k_event.amtl_event_inplace(v, t, p, g, eta, eta_k,
+                                                   ring, depth),
+                lambda: k_event.amtl_event_inplace(v.double(), t, p, g, eta,
+                                                   eta_k, ring, slot),
+                lambda: k_km.km_update_slot(dense, 0, depth, t, p, g, eta,
+                                            eta_k),
+                lambda: k_km.km_update_slot(dense, -1, 0, t, p, g, eta,
+                                            eta_k),
+                lambda: k_km.km_update_slot(dense, 0, 1, T, p, g, eta,
+                                            eta_k)):
+        try:
+            bad()
+        except ValueError:
+            continue
+        fail("an engine form took an index outside its range or a float64 "
+             "iterate")
+    if ops.launch_counts() != before:
+        fail("a refused engine-form call counted a launch")
+    log("engine forms: t = T, slot = depth, src -1, a float64 iterate "
+        "raise ValueError on the card with no launch counted")
     return info
 
 
@@ -697,7 +813,8 @@ def check_l21_km_kernels(dev, gen) -> dict:
                 fail(f"km_update {shape} {dt}: not bitwise (max |diff| "
                      f"{(k.float() - r.float()).abs().max().item():.3g})")
             if dt == "float32" and shape in ((D,), (D, T)):
-                slot = "km_update" if shape == (D,) else "km_update block"
+                slot = "km_update column" if shape == (D,) \
+                    else "km_update block"
                 info[slot] = dict(args=(v, p, g, ETA, eta_k), err=0.0)
     log("km_update: bitwise against its plain version in float32 and bf16 at "
         "(8192,), (8192, 1), (8192, 128), (300, 130), (7, 1)")
@@ -1745,9 +1862,10 @@ def run_session(problem, cfg, v0, key, offs, num_events, dev) -> dict:
 
 
 def device_profile(problem, cfg, v0, key, offs, num_events, dev) -> tuple:
-    """(busy seconds, top kernels) of the device work of one run, from
-    torch.profiler's CUDA activity: the sum of kernel and copy times on
-    the card while `apply_plan` runs (the host plan is made beforehand)."""
+    """(busy seconds, top kernels, device operations) of the device work of
+    one run, from torch.profiler's CUDA activity: the sum of kernel and
+    copy times on the card while `apply_plan` runs (the host plan is made
+    beforehand), and the number of kernels and copies it ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import amtl, make_engine
@@ -1758,10 +1876,12 @@ def device_profile(problem, cfg, v0, key, offs, num_events, dev) -> tuple:
                              ProfilerActivity.CUDA]) as prof:
         amtl.apply_plan(problem, cfg, state0, plan)
         sync(dev)
-    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    rows.sort(key=lambda r: -r[1])
-    return sum(t for _, t in rows) * 1e-6, rows[:8]
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    rows = sorted(((e.key, e.self_device_time_total) for e in device),
+                  key=lambda r: -r[1])
+    return (sum(t for _, t in rows) * 1e-6, rows[:8],
+            sum(e.count for e in device))
 
 
 def objective(problem, cfg, v) -> float:
@@ -1939,13 +2059,14 @@ def report_session(label: str, r: dict, n: int, n_split: int,
 def report_busy(label: str, problem, cfg, v0, key, offs, n, device_s,
                 dev, phase: int = 9) -> None:
     try:
-        busy, top = device_profile(problem, cfg, v0, key, offs, n, dev)
+        busy, top, n_ops = device_profile(problem, cfg, v0, key, offs, n,
+                                          dev)
     except RuntimeError as e:       # no CUPTI tracing on this machine
         log(f"phase {phase} {label} device busy share: not measured ({e})")
         return
     log(f"phase {phase} {label} device busy {busy:.4f} s of the {device_s:.3f} s "
-        f"device-work window ({100 * busy / device_s:.1f}%), "
-        "torch.profiler; top: "
+        f"device-work window ({100 * busy / device_s:.1f}%), {n_ops / n:.2f} "
+        "kernels and copies an event, torch.profiler; top: "
         + "; ".join(f"{k[:60]} {t / 1e3:.1f} ms" for k, t in top))
 
 
@@ -1954,8 +2075,21 @@ def kernel_spec(name: str, args_, dev) -> dict:
     call for one kernel at its main-path shape."""
     import torch
     from repro_torch.kernels import ops, ref
-    kern = ops.KERNELS[name]
+    kern = ops.KERNELS[name.split()[0]]
     if name == "amtl_event":
+        # the engine form: V's column t and ring[slot] in place
+        v, t, p, g, eta, eta_k, ring, slot = args_
+        d = v.shape[0]
+        # three reads (the column, p, g) and two writes (column, undo) of d
+        nbytes, flops = 5 * 4 * d, 4 * d
+        vk, rk, vp, rp = v.clone(), ring.clone(), v.clone(), ring.clone()
+        kfn = lambda: kern.amtl_event_inplace(vk, t, p, g, eta, eta_k, rk,
+                                              slot)
+        pfn = lambda: ref.amtl_event_inplace_ref(vp, t, p, g, eta, eta_k, rp,
+                                                 slot)
+        lib = None
+        src, rep = "amtl_event.cu", "src/repro/kernels/amtl_event.py:69"
+    elif name == "amtl_event contiguous":
         v, p, g, eta, eta_k = args_
         d = v.shape[0]
         nbytes, flops = 5 * 4 * d, 4 * d
@@ -2064,6 +2198,21 @@ def kernel_spec(name: str, args_, dev) -> dict:
             min=0.0)
         src, rep = "l21_prox.cu", "src/repro/kernels/l21_prox.py:45"
     elif name == "km_update":
+        # the engine form: ring[dst] = ring[src] with column t updated
+        ring, s_src, s_dst, t, p, g, eta, eta_k = args_
+        _, d, tt = ring.shape
+        # a slot read and one written (src == dst: the column), p and g
+        # read; two fmas and a subtraction a row
+        nbytes = 4 * (2 * d * tt + 2 * d) if s_src != s_dst else 16 * d
+        flops = 3 * d
+        rk, rp, rl = ring.clone(), ring.clone(), ring.clone()
+        kfn = lambda: kern.km_update_slot(rk, s_src, s_dst, t, p, g, eta,
+                                          eta_k)
+        pfn = lambda: ref.km_update_slot_ref(rp, s_src, s_dst, t, p, g, eta,
+                                             eta_k)
+        lib = lambda: rl[s_dst].copy_(rl[s_src])
+        src, rep = "km_update.cu", "src/repro/kernels/km_update.py:55"
+    elif name == "km_update contiguous":
         v, p, g, eta, eta_k = args_
         # three reads and a write an element; two fmas an element
         nbytes, flops = 4 * v.element_size() * v.numel(), 4 * v.numel()
@@ -2136,8 +2285,11 @@ LIBRARY_CALLS = {
                   "PyTorch call computes the recurrence",
     "l21_prox": "composite: w * clamp(1 - t / clamp(vector_norm(w, dim=1), "
                 "1e-12), 0), float32; no one PyTorch call computes the prox",
-    "km_update": "composite: v + eta_k * (p - eta*g - v), four elementwise "
-                 "ops; no one PyTorch call computes the update",
+    "km_update": "ring[dst].copy_(ring[src]): the slot copy alone, one "
+                 "PyTorch call that does less work",
+    "km_update contiguous": "composite: v + eta_k * (p - eta*g - v), four "
+                            "elementwise ops; no one PyTorch call computes "
+                            "the update",
 }
 
 
@@ -2169,6 +2321,97 @@ def event_batch_times(args_, ms: float) -> dict:
         f"{floor * 1e3:.2f} us (every 32-byte sector of V holding a touched "
         f"column read and written)")
     return dict(layout_floor_ms=floor)
+
+
+def engine_form_times(name: str, info: dict, dev) -> dict:
+    """The engine form of amtl_event or km_update beside its yardsticks:
+    L2-cold, the parent tree's four-launch composite on the same state
+    (L2-warm and L2-cold), and the contiguous call of earlier slices.
+
+    amtl_event's cold walk takes COLD_INPUTS iterates (52 MB) in turn, and
+    column t stepped a 32-byte sector at a time, so each call meets
+    sectors untouched for 208 calls.  km_update's takes two (9, 8192, 128)
+    rings (75 MB) in turn, slot pairs (0, 1), (2, 3), ..., (8, 0), (1, 2),
+    ... on each, so a slot comes back after at least 8 calls (64 MB)."""
+    import itertools
+    import torch
+    from repro_torch.kernels import ops
+    kern = ops.KERNELS[name]
+    saved = kern.launches
+    if name == "amtl_event":
+        v, t, p, g, eta, eta_k, ring, slot = info[name]["args"]
+        d, tt = v.shape
+        states = [(v.clone(), ring.clone()) for _ in range(COLD_INPUTS)]
+        walk = [(st, c) for c in range(t % 8, tt, 8) for st in states]
+        warm = ((v.clone(), ring.clone()), t)
+
+        def engine(x):
+            (vv, rr), c = x
+            kern.amtl_event_inplace(vv, c, p, g, eta, eta_k, rr, slot)
+
+        def parent(x):
+            (vv, rr), c = x
+            v_new, old = kern.amtl_event(vv[:, c].contiguous(), p, g, eta,
+                                         eta_k)
+            vv[:, c] = v_new
+            rr[slot] = old
+        library = None
+        # each word of the column in a 32-byte sector of its own, read and
+        # written; p and g read, the undo entry written
+        floor_bytes = 2 * 32 * d + 3 * 4 * d
+        contiguous = kernel_spec("amtl_event contiguous",
+                                 info["amtl_event contiguous"]["args"], dev)
+    else:
+        ring, src, dst, t, p, g, eta, eta_k = info[name]["args"]
+        depth = ring.shape[0]
+        rings = [ring.clone(), ring.clone()]
+        starts = [(2 * j) % depth for j in range(depth)]    # 0, 2, .., 7
+        walk = [(rr, a, (a + 1) % depth) for a in starts for rr in rings]
+        warm = (ring.clone(), src, dst)
+
+        def engine(x):
+            rr, a, b = x
+            kern.km_update_slot(rr, a, b, t, p, g, eta, eta_k)
+
+        def parent(x):
+            rr, a, b = x
+            cur = rr[a]
+            v_t = kern.km_update(cur[:, t].contiguous(), p, g, eta, eta_k)
+            rr[b] = cur
+            rr[b, :, t] = v_t
+
+        def library(x):
+            rr, a, b = x
+            rr[b].copy_(rr[a])
+        floor_bytes = None
+        contiguous = kernel_spec("km_update contiguous",
+                                 info["km_update column"]["args"], dev)
+    cold = [itertools.cycle(walk) for _ in range(3)]
+    out = dict(l2_cold_ms=cuda_ms(lambda: engine(next(cold[0]))),
+               parent_composite_ms=cuda_ms(lambda: parent(warm)),
+               parent_composite_l2_cold_ms=cuda_ms(
+                   lambda: parent(next(cold[1]))),
+               contiguous_ms=cuda_ms(contiguous["kfn"]),
+               contiguous_bound_ms=bound_ms(contiguous["nbytes"],
+                                            contiguous["flops"])[0])
+    if library is not None:
+        out["library_l2_cold_ms"] = cuda_ms(lambda: library(next(cold[2])))
+    if floor_bytes is not None:
+        out["layout_floor_ms"] = floor_bytes / HBM_BYTES_PER_S * 1e3
+    torch.cuda.synchronize()
+    kern.launches = saved           # timing launches are not the path's
+    log(f"phase 12 {name} engine form: L2-cold {out['l2_cold_ms'] * 1e3:.2f}"
+        " us"
+        + (f" (library {out['library_l2_cold_ms'] * 1e3:.2f} us)"
+           if library is not None else "")
+        + f"; the parent's four-launch composite "
+        f"{out['parent_composite_ms'] * 1e3:.2f} us L2-warm, "
+        f"{out['parent_composite_l2_cold_ms'] * 1e3:.2f} us L2-cold; the "
+        f"contiguous call {out['contiguous_ms'] * 1e3:.2f} us (bound "
+        f"{out['contiguous_bound_ms'] * 1e3:.2f} us)"
+        + (f"; layout floor {out['layout_floor_ms'] * 1e3:.2f} us"
+           if floor_bytes is not None else ""))
+    return out
 
 
 # L2-cold timing of the prox's two kernels: each call takes the next of
@@ -2333,7 +2576,8 @@ def expect_launches(label: str, counts: dict, want: dict) -> None:
 def l21_km_times(info: dict) -> None:
     """Device time, bound, plain and composite time of the two kernels at
     the kernels bench's shapes (the path's shapes are in the table)."""
-    for key, name, shape in (("km_update block", "km_update", "(8192, 128)"),
+    for key, name, shape in (("km_update block", "km_update contiguous",
+                              "(8192, 128)"),
                              ("l21_prox bench", "l21_prox", "(8192, 64)")):
         spec = kernel_spec(name, info[key]["args"], None)
         saved = spec["kern"].launches
@@ -2566,6 +2810,8 @@ def main() -> None:
                  f"{refreshes} times")
     log(f"phase 5 delta session: {DELTA_EVENTS} events, launches "
         f"{dl['counts']}: PASS")
+    report_busy("delta session", problem, delta_cfg, v0, key, offs,
+                DELTA_EVENTS, dl["device"], dev, phase=5)
 
     # phase 6: the card against the port's own CPU run of the same state
     cpu = torch.device("cpu")
@@ -2679,9 +2925,10 @@ def main() -> None:
         "us an event)")
     for label, prob, cfg, n, r in (
             ("batch engine", problem, batch_cfg, BATCH_EVENTS, b),
-            ("delta engine", problem, delta_cfg, DELTA_EVENTS, dl),
             ("ragged SGD batch", rp, sgd_batch, rb["plan_events"], rb),
-            ("ragged SGD delta", rp, sgd_delta, DELTA_EVENTS, rd)):
+            ("ragged SGD delta", rp, sgd_delta, DELTA_EVENTS, rd),
+            ("logistic SGD delta", logistic, sgd_delta, LOGISTIC_EVENTS,
+             rl)):
         report_busy(label, prob, cfg, v0, key, offs, n, r["device"], dev)
 
     # phases 15-19: the dense engine and the l2,1 formulation
@@ -2712,7 +2959,7 @@ def main() -> None:
                                    "a batch step of 32 events)",
              "flash_attention": "gemma2-2b serve (B 2, prompt 5000, gen 32)",
              "rwkv6_scan": "rwkv6-3b serve (B 2, prompt 5000, gen 32)",
-             "km_update": "dense l21 session (one (8192,) column an event)",
+             "km_update": "dense l21 session (one slot update an event)",
              "l21_prox": "dense l21 session"}
     for name in ("amtl_event_batch", "gauss_sketch", "svt_reconstruct",
                  "amtl_event", "lstsq_grad_sampled", "sample_mask",
@@ -2751,6 +2998,8 @@ def main() -> None:
             kernels[-1].update(sampled_single_times(info[name], dev))
         if name == "amtl_event_batch":
             kernels[-1].update(event_batch_times(info[name]["args"], k_ms))
+        if name in ("amtl_event", "km_update"):
+            kernels[-1].update(engine_form_times(name, info, dev))
         if name in ("gauss_sketch", "svt_reconstruct"):
             cold = sketch_recon_cold(name, info[name]["args"], dev)
             kernels[-1].update(cold)

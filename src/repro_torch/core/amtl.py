@@ -60,9 +60,10 @@ The session API is the reference's:
     v      = engine.iterate(state)
 
 `run` never mutates the state it is given: it clones `v` and `delta_ring`
-(the dense engine: `ring`) once on entry and updates the clones in
-place, so `run(s, n + m)` equals `run(run(s, n), m)` bitwise, and `s`
-stays valid.  On the CPU (the plain versions of the kernels) the batch
+(the dense engine: `ring`) once on entry, row-major whatever the
+strides it is given, and updates the clones in place, so
+`run(s, n + m)` equals `run(run(s, n), m)` bitwise, and `s` stays
+valid.  On the CPU (the plain versions of the kernels) the batch
 engine equals the delta engine bitwise at a matched prox cadence, as in
 the reference.
 """
@@ -80,8 +81,7 @@ from repro_torch.core.dynamic_step import DelayHistory, dynamic_multiplier
 from repro_torch.core.losses import MTLProblem
 from repro_torch.core.operators import (amtl_max_step, backward,
                                         fixed_point_residual,
-                                        km_block_update, restore_columns,
-                                        rollback_winners)
+                                        restore_columns, rollback_winners)
 from repro_torch.core.prox import svt_randomized
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
@@ -369,25 +369,23 @@ def _apply_dense(problem: MTLProblem, cfg: AMTLConfig, state: AMTLState,
 
     Per event: the stale read ring[(ptr - nu) % depth] with the task's own
     column from the newest slot, the exact prox, the task's gradient at
-    its (contiguous) prox column, the `km_update` kernel on the task's
-    column, and the new iterate written into slot ptr + 1.  `state.ring`
-    is cloned once and the clone updated in place.
+    its (contiguous) prox column, and one `ops.km_update_slot`, which
+    writes the new iterate into slot ptr + 1: the newest slot with the
+    task's column updated (tau = 0 updates its one slot in place).
+    `state.ring` is cloned once and the clone updated in place.
     """
     depth = cfg.tau + 1
-    ring = state.ring.clone()
+    ring = state.ring.clone(memory_format=torch.contiguous_format)
     for e in range(plan.tasks.shape[0]):
         t = int(plan.tasks[e])
         new = int(plan.ring_slots[e, 0])
-        cur = ring[(new - 1) % depth]
+        cur = (new - 1) % depth
         v_hat = ring[int(plan.read_slots[e])].clone()
-        v_hat[:, t] = cur[:, t]
+        v_hat[:, t] = ring[cur, :, t]
         p_t = backward(problem, v_hat, cfg.eta)[:, t].contiguous()
         g_t = problem.task_grad(t, p_t)
-        v_t = km_block_update(cur[:, t].contiguous(), p_t, g_t, cfg.eta,
-                              float(plan.eta_ks[e]))
-        if depth > 1:                  # tau = 0 rewrites its one slot
-            ring[new] = cur
-        ring[new, :, t] = v_t
+        ops.km_update_slot(ring, cur, new, t, p_t, g_t, cfg.eta,
+                           float(plan.eta_ks[e]))
     return AMTLState(ring=ring, ptr=plan.ptr, event=plan.event,
                      history=plan.history, key=plan.key)
 
@@ -396,10 +394,12 @@ def apply_plan(problem: MTLProblem, cfg: AMTLConfig, state,
                plan: EventPlan):
     """Run the device side of a plan; returns the new state.
 
-    `state.v` and `state.delta_ring` are cloned once; the clones are
-    updated in place (column writes, ring writes and the in-place
-    `amtl_event_batch` kernel) and become the new state's tensors.  The
-    dense engine clones its ring instead (`_apply_dense`).
+    `state.v` and `state.delta_ring` are cloned once, row-major (the
+    kernels take contiguous state whatever strides v0 had); the clones are
+    updated in place (the delta engine's `ops.amtl_event_inplace`, one
+    launch an event; the batch engine's `amtl_event_batch` and ring
+    writes) and become the new state's tensors.  The dense engine clones
+    its ring instead (`_apply_dense`).
     """
     if cfg.engine == "dense":
         return _apply_dense(problem, cfg, state, plan)
@@ -419,8 +419,8 @@ def apply_plan(problem: MTLProblem, cfg: AMTLConfig, state,
         return problem.task_grad_sampled(t, p_t, plan.scalars[e],
                                          cfg.batch_size)
 
-    v = state.v.clone()
-    ring = state.delta_ring.clone()
+    v = state.v.clone(memory_format=torch.contiguous_format)
+    ring = state.delta_ring.clone(memory_format=torch.contiguous_format)
     p_cache = state.p_cache
     rb_cols = _to(dev, plan.rb_cols, torch.int64)
     rb_slots = _to(dev, plan.rb_slots, torch.int64)
@@ -452,10 +452,9 @@ def apply_plan(problem: MTLProblem, cfg: AMTLConfig, state,
         if cfg.engine == "delta":
             p_t = p[:, t0].contiguous()
             g_t = grad(first, p_t)
-            v_new, old = ops.amtl_event(v[:, t0].contiguous(), p_t, g_t,
-                                        cfg.eta, float(plan.eta_ks[first]))
-            v[:, t0] = v_new
-            ring[int(plan.ring_slots[s, 0])] = old
+            ops.amtl_event_inplace(v, t0, p_t, g_t, cfg.eta,
+                                   float(plan.eta_ks[first]), ring,
+                                   int(plan.ring_slots[s, 0]))
         else:
             ts = tasks_dev[first:first + per_step]
             p_cols = p.index_select(1, ts)                       # (d, B)
@@ -599,7 +598,8 @@ def make_engine(problem: MTLProblem, cfg: AMTLConfig,
                "batch": init_batch_state}[cfg.engine]
 
     def init(v0, key):
-        v0 = torch.as_tensor(v0, dtype=torch.float32, device=dev).clone()
+        v0 = torch.as_tensor(v0, dtype=torch.float32, device=dev).clone(
+            memory_format=torch.contiguous_format)
         return init_fn(cfg, v0, num_tasks, key)
 
     def run(state, delay_offsets, num_events: int):

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
@@ -159,6 +160,80 @@ def require_dtype(name: str, dtype: torch.dtype, **tensors: torch.Tensor):
     for arg, t in tensors.items():
         if t.dtype != dtype:
             raise ValueError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
+
+
+def require_f32(name: str, **tensors: torch.Tensor) -> torch.device:
+    """Check that every tensor is a contiguous float32 tensor, all on one
+    device, whichever it is; returns that device."""
+    dev = None
+    for arg, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"{name}: {arg} must be a tensor")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: {arg} must be torch.float32, got "
+                             f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            raise ValueError(f"{name}: {arg} is on {t.device}, not {dev}")
+    return dev
+
+
+def host_index(name: str, arg: str, i, size: int) -> int:
+    """A host integer index checked to lie in [0, size)."""
+    try:
+        i = operator.index(i)
+    except TypeError:
+        raise ValueError(f"{name}: {arg} must be a host integer, got "
+                         f"{type(i).__name__}") from None
+    if not 0 <= i < size:
+        raise ValueError(f"{name}: {arg} = {i} is outside [0, {size})")
+    return i
+
+
+def amtl_event_inplace_args(v: torch.Tensor, t, p_t: torch.Tensor,
+                            g_t: torch.Tensor, ring: torch.Tensor,
+                            slot) -> tuple[int, int]:
+    """The checked (t, slot) of an in-place column event on a contiguous
+    float32 (d, T) iterate v and (depth, d) ring, with (d,) p_t and g_t,
+    all on one device; raises ValueError on anything else.  The kernel's
+    wrapper and the plain version both check their arguments here."""
+    name = "amtl_event_inplace"
+    require_f32(name, v=v, p_t=p_t, g_t=g_t, ring=ring)
+    d = v.shape[0] if v.dim() == 2 else -1
+    if d < 0 or ring.dim() != 2 or ring.shape[1] != d \
+            or p_t.shape != (d,) or g_t.shape != (d,):
+        raise ValueError(f"{name} expects v (d, T), p_t and g_t (d,), ring "
+                         f"(depth, d); got {tuple(v.shape)}, "
+                         f"{tuple(p_t.shape)}, {tuple(g_t.shape)}, "
+                         f"{tuple(ring.shape)}")
+    return (host_index(name, "t", t, v.shape[1]),
+            host_index(name, "slot", slot, ring.shape[0]))
+
+
+def km_update_slot_args(ring: torch.Tensor, src, dst, t, p_t: torch.Tensor,
+                        g_t: torch.Tensor) -> tuple[int, int, int]:
+    """The checked (src, dst, t) of a slot update on a contiguous float32
+    (depth, d, T) ring with (d,) p_t and g_t, all on one device, a slot
+    under 2^31 elements; raises ValueError on anything else.  The
+    kernel's wrapper and the plain version both check their arguments
+    here."""
+    name = "km_update_slot"
+    require_f32(name, ring=ring, p_t=p_t, g_t=g_t)
+    d = ring.shape[1] if ring.dim() == 3 else -1
+    if d < 0 or p_t.shape != (d,) or g_t.shape != (d,):
+        raise ValueError(f"{name} expects ring (depth, d, T), p_t and g_t "
+                         f"(d,); got {tuple(ring.shape)}, "
+                         f"{tuple(p_t.shape)}, {tuple(g_t.shape)}")
+    depth, _, num_t = ring.shape
+    if d * num_t >= 2 ** 31:
+        raise ValueError(f"{name}: a slot of {d} x {num_t} elements is not "
+                         "under 2^31")
+    return (host_index(name, "src", src, depth),
+            host_index(name, "dst", dst, depth),
+            host_index(name, "t", t, num_t))
 
 
 def host_scalar(name: str, x) -> float:

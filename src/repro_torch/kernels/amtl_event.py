@@ -5,6 +5,13 @@ Port of `repro/kernels/amtl_event.py :: amtl_event`; the kernel is
 
     v_new = v + eta_k * (p - eta*g - v)     (Eq. III.4, the fma form)
     old   = v                               (undo-log entry, exact bits)
+
+Two entry points, both counted as `amtl_event` launches: `amtl_event`
+takes contiguous columns and returns new tensors; `amtl_event_inplace`
+works on the delta engine's own state, column t of the (d, T) iterate V
+updated in place and its pre-write bits written into slot `slot` of the
+(depth, d) undo ring, in one launch (the reference's `amtl_event`, then
+`v.at[:, t].set(v_new)` and `delta_ring.at[slot].set(old)`).
 """
 from __future__ import annotations
 
@@ -18,6 +25,9 @@ launches = 0
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_float] * 2 \
     + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+_INPLACE_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 2 \
+    + [ctypes.c_void_p] * 2 + [ctypes.c_float] * 2 \
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
 
 def amtl_event(v_t: torch.Tensor, p_t: torch.Tensor, g_t: torch.Tensor,
@@ -41,3 +51,24 @@ def amtl_event(v_t: torch.Tensor, p_t: torch.Tensor, g_t: torch.Tensor,
     _build.check(err, "amtl_event")
     launches += 1
     return v_new, old
+
+
+def amtl_event_inplace(v: torch.Tensor, t, p_t: torch.Tensor,
+                       g_t: torch.Tensor, eta: float, eta_k: float,
+                       ring: torch.Tensor, slot) -> None:
+    """Column t of the CUDA iterate v updated in place, its pre-write bits
+    into ring[slot]; one launch, nothing allocated."""
+    global launches
+    name = "amtl_event_inplace"
+    dev = _build.require_cuda(name, v=v, p_t=p_t, g_t=g_t, ring=ring)
+    t, slot = _build.amtl_event_inplace_args(v, t, p_t, g_t, ring, slot)
+    eta32 = _build.host_scalar("eta", eta)
+    eta_k32 = _build.host_scalar("eta_k", eta_k)
+    d, num_t = v.shape
+    if d == 0:
+        return
+    fn = _build.function("amtl_event_inplace_launch", _INPLACE_ARGTYPES)
+    err = fn(v.data_ptr(), t, num_t, p_t.data_ptr(), g_t.data_ptr(), eta32,
+             eta_k32, ring.data_ptr() + 4 * slot * d, d, _build.stream(dev))
+    _build.check(err, name)
+    launches += 1

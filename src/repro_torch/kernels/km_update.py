@@ -6,10 +6,13 @@ one shape and dtype (float32, or bfloat16 computed in float32):
 
     out = v + eta_k * (p - eta*g - v)       (Eq. III.4, the fma form)
 
-bitwise `ref.km_update_ref`.  The kernel takes contiguous operands only:
-the dense engine passes the activated task's column as a contiguous copy
-(`ring[ptr][:, t].contiguous()`) and writes the result back into the new
-ring slot, as the delta engine does around `amtl_event`.
+bitwise `ref.km_update_ref`.  Two entry points, both counted as
+`km_update` launches: `km_update` on contiguous operands, returning a new
+tensor; and `km_update_slot`, the dense engine's event on its own
+(depth, d, T) float32 ring: ring[dst] written whole from ring[src] with
+column t updated (the reference's `v_cur.at[:, t].set(...)` and
+`ring.at[ptr].set(v_new)`), or, where src == dst (tau 0), column t alone
+in place, in one launch.
 """
 from __future__ import annotations
 
@@ -24,6 +27,9 @@ launches = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_float] * 2 \
     + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+_SLOT_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 5 \
+    + [ctypes.c_void_p] * 2 + [ctypes.c_float] * 2 \
+    + [ctypes.c_int, ctypes.c_void_p]
 
 
 def km_update(v: torch.Tensor, p: torch.Tensor, g: torch.Tensor, eta: float,
@@ -52,3 +58,24 @@ def km_update(v: torch.Tensor, p: torch.Tensor, g: torch.Tensor, eta: float,
     _build.check(err, name)
     launches += 1
     return out
+
+
+def km_update_slot(ring: torch.Tensor, src, dst, t, p_t: torch.Tensor,
+                   g_t: torch.Tensor, eta: float, eta_k: float) -> None:
+    """ring[dst] = ring[src] with column t updated, on a CUDA ring, in
+    place; one launch, nothing allocated."""
+    global launches
+    name = "km_update_slot"
+    dev = _build.require_cuda(name, ring=ring, p_t=p_t, g_t=g_t)
+    src, dst, t = _build.km_update_slot_args(ring, src, dst, t, p_t, g_t)
+    eta32 = _build.host_scalar("eta", eta)
+    eta_k32 = _build.host_scalar("eta_k", eta_k)
+    _, d, num_t = ring.shape
+    if d == 0:
+        return
+    vector = num_t % 4 == 0 and ring.data_ptr() % 16 == 0
+    fn = _build.function("km_update_slot_launch", _SLOT_ARGTYPES)
+    err = fn(ring.data_ptr(), src, dst, t, d, num_t, p_t.data_ptr(),
+             g_t.data_ptr(), eta32, eta_k32, int(vector), _build.stream(dev))
+    _build.check(err, name)
+    launches += 1

@@ -73,6 +73,19 @@ def km_update(v: torch.Tensor, p: torch.Tensor, g: torch.Tensor, eta: float,
     return ref.km_update_ref(v, p, g, eta, eta_k)
 
 
+def km_update_slot(ring: torch.Tensor, src: int, dst: int, t: int,
+                   p_t: torch.Tensor, g_t: torch.Tensor, eta: float,
+                   eta_k: float) -> None:
+    """The dense engine's event on its float32 (depth, d, T) ring, in
+    place: ring[dst] = ring[src] with column t updated by Eq. III.4 in the
+    fma form (src == dst: column t alone).  One `km_update` launch on the
+    card."""
+    if _on_cuda("km_update", ring):
+        _km_update.km_update_slot(ring, src, dst, t, p_t, g_t, eta, eta_k)
+    else:
+        ref.km_update_slot_ref(ring, src, dst, t, p_t, g_t, eta, eta_k)
+
+
 def l21_prox(w: torch.Tensor, t: float) -> torch.Tensor:
     """Row-group soft threshold of a contiguous (d, T) matrix:
     w_i * max(0, 1 - t/max(||w_i||_2, 1e-12)), in float32."""
@@ -87,6 +100,19 @@ def amtl_event(v_t: torch.Tensor, p_t: torch.Tensor, g_t: torch.Tensor,
     if _on_cuda("amtl_event", v_t):
         return _amtl_event.amtl_event(v_t, p_t, g_t, eta, eta_k)
     return ref.amtl_event_ref(v_t, p_t, g_t, eta, eta_k)
+
+
+def amtl_event_inplace(v: torch.Tensor, t: int, p_t: torch.Tensor,
+                       g_t: torch.Tensor, eta: float, eta_k: float,
+                       ring: torch.Tensor, slot: int) -> None:
+    """The delta engine's column event on its own state, in place: column
+    t of the float32 (d, T) iterate v updated, its pre-write bits into
+    ring[slot] of the (depth, d) undo ring.  One `amtl_event` launch on
+    the card."""
+    if _on_cuda("amtl_event", v):
+        _amtl_event.amtl_event_inplace(v, t, p_t, g_t, eta, eta_k, ring, slot)
+    else:
+        ref.amtl_event_inplace_ref(v, t, p_t, g_t, eta, eta_k, ring, slot)
 
 
 def amtl_event_batch(v: torch.Tensor, p_cols: torch.Tensor,

@@ -25,7 +25,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels import flash_attention
+from repro_torch.kernels import _build, flash_attention
 
 Tensor = torch.Tensor
 
@@ -72,6 +72,33 @@ def amtl_event_ref(v_t: Tensor, p_t: Tensor, g_t: Tensor, eta: float,
     The second output is a copy of the exact pre-write bits of v_t.
     """
     return km_update_ref(v_t, p_t, g_t, eta, eta_k), v_t.clone()
+
+
+def amtl_event_inplace_ref(v: Tensor, t, p_t: Tensor, g_t: Tensor,
+                           eta: float, eta_k: float, ring: Tensor,
+                           slot) -> None:
+    """The delta engine's column event on its own state, in place, as the
+    kernel does it: column t of v (d, T) takes `amtl_event_ref`'s update
+    and ring[slot] (ring (depth, d)) its undo entry, the pre-write bits.
+    The arguments are checked as the kernel's wrapper checks them: t and
+    slot must lie in [0, T) and [0, depth)."""
+    t, slot = _build.amtl_event_inplace_args(v, t, p_t, g_t, ring, slot)
+    v_new, old = amtl_event_ref(v[:, t], p_t, g_t, eta, eta_k)
+    ring[slot] = old
+    v[:, t] = v_new
+
+
+def km_update_slot_ref(ring: Tensor, src, dst, t, p_t: Tensor, g_t: Tensor,
+                       eta: float, eta_k: float) -> None:
+    """The dense engine's event on its (depth, d, T) ring, in place, as
+    the kernel does it: ring[dst] = ring[src] with column t replaced by
+    `km_update_ref` of ring[src]'s column t (src == dst: that column
+    alone).  Arguments checked as the kernel's wrapper checks them."""
+    src, dst, t = _build.km_update_slot_args(ring, src, dst, t, p_t, g_t)
+    col = km_update_ref(ring[src, :, t], p_t, g_t, eta, eta_k)
+    if dst != src:
+        ring[dst] = ring[src]
+    ring[dst, :, t] = col
 
 
 def last_occurrence_mask(tasks: Tensor) -> Tensor:

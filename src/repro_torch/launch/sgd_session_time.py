@@ -1,25 +1,30 @@
-"""Events/s of the AMTL SGD sessions on the card, for comparing two trees.
+"""Events/s of the AMTL sessions on the card, for comparing two trees.
 
     PYTHONPATH=src python3 src/repro_torch/launch/sgd_session_time.py
 
 On the card, at full width, from --seed: the uniform batch cell of
 `chip_smoke.py` (lstsq, nuclear, d 8192, T 128, n 256, tau 8, eta 0.05,
-event_batch 32, prox_every 32, prox_rank 16); the ragged SGD batch
-session (the same engine, minibatch 32, dynamic step) on 128 cohorts of
-80..399 rows drawn from --seed and published by a TaskStore (the widths
-and sizes of `chip_smoke.py`'s ragged cohorts, not its data, and without
-its mid-run row append); and the ragged SGD delta session on the same
-cohorts (prox_every 8, one event a call), --delta-events long.  Each runs
-its events after a warm-up of two steps or two prox refreshes, timed on
-the host's clock up to a device synchronize; then the same events again
-split into the host plan (`plan_events`) and the device work
-(`apply_plan`); then one more `apply_plan` under torch.profiler, whose
-device busy time (the sum of its kernel and copy times) is read against
-that same run's wall time (the profiler's own host cost included).
-Prints one JSON line: per session the events/s, the plan and apply
-seconds, the profiled run's seconds and busy share, and the kernel
-launches of the timed run, with the card's name and power limit and the
-package it ran.
+event_batch 32, prox_every 32, prox_rank 16); its uniform delta cell (the
+same problem, full gradients, prox_every 8, one event a call),
+--delta-events long; the dense l21 session (the same problem with the
+l2,1 prox, the dense ring, an exact prox each event), DENSE_EVENTS
+(256) long, as `chip_smoke.py`'s dense l21 session; the ragged SGD
+batch session (the batch engine, minibatch 32, dynamic step) on 128
+cohorts of 80..399 rows drawn from --seed and
+published by a TaskStore (the widths and sizes of `chip_smoke.py`'s
+ragged cohorts, not its data, and without its mid-run row append); and
+the ragged SGD delta session on the same cohorts (prox_every 8),
+--delta-events long.  Each runs its events after a warm-up of two steps
+or two prox refreshes, timed on the host's clock up to a device
+synchronize; then the same events again split into the host plan
+(`plan_events`) and the device work (`apply_plan`); then one more
+`apply_plan` under torch.profiler, whose device busy time (the sum of its
+kernel and copy times) is read against that same run's wall time (the
+profiler's own host cost included), and whose kernels and copies are
+counted an event.  Prints one JSON line: per session the events/s, the
+plan and apply seconds, the profiled run's seconds, busy share and
+device operations an event, and the kernel launches of the timed run,
+with the card's name and power limit and the package it ran.
 
 It reads only the engine session API, the TaskStore and the launch
 counts, so it runs against any tree of the port: put that tree's `src`
@@ -39,6 +44,7 @@ import torch
 D, T, N_ROWS, TAU = 8192, 128, 256, 8
 ETA, LAM, RANK, BATCH = 0.05, 0.1, 16, 32
 COHORT_LO, COHORT_HI, SGD_BATCH = 80, 400, 32
+DENSE_EVENTS = 256
 
 
 def uniform_problem(seed: int, dev):
@@ -108,11 +114,13 @@ def session(problem, cfg, v0, key, offs, events: int, dev) -> dict:
         amtl.apply_plan(problem, cfg, state0, plan)
         sync(dev)
         profiled_s = time.perf_counter() - t0
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) * 1e-6
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in device) * 1e-6
     return {"events_per_s": events / wall, "wall_s": wall, "plan_s": host,
             "apply_s": apply_s, "profiled_apply_s": profiled_s,
             "busy_s": busy, "busy_share": busy / profiled_s,
+            "device_ops_per_event": sum(e.count for e in device) / events,
             "launches": counts}
 
 
@@ -136,6 +144,13 @@ def main(argv: list[str] | None = None) -> dict:
     problem, v0, offs = uniform_problem(args.seed, dev)
     out = {"uniform batch": session(problem, cfg, v0, key, offs,
                                     args.events, dev)}
+    delta = cfg._replace(engine="delta", event_batch=1, prox_every=8)
+    out["uniform delta"] = session(problem, delta, v0, key, offs,
+                                   args.delta_events, dev)
+    out["dense l21"] = session(
+        problem._replace(reg_name="l21"),
+        delta._replace(engine="dense", prox_every=1, prox_rank=None), v0,
+        key, offs, DENSE_EVENTS, dev)
     del problem
     ragged = ragged_problem(args.seed, dev)
     sgd = cfg._replace(batch_size=SGD_BATCH, dynamic_step=True)

@@ -246,7 +246,7 @@ def test_kernel_library_is_named_by_its_sources():
         "flash_attention.cu", "flash_attention_sm90.cu", "flash_decode.cu",
         "rwkv6_scan.cu", "rwkv6_chunked.cu", "km_update.cu", "l21_prox.cu"}
     assert {p.name for p in _build.headers()} == {
-        "counter_hash.cuh", "lstsq_grad_body.cuh"}
+        "counter_hash.cuh", "km_column.cuh", "lstsq_grad_body.cuh"}
     assert path.name.startswith("librepro_torch_kernels-")
 
 
