@@ -265,6 +265,7 @@ def check_kernels(dev, gen) -> dict:
     info.update(check_event_batch(dev, gen))
     info.update(check_sketch_recon(dev, gen))
     info.update(check_sgd_kernels(dev, gen))
+    info["lstsq_grad"] = check_lstsq_grad(dev, gen)
     info.update(check_l21_km_kernels(dev, gen))
     info.update(check_flash_kernel(dev, gen))
     info.update(check_rwkv_kernel(dev, gen))
@@ -545,7 +546,6 @@ def check_sgd_kernels(dev, gen) -> dict:
     against their plain versions on the card."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels import lstsq_grad as k_grad
     from repro_torch.kernels import lstsq_grad_sampled as k_sampled
     from repro_torch.kernels import sample_mask as k_mask
 
@@ -564,7 +564,7 @@ def check_sgd_kernels(dev, gen) -> dict:
                              f"seed={seed}: not bitwise, or "
                              f"{int(got.sum())} != min(b, n_t) bits set")
                     cases += 1
-    info["sample_mask"] = dict(args=(400, ref.sample_scalars(
+    info["sample_mask bits"] = dict(args=(400, ref.sample_scalars(
         400, SGD_BATCH, [77], [240])[0], dev), err=0.0)
     log(f"sample_mask: bitwise against its plain version over {cases} "
         "(n, b, n_t, seed), n = 1, 7, 400, 513, n_t = 0, b >= n_t, b = 1; "
@@ -572,6 +572,31 @@ def check_sgd_kernels(dev, gen) -> dict:
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
+
+    # sample_rows, the engine form: the logistic session's rows (a cohort
+    # of 240 in a 399-row buffer, d 8192), an empty cohort, b >= n_t, d 1000
+    # (the word path) and x 4 bytes off 16-byte alignment
+    for label, n, d, b, n_t, off in (("main", 399, D, SGD_BATCH, 240, 0),
+                                     ("n_t=0", 399, D, SGD_BATCH, 0, 0),
+                                     ("b>=n_t", 399, D, 300, 250, 0),
+                                     ("d=1000", 399, 1000, SGD_BATCH, 399, 0),
+                                     ("misaligned", 399, D, SGD_BATCH, 240,
+                                      1)):
+        x = randn(n * d + off)[off:].view(n, d)
+        block = ref.sample_scalars(n, b, [int(torch.randint(
+            0, 2**31, (1,), generator=gen, device=dev).item())], [n_t])[0]
+        got = k_mask.sample_rows(x, block)
+        want = ref.sample_rows_ref(x, block)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"sample_rows {label}: not bitwise its plain version")
+        if int(got.any(dim=1).sum()) > min(b, n_t):
+            fail(f"sample_rows {label}: more than min(b, n_t) rows kept")
+        if label == "main":
+            info["sample_mask"] = dict(args=(x, block), err=0.0)
+    log("sample_rows (sample_mask's engine form): bitwise against "
+        "where(keep_bits, x, 0) at the logistic session's (399, 8192) with "
+        "240 valid rows, n_t = 0, b >= n_t, d = 1000, x misaligned")
 
     # (label, n, d, batch_size, n_t): the main shape (a cohort of 240 rows
     # in a 399-row buffer), d = 1000, a ragged count, a saturated
@@ -587,36 +612,29 @@ def check_sgd_kernels(dev, gen) -> dict:
         block = ref.sample_scalars(n, b, [seed], [n_t])[0]
         bsz = min(b, n_t)
         scale2 = 2 * float(np.float32(n_t) / np.float32(max(bsz, 1)))
-        for name, keep, kfn, rfn, s2 in (
-                ("lstsq_grad_sampled", ref.keep_bits_ref(n, block, dev),
-                 lambda: k_sampled.lstsq_grad_sampled(x, w, y, block, b),
-                 lambda: ref.lstsq_grad_sampled_masked_ref(x, w, y, seed, b,
-                                                           n_t), scale2),
-                ("lstsq_grad", torch.arange(n, device=dev) < n_t,
-                 lambda: k_grad.lstsq_grad(x, w, y, n_t),
-                 lambda: ref.lstsq_grad_masked_ref(x, w, y, n_t), 2.0)):
-            k1, k2, r = kfn(), kfn(), rfn()
-            torch.cuda.synchronize()
-            if not torch.equal(k1.view(torch.int32), k2.view(torch.int32)):
-                fail(f"{name} {label}: two launches on the same inputs "
-                     "gave different bits")
-            xk = x[keep].double()
-            res = xk @ w.double() - y[keep].double()
-            scale = s2 * (xk.abs().T @ res.abs())
-            err = (k1.double() - r.double()).abs()
-            if not bool((err <= GRAD_RTOL * scale).all()):
-                fail(f"{name} {label}: max |diff| {err.max().item():.3g} > "
-                     f"{GRAD_RTOL} * scale2 |X_K|^T |r_K|")
-            if n_t == 0 and bool(k1.any()):
-                fail(f"{name} {label}: n_t = 0 must give exactly zero")
-            if label == "main":
-                info[name] = dict(
-                    args=(x, w, y, block, b) if name == "lstsq_grad_sampled"
-                    else (x, w, y, n_t), err=err.max().item())
-    log(f"lstsq_grad_sampled (one event, B = 1), lstsq_grad: within "
-        f"{GRAD_RTOL} x scale2 |X_K|^T |r_K| of their plain versions (main "
-        "240 of 399 rows at d=8192, d=1000, ragged n_t, saturated b, n_t=0 "
-        "exactly zero); two launches give the same bits")
+        name, keep = "lstsq_grad_sampled", ref.keep_bits_ref(n, block, dev)
+        k1 = k_sampled.lstsq_grad_sampled(x, w, y, block, b)
+        k2 = k_sampled.lstsq_grad_sampled(x, w, y, block, b)
+        r = ref.lstsq_grad_sampled_masked_ref(x, w, y, seed, b, n_t)
+        torch.cuda.synchronize()
+        if not torch.equal(k1.view(torch.int32), k2.view(torch.int32)):
+            fail(f"{name} {label}: two launches on the same inputs gave "
+                 "different bits")
+        xk = x[keep].double()
+        res = xk @ w.double() - y[keep].double()
+        scale = scale2 * (xk.abs().T @ res.abs())
+        err = (k1.double() - r.double()).abs()
+        if not bool((err <= GRAD_RTOL * scale).all()):
+            fail(f"{name} {label}: max |diff| {err.max().item():.3g} > "
+                 f"{GRAD_RTOL} * scale2 |X_K|^T |r_K|")
+        if n_t == 0 and bool(k1.any()):
+            fail(f"{name} {label}: n_t = 0 must give exactly zero")
+        if label == "main":
+            info[name] = dict(args=(x, w, y, block, b), err=err.max().item())
+    log(f"lstsq_grad_sampled (one event, B = 1): within {GRAD_RTOL} x scale2 "
+        "|X_K|^T |r_K| of its plain version (main 240 of 399 rows at "
+        "d=8192, d=1000, ragged n_t, saturated b, n_t=0 exactly zero); two "
+        "launches give the same bits")
     single = info["lstsq_grad_sampled"]
     info["lstsq_grad_sampled"] = check_sampled_batch(dev, gen)
     info["lstsq_grad_sampled"]["single"] = single
@@ -719,6 +737,90 @@ def check_sampled_batch(dev, gen) -> dict:
         "[0, T)); row e bitwise "
         "the B = 1 launch and the single-event call of event e; two launches "
         "give the same bits")
+    return main
+
+
+def check_lstsq_grad(dev, gen) -> dict:
+    """The full gradient (one launch for B events) against its plain
+    version per event, within GRAD_RTOL x 2 |X_K|^T |r_K| (K the valid
+    rows); row e bitwise the B = 1 launch of event e (the task form, the
+    batched form at B = 1, and the one-buffer form with its host count);
+    two launches bitwise; n_t = 0 exactly +0.  Returns the main case."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import lstsq_grad as k_grad
+
+    rng = np.random.default_rng(int(torch.randint(
+        0, 2**31, (1,), generator=gen, device=dev).item()))
+    zero_some = np.array([0, 256, 0, 17, 16, 0, 255, 1])
+    outside = np.array([-1, 16, 19, -17, -2, 3, 16, -16])
+    # (label, T, n, d, B, tasks, row counts: None uniform, "ragged" drawn
+    # in [0, n] with 0 and n among them, or given)
+    cases = (("main uniform", 40, N_ROWS, D, BATCH, None, None),
+             ("main ragged", 40, N_ROWS, D, BATCH, None, "ragged"),
+             ("n=250 (not a multiple of the group)", 16, 250, D, BATCH, None,
+              "ragged"),
+             ("d=1000", 16, N_ROWS, 1000, BATCH, None, "ragged"),
+             ("one task", 16, N_ROWS, D, BATCH, np.full(BATCH, 7), "ragged"),
+             ("ids outside [0, T)", 16, N_ROWS, D, 8, outside, "ragged"),
+             ("B=1", 16, N_ROWS, D, 1, None, "ragged"),
+             ("n_t=0", 8, N_ROWS, D, BATCH, None, zero_some))
+    main = None
+    for label, num_t, n, d, events, tasks, counts in cases:
+        if tasks is None:
+            tasks = rng.integers(0, num_t, events)
+            tasks[-1] = tasks[0]              # at least one duplicate
+        if isinstance(counts, str):
+            counts = rng.integers(0, n + 1, num_t)
+            counts[:2] = (0, n)
+        xs = torch.randn(num_t, n, d, generator=gen, device=dev)
+        ys = torch.randn(num_t, n, generator=gen, device=dev)
+        w_rows = torch.randn(events, d, generator=gen, device=dev)
+        ts = torch.as_tensor(tasks, dtype=torch.int32, device=dev)
+        rc = None if counts is None else torch.as_tensor(
+            counts, dtype=torch.int32, device=dev)
+        args_ = (xs, ys, ts, w_rows, rc)
+        g1 = k_grad.lstsq_grad_batch(*args_)
+        g2 = k_grad.lstsq_grad_batch(*args_)
+        want = ref.lstsq_grad_batch_ref(*args_)
+        torch.cuda.synchronize()
+        if not torch.equal(g1.view(torch.int32), g2.view(torch.int32)):
+            fail(f"lstsq_grad batch {label}: two launches on the same inputs "
+                 "gave different bits")
+        worst = 0.0
+        for e in range(events):
+            t = ref.task_index(int(tasks[e]), num_t)
+            n_t = n if counts is None else int(counts[t])
+            xk = xs[t, :n_t].double()
+            res = xk @ w_rows[e].double() - ys[t, :n_t].double()
+            scale = 2.0 * (xk.abs().T @ res.abs())
+            err = (g1[e].double() - want[e].double()).abs()
+            if not bool((err <= GRAD_RTOL * scale).all()):
+                fail(f"lstsq_grad batch {label} event {e}: max |diff| "
+                     f"{err.max().item():.3g} > {GRAD_RTOL} * 2 |X_K|^T "
+                     "|r_K|")
+            if n_t == 0 and bool(g1[e].view(torch.int32).any()):
+                fail(f"lstsq_grad batch {label} event {e}: n_t = 0 must give "
+                     "exactly +0")
+            worst = max(worst, err.max().item())
+            forms = (k_grad.lstsq_grad_task(xs, ys, int(tasks[e]), w_rows[e],
+                                            rc),
+                     k_grad.lstsq_grad_batch(xs, ys, ts[e:e + 1],
+                                             w_rows[e:e + 1], rc)[0],
+                     k_grad.lstsq_grad(xs[t], w_rows[e], ys[t], n_t))
+            for form, g in zip(("task", "batch B = 1", "one buffer"), forms):
+                if not torch.equal(g.view(torch.int32),
+                                   g1[e].view(torch.int32)):
+                    fail(f"lstsq_grad batch {label}: row {e} differs from "
+                         f"the {form} launch of its event")
+        if label == "main uniform":
+            main = dict(err=worst)
+    log(f"lstsq_grad batched: within {GRAD_RTOL} x 2 |X_K|^T |r_K| of its "
+        "plain version event by event (main B 32 on 256-row tasks at d=8192, "
+        "uniform and ragged n_t from 0 to n, n = 250, d = 1000, one task, ids "
+        "outside [0, T), B = 1, n_t = 0 exactly +0); row e bitwise the task, "
+        "batched and one-buffer B = 1 launches of event e; two launches give "
+        "the same bits")
     return main
 
 
@@ -2020,19 +2122,32 @@ def ragged_batch_session(store, rows, cfg, v0, key, offs, seed, dev) -> dict:
 
 
 def store_gradients(problem, w, dev) -> tuple[dict, float]:
-    """The ragged store's masked full gradient of every task through
-    `ops.lstsq_grad` (the reference's store contract, tests/
-    test_taskstore.py:246), against the plain `full_grad` on the card;
-    returns the launch counts of those calls and the worst error ratio."""
+    """The ragged store's masked full gradient of every task three ways:
+    `ops.lstsq_grad` one task at a time with its host row count (the
+    reference's store contract, tests/test_taskstore.py:246), one
+    `ops.lstsq_grad_batch` over the 128 tasks and `full_grad`, the last two
+    reading the counts on the card.  All three must agree bitwise and lie
+    within GRAD_RTOL of the plain version on the card; returns the launch
+    counts of those calls and the worst error ratio."""
     import torch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     counts = problem.host_row_counts()
+    tasks = torch.arange(problem.num_tasks, dtype=torch.int32, device=dev)
+    w_rows = w.T.contiguous()
     ops.reset_launch_counts()
     g = torch.stack([ops.lstsq_grad(problem.xs[t], w[:, t].contiguous(),
                                     problem.ys[t], int(counts[t]))
                      for t in range(problem.num_tasks)], dim=1)
+    batch = ops.lstsq_grad_batch(problem.xs, problem.ys, tasks, w_rows,
+                                 problem.row_counts)
+    full = problem.full_grad(w)
     launches = ops.launch_counts()
-    want = problem.full_grad(w)
+    if not (torch.equal(bits(batch.T), bits(g))
+            and torch.equal(bits(full), bits(g))):
+        fail("store gradients: the batched launch, full_grad and the "
+             "per-task launches differ")
+    want = ref.lstsq_grad_batch_ref(problem.xs, problem.ys, tasks, w_rows,
+                                    problem.row_counts).T
     worst = 0.0
     for t in range(problem.num_tasks):
         xk = problem.xs[t, :int(counts[t])].double()
@@ -2041,8 +2156,8 @@ def store_gradients(problem, w, dev) -> tuple[dict, float]:
         err = (g[:, t].double() - want[:, t].double()).abs()
         worst = max(worst, float((err / scale.clamp_min(1e-30)).max()))
     if not worst <= GRAD_RTOL:
-        fail(f"store gradients: ops.lstsq_grad differs from full_grad by "
-             f"{worst:.3g} > {GRAD_RTOL} of 2 |X|^T |r|")
+        fail(f"store gradients: ops.lstsq_grad differs from its plain "
+             f"version by {worst:.3g} > {GRAD_RTOL} of 2 |X|^T |r|")
     return launches, worst
 
 
@@ -2073,6 +2188,7 @@ def report_busy(label: str, problem, cfg, v0, key, offs, n, device_s,
 def kernel_spec(name: str, args_, dev) -> dict:
     """Bytes, operations, the kernel, its plain version and the library
     call for one kernel at its main-path shape."""
+    import itertools
     import torch
     from repro_torch.kernels import ops, ref
     kern = ops.KERNELS[name.split()[0]]
@@ -2155,6 +2271,18 @@ def kernel_spec(name: str, args_, dev) -> dict:
         src = "lstsq_grad_sampled.cu"
         rep = "src/repro/kernels/lstsq_grad_sampled.py:131"
     elif name == "sample_mask":
+        # the engine form: the kept rows of x and zeros for the others
+        x, block = args_
+        n, d = x.shape
+        keep = ref.keep_bits_ref(n, block, x.device)
+        # the kept rows read, every row written
+        nbytes, flops = 4 * d * (n + int(keep.sum())), 0
+        kfn = lambda: kern.sample_rows(x, block)
+        pfn = lambda: ref.sample_rows_ref(x, block)
+        lib = lambda: torch.where(keep[:, None], x, 0.0)
+        src = "lstsq_grad_sampled.cu"
+        rep = "src/repro/kernels/lstsq_grad_sampled.py:165"
+    elif name == "sample_mask bits":
         n, block, mdev = args_
         nbytes, flops = n, 0
         kfn = lambda: kern.sample_mask(n, block, mdev)
@@ -2221,13 +2349,20 @@ def kernel_spec(name: str, args_, dev) -> dict:
         lib = lambda: v + eta_k * (p - eta * g - v)
         src, rep = "km_update.cu", "src/repro/kernels/km_update.py:55"
     else:
-        x, w, y, n_t = args_
-        d = x.shape[1]
-        nbytes, flops = 4 * (n_t * d + d + n_t + d), 4 * n_t * d
-        kfn = lambda: kern.lstsq_grad(x, w, y, n_t)
-        pfn = lambda: ref.lstsq_grad_masked_ref(x, w, y, n_t)
-        xv, yv = x[:n_t], y[:n_t]
-        lib = lambda: 2 * (xv.T @ (xv @ w - yv))
+        # a batch step's B events, each call the next of disjoint steps
+        # whose X (268 MB each at 32 x 256 x 8192) overflows the L2
+        xs, ys, steps, w_rows = args_
+        nbytes, flops = grad_cost(xs, steps[0], w_rows, None)
+        walk, lib_walk = itertools.cycle(steps), itertools.cycle(steps)
+        kfn = lambda: kern.lstsq_grad_batch(xs, ys, next(walk), w_rows)
+        pfn = lambda: ref.lstsq_grad_batch_ref(xs, ys, steps[0], w_rows)
+        wcol = w_rows[:, :, None]
+
+        def lib():
+            idx = next(lib_walk).long()
+            xk = xs.index_select(0, idx)
+            r = torch.bmm(xk, wcol) - ys.index_select(0, idx)[:, :, None]
+            return 2 * torch.bmm(xk.transpose(1, 2), r)[..., 0]
         src, rep = "lstsq_grad.cu", "src/repro/kernels/lstsq_grad.py:104"
     rate = BF16_FLOP_PER_S if name == "flash_attention" \
         and args_[0].dtype == torch.bfloat16 else FP32_FLOP_PER_S
@@ -2235,6 +2370,92 @@ def kernel_spec(name: str, args_, dev) -> dict:
         rate = wkv_rate
     return dict(kern=kern, nbytes=nbytes, flops=flops, kfn=kfn, pfn=pfn,
                 lib=lib, src=src, rep=rep, rate=rate)
+
+
+def grad_cost(xs, tasks, w_rows, row_counts) -> tuple[float, float]:
+    """(bytes, operations) of B full gradients: the valid rows of X and y of
+    each task the batch names read once, w read and G written, the task ids
+    (and row counts) read; 4 n_t d operations an event."""
+    import torch
+    from repro_torch.kernels import ref
+    num_t, n, d = xs.shape
+    picked = [ref.task_index(int(t), num_t) for t in tasks.tolist()]
+    counts = [n] * num_t if row_counts is None else row_counts.tolist()
+    nbytes = sum(4 * (counts[t] * d + counts[t]) for t in set(picked))
+    nbytes += 4 * (2 * len(picked) * d + len(picked)) \
+        + (0 if row_counts is None else 4 * num_t)
+    return nbytes, sum(4 * counts[t] * d for t in picked)
+
+
+def grad_inputs(dev, seed: int) -> tuple:
+    """Phase 12's inputs of the full gradient at the batch cell's widths: X
+    (128, 256, 8192), 1.07 GB, y, four disjoint steps of 32 tasks (268 MB
+    of X each) and a step's 32 points."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed + 23)
+    xs = torch.randn(T, N_ROWS, D, generator=g, device=dev) / D ** 0.5
+    ys = torch.randn(T, N_ROWS, generator=g, device=dev)
+    perm = torch.randperm(T, generator=g, device=dev).to(torch.int32)
+    steps = [perm[i:i + BATCH].contiguous() for i in range(0, T, BATCH)]
+    return xs, ys, steps, torch.randn(BATCH, D, generator=g, device=dev)
+
+
+def grad_times(args_, dev) -> dict:
+    """The full gradient at B 1 (L2-cold: each call on the next of the 128
+    tasks, 8.4 MB each; and L2-warm, one task again) beside the composite
+    2 * (x.T @ (x @ w - y)) on the same walk, and at B 128 (FISTA's full
+    gradient, every task in one launch) beside two bmm."""
+    import itertools
+    import torch
+    from repro_torch.kernels import ops
+    kern = ops.KERNELS["lstsq_grad"]
+    saved = kern.launches
+    xs, ys, steps, w_rows = args_
+    w = w_rows[0].contiguous()
+    cyc, lib_cyc = itertools.cycle(range(T)), itertools.cycle(range(T))
+
+    def composite(t):
+        x = xs[t]
+        return 2 * (x.T @ (x @ w - ys[t]))
+    every = torch.arange(T, dtype=torch.int32, device=dev)
+    w_all = torch.randn(T, D, device=dev)
+    wcol = w_all[:, :, None]
+    out = dict(
+        b1_l2_cold_ms=cuda_ms(lambda: kern.lstsq_grad_task(xs, ys, next(cyc),
+                                                           w)),
+        b1_l2_warm_ms=cuda_ms(lambda: kern.lstsq_grad_task(xs, ys, 3, w)),
+        b1_bound_ms=bound_ms(*grad_cost(xs, every[:1], w_rows[:1], None))[0],
+        b1_library_l2_cold_ms=cuda_ms(lambda: composite(next(lib_cyc))),
+        all_tasks_ms=cuda_ms(lambda: kern.lstsq_grad_batch(xs, ys, every,
+                                                           w_all), reps=11),
+        all_tasks_bound_ms=bound_ms(*grad_cost(xs, every, w_all, None))[0],
+        all_tasks_library_ms=cuda_ms(lambda: 2 * torch.bmm(
+            xs.transpose(1, 2), torch.bmm(xs, wcol) - ys[:, :, None]),
+            reps=11))
+    kern.launches = saved           # timing launches are not the path's
+    log(f"phase 12 lstsq_grad B 1 (n 256, d 8192): L2-cold "
+        f"{out['b1_l2_cold_ms'] * 1e3:.2f} us, L2-warm "
+        f"{out['b1_l2_warm_ms'] * 1e3:.2f} us (bound "
+        f"{out['b1_bound_ms'] * 1e3:.2f} us), the composite 2 * (x.T @ (x @ "
+        f"w - y)) L2-cold {out['b1_library_l2_cold_ms'] * 1e3:.2f} us; B 128 "
+        f"(every task, FISTA's full gradient) {out['all_tasks_ms'] * 1e3:.2f}"
+        f" us (bound {out['all_tasks_bound_ms'] * 1e3:.2f} us), two bmm "
+        f"{out['all_tasks_library_ms'] * 1e3:.2f} us")
+    return out
+
+
+def mask_bits_times(info: dict, dev) -> dict:
+    """The standalone keep bits (sample_mask's own entry point) beside its
+    engine form."""
+    spec = kernel_spec("sample_mask bits", info["sample_mask bits"]["args"],
+                       dev)
+    saved = spec["kern"].launches
+    out = dict(bits_ms=cuda_ms(spec["kfn"]),
+               bits_bound_ms=bound_ms(spec["nbytes"], spec["flops"])[0])
+    spec["kern"].launches = saved
+    log(f"phase 12 sample_mask bits alone (n 400): {out['bits_ms'] * 1e3:.2f}"
+        f" us (bound {out['bits_bound_ms'] * 1e3:.5f} us)")
+    return out
 
 
 def sampled_cost(args_, dev) -> tuple:
@@ -2277,7 +2498,9 @@ LIBRARY_CALLS = {
     "lstsq_grad_sampled": "composite: each event's kept rows by "
                           "index_select, then two torch.bmm, for the B "
                           "events of a batch step",
-    "lstsq_grad": "composite: 2 * (x.T @ (x @ w - y)) on the valid rows",
+    "lstsq_grad": "composite: xs.index_select(0, tasks), then two "
+                  "torch.bmm, for the 32 events of a batch step",
+    "sample_mask": "torch.where(keep[:, None], x, 0.0), the keep bits given",
     "flash_attention": "flex_attention under torch.compile, softcap as "
                        "score_mod, the masks as a block mask",
     "rwkv6_scan": "composite: the log-space chunked form wkv_chunked_ref "
@@ -2621,7 +2844,7 @@ def l21_phases(problem, problem_cpu, v0, key, offs, dev) -> dict:
     obj0 = objective(l21p, dense_cfg, v0)
     dn = run_session(l21p, dense_cfg, v0, key, offs, n, dev)
     expect_launches("dense l21 session", dn["counts"],
-                    {"km_update": n, "l21_prox": n})
+                    {"km_update": n, "l21_prox": n, "lstsq_grad": n})
     ops.reset_launch_counts()
     obj1 = objective(l21p, dense_cfg, dn["v"])
     metric = ops.launch_counts()["l21_prox"]
@@ -2631,13 +2854,15 @@ def l21_phases(problem, problem_cpu, v0, key, offs, dev) -> dict:
              f"{obj1} did not fall, or the metric's prox launched {metric} "
              "times")
     log(f"phase 15 dense l21 session: {n} events, launches {dn['counts']} "
-        f"(one km_update and one l21_prox an event, no amtl_event), plus "
+        f"(one km_update, one l21_prox and one lstsq_grad an event, no "
+        f"amtl_event), plus "
         f"{metric} l21_prox for the objective, {obj0:.6g} -> {obj1:.6g}: PASS")
     report_session("dense l21", dn, n, n, phase=15)
     report_busy("dense l21", l21p, dense_cfg, v0, key, offs, n, dn["device"],
                 dev, phase=15)
     dnn = run_session(problem, dense_cfg, v0, key, offs, nn, dev)
-    expect_launches("dense nuclear session", dnn["counts"], {"km_update": nn})
+    expect_launches("dense nuclear session", dnn["counts"],
+                    {"km_update": nn, "lstsq_grad": nn})
     obj_n = objective(problem, dense_cfg, dnn["v"])
     if not bool(torch.isfinite(dnn["v"]).all()) \
             or not obj_n < objective(problem, dense_cfg, v0):
@@ -2652,7 +2877,7 @@ def l21_phases(problem, problem_cpu, v0, key, offs, dev) -> dict:
     # phase 16: dense == delta, bitwise, on the card
     dl = run_session(l21p, delta_cfg, v0, key, offs, n, dev)
     expect_launches("delta l21 session", dl["counts"],
-                    {"amtl_event": n, "l21_prox": n})
+                    {"amtl_event": n, "l21_prox": n, "lstsq_grad": n})
     ds, ls = dn["state"], dl["state"]
     if not (torch.equal(bits(current_iterate(ds)), bits(ls.v))
             and (ds.ptr, ds.event) == (ls.ptr, ls.event)
@@ -2671,7 +2896,8 @@ def l21_phases(problem, problem_cpu, v0, key, offs, dev) -> dict:
     nb = BATCH_EVENTS
     bl = run_session(l21p, batch_cfg, v0, key, offs, nb, dev)
     expect_launches("batch l21 session", bl["counts"],
-                    {"amtl_event_batch": nb // BATCH, "l21_prox": nb // BATCH})
+                    {"amtl_event_batch": nb // BATCH, "l21_prox": nb // BATCH,
+                     "lstsq_grad": nb // BATCH})
     w = backward(l21p, bl["v"], ETA)
     zeroed = float((w == 0).all(dim=1).float().mean())
     obj_b = float(l21p.objective(w))
@@ -2709,7 +2935,7 @@ def l21_phases(problem, problem_cpu, v0, key, offs, dev) -> dict:
     secs = time.perf_counter() - t0
     fista_counts = ops.launch_counts()
     expect_launches("reference_optimum", fista_counts,
-                    {"l21_prox": FISTA_ITERS})
+                    {"l21_prox": FISTA_ITERS, "lstsq_grad": FISTA_ITERS})
     if not np.isfinite(obj_star) or not obj_star < obj0:
         fail(f"reference_optimum: objective {obj_star} not finite or not "
              f"below the start's {obj0}")
@@ -2724,7 +2950,8 @@ def l21_phases(problem, problem_cpu, v0, key, offs, dev) -> dict:
              f"CPU's > {FISTA_RTOL}")
     log(f"phase 19 reference_optimum (FISTA, l21, {FISTA_ITERS} iterations "
         f"from zero, eta {ETA}): objective {obj_star:.6g} in {secs:.3f} s "
-        f"({fista_counts['l21_prox']} l21_prox launches); gap of the "
+        f"({fista_counts['l21_prox']} l21_prox and "
+        f"{fista_counts['lstsq_grad']} lstsq_grad launches); gap of the "
         f"batch l21 session {obj_b - obj_star:.6g} "
         f"({100 * (obj_b - obj_star) / abs(obj_star):.3f}%), of the dense "
         f"l21 session {obj1 - obj_star:.6g}; {FISTA_CPU_ITERS} iterations on "
@@ -2738,7 +2965,8 @@ def l21_phases(problem, problem_cpu, v0, key, offs, dev) -> dict:
     serve_profile(lambda: (fista_solve(l21p, z, ETA, FISTA_CPU_ITERS,
                                        device=dev), sync(dev)),
                   f"FISTA ({FISTA_CPU_ITERS} iterations)",
-                  {"the l21_prox kernel": ("l21_",)}, 19)
+                  {"the l21_prox kernel": ("l21_",),
+                   "the lstsq_grad kernel": ("lstsq_grad_kernel",)}, 19)
     return dn["counts"]
 
 
@@ -2790,19 +3018,35 @@ def main() -> None:
         if b["counts"][k] < need:
             fail(f"batch session: {k} launched {b['counts'][k]} < {need} "
                  "times")
+    if b["counts"]["lstsq_grad"] != need:
+        fail(f"batch session: lstsq_grad launched {b['counts']['lstsq_grad']}"
+             f" != {need} times (one a batch step)")
     obj1 = objective(problem, batch_cfg, b["v"])
     if not obj1 < obj0:
         fail(f"batch session: objective did not fall ({obj0} -> {obj1})")
     log(f"phase 4 batch session: {BATCH_EVENTS} events, launches "
         f"{b['counts']}, objective {obj0:.6g} -> {obj1:.6g}: PASS")
+    matched = delta_cfg._replace(prox_every=BATCH)
+    fb = run_session(problem, batch_cfg, v0, key, offs, CPU_EVENTS,
+                     dev)["state"]
+    fd = run_session(problem, matched, v0, key, offs, CPU_EVENTS,
+                     dev)["state"]
+    if not (torch.equal(fb.v.view(torch.int32), fd.v.view(torch.int32))
+            and np.array_equal(fb.task_ring, fd.task_ring)):
+        fail("uniform full-gradient batch and delta sessions differ on the "
+             f"card at a matched cadence (max |diff| "
+             f"{(fb.v - fd.v).abs().max().item()})")
+    log(f"phase 4 uniform full-gradient batch == delta bitwise on the card at "
+        f"prox_every {BATCH} ({CPU_EVENTS} events): PASS")
 
     # phase 5: delta-engine session
     dl = run_session(problem, delta_cfg, v0, key, offs, DELTA_EVENTS, dev)
     if not bool(torch.isfinite(dl["v"]).all()):
         fail("delta session: iterate not finite")
-    if dl["counts"]["amtl_event"] != DELTA_EVENTS:
-        fail(f"delta session: amtl_event launched "
-             f"{dl['counts']['amtl_event']} != {DELTA_EVENTS} times")
+    for k in ("amtl_event", "lstsq_grad"):
+        if dl["counts"][k] != DELTA_EVENTS:
+            fail(f"delta session: {k} launched {dl['counts'][k]} != "
+                 f"{DELTA_EVENTS} times")
     refreshes = DELTA_EVENTS // DELTA_PROX_EVERY
     for k in ("gauss_sketch", "svt_reconstruct"):
         if dl["counts"][k] < refreshes:
@@ -2839,7 +3083,8 @@ def main() -> None:
         fail("ragged batch session: iterate not finite")
     batches = BATCH_EVENTS // BATCH
     want = {"lstsq_grad_sampled": batches, "amtl_event_batch": batches,
-            "gauss_sketch": batches, "svt_reconstruct": batches}
+            "gauss_sketch": batches, "svt_reconstruct": batches,
+            "lstsq_grad": 0}
     for k, n in want.items():
         if rb["counts"][k] != n:
             fail(f"ragged batch session: {k} launched {rb['counts'][k]} != "
@@ -2873,19 +3118,22 @@ def main() -> None:
         fail("logistic delta session: iterate not finite")
     if rl["counts"]["sample_mask"] != LOGISTIC_EVENTS \
             or rl["counts"]["amtl_event"] != LOGISTIC_EVENTS \
-            or rl["counts"]["lstsq_grad_sampled"] != 0:
+            or rl["counts"]["lstsq_grad_sampled"] != 0 \
+            or rl["counts"]["lstsq_grad"] != 0:
         fail(f"logistic delta session: launches {rl['counts']}, want one "
-             "sample_mask and one amtl_event an event")
+             "sample_mask (the kept rows) and one amtl_event an event")
     log(f"phase 7 logistic SGD delta session: {LOGISTIC_EVENTS} events, "
         f"launches {rl['counts']}: PASS")
 
     sg_counts, sg_worst = store_gradients(rp, rb["v"], dev)
-    if sg_counts["lstsq_grad"] != T:
+    if sg_counts["lstsq_grad"] != T + 2:
         fail(f"store gradients: lstsq_grad launched {sg_counts['lstsq_grad']}"
-             f" != {T} times")
+             f" != {T} + 2 times")
     log(f"phase 7 store gradients: the masked full gradient of {T} tasks "
-        f"through ops.lstsq_grad, launches {sg_counts}, within {sg_worst:.3g}"
-        f" of 2 |X|^T |r| of full_grad: PASS")
+        f"through ops.lstsq_grad one task at a time, one "
+        f"ops.lstsq_grad_batch and full_grad (one launch each), launches "
+        f"{sg_counts}; all three bitwise, within {sg_worst:.3g} of 2 |X|^T "
+        f"|r| of the plain version: PASS")
 
     # phase 8: the card against the port's CPU run; batch == delta
     rp_cpu = store.problem(cpu)
@@ -2943,18 +3191,21 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     kernels = []
+    info["lstsq_grad"]["args"] = grad_inputs(dev, args.seed)
     launches = {k: (dl if k == "amtl_event" else b)["counts"][k]
                 for k in ("amtl_event", "amtl_event_batch", "gauss_sketch",
                           "svt_reconstruct")}
     launches.update(lstsq_grad_sampled=rb["counts"]["lstsq_grad_sampled"],
                     sample_mask=rl["counts"]["sample_mask"],
-                    lstsq_grad=sg_counts["lstsq_grad"],
+                    lstsq_grad=b["counts"]["lstsq_grad"],
                     flash_attention=sv["counts"]["flash_attention"],
                     rwkv6_scan=rw["counts"]["rwkv6_scan"],
                     km_update=dense_counts["km_update"],
                     l21_prox=dense_counts["l21_prox"])
     where = {"amtl_event": "delta session", "sample_mask":
-             "logistic SGD delta session", "lstsq_grad": "store gradients",
+             "logistic SGD delta session (the kept rows, one launch an "
+             "event)", "lstsq_grad": "batch session (one launch a batch "
+                                     "step of 32 events)",
              "lstsq_grad_sampled": "ragged SGD batch session (one launch "
                                    "a batch step of 32 events)",
              "flash_attention": "gemma2-2b serve (B 2, prompt 5000, gen 32)",
@@ -2996,6 +3247,12 @@ def main() -> None:
             f"{where.get(name, 'batch session')}")
         if name == "lstsq_grad_sampled":
             kernels[-1].update(sampled_single_times(info[name], dev))
+        if name == "lstsq_grad":
+            kernels[-1].update(grad_times(info[name]["args"], dev))
+            del info[name]["args"]          # 1.07 GB
+            torch.cuda.empty_cache()
+        if name == "sample_mask":
+            kernels[-1].update(mask_bits_times(info, dev))
         if name == "amtl_event_batch":
             kernels[-1].update(event_batch_times(info[name]["args"], k_ms))
         if name in ("amtl_event", "km_update"):

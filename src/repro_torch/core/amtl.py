@@ -27,12 +27,16 @@ Three engines of the reference are ported:
       and the B column updates in one `amtl_event_batch` kernel that
       serializes duplicate tasks in event order.
 
+A lstsq full gradient is the `lstsq_grad` kernel: one launch an event
+(delta, dense) or a batch step's B gradients in one (batch), every row
+with the single event's bits.
+
 With `prox_rank` (nuclear norm only) the refresh is the randomized SVT,
 whose sketch and reconstruction are the `gauss_sketch` and
 `svt_reconstruct` kernels.  With `batch_size` (SGD-AMTL, paper §V) every
 activation's gradient is the (n_t/bsz)-scaled seeded minibatch gradient
 (`MTLProblem.task_grad_sampled`: the `lstsq_grad_sampled` kernel for
-lstsq, the `sample_mask` kernel's keep bits otherwise); the seed is folded
+lstsq, the `sample_mask` kernel's kept rows otherwise); the seed is folded
 off the pre-event chain key, so the event stream is unchanged.  Ragged
 problems (`row_counts`) run on the delta and batch engines; the dense
 engine is the exact uniform baseline and refuses them, and SGD, as in the
@@ -424,14 +428,14 @@ def apply_plan(problem: MTLProblem, cfg: AMTLConfig, state,
     p_cache = state.p_cache
     rb_cols = _to(dev, plan.rb_cols, torch.int64)
     rb_slots = _to(dev, plan.rb_slots, torch.int64)
-    # lstsq SGD batches take their B gradients in one call a step
-    batched_grads = cfg.engine == "batch" and plan.scalars is not None \
-        and problem.loss_name == "lstsq"
+    # lstsq batches take their B gradients in one call a step (full or
+    # minibatch)
+    batched_grads = cfg.engine == "batch" and problem.loss_name == "lstsq"
     if cfg.engine == "batch":
         tasks_dev = _to(dev, plan.tasks, torch.int32)
         eta_ks_dev = _to(dev, plan.eta_ks, torch.float32)
         ring_slots_dev = _to(dev, plan.ring_slots, torch.int64)
-    if batched_grads:
+    if batched_grads and plan.scalars is not None:
         scalars_dev = _to(dev, plan.scalars, torch.uint32)
 
     p = p_cache
@@ -459,7 +463,9 @@ def apply_plan(problem: MTLProblem, cfg: AMTLConfig, state,
             ts = tasks_dev[first:first + per_step]
             p_cols = p.index_select(1, ts)                       # (d, B)
             p_rows = p_cols.T.contiguous()                       # (B, d)
-            if batched_grads:
+            if batched_grads and plan.scalars is None:
+                g_rows = problem.task_grads(ts, p_rows)
+            elif batched_grads:
                 g_rows = problem.task_grads_sampled(
                     ts, p_rows, scalars_dev[first:first + per_step],
                     cfg.batch_size)

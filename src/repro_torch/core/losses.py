@@ -172,7 +172,16 @@ class MTLProblem(NamedTuple):
         return torch.stack(self._per_task("value", w_cols)).sum()
 
     def task_grad(self, t: int, w_t: Tensor) -> Tensor:
-        """grad of task t's loss at w_t (a host task index)."""
+        """grad of task t's loss at w_t (a host task index).  lstsq goes to
+        `ops.lstsq_grad_task`, which reads the row count on the device (one
+        `lstsq_grad` launch on the card, the B = 1 form of `task_grads`;
+        on the CPU the composite's bits); other losses take their own
+        gradient."""
+        from repro_torch.kernels import ops
+
+        if self.loss_name == "lstsq":
+            return ops.lstsq_grad_task(self.xs, self.ys, t, w_t,
+                                       self.row_counts)
         loss = get_loss(self.loss_name)
         if self.row_counts is None:
             return loss.grad(self.xs[t], self.ys[t], w_t)
@@ -187,9 +196,9 @@ class MTLProblem(NamedTuple):
         n_t): the minibatch is the exactly-bsz rows (bsz = min(batch_size,
         n_t)) of smallest counter hash, and the gradient is scaled by
         n_t/bsz.  lstsq goes to `ops.lstsq_grad_sampled`; other losses take
-        the keep bits from `ops.sample_mask`, zero the dropped rows of x (a
-        zero row adds nothing to any x^T(...) gradient) and scale the same
-        way.  On a CUDA problem both are kernels.
+        x with its dropped rows zeroed from `ops.sample_rows` (a zero row
+        adds nothing to any x^T(...) gradient) and scale the same way.  On
+        a CUDA problem both are one kernel launch each.
         """
         from repro_torch.kernels import ops
 
@@ -197,8 +206,7 @@ class MTLProblem(NamedTuple):
         if self.loss_name == "lstsq":
             return ops.lstsq_grad_sampled(x_t, w_t, y_t, scalars, batch_size)
         n = x_t.shape[0]
-        mask = ops.sample_mask(n, scalars, x_t.device)
-        x_s = torch.where(mask[:, None], x_t, 0.0)
+        x_s = ops.sample_rows(x_t, scalars)
         grad = get_loss(self.loss_name).grad(x_s, y_t, w_t)
         if self.row_counts is None:
             return (n / min(batch_size, n)) * grad
@@ -223,8 +231,29 @@ class MTLProblem(NamedTuple):
         return ops.lstsq_grad_sampled_batch(self.xs, self.ys, tasks, w_rows,
                                             scalars, batch_size)
 
+    def task_grads(self, tasks: Tensor, w_rows: Tensor) -> Tensor:
+        """(B, d) full gradients of B events of a lstsq problem in one
+        call: row e is `task_grad(tasks[e], w_rows[e])`, bit for bit.
+        `tasks` (B,) int32 is a tensor on the problem's device; on the card
+        this is one `lstsq_grad` launch, which reads the tasks and row
+        counts there.  The reference computes the same B functions one
+        event at a time in its step's scan."""
+        from repro_torch.kernels import ops
+
+        if self.loss_name != "lstsq":
+            raise ValueError("task_grads takes lstsq problems; got loss "
+                             f"{self.loss_name!r}")
+        return ops.lstsq_grad_batch(self.xs, self.ys, tasks, w_rows,
+                                    self.row_counts)
+
     def full_grad(self, w_cols: Tensor) -> Tensor:
-        """nabla f(W) column-stacked, (d, T) — paper Eq. III.2."""
+        """nabla f(W) column-stacked, (d, T) — paper Eq. III.2.  lstsq is
+        one `task_grads` call over every task (one launch on the card, as
+        the reference's one vmap); other losses loop over the tasks."""
+        if self.loss_name == "lstsq":
+            tasks = torch.arange(self.num_tasks, dtype=torch.int32,
+                                 device=self.device)
+            return self.task_grads(tasks, w_cols.T.contiguous()).T
         return torch.stack(self._per_task("grad", w_cols), dim=1)
 
     def objective(self, w_cols: Tensor) -> Tensor:

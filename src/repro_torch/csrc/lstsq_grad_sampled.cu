@@ -41,7 +41,10 @@
 //   A task id outside [0, T) picks the task the reference's dynamic index
 //   picks: a negative id counts from the end, then the id is clamped into
 //   [0, T) (ref.task_index, the same rule on the CPU).
-//   sample_mask writes the same keep bits, one thread a row.
+//   sample_mask writes the same keep bits, one thread a row; its engine
+//   form sample_rows writes the kept rows of x and zeros for the others in
+//   one launch, in place of the bits and a torch.where over all of x.  Its
+//   bound is bytes: the kept rows read and all n rows written.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -330,6 +333,28 @@ __global__ void sample_mask_kernel(ScalarBlock s, uint8_t* __restrict__ out,
   if (i < n) out[i] = keep_bit(s, (uint32_t)i) ? 1 : 0;
 }
 
+// x_s = where(keep_bits, x, 0): a block a (row, 256-vector slice); a kept
+// row is copied (16-byte vectors, or words), a dropped row is written 0
+// without reading x.
+__global__ void sample_rows_kernel(ScalarBlock s, const float* __restrict__ x,
+                                   float* __restrict__ out, int d, int slices,
+                                   bool vec4) {
+  const int row = blockIdx.x / slices;
+  const int i = (blockIdx.x % slices) * blockDim.x + threadIdx.x;
+  const bool keep = keep_bit(s, (uint32_t)row);
+  if (vec4) {
+    if (i >= d / 4) return;
+    const size_t at = (size_t)row * (d / 4) + i;
+    reinterpret_cast<float4*>(out)[at] =
+        keep ? reinterpret_cast<const float4*>(x)[at]
+             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  } else {
+    if (i >= d) return;
+    const size_t at = (size_t)row * d + i;
+    out[at] = keep ? x[at] : 0.0f;
+  }
+}
+
 }  // namespace
 
 // B events on the tasks `tasks` of xs (T, n, d) / ys (T, n).
@@ -365,6 +390,28 @@ extern "C" int sample_mask_launch(unsigned seed, unsigned cut_h,
   if (blocks > 0) {
     sample_mask_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         ScalarBlock{seed, cut_h, cut_i, n_t}, out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The rows of x (n, d) kept by the scalar block's keep bits, the others 0,
+// into out (n, d): sample_mask's bits formed where the rows are written.
+extern "C" int sample_rows_launch(unsigned seed, unsigned cut_h,
+                                  unsigned cut_i, unsigned n_t,
+                                  const float* x, float* out, int n, int d,
+                                  void* stream) {
+  const int threads = 256;
+  if (n < 0 || d < 0) return (int)cudaErrorInvalidValue;
+  const bool vec4 = d % 4 == 0 &&
+                    ((reinterpret_cast<uintptr_t>(x) |
+                      reinterpret_cast<uintptr_t>(out)) % 16 == 0);
+  const int width = vec4 ? d / 4 : d;
+  const int slices = (width + threads - 1) / threads;
+  const long long blocks = (long long)n * slices;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (blocks > 0) {
+    sample_rows_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        ScalarBlock{seed, cut_h, cut_i, n_t}, x, out, d, slices, vec4);
   }
   return (int)cudaGetLastError();
 }

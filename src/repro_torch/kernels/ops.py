@@ -156,6 +156,31 @@ def lstsq_grad(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
     return ref.lstsq_grad_masked_ref(x, w, y, n_t)
 
 
+def lstsq_grad_task(xs: torch.Tensor, ys: torch.Tensor, t: int,
+                    w: torch.Tensor,
+                    row_counts: torch.Tensor | None = None) -> torch.Tensor:
+    """(d,) full gradient of task t (a host id) at w on the buffers xs
+    (T, n, d) and ys (T, n), rows >= row_counts[t] masked (read on the
+    device; None: every row).  On the card one `lstsq_grad` launch, the
+    B = 1 form of `lstsq_grad_batch`."""
+    if _on_cuda("lstsq_grad", xs):
+        return _lstsq_grad.lstsq_grad_task(xs, ys, t, w, row_counts)
+    return ref.lstsq_grad_task_ref(xs, ys, t, w, row_counts)
+
+
+def lstsq_grad_batch(xs: torch.Tensor, ys: torch.Tensor, tasks: torch.Tensor,
+                     w_rows: torch.Tensor,
+                     row_counts: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, d) full gradients of B events in one call: row e is the
+    gradient of task tasks[e] ((B,) int32 on the buffers' device) at
+    w_rows[e], rows >= row_counts[t] masked ((T,) int32 on the device, or
+    None).  On the card one launch, no host read of the tasks or counts;
+    row e has the bits of `lstsq_grad_task` of event e."""
+    if _on_cuda("lstsq_grad", xs):
+        return _lstsq_grad.lstsq_grad_batch(xs, ys, tasks, w_rows, row_counts)
+    return ref.lstsq_grad_batch_ref(xs, ys, tasks, w_rows, row_counts)
+
+
 def lstsq_grad_sampled(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
                        scalars, batch_size: int) -> torch.Tensor:
     """Unbiased seeded-minibatch gradient (n_t/bsz) * 2 X_S^T (X_S w - y_S)
@@ -191,6 +216,16 @@ def sample_mask(n: int, scalars, device: torch.device | str) -> torch.Tensor:
     if _on_cuda("sample_mask", device):
         return _sample_mask.sample_mask(n, scalars, device)
     return ref.keep_bits_ref(n, scalars, device)
+
+
+def sample_rows(x_t: torch.Tensor, scalars) -> torch.Tensor:
+    """(n, d) float32 rows of x_t kept by the host scalar block's keep
+    bits, the dropped rows 0: `where(keep_bits[:, None], x_t, 0)` in one
+    call.  On the card one `sample_mask` launch (the keep bits are formed
+    where the rows are written)."""
+    if _on_cuda("sample_mask", x_t):
+        return _sample_mask.sample_rows(x_t, scalars)
+    return ref.sample_rows_ref(x_t, scalars)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -226,6 +226,26 @@ def lstsq_grad_masked_ref(x: Tensor, w: Tensor, y: Tensor, n_t) -> Tensor:
     return (2.0 * (x32.T @ r)).to(w.dtype)
 
 
+def lstsq_grad_task_ref(xs: Tensor, ys: Tensor, t: int, w: Tensor,
+                        row_counts: Tensor | None = None) -> Tensor:
+    """The full gradient of task t (picked by `task_index`) at w on the
+    buffers xs (T, n, d), ys (T, n): `lstsq_grad_masked_ref` with the
+    task's row count, or `lstsq_grad_ref` when row_counts is None."""
+    t = task_index(int(t), xs.shape[0])
+    if row_counts is None:
+        return lstsq_grad_ref(xs[t], w, ys[t])
+    return lstsq_grad_masked_ref(xs[t], w, ys[t], row_counts[t])
+
+
+def lstsq_grad_batch_ref(xs: Tensor, ys: Tensor, tasks: Tensor,
+                         w_rows: Tensor,
+                         row_counts: Tensor | None = None) -> Tensor:
+    """(B, d) full gradients of B events: row e is `lstsq_grad_task_ref`
+    of task tasks[e] at w_rows[e], each with the single event's bits."""
+    return torch.stack([lstsq_grad_task_ref(xs, ys, t, w_rows[e], row_counts)
+                        for e, t in enumerate(tasks.tolist())])
+
+
 # ------------------------------------------------ counter-based sampling ---
 #
 # The minibatch of an event is the exactly-bsz rows whose counter_hash(seed,
@@ -310,6 +330,12 @@ def keep_bits_ref(n: int, scalars, device="cpu") -> Tensor:
     h = counter_hash(seed, idx)
     keep = (h < cut_h) | ((h == cut_h) & (idx <= cut_i))
     return keep & (idx < n_t)
+
+
+def sample_rows_ref(x: Tensor, scalars) -> Tensor:
+    """x's rows kept by the scalar block's keep bits, the others 0."""
+    keep = keep_bits_ref(x.shape[0], scalars, x.device)
+    return torch.where(keep[:, None], x, 0.0)
 
 
 def sample_mask_ref(n: int, batch_size: int, seed,

@@ -14,20 +14,29 @@ cohorts of 80..399 rows drawn from --seed and
 published by a TaskStore (the widths and sizes of `chip_smoke.py`'s
 ragged cohorts, not its data, and without its mid-run row append); and
 the ragged SGD delta session on the same cohorts (prox_every 8),
---delta-events long.  Each runs its events after a warm-up of two steps
+--delta-events long; the logistic SGD delta session (the same cohorts
+with labels sign(y), the logistic loss, minibatch 32, prox_every 8),
+LOGISTIC_EVENTS (256) long.  Each runs its events after a warm-up of two steps
 or two prox refreshes, timed on the host's clock up to a device
 synchronize; then the same events again split into the host plan
 (`plan_events`) and the device work (`apply_plan`); then one more
 `apply_plan` under torch.profiler, whose device busy time (the sum of its
 kernel and copy times) is read against that same run's wall time (the
 profiler's own host cost included), and whose kernels and copies are
-counted an event.  Prints one JSON line: per session the events/s, the
-plan and apply seconds, the profiled run's seconds, busy share and
-device operations an event, and the kernel launches of the timed run,
-with the card's name and power limit and the package it ran.
+counted an event.  Last, FISTA (`fista_solve`, FISTA_ITERS (10)
+iterations from zero on the uniform problem with the l2,1 prox, eta
+0.05): seconds an iteration on the host's clock up to a synchronize after
+a warm-up run, and one more run under torch.profiler for its busy time
+and its kernels and copies an iteration.  Prints one JSON line: per
+session the events/s, the plan and apply seconds, the profiled run's
+seconds, busy share, device operations an event and its TOP (6) kernels
+and copies by device seconds, and the kernel launches of the timed run;
+FISTA's seconds, busy seconds, device
+operations and launches an iteration; with the card's name and power
+limit and the package it ran.
 
-It reads only the engine session API, the TaskStore and the launch
-counts, so it runs against any tree of the port: put that tree's `src`
+It reads only the engine session and solver API, the TaskStore and the
+launch counts, so it runs against any tree of the port: put that tree's `src`
 first on PYTHONPATH to compare two trees in one call (parent, change,
 change, parent).
 """
@@ -45,6 +54,9 @@ D, T, N_ROWS, TAU = 8192, 128, 256, 8
 ETA, LAM, RANK, BATCH = 0.05, 0.1, 16, 32
 COHORT_LO, COHORT_HI, SGD_BATCH = 80, 400, 32
 DENSE_EVENTS = 256
+LOGISTIC_EVENTS = 256
+FISTA_ITERS = 10
+TOP = 6
 
 
 def uniform_problem(seed: int, dev):
@@ -85,9 +97,27 @@ def sync(dev) -> None:
     torch.cuda.synchronize(dev)
 
 
-def session(problem, cfg, v0, key, offs, events: int, dev) -> dict:
+def profiled(fn) -> tuple[float, float, int, list]:
+    """(wall seconds, device busy seconds, device kernels and copies, the
+    TOP kernels and copies with the most device seconds) of fn() under
+    torch.profiler, up to a synchronize."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    top = sorted(([e.key[:60], e.self_device_time_total * 1e-6, e.count]
+                  for e in device), key=lambda r: -r[1])[:TOP]
+    return (wall, sum(e.self_device_time_total for e in device) * 1e-6,
+            sum(e.count for e in device), top)
+
+
+def session(problem, cfg, v0, key, offs, events: int, dev) -> dict:
     from repro_torch.core import amtl, make_engine
     from repro_torch.kernels import ops
     engine = make_engine(problem, cfg, device=dev)
@@ -108,20 +138,36 @@ def session(problem, cfg, v0, key, offs, events: int, dev) -> dict:
     amtl.apply_plan(problem, cfg, state0, plan)
     sync(dev)
     apply_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        amtl.apply_plan(problem, cfg, state0, plan)
-        sync(dev)
-        profiled_s = time.perf_counter() - t0
-    device = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in device) * 1e-6
+    profiled_s, busy, n_ops, top = profiled(
+        lambda: amtl.apply_plan(problem, cfg, state0, plan))
     return {"events_per_s": events / wall, "wall_s": wall, "plan_s": host,
             "apply_s": apply_s, "profiled_apply_s": profiled_s,
             "busy_s": busy, "busy_share": busy / profiled_s,
-            "device_ops_per_event": sum(e.count for e in device) / events,
-            "launches": counts}
+            "device_ops_per_event": n_ops / events, "launches": counts,
+            "top": top}
+
+
+def fista(problem, dev) -> dict:
+    """FISTA_ITERS iterations of `fista_solve` from zero."""
+    from repro_torch.core import fista_solve
+    from repro_torch.kernels import ops
+    w0 = torch.zeros((D, T), dtype=torch.float32, device=dev)
+    run = lambda: fista_solve(problem, w0, ETA, FISTA_ITERS, device=dev)
+    run()                                                      # warm up
+    sync(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    run()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = {k: v / FISTA_ITERS for k, v in ops.launch_counts().items()
+              if v}
+    profiled_s, busy, n_ops, top = profiled(run)
+    return {"s_per_iteration": wall / FISTA_ITERS, "wall_s": wall,
+            "profiled_s": profiled_s, "busy_s": busy,
+            "busy_share": busy / profiled_s,
+            "device_ops_per_iteration": n_ops / FISTA_ITERS,
+            "launches_per_iteration": counts, "top": top}
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -151,14 +197,19 @@ def main(argv: list[str] | None = None) -> dict:
         problem._replace(reg_name="l21"),
         delta._replace(engine="dense", prox_every=1, prox_rank=None), v0,
         key, offs, DENSE_EVENTS, dev)
+    out["FISTA"] = fista(problem._replace(reg_name="l21"), dev)
     del problem
     ragged = ragged_problem(args.seed, dev)
     sgd = cfg._replace(batch_size=SGD_BATCH, dynamic_step=True)
     out["ragged SGD batch"] = session(ragged, sgd, v0, key, offs,
                                       args.events, dev)
-    out["ragged SGD delta"] = session(
-        ragged, sgd._replace(engine="delta", event_batch=1, prox_every=8),
-        v0, key, offs, args.delta_events, dev)
+    sgd_delta = sgd._replace(engine="delta", event_batch=1, prox_every=8)
+    out["ragged SGD delta"] = session(ragged, sgd_delta, v0, key, offs,
+                                      args.delta_events, dev)
+    logistic = ragged._replace(ys=torch.where(ragged.ys > 0, 1.0, -1.0),
+                               loss_name="logistic")
+    out["logistic SGD delta"] = session(logistic, sgd_delta, v0, key, offs,
+                                        LOGISTIC_EVENTS, dev)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

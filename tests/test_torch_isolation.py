@@ -169,6 +169,14 @@ def test_cpu_tensors_take_plain_versions_and_launch_nothing():
     assert ops.sample_mask(16, block, "cpu").sum() == 3
     ops.lstsq_grad(x, v[0], y, 11)
     ops.lstsq_grad(x, v[0], y)
+    counts = torch.tensor([11, 16], dtype=torch.int32)
+    ops.lstsq_grad_task(torch.stack([x, x]), torch.stack([y, y]), 1, v[0],
+                        counts)
+    rows = ops.lstsq_grad_batch(torch.stack([x, x]), torch.stack([y, y]),
+                                torch.tensor([1, 0, 5], dtype=torch.int32),
+                                v[:3].contiguous(), counts)
+    assert rows.shape == (3, 4)
+    assert ops.sample_rows(x, block).any(dim=1).sum() == 3
     q, kv = torch.randn(5, 4, 8), torch.randn(5, 2, 8)
     ops.flash_attention(q, kv, kv, causal=True, window=3, softcap=20.0)
     ops.mha(q[None], kv[None], kv[None], causal=False, kv_valid_len=4)
@@ -211,7 +219,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         k_grad.lstsq_grad(x, torch.zeros(2), y, 4)
     with pytest.raises(ValueError, match="CUDA"):
+        k_grad.lstsq_grad_task(x[None], y[None], 0, torch.zeros(2))
+    with pytest.raises(ValueError, match="CUDA"):
+        k_grad.lstsq_grad_batch(x[None], y[None],
+                                torch.zeros(1, dtype=torch.int32),
+                                torch.zeros(1, 2),
+                                torch.full((1,), 8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
         k_mask.sample_mask(8, (1, 2, 3, 8), "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        k_mask.sample_rows(x, (1, 2, 3, 8))
     q = torch.zeros(1, 4, 2, 8)
     with pytest.raises(ValueError, match="CUDA"):
         k_flash.flash_attention(q, q, q, causal=True)
@@ -246,7 +263,7 @@ def test_kernel_library_is_named_by_its_sources():
         "flash_attention.cu", "flash_attention_sm90.cu", "flash_decode.cu",
         "rwkv6_scan.cu", "rwkv6_chunked.cu", "km_update.cu", "l21_prox.cu"}
     assert {p.name for p in _build.headers()} == {
-        "counter_hash.cuh", "km_column.cuh", "lstsq_grad_body.cuh"}
+        "counter_hash.cuh", "km_column.cuh"}
     assert path.name.startswith("librepro_torch_kernels-")
 
 
