@@ -16,8 +16,11 @@ kernel) and rwkv6-3b serving (every bf16 prefill WKV in the chunked
 tensor-core kernel and every decode WKV in the recurrent one), the dense
 engine and the l2,1 (joint feature learning) formulation (dense sessions
 with the km_update and l21_prox kernels, dense == delta bitwise, a batch
-l2,1 session, FISTA's reference optimum) — holds the card's runs against the
-port's own CPU runs or plain-kernel runs of the same states, and times
+l2,1 session, FISTA's reference optimum) and the learn-while-serve
+`AMTLServer` on the ragged store (cooperative serving with a checkpoint
+and a bitwise resume, threaded learning, chaos under a FaultPlan) — holds
+the card's runs against the port's own CPU runs, replays or plain-kernel
+runs of the same states, and times
 each kernel (the prox's two kernels and the engines' state updates
 L2-cold too, and one prox refresh by part, with the calls that
 synchronize the host).  Any failed
@@ -32,6 +35,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -62,6 +67,21 @@ BATCH_EVENTS, DELTA_EVENTS, DELTA_PROX_EVERY, CPU_EVENTS = 4096, 256, 8, 64
 # between the two chunks of the batch session.
 COHORT_LO, COHORT_HI, SGD_BATCH, APPEND_ROWS = 80, 400, 32, 256
 LOGISTIC_EVENTS = 64
+
+# The learn-while-serve server (repro_torch.serve, phase 20) on the ragged
+# store above (make_store) and the uniform cell's batch engine (full
+# gradient, randomized SVT): 64 request batches, each 64 prediction rows and
+# 64 labelled feedback rows (task ids uniform), 4096 events in all; the
+# resume after batch 31 (the checkpoint at 2048 events).  The chaos drive
+# serves the first SERVE_CHAOS_BATCHES batches.  Checkpoints go under
+# build/serve_ckpt (a store record is 1.7-3.3 GB; the phase needs
+# SERVE_FREE_BYTES free there and deletes the directory at its end).
+SERVE_BATCHES, SERVE_ROWS, SERVE_RESUME_AT, SERVE_CHAOS_BATCHES = 64, 64, 32, 7
+SERVE_CFG = dict(chunk_events=128, task_chunk_quota=8, max_pending_per_task=64,
+                 max_batch=256, slo_ms=250.0, slo_window=32, keep_last=2,
+                 checkpoint_every=2048)
+SERVE_FREE_BYTES = 24e9
+SERVE_WAIT_S = 300.0
 
 # Tolerances of the kernels against their plain versions on the card.  The
 # two column-update kernels and their plain versions compute the same fma
@@ -2970,6 +2990,432 @@ def l21_phases(problem, problem_cpu, v0, key, offs, dev) -> dict:
     return dn["counts"]
 
 
+# ---------------------------------------------------------------- phase 20 --
+
+def serve_traffic(rows, seed: int) -> list:
+    """SERVE_BATCHES request batches: (prediction task ids, features,
+    feedback task ids, features, labels), the feedback rows drawn by the
+    store's `rows` (the same cohorts' w*)."""
+    rng = np.random.default_rng(seed + 4)
+    out = []
+    for _ in range(SERVE_BATCHES):
+        qt = rng.integers(0, T, SERVE_ROWS)
+        qx = rng.standard_normal((SERVE_ROWS, D), dtype=np.float32) \
+            / np.float32(D ** 0.5)
+        ft = rng.integers(0, T, SERVE_ROWS)
+        fx, fy = zip(*(rows(int(t), 1) for t in ft))
+        out.append((qt, qx, ft, np.concatenate(fx), np.concatenate(fy)))
+    return out
+
+
+def record_boundaries(server) -> list:
+    """Wrap the server's chunk boundary: after each committed chunk, log
+    (the store's row counts, or None before the first fold, and the
+    chunk's events).  The wrapper is an instance attribute, so the
+    learner thread and `step()` both go through it."""
+    out = []
+    real = server._step_once
+
+    def step_once():
+        before = len(server.chunk_log)
+        n = real()
+        if len(server.chunk_log) > before:
+            store = server._store
+            out.append((None if store is None else store.row_counts, n))
+        return n
+
+    server._step_once = step_once
+    return out
+
+
+def time_folds(server, dev) -> list:
+    """Wrap the server's fold: the seconds of each boundary that folded
+    rows, its upload finished on the server's stream."""
+    import torch
+    out = []
+    real = server._fold_pending_rows
+
+    def fold():
+        t0 = time.perf_counter()
+        undo = real()
+        if undo is not None:
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+            out.append(time.perf_counter() - t0)
+        return undo
+
+    server._fold_pending_rows = fold
+    return out
+
+
+def time_checkpoints(server) -> list:
+    """Wrap `checkpoint()`: (seconds, engine record path, event) a call."""
+    out = []
+    real = server.checkpoint
+
+    def ckpt():
+        t0 = time.perf_counter()
+        path = real()
+        out.append((time.perf_counter() - t0, path, server.event_count))
+        return path
+
+    server.checkpoint = ckpt
+    return out
+
+
+def replay_boundaries(base, final, cfg, v0, key, boundaries, dev):
+    """One engine session over a server's committed chunks: before each,
+    the store grown to that boundary's row counts (each task's rows, in
+    order, from the server's final store `final`), the problem and engine
+    rebuilt, then `engine.run` of the chunk's events."""
+    from repro_torch.core import make_engine
+    from repro_torch.data import TaskStore
+    store = TaskStore(*base, "lstsq", "nuclear", LAM)
+    counts = store.row_counts
+    fx, fy = final.state()[:2]
+    engine = make_engine(store.problem(dev), cfg, device=dev)
+    state = engine.init(v0, key)
+    for want, n in boundaries:
+        if want is not None and (want != counts).any():
+            ids = np.repeat(np.arange(T), want - counts)
+            at = np.concatenate([np.arange(c, w) for c, w in
+                                 zip(counts, want)])
+            store.append(ids, fx[ids, at], fy[ids, at])
+            counts = want
+            engine = make_engine(store.problem(dev), cfg, device=dev)
+        state = engine.run(state, None, n)
+    return state
+
+
+def states_equal(a, b) -> bool:
+    from repro_torch.interop import state_to_numpy
+    return all(np.array_equal(x, y) for x, y in
+               zip(state_to_numpy(a), state_to_numpy(b), strict=True))
+
+
+def stores_equal(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in
+               zip(a.state(), b.state(), strict=True))
+
+
+def wait_for(label: str, predicate) -> None:
+    deadline = time.perf_counter() + SERVE_WAIT_S
+    while not predicate():
+        if time.perf_counter() > deadline:
+            fail(f"{label}: not reached within {SERVE_WAIT_S} s")
+        time.sleep(0.005)
+
+
+def record_bytes(ckpt_dir: Path, path: str, event: int) -> int:
+    store = ckpt_dir / "store" / f"step_{event:08d}.npz"
+    return os.path.getsize(path) + (os.path.getsize(store)
+                                    if store.exists() else 0)
+
+
+def amtl_serve_phase(dev, seed: int, card: str) -> dict:
+    """Phase 20: the learn-while-serve AMTLServer at the engine cells'
+    width: cooperative serving with a checkpoint and a resume, threaded
+    learning, chaos under a FaultPlan, the card against the port's CPU
+    server, and the exact launches of the path's four kernels."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.core import prng
+    from repro_torch.data import TaskStore
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (AMTLServer, FaultPlan, InjectedFault,
+                                   ServeConfig)
+    t_phase = time.perf_counter()
+    ckpt_dir = ROOT / "build" / "serve_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    free = shutil.disk_usage(ckpt_dir).free
+    if free < SERVE_FREE_BYTES:
+        fail(f"serve phase: {free / 1e9:.1f} GB free under {ckpt_dir}, the "
+             f"checkpoints need {SERVE_FREE_BYTES / 1e9:.0f} GB")
+    store0, rows = make_store(seed)
+    base = store0.state()
+    traffic = serve_traffic(rows, seed)
+    problem = store0.problem(dev)
+    cfg = configs()[0]
+    v0 = (np.float32(0.01) * np.random.default_rng(seed + 5).standard_normal(
+        (D, T), dtype=np.float32))
+    key = prng.key_from_seed(seed)
+    sc = ServeConfig(**SERVE_CFG, ckpt_dir=str(ckpt_dir))
+    expected = TaskStore(*base, "lstsq", "nuclear", LAM)
+    for _, _, ft, fx, fy in traffic:
+        expected.append(ft, fx, fy)
+    sync(dev)
+    ops.reset_launch_counts()
+    card_events = 0
+
+    # 1. cooperative serving, the checkpoint at 2048 events, a resume
+    a = AMTLServer(problem, cfg, v0, key, sc, device=dev)
+    bounds_a = record_boundaries(a)
+    folds = time_folds(a, dev)
+    ckpts = time_checkpoints(a)
+    preds_a, lat_learn = [], []
+    appends = 0
+    resume_s, first = 0.0, None
+    t0 = time.perf_counter()
+    for i, (qt, qx, ft, fx, fy) in enumerate(traffic):
+        tb = time.perf_counter()
+        preds_a.append(a.predict(qt, qx))        # waits: slo_ms is set
+        lat_learn.append(1e3 * (time.perf_counter() - tb))
+        receipt = a.submit_feedback(ft, fx, fy)
+        if receipt.rejected:
+            fail(f"serve: batch {i} feedback rejected ({receipt!r})")
+        appends += receipt.accepted
+        a.step()
+        if i == 0:
+            first = (a._state, list(a.chunk_log))
+        if i == SERVE_RESUME_AT - 1:
+            tr = time.perf_counter()
+            b = AMTLServer.resume(problem, cfg, v0, key, sc, device=dev)
+            resume_s = time.perf_counter() - tr
+    learn_wall = time.perf_counter() - t0
+    ckpt_s = sum(c[0] for c in ckpts)
+    learn_s = learn_wall - resume_s - ckpt_s
+    at, total = SERVE_RESUME_AT * SERVE_ROWS, SERVE_BATCHES * SERVE_ROWS
+    if [c[2] for c in ckpts] != [at, total] or a.event_count != total:
+        fail(f"serve: checkpoints at {[c[2] for c in ckpts]}, "
+             f"{a.event_count} events; want [{at}, {total}] and {total}")
+    if b.event_count != at or len(b.chunk_log) != 0:
+        fail(f"serve: resume at event {b.event_count}, want {at}")
+    bounds_b = record_boundaries(b)
+    for i in range(SERVE_RESUME_AT, SERVE_BATCHES):
+        qt, qx, ft, fx, fy = traffic[i]
+        preds, _, _ = b.serve(qt, qx, ft, fx, fy)
+        if not torch.equal(preds, preds_a[i]):
+            fail(f"serve: the resumed server's predictions of batch {i} "
+                 "differ from the uninterrupted server's")
+    if b.chunk_log != a.chunk_log[-len(b.chunk_log):] \
+            or not states_equal(a._state, b._state) \
+            or not stores_equal(a._store, b._store):
+        fail("serve: the resumed server's chunks, state or store differ "
+             "from the uninterrupted server's")
+    if not stores_equal(a._store, expected):
+        fail("serve: the server's store is not the arrival-order appends "
+             "of the accepted rows")
+    verify_s = []
+    for sec, path, event in ckpts:
+        t1 = time.perf_counter()
+        checkpoint.verify(path)
+        checkpoint.verify(str(ckpt_dir / "store" / f"step_{event:08d}.npz"))
+        verify_s.append(time.perf_counter() - t1)
+    ckpt_bytes = [record_bytes(ckpt_dir, path, event)
+                  for _, path, event in ckpts]
+    t1 = time.perf_counter()
+    checkpoint.checkpoint._crc(a._store._xs)        # the record's largest leaf
+    crc_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    replay = replay_boundaries(base, a._store, cfg, v0, key, bounds_a, dev)
+    replay_s = time.perf_counter() - t1
+    if not states_equal(a._state, replay):
+        fail("serve: the server's state is not the replay of its chunk log "
+             "with the same folds")
+    card_events += 2 * sum(a.chunk_log) + sum(b.chunk_log)
+    del b, replay
+    log(f"phase 20 cooperative serving: {SERVE_BATCHES} batches of "
+        f"{SERVE_ROWS} predictions + {SERVE_ROWS} labelled rows, "
+        f"{len(a.chunk_log)} chunks {sorted(set(a.chunk_log))} events, store "
+        f"{int(base[2].sum())} -> {a.store_rows} rows, capacity "
+        f"{base[0].shape[1]} -> {a._store.capacity}; resume at {at} "
+        f"(batches {SERVE_RESUME_AT}..{SERVE_BATCHES - 1}) bitwise: "
+        f"predictions, chunks, state, store; the state bitwise the replay "
+        f"of its {len(bounds_a)} folds and chunks ({replay_s:.1f} s): PASS")
+    fold_ms = [1e3 * s for s in folds]
+    log(f"phase 20 fold (append, whole-store upload, engine rebuild) a "
+        f"boundary: {len(folds)} boundaries, median "
+        f"{statistics.median(fold_ms):.1f} ms, first {fold_ms[0]:.1f} ms "
+        f"(store made from the problem), max {max(fold_ms):.1f} ms, "
+        f"{sum(folds):.2f} s of the {learn_wall:.2f} s loop")
+    log("phase 20 checkpoints: "
+        + "; ".join(f"event {e}: {nb / 1e9:.3f} GB in {s:.2f} s "
+                    f"({nb / 1e9 / s:.2f} GB/s), verify {v:.2f} s"
+                    for (s, _, e), nb, v in zip(ckpts, ckpt_bytes, verify_s))
+        + f"; CRC32 of the store's xs alone {crc_s:.2f} s; resume "
+          f"(verify, store and engine restore, upload) {resume_s:.2f} s")
+
+    # 2. threaded learning while the main thread predicts and submits
+    c = AMTLServer(problem, cfg, v0, key,
+                   sc._replace(ckpt_dir=str(ckpt_dir / "threaded")),
+                   device=dev)
+    bounds_c = record_boundaries(c)
+    lat_thread = []
+    c.start_learner()
+    t0 = time.perf_counter()
+    for qt, qx, ft, fx, fy in traffic:
+        tb = time.perf_counter()
+        c.predict(qt, qx)
+        lat_thread.append(1e3 * (time.perf_counter() - tb))
+        receipt = c.submit_feedback(ft, fx, fy)
+        if receipt.rejected:
+            fail(f"threaded serving: feedback rejected ({receipt!r})")
+    thread_wall = time.perf_counter() - t0
+    c.stop_learner(drain=True)
+    drain_s = time.perf_counter() - t0
+    if not stores_equal(c._store, expected):
+        fail("threaded serving: the store is not the arrival-order appends")
+    replay = replay_boundaries(base, c._store, cfg, v0, key, bounds_c, dev)
+    if not states_equal(c._state, replay):
+        fail("threaded serving: the state is not the replay of its chunk "
+             "log with the same folds")
+    card_events += 2 * sum(c.chunk_log)
+    slo = c.stats()["slo"]
+    log(f"phase 20 threaded serving: {len(c.chunk_log)} chunks (sizes "
+        f"{min(c.chunk_log)}..{max(c.chunk_log)}), {sum(c.chunk_log)} events,"
+        f" {c.pending_feedback} left below a step; serving loop "
+        f"{thread_wall:.2f} s, drained at {drain_s:.2f} s; the state bitwise "
+        f"the replay of its chunk log: PASS")
+    del c, replay
+
+    # frozen serving: the same predictions, nothing learned
+    frozen = AMTLServer(problem, cfg, v0, key,
+                        sc._replace(learning=False, ckpt_dir=None,
+                                    checkpoint_every=None), device=dev)
+    t0 = time.perf_counter()
+    for qt, qx, _, _, _ in traffic:
+        frozen.predict(qt, qx)
+    frozen_wall = time.perf_counter() - t0
+    del frozen
+
+    # 3. chaos under a FaultPlan
+    plan = FaultPlan(nan_feedback=[(0, 5)], crash_on_chunks={1},
+                     poison_iterate_on_chunks={3}, fail_checkpoint_calls={1})
+    chaos = AMTLServer(problem, cfg, v0, key,
+                       sc._replace(ckpt_dir=str(ckpt_dir / "chaos"),
+                                   restart_limit=2, restart_backoff_s=0.01),
+                       device=dev, fault_plan=plan)
+    bounds_chaos = record_boundaries(chaos)
+    batches = traffic[:SERVE_CHAOS_BATCHES]
+    receipt = chaos.submit_feedback(*batches[0][2:])
+    if tuple(receipt) != (SERVE_ROWS - 1, 1) or receipt.reason != "nonfinite":
+        fail(f"chaos: the NaN row was not rejected at admission ({receipt!r})")
+    chaos.submit_feedback(*batches[1][2:])
+    chaos.start_learner()
+    wait_for("chaos: chunk 0", lambda: len(chaos.chunk_log) == 1)
+    chaos.submit_feedback(*batches[2][2:])                  # chunk 1 crashes
+    wait_for("chaos: the restart",
+             lambda: chaos.stats()["health"]["learner_restarts"] == 1)
+    chaos.submit_feedback(*batches[3][2:])
+    chaos.stop_learner(drain=True)
+    snap = chaos.serving()
+    rows_before = chaos._store.state()
+    chaos.submit_feedback(*batches[4][2:])
+    quarantined = chaos.step()                            # chunk 3 poisoned
+    if chaos.serving() is not snap or not stores_equal(
+            chaos._store, TaskStore(*rows_before, "lstsq", "nuclear", LAM)):
+        fail("chaos: the poisoned chunk moved the snapshot or kept its rows")
+    card_events += quarantined
+    chaos.submit_feedback(*batches[5][2:])
+    chaos.step()
+    chaos.checkpoint()                                    # call 0: the pair
+    bridged = (chaos.event_count, chaos.store_rows, chaos.iterate().clone())
+    chaos.submit_feedback(*batches[6][2:])
+    chaos.step()
+    try:
+        chaos.checkpoint()                                # call 1: torn
+        fail("chaos: the scripted checkpoint crash did not fire")
+    except InjectedFault:
+        pass
+    health = chaos.stats()["health"]
+    want = dict(learner_restarts=1, learner_crashes=1, nonfinite_feedback=1,
+                nonfinite_chunks=1, quarantined_feedback=quarantined)
+    got = {k: health[k] for k in want}
+    if got != want or quarantined == 0 \
+            or len(health["quarantine_log"]) != 1 \
+            or sum(health["quarantine_log"][0].values()) != quarantined:
+        fail(f"chaos: health {health}, want {want}")
+    if not bool(torch.isfinite(chaos.iterate()).all()):
+        fail("chaos: the served snapshot is not finite")
+    replay = replay_boundaries(base, chaos._store, cfg, v0, key,
+                               bounds_chaos, dev)
+    if not states_equal(chaos._state, replay):
+        fail("chaos: the state is not the replay of its surviving chunks")
+    card_events += 2 * sum(chaos.chunk_log)
+    t1 = time.perf_counter()
+    resumed = AMTLServer.resume(problem, cfg, v0, key, chaos.serve_cfg,
+                                device=dev)
+    chaos_resume_s = time.perf_counter() - t1
+    if (resumed.event_count, resumed.store_rows) != bridged[:2] \
+            or not torch.equal(resumed.iterate(), bridged[2]) \
+            or not bool(torch.isfinite(resumed.iterate()).all()):
+        fail(f"chaos: resume landed on event {resumed.event_count} with "
+             f"{resumed.store_rows} rows, want the bridged pair {bridged[:2]}")
+    log(f"phase 20 chaos: NaN row rejected at admission, 1 learner crash "
+        f"healed ({health['recovery_ms'][0]:.2f} ms), {quarantined} events "
+        f"quarantined with their fold rolled back, the torn checkpoint "
+        f"bridged (resume at event {resumed.event_count}, "
+        f"{chaos_resume_s:.2f} s); snapshot finite, the state bitwise the "
+        f"replay of its {len(chaos.chunk_log)} surviving chunks: PASS")
+    del chaos, resumed, replay
+
+    # 4. the card against the port's CPU server: the first chunk
+    cpu_problem = store0.problem("cpu")
+    cpu_srv = AMTLServer(cpu_problem, cfg, v0, key,
+                         sc._replace(ckpt_dir=None, checkpoint_every=None),
+                         device="cpu")
+    qt, qx, ft, fx, fy = traffic[0]
+    cpu_srv.serve(qt, qx, ft, fx, fy)
+    if cpu_srv.chunk_log != first[1]:
+        fail(f"card vs CPU: chunk logs {first[1]} and {cpu_srv.chunk_log}")
+    worst = compare_states("serve first chunk", first[0], cpu_srv._state)
+    del cpu_srv, cpu_problem
+
+    # 5. the path's kernels, launched exactly once a batch step
+    counts = ops.launch_counts()
+    if card_events % BATCH:
+        fail(f"serve: {card_events} events on the card, not whole steps")
+    want = {k: card_events // BATCH for k in
+            ("lstsq_grad", "amtl_event_batch", "gauss_sketch",
+             "svt_reconstruct")}
+    expect_launches("serve phase", counts, want)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_req = SERVE_BATCHES * SERVE_ROWS
+    metrics = {
+        "requests_per_sec_learning": n_req / learn_s,
+        "requests_per_sec_threaded": n_req / thread_wall,
+        "requests_per_sec_frozen": n_req / frozen_wall,
+        "predict_p50_ms": float(np.percentile(lat_learn, 50)),
+        "predict_p95_ms": float(np.percentile(lat_learn, 95)),
+        "predict_p99_ms": float(np.percentile(lat_thread, 99)),
+        "slo_violations": int(slo["violations"]),
+        "events_per_sec_learning": sum(a.chunk_log) / learn_s,
+        "appends_per_sec": appends / learn_s,
+        "fold_ms_median": statistics.median(fold_ms),
+        "fold_ms_max": max(fold_ms),
+        "checkpoint_bytes": ckpt_bytes,
+        "checkpoint_s": [cp[0] for cp in ckpts],
+        "verify_s": verify_s,
+        "crc_xs_s": crc_s,
+        "resume_s": resume_s,
+        "learner_restarts": int(health["learner_restarts"]),
+        "quarantined_feedback": int(health["quarantined_feedback"]),
+        "recovery_ms": [float(ms) for ms in health["recovery_ms"]],
+        "card_vs_cpu": worst,
+        "launches": want,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    log(f"phase 20 serving ({card}): requests/s while learning "
+        f"{metrics['requests_per_sec_learning']:.1f} (cooperative, "
+        f"checkpoint and resume seconds excluded), threaded "
+        f"{metrics['requests_per_sec_threaded']:.1f}, frozen "
+        f"{metrics['requests_per_sec_frozen']:.1f}; predict p50 "
+        f"{metrics['predict_p50_ms']:.3f} ms, p95 "
+        f"{metrics['predict_p95_ms']:.3f} ms, p99 (threaded) "
+        f"{metrics['predict_p99_ms']:.3f} ms, {metrics['slo_violations']} "
+        f"over the {SERVE_CFG['slo_ms']} ms SLO; events/s while learning "
+        f"{metrics['events_per_sec_learning']:.1f}, appends/s "
+        f"{metrics['appends_per_sec']:.1f}")
+    log(f"phase 20 card vs CPU (first chunk, {first[1]} events): chunk logs "
+        f"equal, max relative |diff| of v/delta_ring {worst:.3g} <= "
+        f"{SESSION_RTOL}; launches {want} ({card_events} events on the "
+        f"card, quarantined included) and no other kernel: PASS "
+        f"({metrics['seconds']:.1f} s)")
+    log("serving " + json.dumps(metrics))
+    return metrics
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3190,6 +3636,10 @@ def main() -> None:
     rw = serve_phase(dev, args.seed, card, "rwkv6-3b")
     torch.cuda.empty_cache()
 
+    # phase 20: the learn-while-serve AMTLServer at the engine cells' width
+    amtl_serve = amtl_serve_phase(dev, args.seed, card)
+    torch.cuda.empty_cache()
+
     kernels = []
     info["lstsq_grad"]["args"] = grad_inputs(dev, args.seed)
     launches = {k: (dl if k == "amtl_event" else b)["counts"][k]
@@ -3245,6 +3695,8 @@ def main() -> None:
                f"{l_ms * 1e3:.2f} us ({LIBRARY_CALLS[name]})")
             + f", {launches[name]} launches on the "
             f"{where.get(name, 'batch session')}")
+        if name in amtl_serve["launches"]:
+            kernels[-1]["serve_launches"] = amtl_serve["launches"][name]
         if name == "lstsq_grad_sampled":
             kernels[-1].update(sampled_single_times(info[name], dev))
         if name == "lstsq_grad":

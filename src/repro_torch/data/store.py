@@ -16,17 +16,22 @@
     new problem; the engine state runs on.
   * `append_undoable`/`rollback` undo one append bitwise, capacity
     included.
-
-`save`/`restore` wait for the port's checkpoint module and raise
-NotImplementedError until then.
+  * `save`/`restore` round-trip the buffers through
+    `repro_torch.checkpoint` in the reference's record format (keys
+    `.xs`, `.ys`, `.row_counts`), so a store record of either package
+    restores in the other, bitwise, capacity included.
 """
 from __future__ import annotations
 
+import zipfile
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import (CheckpointCorruptError,
+                                               _resolve_step_path, restore,
+                                               save)
 from repro_torch.device import resolve_device
 from repro_torch.core.losses import MTLProblem
 
@@ -45,12 +50,6 @@ class StoreUndo(NamedTuple):
     capacity: int
     row_counts: np.ndarray
     slots: list  # [(task, row, prev_x_row, prev_y), ...] for rows < old cap
-
-
-def _checkpoint_unported(what: str):
-    return NotImplementedError(
-        f"TaskStore.{what} arrives with the checkpoint slice of the port "
-        "(ROADMAP Queue 1, item 6)")
 
 
 class TaskStore:
@@ -240,13 +239,47 @@ class TaskStore:
         return TaskStoreState(self._xs.copy(), self._ys.copy(),
                               self._row_counts.copy())
 
-    def save(self, ckpt_dir: str, step: int, keep_last: int | None = None):
-        raise _checkpoint_unported("save")
+    def save(self, ckpt_dir: str, step: int,
+             keep_last: int | None = None) -> str:
+        """Write the buffers as `step_<step>.npz` under `ckpt_dir`."""
+        return save(ckpt_dir, step, self.state(), keep_last=keep_last)
 
     @classmethod
     def restore(cls, ckpt_dir: str, step: int, loss_name: str,
                 reg_name: str, lam: float) -> "TaskStore":
-        raise _checkpoint_unported("restore")
+        """Rebuild a store from a `save` record, bitwise.
+
+        The capacity is the record's: the leaves' shapes are read from
+        their npy headers, then the leaves go through
+        `repro_torch.checkpoint.restore` against a skeleton of those
+        shapes (its key, dtype and CRC checks).  A torn or corrupt record
+        raises `CheckpointCorruptError`, never a raw zip error.
+        """
+        path = _resolve_step_path(ckpt_dir, step)
+        try:
+            with zipfile.ZipFile(path) as record:
+                shapes = [_npy_shape(record, key)
+                          for key in (".xs", ".ys", ".row_counts")]
+        except FileNotFoundError:
+            raise
+        except Exception as e:
+            raise CheckpointCorruptError(
+                path, [], f"unreadable store record: {e!r}")
+        like = TaskStoreState(np.empty(shapes[0], np.float32),
+                              np.empty(shapes[1], np.float32),
+                              np.empty(shapes[2], np.int32))
+        state = restore(ckpt_dir, step, like)
+        return cls(state.xs, state.ys, state.row_counts, loss_name,
+                   reg_name, lam)
+
+
+def _npy_shape(record: zipfile.ZipFile, key: str) -> tuple:
+    """The shape in the npy header of member `key`, without its data."""
+    with record.open(key + ".npy") as f:
+        major, _ = np.lib.format.read_magic(f)
+        read = (np.lib.format.read_array_header_1_0 if major == 1
+                else np.lib.format.read_array_header_2_0)
+        return read(f)[0]
 
 
 def stack_ragged(xs_list: Sequence, ys_list: Sequence, loss_name: str,

@@ -16,6 +16,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import make_engine, AMTLConfig  # noqa: E402
+from repro_torch import checkpoint  # noqa: E402,F401
+from repro_torch import serve as amtl_serve  # noqa: E402
 from repro_torch.interop import problem_from_numpy  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import amtl_event as k_event  # noqa: E402
@@ -61,6 +63,10 @@ for q, kw in ((p, dict(engine="delta", prox_every=2, prox_rank=2)),
           None, 4)
 rt.reference_optimum(p._replace(reg_name="l21"), eta=0.01, num_iters=3,
                      device="cpu")
+import repro_torch.checkpoint
+import repro_torch.serve
+from repro_torch.launch import serve_amtl
+serve_amtl.main(["--device", "cpu"])
 from repro_torch.launch import serve
 serve.main(["--arch", "gemma2-2b", "--reduced", "--device", "cpu",
             "--batch", "1", "--prompt-len", "5", "--gen", "2"])
@@ -146,6 +152,21 @@ def test_make_engine_without_device_needs_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         problem_from_numpy(np.ones((2, 3, 4)), np.ones((2, 3)), "lstsq",
                            "nuclear", 0.1)
+
+
+def test_server_without_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    p = problem_from_numpy(np.ones((2, 3, 4)), np.ones((2, 3)), "lstsq",
+                           "nuclear", 0.1, device="cpu")
+    cfg = AMTLConfig(eta=0.01, eta_k=0.5, tau=1)
+    w0, key = np.zeros((4, 2), np.float32), np.zeros(2, np.uint32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        amtl_serve.AMTLServer(p, cfg, w0, key)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        amtl_serve.AMTLServer.resume(p, cfg, w0, key, device="cuda")
+    server = amtl_serve.AMTLServer(p, cfg, w0, key, device="cpu")
+    assert server.iterate().device.type == "cpu"
 
 
 def test_cpu_tensors_take_plain_versions_and_launch_nothing():

@@ -1,8 +1,7 @@
 """The port's TaskStore (`repro_torch.data.store`) and data generators:
-the reference's store contracts that need no checkpoint (tests/
-test_taskstore.py), the same append script against the JAX TaskStore
-(buffers and counts bitwise), and ragged problems through the port's
-engines.
+the reference's store contracts (tests/test_taskstore.py), the checkpoint
+round trip, the same append script against the JAX TaskStore (buffers
+and counts bitwise), and ragged problems through the port's engines.
 """
 import numpy as np
 import pytest
@@ -112,11 +111,18 @@ def test_undo_rollback_bitwise_across_a_doubling():
 
 
 def test_checkpoint_waits_for_its_slice(tmp_path):
+    """The checkpoint round trip (the reference's
+    test_checkpoint_roundtrip_bitwise): buffers, counts and the grown
+    capacity come back bitwise."""
     store = _store([2, 2], d=3, seed=9)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        store.save(str(tmp_path), 1)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        TaskStore.restore(str(tmp_path), 1, "lstsq", "nuclear", 0.1)
+    store.append([0, 0, 0], np.ones((3, 3), np.float32), [1.0, 2.0, 3.0])
+    assert store.capacity == 8
+    store.save(str(tmp_path), 1)
+    back = TaskStore.restore(str(tmp_path), 1, "lstsq", "nuclear", 0.1)
+    assert back.capacity == 8
+    _assert_state_equal(back.state(), store.state())
+    np.testing.assert_array_equal(back.problem("cpu").xs.numpy(),
+                                  store.problem("cpu").xs.numpy())
 
 
 def test_same_append_script_as_the_jax_store_bitwise():
