@@ -18,7 +18,10 @@ engine and the l2,1 (joint feature learning) formulation (dense sessions
 with the km_update and l21_prox kernels, dense == delta bitwise, a batch
 l2,1 session, FISTA's reference optimum) and the learn-while-serve
 `AMTLServer` on the ragged store (cooperative serving with a checkpoint
-and a bitwise resume, threaded learning, chaos under a FaultPlan) — holds
+and a bitwise resume, threaded learning, chaos under a FaultPlan), and
+the task-sharded engine (one rank in process, then two ranks sharing
+the card in a gloo world: both proxes, a straggler shard, a checkpoint
+restored into a fresh world, SGD on the ragged store) — holds
 the card's runs against the port's own CPU runs, replays or plain-kernel
 runs of the same states, and times
 each kernel (the prox's two kernels and the engines' state updates
@@ -82,6 +85,18 @@ SERVE_CFG = dict(chunk_events=128, task_chunk_quota=8, max_pending_per_task=64,
                  checkpoint_every=2048)
 SERVE_FREE_BYTES = 24e9
 SERVE_WAIT_S = 300.0
+
+# The task-sharded engine (phase 21) at the batch cell's configuration
+# (the cell above): one rank in this process, then SHARD_RANKS ranks in a
+# torch.distributed world on this one card (gloo: NCCL refuses two ranks
+# on one device; gloo copies the collectives through host memory).  The
+# distributed prox's iterate is held to the batch engine's within
+# SHARD_RTOL of its scale after SHARD_GATE_EVENTS events (its (d, p) sum
+# regroups the sketch's sum over T: float32 rounding carried through the
+# QR, the SVD and 2 refreshes); the replicated prox is bitwise.  The
+# checkpoint part writes under build/shard_ckpt (deleted after).
+SHARD_RANKS, SHARD_GATE_EVENTS, SHARD_RTOL = 2, 64, 1e-3
+SHARD_WORLD_TIMEOUT_S, SHARD_COLLECTIVE_TIMEOUT_S = 600.0, 120.0
 
 # Tolerances of the kernels against their plain versions on the card.  The
 # two column-update kernels and their plain versions compute the same fma
@@ -286,6 +301,7 @@ def check_kernels(dev, gen) -> dict:
     info.update(check_sketch_recon(dev, gen))
     info.update(check_sgd_kernels(dev, gen))
     info["lstsq_grad"] = check_lstsq_grad(dev, gen)
+    check_shard_shapes(dev, gen)
     info.update(check_l21_km_kernels(dev, gen))
     info.update(check_flash_kernel(dev, gen))
     info.update(check_rwkv_kernel(dev, gen))
@@ -559,6 +575,133 @@ def check_sketch_recon(dev, gen) -> dict:
         f"p={p_main} m=128 (plan {k_recon.plan(D, p_main, T, sms)}) and every d "
         f"in {EDGE_D}, p in {EDGE_P}, m in {EDGE_T}")
     return info
+
+
+def check_shard_shapes(dev, gen) -> None:
+    """The four kernels of the sharded engine's path at a rank's shapes
+    when T 128 is split over SHARD_RANKS ranks (n_local 64), against their
+    plain versions, and against the full-width launches they stand in
+    for: gauss_sketch on a (8192, 64) block at row_offset 64 (the two
+    blocks' sketches sum to the full sketch within SKETCH_RTOL),
+    svt_reconstruct with the rank's (24, 64) columns of V^T (bitwise the
+    full reconstruction's columns), amtl_event_batch on a (8192, 64)
+    block with another rank's events at the sentinel 64 (bitwise its plain
+    version, and the owned columns and undo rows bitwise the full-width
+    launch's), lstsq_grad on a 64-task block (within GRAD_RTOL of its
+    plain version, each row bitwise the full 128-task launch's row)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import amtl_event_batch as k_batch
+    from repro_torch.kernels import gauss_sketch as k_sketch
+    from repro_torch.kernels import lstsq_grad as k_grad
+    from repro_torch.kernels import svt_reconstruct as k_recon
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def same_bits(a, b) -> bool:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    n_local = T // SHARD_RANKS
+    p = min(RANK + 8, min(D, T))
+    w = randn(D, T)
+    seed = int(torch.randint(0, 2**31, (1,), generator=gen,
+                             device=dev).item())
+    full = k_sketch.gauss_sketch(w, seed, 0, p)
+    parts = []
+    for r in range(SHARD_RANKS):
+        blk = w[:, r * n_local:(r + 1) * n_local].contiguous()
+        k = k_sketch.gauss_sketch(blk, seed, r * n_local, p)
+        want = ref.gauss_sketch_ref(blk, seed, r * n_local, p)
+        scale = blk.abs() @ ref.gauss_omega_ref(n_local, p, seed,
+                                                 r * n_local, dev).abs()
+        if not bool(((k - want).abs() <= SKETCH_RTOL * scale).all()):
+            fail(f"gauss_sketch on the ({D}, {n_local}) block at row_offset "
+                 f"{r * n_local}: beyond {SKETCH_RTOL} x sum|w||omega|")
+        parts.append(k)
+    scale = w.abs() @ ref.gauss_omega_ref(T, p, seed, 0, dev).abs()
+    if not bool(((sum(parts) - full).abs() <= SKETCH_RTOL * scale).all()):
+        fail("gauss_sketch: the blocks' sketches do not sum to the full "
+             f"sketch within {SKETCH_RTOL} x sum|w||omega|")
+
+    qu, vt = randn(D, p), randn(p, T)
+    s = torch.rand(p, generator=gen, device=dev) * 3.0
+    full = k_recon.svt_reconstruct(qu, s, vt)
+    for r in range(SHARD_RANKS):
+        cols = slice(r * n_local, (r + 1) * n_local)
+        vt_loc = vt[:, cols].contiguous()
+        k = k_recon.svt_reconstruct(qu, s, vt_loc)
+        want = ref.svt_reconstruct_ref(qu, s, vt_loc)
+        scale = (qu.abs() * s) @ vt_loc.abs()
+        if not bool(((k - want).abs() <= RECON_RTOL * scale + 1e-30).all()):
+            fail(f"svt_reconstruct with vt ({p}, {n_local}): beyond "
+                 f"{RECON_RTOL} x sum|qu s||vt|")
+        if not same_bits(k, full[:, cols].contiguous()):
+            fail(f"svt_reconstruct with vt ({p}, {n_local}): not bitwise "
+                 "the full reconstruction's columns")
+
+    tasks = torch.randint(0, T, (BATCH,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    tasks[7] = tasks[3] = n_local + 1            # a duplicate on rank 1
+    tasks[12] = tasks[20] = 2                    # and on rank 0
+    v = randn(D, T)
+    pc, gc = randn(D, BATCH), randn(D, BATCH)
+    eks = torch.rand(BATCH, generator=gen, device=dev)
+    fv, fundo = k_batch.amtl_event_batch(v.clone(), pc, gc, tasks, ETA, eks)
+    for r in range(SHARD_RANKS):
+        cols = slice(r * n_local, (r + 1) * n_local)
+        local, owned = ref.shard_local_tasks(tasks, r * n_local, n_local)
+        blk = v[:, cols].contiguous()
+        kv, kundo = k_batch.amtl_event_batch(blk.clone(), pc, gc, local, ETA,
+                                             eks)
+        rv, rundo = ref.amtl_event_batch_ref(blk.clone(), pc, gc, local, ETA,
+                                             eks)
+        torch.cuda.synchronize()
+        if not (same_bits(kv, rv) and same_bits(kundo, rundo)):
+            fail(f"amtl_event_batch on the ({D}, {n_local}) block with the "
+                 f"sentinel {n_local}: not bitwise its plain version")
+        if not (same_bits(kv, fv[:, cols].contiguous())
+                and same_bits(kundo[owned], fundo[owned])):
+            fail(f"amtl_event_batch on the ({D}, {n_local}) block: the owned "
+                 "columns or undo rows differ from the full-width launch's")
+
+    xs = torch.randn(T, N_ROWS, D, generator=gen, device=dev)
+    ys = torch.randn(T, N_ROWS, generator=gen, device=dev)
+    w_rows = randn(BATCH, D)
+    gt = torch.randint(0, T, (BATCH,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    full = k_grad.lstsq_grad_batch(xs, ys, gt, w_rows, None)
+    for r in range(SHARD_RANKS):
+        lo = r * n_local
+        mine = ((gt >= lo) & (gt < lo + n_local)).nonzero().flatten()
+        if not mine.numel():
+            continue
+        ids = (gt[mine] - lo).to(torch.int32)
+        blk_x, blk_y = xs[lo:lo + n_local], ys[lo:lo + n_local]
+        k = k_grad.lstsq_grad_batch(blk_x, blk_y, ids, w_rows[mine], None)
+        want = ref.lstsq_grad_batch_ref(blk_x, blk_y, ids, w_rows[mine], None)
+        for e in range(ids.shape[0]):
+            xk = blk_x[int(ids[e])].double()
+            res = xk @ w_rows[mine][e].double() - blk_y[int(ids[e])].double()
+            scale = 2.0 * (xk.abs().T @ res.abs())
+            if not bool(((k[e].double() - want[e].double()).abs()
+                         <= GRAD_RTOL * scale).all()):
+                fail(f"lstsq_grad on the {n_local}-task block: beyond "
+                     f"{GRAD_RTOL} x 2 |X|^T |r| of its plain version")
+        if not same_bits(k, full[mine]):
+            fail(f"lstsq_grad on the {n_local}-task block: rows differ from "
+                 "the full 128-task launch's")
+    del xs, ys
+    torch.cuda.empty_cache()
+    log(f"shard shapes (T {T} over {SHARD_RANKS} ranks, n_local {n_local}): "
+        f"gauss_sketch on ({D}, {n_local}) at row_offset {n_local} within "
+        f"{SKETCH_RTOL} of its plain version, the blocks summing to the "
+        f"full sketch; svt_reconstruct with vt ({p}, {n_local}) within "
+        f"{RECON_RTOL}, bitwise the full reconstruction's columns; "
+        f"amtl_event_batch on ({D}, {n_local}) with the sentinel {n_local} "
+        "bitwise its plain version and the full-width launch's owned "
+        f"columns; lstsq_grad on a {n_local}-task block within {GRAD_RTOL}, "
+        "bitwise the full launch's rows: PASS")
 
 
 def check_sgd_kernels(dev, gen) -> dict:
@@ -1922,19 +2065,10 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
 # ------------------------------------------------------------- phases 4-6 --
 
 def make_problem(seed: int, dev, d: int = D, t: int = T, n: int = N_ROWS):
-    """Seeded lstsq/nuclear problem: Y = X W* + noise with a rank-4 W*."""
-    import torch
-    from repro_torch.core import MTLProblem
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    xs = torch.randn(t, n, d, generator=gen, device=dev) / d ** 0.5
-    w_star = (torch.randn(d, 4, generator=gen, device=dev)
-              @ torch.randn(4, t, generator=gen, device=dev))
-    ys = (torch.bmm(xs, w_star.T.unsqueeze(2)).squeeze(2)
-          + 0.01 * torch.randn(t, n, generator=gen, device=dev))
-    v0 = 0.01 * torch.randn(d, t, generator=gen, device=dev)
-    offs = torch.randint(0, TAU + 1, (t,), generator=gen, device=dev)
-    return (MTLProblem(xs, ys, "lstsq", "nuclear", LAM), v0,
-            offs.to(torch.float32).cpu().numpy())
+    """Seeded lstsq/nuclear problem: Y = X W* + noise with a rank-4 W*
+    (`launch.amtl_sharded.make_problem`, which phase 21's ranks call)."""
+    from repro_torch.launch.amtl_sharded import make_problem as build
+    return build(seed, dev, d, t, n, LAM, TAU)
 
 
 def configs(t: int = T):
@@ -2041,22 +2175,11 @@ def compare_states(label: str, card, cpu) -> float:
 def make_store(seed: int, t: int = T, d: int = D):
     """Ragged lstsq/nuclear cohorts of rng.integers(80, 400) rows drawn from
     `seed`, rows N(0, 1/d), labels x w*_t + noise with a rank-4 W*, padded
-    by a TaskStore.  Returns the store and a maker of further labelled rows
+    by a TaskStore (`launch.amtl_sharded.make_store`, which phase 21's
+    ranks call).  Returns the store and a maker of further labelled rows
     of task t (the feedback the store takes between chunks)."""
-    from repro_torch.data import TaskStore
-    rng = np.random.default_rng(seed + 2)
-    sizes = rng.integers(COHORT_LO, COHORT_HI, size=t)
-    w_star = (rng.standard_normal((d, 4), dtype=np.float32)
-              @ rng.standard_normal((4, t), dtype=np.float32))
-
-    def rows(task: int, k: int):
-        x = rng.standard_normal((k, d), dtype=np.float32) / np.float32(d ** 0.5)
-        y = x @ w_star[:, task] + np.float32(0.01) * rng.standard_normal(
-            k, dtype=np.float32)
-        return x, y
-
-    xs, ys = zip(*(rows(i, int(n)) for i, n in enumerate(sizes)))
-    return TaskStore.from_ragged(xs, ys, "lstsq", "nuclear", LAM), rows
+    from repro_torch.launch.amtl_sharded import make_store as build
+    return build(seed, t, d, COHORT_LO, COHORT_HI, LAM)
 
 
 def append_below_capacity(store, rows, k: int, seed: int) -> np.ndarray:
@@ -3416,6 +3539,338 @@ def amtl_serve_phase(dev, seed: int, card: str) -> dict:
     return metrics
 
 
+# ---------------------------------------------------------------- phase 21 --
+
+def shard_owned_ring_equal(leaves, batch_state) -> bool:
+    """Each slot of the batch engine's undo ring equals the slot of the
+    rank that owns its task (the other ranks' slots hold the undo entries
+    of events they dropped)."""
+    rings = leaves[1]                      # (n_shards, tau+1, d)
+    n_local = T // rings.shape[0]
+    want = batch_state.delta_ring.cpu().numpy()
+    owner = np.asarray(batch_state.task_ring) // n_local
+    return all(np.array_equal(rings[owner[j], j], want[j])
+               for j in range(want.shape[0]))
+
+
+def shard_stream_equal(leaves, batch_state) -> bool:
+    """The host leaves (the event stream) equal the batch state's."""
+    return (np.array_equal(leaves[2], batch_state.task_ring)
+            and int(leaves[3]) == batch_state.ptr
+            and int(leaves[4]) == batch_state.event
+            and np.array_equal(leaves[6], batch_state.history.buf)
+            and np.array_equal(leaves[7], batch_state.history.count)
+            and np.array_equal(leaves[8], batch_state.key))
+
+
+def shard_times(label: str, r: dict, cfg, card: str) -> dict:
+    """Events/s, each refresh's collective seconds and bytes (against
+    ProxPlan.comm_bytes_per_refresh for the distributed prox, the (d, T)
+    gather for the replicated one) and rank 0's device busy share."""
+    from repro_torch.core.prox import ProxPlan
+    refreshes = r["events"] // cfg.prox_every
+    coll = r["collectives"]
+    plan = ProxPlan(T, T // SHARD_RANKS)
+    want = (plan.comm_bytes_per_refresh(D, RANK)
+            if cfg.prox_mode == "distributed" else D * T * 4)
+    out = {"events_per_s": r["events"] / r["seconds"],
+           "collective_ms_per_refresh": 1e3 * coll["seconds"] / refreshes,
+           "collective_bytes_per_refresh": coll["bytes"] / refreshes,
+           "model_bytes_per_refresh": want,
+           "collective_calls": coll["calls"]}
+    if "busy" in r:
+        # the profiled rerun's busy seconds over the unprofiled run's wall
+        out["rank0_busy_s"] = r["busy"]["busy_s"]
+        out["rank0_busy_share"] = r["busy"]["busy_s"] / r["seconds"]
+        out["rank0_device_ops_per_event"] = r["busy"]["ops"] / r["events"]
+    log(f"phase {label}: {out['events_per_s']:.1f} events/s "
+        f"({r['events']} events in {r['seconds']:.3f} s), collectives "
+        f"{out['collective_ms_per_refresh']:.3f} ms and "
+        f"{out['collective_bytes_per_refresh']:.0f} bytes a refresh "
+        f"(model {want} bytes), rank 0 device busy "
+        + (f"{100 * out['rank0_busy_share']:.1f}%" if "busy" in r
+           else "not measured")
+        + f" [{card}; {SHARD_RANKS} ranks share this card's SMs and the "
+        "collectives go through host memory: not scale-out numbers]")
+    return out
+
+
+def shard_kernel_times(dev, seed: int) -> dict:
+    """Each kernel of the sharded path at a rank's shapes (n_local 64 of T
+    128, BATCH // SHARD_RANKS owned events a step), L2-warm, with its
+    bound and the full-width call's time in the same window: the launch
+    plans were tuned at T 128 (gauss_sketch's and svt_reconstruct's keep
+    their grids at 64 columns)."""
+    import torch
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import amtl_event_batch as k_batch
+    from repro_torch.kernels import gauss_sketch as k_sketch
+    from repro_torch.kernels import lstsq_grad as k_grad
+    from repro_torch.kernels import svt_reconstruct as k_recon
+    g = torch.Generator(device=dev).manual_seed(seed + 29)
+    n_local, owned = T // SHARD_RANKS, BATCH // SHARD_RANKS
+    p = min(RANK + 8, min(D, T))
+    sms = _build.sm_count(dev)
+    w = torch.randn(D, T, generator=g, device=dev)
+    blk = w[:, n_local:].contiguous()
+    qu, vt = torch.randn(D, p, generator=g, device=dev), torch.randn(
+        p, T, generator=g, device=dev)
+    s = torch.rand(p, generator=g, device=dev)
+    vt_loc = vt[:, n_local:].contiguous()
+    tasks = torch.randint(0, T, (BATCH,), generator=g, device=dev,
+                          dtype=torch.int32)
+    local, _ = ref.shard_local_tasks(tasks, n_local, n_local)
+    uniq = int(torch.unique(local[local < n_local]).numel())
+    pc, gc = (torch.randn(D, BATCH, generator=g, device=dev)
+              for _ in range(2))
+    eks = torch.rand(BATCH, generator=g, device=dev)
+    vb = torch.randn(D, n_local, generator=g, device=dev)
+    xs = torch.randn(n_local, N_ROWS, D, generator=g, device=dev) / D ** 0.5
+    ys = torch.randn(n_local, N_ROWS, generator=g, device=dev)
+    ids = torch.randperm(n_local, generator=g, device=dev)[:owned].to(
+        torch.int32)
+    w_rows = torch.randn(owned, D, generator=g, device=dev)
+    cases = {
+        "gauss_sketch": (lambda: k_sketch.gauss_sketch(blk, 7, n_local, p),
+                         lambda: k_sketch.gauss_sketch(w, 7, 0, p),
+                         4 * (D * n_local + D * p), 2 * D * n_local * p,
+                         k_sketch.plan(D, n_local, p, sms)),
+        "svt_reconstruct": (lambda: k_recon.svt_reconstruct(qu, s, vt_loc),
+                            lambda: k_recon.svt_reconstruct(qu, s, vt),
+                            4 * (D * p + p + p * n_local + D * n_local),
+                            2 * D * p * n_local + D * p,
+                            k_recon.plan(D, p, n_local, sms)),
+        "amtl_event_batch": (
+            lambda: k_batch.amtl_event_batch(vb, pc, gc, local, ETA, eks),
+            None, 4 * (2 * D * uniq + 3 * D * BATCH + 2 * BATCH),
+            4 * D * BATCH, None),
+        "lstsq_grad": (
+            lambda: k_grad.lstsq_grad_batch(xs, ys, ids, w_rows, None),
+            None, 4 * (owned * N_ROWS * (D + 1) + 2 * owned * D),
+            4 * owned * N_ROWS * D, None)}
+    out = {}
+    for name, (kfn, full, nbytes, flops, pl) in cases.items():
+        ms = cuda_ms(kfn)
+        bnd, by = bound_ms(nbytes, flops)
+        out[name] = dict(ms=ms, bound_ms=bnd, bound_by=by,
+                         full_width_ms=None if full is None else cuda_ms(full),
+                         plan=None if pl is None else pl._asdict())
+        log(f"phase 21 {name} at a rank's shapes: {ms * 1e3:.2f} us (bound "
+            f"{bnd * 1e3:.2f} us by {by})"
+            + ("" if full is None else
+               f", the full-width call {out[name]['full_width_ms'] * 1e3:.2f}"
+               f" us; plan {pl}"))
+    del xs, ys
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_phase(dev, seed: int, card: str, problem, v0, offs, key,
+                  batch: dict) -> dict:
+    """Phase 21: the task-sharded engine at the batch cell's width, one
+    rank in this process (21a) and SHARD_RANKS ranks on this card
+    (21b-21f), against the batch engine's states."""
+    import torch
+    from repro_torch.core import amtl
+    from repro_torch.kernels import ops
+    from repro_torch.launch import amtl_sharded
+    from repro_torch.launch.mesh import run_world
+
+    batch_cfg, _ = configs(T)
+    repl = batch_cfg._replace(engine="sharded")
+    dist_cfg = repl._replace(prox_mode="distributed")
+    want = batch["state"]
+    times = {}
+
+    # 21a: one rank, both proxes: bitwise the batch state, same launches
+    for label, cfg in (("replicated", repl), ("distributed", dist_cfg)):
+        r = run_session(problem, cfg, v0, key, offs, BATCH_EVENTS, dev)
+        st = r["state"]
+        if not (bits(st.v).equal(bits(want.v))
+                and bits(st.delta_ring[0]).equal(bits(want.delta_ring))
+                and shard_stream_equal(
+                    [None, None, st.task_ring, st.ptr, st.event, None,
+                     st.history.buf, st.history.count, st.key], want)):
+            fail(f"21a one rank, {label} prox: the sharded state is not "
+                 "bitwise the batch state")
+        for k in ("amtl_event_batch", "gauss_sketch", "svt_reconstruct",
+                  "lstsq_grad", "lstsq_grad_sampled"):
+            if r["counts"][k] != batch["counts"][k]:
+                fail(f"21a one rank, {label} prox: {k} launched "
+                     f"{r['counts'][k]} times, the batch session "
+                     f"{batch['counts'][k]}")
+        times[f"1 rank {label}"] = {"events_per_s": BATCH_EVENTS / r["wall"]}
+        log(f"phase 21a one rank, {label} prox: {BATCH_EVENTS} events "
+            f"bitwise the batch state, launches {r['counts']} (the batch "
+            f"session's), {BATCH_EVENTS / r['wall']:.1f} events/s [{card}]: "
+            "PASS")
+    sharded_launches = dict(r["counts"])
+
+    # the batch engine's states the two-rank parts are held to
+    short = run_session(problem, batch_cfg, v0, key, offs,
+                        SHARD_GATE_EVENTS, dev)["state"]
+    lag = np.where(np.arange(T) < T // SHARD_RANKS, TAU, 0).astype(
+        np.float32)
+    lagged = run_session(problem, batch_cfg, v0, key, lag, BATCH_EVENTS,
+                         dev)["state"]
+    store, _ = make_store(seed, T, D)
+    sgd_cfg, _ = sgd_configs(T)
+    rp = store.problem(dev)
+    sgd = run_session(rp, sgd_cfg, v0, key, offs, BATCH_EVENTS,
+                      dev)["state"]
+    del rp, store
+    torch.cuda.empty_cache()
+
+    ckpt = ROOT / "build" / "shard_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    fields = lambda c: {k: v for k, v in c._asdict().items()}  # noqa: E731
+    base = dict(key=np.asarray(key), events=BATCH_EVENTS, v0="uniform",
+                offsets=offs, problem="uniform")
+    runs = [dict(base, cfg=fields(repl), warmup=2, profile=True),
+            dict(base, cfg=fields(dist_cfg), events=SHARD_GATE_EVENTS),
+            dict(base, cfg=fields(dist_cfg), profile=True),
+            dict(base, cfg=fields(repl), offsets=lag),
+            dict(base, cfg=fields(repl), save=(str(ckpt), BATCH_EVENTS // 2)),
+            dict(base, cfg=fields(repl._replace(
+                batch_size=sgd_cfg.batch_size, dynamic_step=True)),
+                 problem="ragged")]
+    problems = {"uniform": dict(seed=seed, d=D, t=T, n=N_ROWS, lam=LAM,
+                                tau=TAU),
+                "ragged": dict(store_seed=seed, d=D, t=T, lo=COHORT_LO,
+                               hi=COHORT_HI, lam=LAM)}
+    t0 = time.perf_counter()
+    out = run_world(amtl_sharded.session, SHARD_RANKS,
+                    dict(device=dev.type, problems=problems, runs=runs),
+                    device=dev.type, timeout=SHARD_WORLD_TIMEOUT_S,
+                    collective_timeout=SHARD_COLLECTIVE_TIMEOUT_S,
+                    workdir=str(ROOT / "build"))
+    world_s = time.perf_counter() - t0
+    r0 = out[0]
+    for i in range(len(runs)):
+        if not all(np.array_equal(a, b) for a, b in
+                   zip(out[0][i]["leaves"], out[1][i]["leaves"])):
+            fail(f"phase 21 run {i}: the ranks' global states differ")
+
+    # 21b: replicated prox, the gathered v and the host leaves bitwise
+    lv = r0[0]["leaves"]
+    if not (np.array_equal(lv[0], want.v.cpu().numpy())
+            and shard_stream_equal(lv, want)
+            and shard_owned_ring_equal(lv, want)):
+        fail(f"21b {SHARD_RANKS} ranks, replicated prox: the gathered state "
+             "is not bitwise the batch state")
+    steps = BATCH_EVENTS // BATCH
+    # one gradient launch a step with an event of the rank's: the task
+    # stream (the same for every run here: one key, T tasks) by rank
+    tasks = amtl.plan_events(problem, batch_cfg, amtl.init_batch_state(
+        batch_cfg, v0, T, key), offs, BATCH_EVENTS).tasks
+    owner = tasks.reshape(steps, BATCH) // (T // SHARD_RANKS)
+    owned_steps = [int(np.any(owner == r, axis=1).sum())
+                   for r in range(SHARD_RANKS)]
+    for r in range(SHARD_RANKS):
+        got = out[r][0]["launches"]
+        if dev.type == "cuda" and not (
+                got["amtl_event_batch"] == got["gauss_sketch"]
+                == got["svt_reconstruct"] == steps
+                and got["lstsq_grad"] == owned_steps[r]):
+            fail(f"21b: rank {r}'s launches {got}; want {steps} of "
+                 "amtl_event_batch, gauss_sketch and svt_reconstruct and "
+                 f"{owned_steps[r]} of lstsq_grad (the steps with an event "
+                 "of the rank's)")
+    times[f"{SHARD_RANKS} ranks replicated"] = shard_times(
+        f"21b {SHARD_RANKS} ranks, replicated prox", r0[0], repl, card)
+    log(f"phase 21b {SHARD_RANKS} ranks (gloo), replicated prox: "
+        f"{BATCH_EVENTS} events, the gathered v, the owned ring slots and "
+        f"the host leaves bitwise the batch state; rank 0's launches "
+        f"{r0[0]['launches']}, lstsq_grad by rank {owned_steps} (the steps "
+        "with an event of the rank's): PASS")
+
+    # 21c: distributed prox, the stream bitwise, v within SHARD_RTOL
+    def dist_err(leaves, state) -> float:
+        w = state.v.double().cpu().numpy()
+        return float(np.abs(leaves[0] - w).max() / np.abs(w).max())
+
+    err64 = dist_err(r0[1]["leaves"], short)
+    err_all = dist_err(r0[2]["leaves"], want)
+    if not (shard_stream_equal(r0[1]["leaves"], short)
+            and shard_stream_equal(r0[2]["leaves"], want)):
+        fail(f"21c {SHARD_RANKS} ranks, distributed prox: the event stream "
+             "differs from the batch engine's")
+    if not err64 <= SHARD_RTOL:
+        fail(f"21c {SHARD_RANKS} ranks, distributed prox: after "
+             f"{SHARD_GATE_EVENTS} events max |v - v_batch| / max |v_batch| "
+             f"= {err64:.3g} > {SHARD_RTOL}")
+    times[f"{SHARD_RANKS} ranks distributed"] = shard_times(
+        f"21c {SHARD_RANKS} ranks, distributed prox", r0[2], dist_cfg, card)
+    log(f"phase 21c {SHARD_RANKS} ranks, distributed prox: the event stream "
+        f"bitwise; max |v - v_batch| / max |v_batch| {err64:.3g} <= "
+        f"{SHARD_RTOL} after {SHARD_GATE_EVENTS} events, {err_all:.3g} "
+        f"after {BATCH_EVENTS}: PASS")
+
+    # 21d: the straggler regime
+    lv = r0[3]["leaves"]
+    buf, count = lv[6], lv[7]
+    mean = buf.sum(axis=1) / np.maximum(np.minimum(count, buf.shape[1]), 1)
+    half = T // SHARD_RANKS
+    if not (np.array_equal(lv[0], lagged.v.cpu().numpy())
+            and shard_stream_equal(lv, lagged)):
+        fail("21d straggler: not bitwise the batch engine's run at the same "
+             "offsets")
+    if not (mean[:half].min() >= 2.0 and mean[half:].max() <= 1.0
+            and count[:half].sum() > 0 and count[half:].sum() > 0):
+        fail(f"21d straggler: mean delays {mean[:half].min():.3g} (lagging "
+             f"shard, min) and {mean[half:].max():.3g} (other, max), counts "
+             f"{count[:half].sum()} and {count[half:].sum()}")
+    log(f"phase 21d straggler (rank 0's tasks at offset {TAU}): bitwise the "
+        f"batch engine's run; the lagging shard's mean delay >= "
+        f"{mean[:half].min():.3g}, the other's <= {mean[half:].max():.3g}, "
+        f"{count[:half].sum()} and {count[half:].sum()} activations: PASS")
+
+    # 21e: save at the midpoint, restore into a fresh world, run on
+    if not all(np.array_equal(a, b) for a, b in
+               zip(r0[4]["leaves"], r0[0]["leaves"])):
+        fail("21e checkpoint: the run that saved differs from 21b's")
+    t1 = time.perf_counter()
+    again = run_world(amtl_sharded.session, SHARD_RANKS, dict(
+        device=dev.type, problems=problems,
+        runs=[dict(base, cfg=fields(repl),
+                   restore=(str(ckpt), BATCH_EVENTS // 2))]),
+        device=dev.type, timeout=SHARD_WORLD_TIMEOUT_S,
+        collective_timeout=SHARD_COLLECTIVE_TIMEOUT_S,
+        workdir=str(ROOT / "build"))
+    world_s += time.perf_counter() - t1
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if not all(np.array_equal(a, b) for a, b in
+               zip(again[0][0]["leaves"], r0[0]["leaves"])):
+        fail("21e checkpoint: the restored world's run is not bitwise the "
+             "uninterrupted run")
+    log(f"phase 21e checkpoint: saved at event {BATCH_EVENTS // 2} by "
+        f"{SHARD_RANKS} ranks, restored into a fresh world and run to "
+        f"{BATCH_EVENTS}: bitwise the uninterrupted run: PASS")
+
+    # 21f: SGD on the ragged store
+    lv = r0[5]["leaves"]
+    if not (np.array_equal(lv[0], sgd.v.cpu().numpy())
+            and shard_stream_equal(lv, sgd)
+            and shard_owned_ring_equal(lv, sgd)):
+        fail("21f ragged SGD: the gathered state is not bitwise the ragged "
+             "SGD batch session's")
+    for r in range(SHARD_RANKS):
+        got = out[r][5]["launches"]["lstsq_grad_sampled"]
+        if dev.type == "cuda" and got != owned_steps[r]:
+            fail(f"21f: rank {r} launched lstsq_grad_sampled {got} times; "
+                 f"want {owned_steps[r]} (the steps with an event of the "
+                 "rank's)")
+    log(f"phase 21f {SHARD_RANKS} ranks, SGD (batch_size "
+        f"{sgd_cfg.batch_size}) on the ragged store: bitwise the ragged SGD "
+        f"batch session; each rank's launches {r0[5]['launches']}: PASS")
+    log(f"phase 21 worlds: {world_s:.1f} s with spawn and set-up")
+    kernels = shard_kernel_times(dev, seed) if dev.type == "cuda" else {}
+    log("sharded " + json.dumps({"card": card, "times": times,
+                                 "kernels": kernels}))
+    return {"launches": sharded_launches,
+            "rank_launches": r0[0]["launches"], "kernels": kernels}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3640,6 +4095,10 @@ def main() -> None:
     amtl_serve = amtl_serve_phase(dev, args.seed, card)
     torch.cuda.empty_cache()
 
+    # phase 21: the task-sharded engine, one rank and SHARD_RANKS ranks
+    sharded = sharded_phase(dev, args.seed, card, problem, v0, offs, key, b)
+    torch.cuda.empty_cache()
+
     kernels = []
     info["lstsq_grad"]["args"] = grad_inputs(dev, args.seed)
     launches = {k: (dl if k == "amtl_event" else b)["counts"][k]
@@ -3697,6 +4156,12 @@ def main() -> None:
             f"{where.get(name, 'batch session')}")
         if name in amtl_serve["launches"]:
             kernels[-1]["serve_launches"] = amtl_serve["launches"][name]
+        if sharded["rank_launches"].get(name):
+            kernels[-1]["sharded_launches"] = {
+                "1 rank": sharded["launches"][name],
+                f"each of {SHARD_RANKS} ranks": sharded["rank_launches"][name]}
+        if name in sharded["kernels"]:
+            kernels[-1]["shard_shape"] = sharded["kernels"][name]
         if name == "lstsq_grad_sampled":
             kernels[-1].update(sampled_single_times(info[name], dev))
         if name == "lstsq_grad":

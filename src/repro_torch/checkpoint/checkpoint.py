@@ -31,6 +31,15 @@ record against its manifest; `restore` runs the same check and raises
 walks records newest first and returns the newest that verifies.
 Records written before the manifest existed still `restore` (no CRC
 cover) but fail `verify`.
+
+A sharded engine state (`core.amtl.ShardedAMTLState`) is written as the
+reference's global view, the record JAX writes under its mesh.  On a
+mesh of n > 1 ranks (`save(..., mesh=, cfg=)`, a collective every rank
+calls) the ranks' states are gathered, rank 0 writes the record, and
+every rank waits for it at a barrier; `restore(..., mesh=, cfg=)` reads
+the record in every rank and gives each its own view.  At one rank the
+state is the global view and needs no mesh.  A record saved at n ranks
+restores at n ranks.
 """
 from __future__ import annotations
 
@@ -176,10 +185,34 @@ def _sweep_tmp_litter(ckpt_dir: str, keep: str) -> None:
                 pass  # racing sweeper or permissions: litter, not data
 
 
+def _map_sharded(tree, fn):
+    """`tree` with every sharded engine state in it replaced by fn(it)."""
+    from repro_torch.core.amtl import ShardedAMTLState
+    if isinstance(tree, ShardedAMTLState):
+        return fn(tree)
+    if _is_namedtuple(tree):
+        return type(tree)(*(_map_sharded(getattr(tree, f), fn)
+                            for f in tree._fields))
+    if isinstance(tree, dict):
+        return {k: _map_sharded(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_sharded(c, fn) for c in tree)
+    return tree
+
+
+def _global_view(tree, mesh, cfg):
+    """`tree` with its sharded states gathered over `mesh` (a collective);
+    the tree itself without a mesh of n > 1 ranks."""
+    if mesh is None or mesh.size == 1:
+        return tree
+    from repro_torch.core.amtl import gather_state
+    return _map_sharded(tree, lambda st: gather_state(st, cfg, mesh))
+
+
 # ------------------------------------------------------------ the API --
 
 def save(ckpt_dir: str, step: int, tree: Any,
-         keep_last: Optional[int] = None) -> str:
+         keep_last: Optional[int] = None, *, mesh=None, cfg=None) -> str:
     """Write `tree` as `step_<step>.npz`; optionally rotate old steps.
 
     The record embeds a per-leaf CRC32 manifest and is flushed and
@@ -188,12 +221,23 @@ def save(ckpt_dir: str, step: int, tree: Any,
     beyond the k newest (by step number) after the write lands, by the
     filename that matched; the record just written is never deleted.
     None keeps everything.
+
+    With a `mesh` of n > 1 ranks (and the sharded engine's `cfg`) every
+    rank calls it: the sharded states are gathered, rank 0 writes, and
+    every rank returns once the record is in place.
     """
     if keep_last is not None and keep_last < 1:
         raise ValueError(f"keep_last must be >= 1 (got {keep_last}); "
                          "use keep_last=None to keep every checkpoint")
-    os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
+    if mesh is not None and mesh.size > 1:
+        from repro_torch.distributed.sharding import barrier
+        tree = _global_view(tree, mesh, cfg)
+        if mesh.rank == 0:
+            save(ckpt_dir, step, tree, keep_last)
+        barrier(mesh)
+        return path
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = path + ".tmp.npz"
     _sweep_tmp_litter(ckpt_dir, keep=os.path.basename(tmp))
     flat = _flatten(tree)
@@ -302,13 +346,23 @@ def _resolve_step_path(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, padded)
 
 
-def restore(ckpt_dir: str, step: int, like: Any) -> Any:
+def restore(ckpt_dir: str, step: int, like: Any, *, mesh=None,
+            cfg=None) -> Any:
     """The tree of record `step`, in `like`'s structure and leaf kinds.
 
     Raises ValueError when the record's keys, a leaf's shape or its dtype
     differ from `like`'s (naming the leaf), and `CheckpointCorruptError`
     when the record is unreadable or a leaf fails its manifest CRC.
+
+    With a `mesh` of n > 1 ranks (and the sharded engine's `cfg`) every
+    rank calls it with its own `like`: the record holds the global view,
+    and each rank gets its own view of each sharded state.
     """
+    if mesh is not None and mesh.size > 1:
+        from repro_torch.core.amtl import global_template, local_state
+        full = restore(ckpt_dir, step, _map_sharded(
+            like, lambda st: global_template(st, cfg, mesh)))
+        return _map_sharded(full, lambda st: local_state(st, cfg, mesh))
     path = _resolve_step_path(ckpt_dir, step)
     try:
         data = np.load(path)

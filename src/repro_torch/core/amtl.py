@@ -7,7 +7,7 @@ prox_{eta*lam*g} on that stale copy, and the node applies the forward step
 on its column with KM relaxation eta_k (Eq. III.4), optionally scaled by
 the delay-adaptive multiplier (Eq. III.5/III.6).
 
-Three engines of the reference are ported:
+The reference's four engines are ported:
 
   engine="dense" — the seed engine: a (tau+1, d, T) ring of full
       iterates.  Event k reads ring[(ptr - nu) % depth] with the task's
@@ -26,6 +26,24 @@ Three engines of the reference are ported:
       prox_every = k * event_batch, the result carried in a (d, T) cache),
       and the B column updates in one `amtl_event_batch` kernel that
       serializes duplicate tasks in event order.
+  engine="sharded" — the batch engine with the T task columns split over
+      the ranks of a `torch.distributed` world (`launch.mesh.TaskMesh`,
+      one process a rank), T / n_shards columns a rank, each with its own
+      (tau+1, d) undo ring and its own tasks' data on its device.  Every
+      rank replays the whole serial chain and masks events to their owner
+      (`ref.shard_local_tasks`: another rank's event gets the sentinel
+      column n_local, which `amtl_event_batch_sharded` drops), so the
+      event stream does not depend on the number of ranks.  Collectives
+      are paid only at prox refreshes: prox_mode="replicated" gathers the
+      (d, T) stale iterate in rank order and runs the batch engine's prox
+      on it on every rank; "distributed" (prox_rank required) runs
+      `svt_randomized_dist`, a (d, p) sum of partial sketches and a
+      (p, n_local) gather of the projected core.  A rank computes the
+      gradients of its own events only (one `task_grads` call a step);
+      the foreign events' gradient rows are zeros.  At one rank the
+      engine is bitwise the batch engine; at n ranks the replicated prox
+      gives the batch engine's iterate bitwise, the distributed prox its
+      event stream bitwise and its iterate to float32 rounding.
 
 A lstsq full gradient is the `lstsq_grad` kernel: one launch an event
 (delta, dense) or a batch step's B gradients in one (batch), every row
@@ -41,7 +59,6 @@ off the pre-event chain key, so the event stream is unchanged.  Ragged
 problems (`row_counts`) run on the delta and batch engines; the dense
 engine is the exact uniform baseline and refuses them, and SGD, as in the
 reference.  With reg_name="l21" every prox is the `l21_prox` kernel.
-engine="sharded" is a later slice of the port; `make_engine` refuses it.
 
 Host and device.  The event stream — each event's (task, staleness), the
 sketch seeds, the delay history, the per-event eta_k and the minibatch
@@ -62,6 +79,15 @@ The session API is the reference's:
     state  = engine.init(v0, key)                      # key: raw uint32[2]
     state  = engine.run(state, delay_offsets, num_events)
     v      = engine.iterate(state)
+
+For engine="sharded", `make_engine(problem, cfg, mesh=mesh)` takes the
+global problem (on the host or the rank's device) and keeps only the
+rank's block of it on the rank's device (`shard_problem`); `init` takes
+the global (d, T) v0, and `iterate` gathers the global (d, T) iterate, a
+collective every rank calls.  The state a rank holds is its own view
+(`ShardedAMTLState`); `gather_state` and `local_state` convert between
+it and the reference's global view, which checkpoints and `interop`
+carry.
 
 `run` never mutates the state it is given: it clones `v` and `delta_ring`
 (the dense engine: `ring`) once on entry, row-major whatever the
@@ -84,11 +110,16 @@ from repro_torch.core import prng
 from repro_torch.core.dynamic_step import DelayHistory, dynamic_multiplier
 from repro_torch.core.losses import MTLProblem
 from repro_torch.core.operators import (amtl_max_step, backward,
-                                        fixed_point_residual,
+                                        fixed_point_residual, forward,
                                         restore_columns, rollback_winners)
-from repro_torch.core.prox import svt_randomized
+from repro_torch.core.prox import (ProxPlan, get_regularizer,
+                                   svt_randomized, svt_randomized_dist)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (TASK_AXIS, gather_columns,
+                                              gather_shards, prox_cache_spec,
+                                              sum_partials, task_shard_specs)
 from repro_torch.kernels import ops, ref
+from repro_torch.launch.mesh import TaskMesh, make_task_mesh
 
 Tensor = torch.Tensor
 
@@ -101,8 +132,7 @@ class AMTLConfig(NamedTuple):
     delay_window: int = 5      # paper averages the last 5 delays
     # The sampled delay is min(round(offset_t + U[0,1) * jitter), tau).
     delay_jitter: float = 1.0
-    # "dense", "delta" and "batch" are ported; "sharded" validates but is
-    # refused by make_engine until its slice.
+    # "dense", "delta", "batch" or "sharded".
     engine: str = "delta"
     # Server prox amortization (paper §III-C): refresh every K events.
     prox_every: int = 1
@@ -140,6 +170,31 @@ class DeltaAMTLState(NamedTuple):
 class BatchAMTLState(NamedTuple):
     """Batch-engine state: the delta ring with a per-cadence prox cache
     (a (0, 0) stub at the aligned cadence prox_every == event_batch)."""
+    v: Tensor
+    delta_ring: Tensor
+    task_ring: np.ndarray
+    ptr: int
+    event: int
+    p_cache: Tensor
+    history: DelayHistory
+    key: np.ndarray
+
+
+class ShardedAMTLState(NamedTuple):
+    """Sharded-engine state, one rank's view (engine='sharded').
+
+    The fields are the reference's, in its order and dtypes.  `v` is the
+    rank's (d, n_local) block of the reference's column-sharded iterate,
+    `delta_ring` its (1, tau+1, d) slice of the reference's (n_shards,
+    tau+1, d) rings.  The host fields are replicated: every rank replays
+    the whole chain, so each holds the global task ring (global ids), the
+    pointer, the counter, the key and the delay history of every task
+    (the reference shards the history's rows; their global view is the
+    same).  `p_cache` is the replicated prox's (d, T) cache, the
+    distributed prox's (d, n_local) block of it when it is carried
+    (prox_every > event_batch), or a (0, 0) stub.  `gather_state` gives
+    the global view.
+    """
     v: Tensor
     delta_ring: Tensor
     task_ring: np.ndarray
@@ -192,6 +247,19 @@ def init_delta_state(cfg: AMTLConfig, v0: Tensor, num_tasks: int,
 def init_batch_state(cfg: AMTLConfig, v0: Tensor, num_tasks: int,
                      key) -> BatchAMTLState:
     return BatchAMTLState(*_init_fields(cfg, v0, num_tasks, key))
+
+
+def init_sharded_state(cfg: AMTLConfig, v0: Tensor, num_tasks: int, key,
+                       mesh: TaskMesh | None = None) -> ShardedAMTLState:
+    """A rank's fresh state from the global (d, T) v0: the rank's view
+    (`local_state`) of the global one, v0 with zero undo rings and the
+    prox cache."""
+    size = 1 if mesh is None else mesh.size
+    v0 = v0.clone(memory_format=torch.contiguous_format)
+    fields = _init_fields(cfg, v0, num_tasks, key)
+    ring = fields[1].unsqueeze(0).repeat(size, 1, 1)     # (n_shards, tau+1, d)
+    return local_state(ShardedAMTLState(fields[0], ring, *fields[2:]), cfg,
+                       mesh)
 
 
 # --------------------------------------------------------- event stream ---
@@ -280,6 +348,10 @@ class EventPlan(NamedTuple):
     #                            (dense: the slot the new iterate goes to)
     read_slots: np.ndarray     # (S,) dense ring slot of the step's stale read
     scalars: np.ndarray | None  # (N, 4) uint32 minibatch scalar blocks
+    #                            (sharded: filled for the rank's events)
+    local_tasks: np.ndarray | None  # (N,) batch and sharded: the rank's
+    #                            column of each event, n_local for another
+    #                            rank's (batch: the task itself)
     task_ring: np.ndarray      # host state after the run
     ptr: int
     event: int
@@ -288,14 +360,25 @@ class EventPlan(NamedTuple):
 
 
 def plan_events(problem: MTLProblem, cfg: AMTLConfig, state,
-                delay_offsets, num_events: int) -> EventPlan:
-    """Replay the host side of `num_events` events (no device work)."""
+                delay_offsets, num_events: int,
+                mesh: TaskMesh | None = None) -> EventPlan:
+    """Replay the host side of `num_events` events (no device work).
+
+    For the sharded engine `problem` is the rank's block (`shard_problem`)
+    and `mesh` the rank's mesh: the chain runs over the global T tasks,
+    the rollbacks restore only the rank's columns, and the minibatch
+    blocks are planned for the rank's events only.
+    """
     dense = cfg.engine == "dense"
-    per_step = cfg.event_batch if cfg.engine == "batch" else 1
+    sharded = cfg.engine == "sharded"
+    per_step = cfg.event_batch if cfg.engine in ("batch", "sharded") else 1
     steps = num_events // per_step
     depth = cfg.tau + 1
     keep = min(per_step, depth)
-    num_tasks = problem.num_tasks
+    n_local = problem.num_tasks
+    size = mesh.size if sharded and mesh is not None else 1
+    t_off = mesh.rank * n_local if size > 1 else 0
+    num_tasks = n_local * size
     offs = np.asarray(delay_offsets, np.float32)
     aligned = cfg.prox_every <= per_step
     randomized = cfg.prox_rank is not None and problem.reg_name == "nuclear"
@@ -334,7 +417,8 @@ def plan_events(problem: MTLProblem, cfg: AMTLConfig, state,
                 nu0 = nu             # the refresh reads at the first staleness
         read_slots[s] = (ptr - nu0) % depth
         if refresh[s] and cfg.tau > 0 and not dense:
-            cols, slots = rollback_winners(ring, ptr, nu0, cfg.tau)
+            cols, slots = rollback_winners(ring, ptr, nu0, cfg.tau, t_off,
+                                           n_local)
             rb_cols.append(cols)
             rb_slots.append(slots)
             rb_offsets.append(rb_offsets[-1] + len(cols))
@@ -344,13 +428,18 @@ def plan_events(problem: MTLProblem, cfg: AMTLConfig, state,
         ring[ring_slots[s]] = tasks[first + tail]
         ptr = (ptr + per_step) % depth
         event += per_step
-    scalars = None
+    scalars = local = None
+    mine = slice(None)
+    if cfg.engine in ("batch", "sharded"):
+        local, mine = ref.shard_local_tasks(tasks, t_off, n_local)
     if sgd:
         # The row counts cross to the host once per run, never per event.
+        ids = tasks[mine] - t_off
         n_ts = None if problem.row_counts is None \
-            else problem.host_row_counts()[tasks]
-        scalars = ref.sample_scalars(problem.xs.shape[1], cfg.batch_size,
-                                     seeds, n_ts)
+            else problem.host_row_counts()[ids]
+        scalars = np.zeros((tasks.shape[0], 4), np.uint32)
+        scalars[mine] = ref.sample_scalars(problem.xs.shape[1],
+                                           cfg.batch_size, seeds[mine], n_ts)
     empty = np.zeros((0,), np.int64)
     return EventPlan(
         tasks=tasks, eta_ks=eta_ks, refresh=refresh,
@@ -358,7 +447,8 @@ def plan_events(problem: MTLProblem, cfg: AMTLConfig, state,
         rb_cols=np.concatenate(rb_cols) if rb_cols else empty,
         rb_slots=np.concatenate(rb_slots) if rb_slots else empty,
         rb_offsets=np.asarray(rb_offsets, np.int64), ring_slots=ring_slots,
-        read_slots=read_slots, scalars=scalars, task_ring=ring, ptr=ptr,
+        read_slots=read_slots, scalars=scalars, local_tasks=local,
+        task_ring=ring, ptr=ptr,
         event=event, history=history, key=prng.to_key(pair))
 
 
@@ -394,92 +484,170 @@ def _apply_dense(problem: MTLProblem, cfg: AMTLConfig, state: AMTLState,
                      history=plan.history, key=plan.key)
 
 
+def _apply_batch(problem: MTLProblem, cfg: AMTLConfig, state,
+                 plan: EventPlan, mesh: TaskMesh | None):
+    """The batch and sharded engines' device side, `event_batch` events a
+    step (the reference's `_one_batch` and `_one_batch_sharded`).
+
+    `problem` is the rank's block, `plan.local_tasks` each event's column
+    in it (the sentinel n_local for another rank's event).  The batch
+    engine is the one-rank case: `mesh` None, every event owned, its local
+    id its task, and every collective the identity.
+
+    A refresh restores the rank's columns from its own ring and patches
+    event 0's column on its owner, then either gathers the (d, T) stale
+    iterate and runs the prox on it (replicated) or runs
+    `svt_randomized_dist` on the block (distributed).  The prox columns of
+    the B events are taken by global id (replicated) or by local id,
+    another rank's event reading column 0 (distributed).  The rank's own
+    events take their gradients in one call; another rank's event keeps a
+    zero gradient row.  One `amtl_event_batch_sharded` then runs all B
+    events, the others' dropped at the sentinel, and the kept undo rows go
+    into the rank's ring, handled as (tau+1, d) whatever the state's
+    leading axes.
+    """
+    dev = state.v.device
+    bsz = cfg.event_batch
+    steps = plan.refresh.shape[0]
+    keep = plan.ring_slots.shape[1]
+    n_local = problem.num_tasks
+    size = 1 if mesh is None else mesh.size
+    t_off = 0 if mesh is None else mesh.rank * n_local
+    randomized = cfg.prox_rank is not None and problem.reg_name == "nuclear"
+    distributed = cfg.prox_mode == "distributed"
+    carried = cfg.prox_every > bsz
+    thresh = cfg.eta * problem.lam
+    proxplan = ProxPlan(n_local * size, n_local)
+    batched = problem.loss_name == "lstsq"
+
+    owned = plan.local_tasks < n_local
+    own_events = np.flatnonzero(owned)          # the rank's events, in order
+    own_off = np.searchsorted(own_events, np.arange(steps + 1) * bsz)
+
+    v = state.v.clone(memory_format=torch.contiguous_format)
+    ring_out = state.delta_ring.clone(memory_format=torch.contiguous_format)
+    ring = ring_out.view(-1, ring_out.shape[-1])             # (tau+1, d)
+    p_cache = state.p_cache
+    rb_cols = _to(dev, plan.rb_cols, torch.int64)
+    rb_slots = _to(dev, plan.rb_slots, torch.int64)
+    local_dev = _to(dev, plan.local_tasks, torch.int32)
+    # the prox columns' index: global ids, or local ids with another
+    # rank's event on column 0 (the reference's clamp)
+    cols_dev = _to(dev, np.where(owned, plan.local_tasks, 0), torch.int32) \
+        if distributed else _to(dev, plan.tasks, torch.int32)
+    eta_ks_dev = _to(dev, plan.eta_ks, torch.float32)
+    ring_slots_dev = _to(dev, plan.ring_slots, torch.int64)
+    own_pos_dev = _to(dev, own_events % bsz, torch.int64)  # within a step
+    own_ids_dev = _to(dev, plan.local_tasks[own_events], torch.int32)
+    if batched and plan.scalars is not None:
+        own_scalars_dev = _to(dev, plan.scalars[own_events], torch.uint32)
+
+    def grads(lo: int, hi: int, p_rows: Tensor) -> Tensor:
+        """The rank's events lo:hi (of own_events) at their prox rows; an
+        lstsq loss takes them in one call (full or minibatch)."""
+        if batched and plan.scalars is None:
+            return problem.task_grads(own_ids_dev[lo:hi], p_rows)
+        if batched:
+            return problem.task_grads_sampled(
+                own_ids_dev[lo:hi], p_rows, own_scalars_dev[lo:hi],
+                cfg.batch_size)
+        g = torch.empty_like(p_rows)
+        for i, e in enumerate(own_events[lo:hi]):
+            t = int(plan.local_tasks[e])
+            g[i] = problem.task_grad(t, p_rows[i]) if plan.scalars is None \
+                else problem.task_grad_sampled(t, p_rows[i], plan.scalars[e],
+                                               cfg.batch_size)
+        return g
+
+    p = p_cache
+    for s in range(steps):
+        first = s * bsz
+        if plan.refresh[s]:
+            lo, hi = plan.rb_offsets[s], plan.rb_offsets[s + 1]
+            v_hat = restore_columns(v, ring, rb_cols[lo:hi], rb_slots[lo:hi])
+            c0 = int(plan.local_tasks[first])
+            if c0 < n_local:
+                v_hat[:, c0] = v[:, c0]
+            if distributed:
+                p = svt_randomized_dist(v_hat, thresh, rank=cfg.prox_rank,
+                                        key=plan.sketch_keys[s],
+                                        plan=proxplan, mesh=mesh)
+            else:
+                v_hat = gather_columns(v_hat, mesh)
+                if randomized:
+                    p = svt_randomized(v_hat, thresh, rank=cfg.prox_rank,
+                                       key=plan.sketch_keys[s])
+                else:
+                    p = backward(problem, v_hat, cfg.eta)
+            if carried:
+                p_cache = p
+        p_cols = p.index_select(1, cols_dev[first:first + bsz])   # (d, B)
+        lo, hi = int(own_off[s]), int(own_off[s + 1])
+        if hi - lo == bsz:
+            g_rows = grads(lo, hi, p_cols.T.contiguous())
+        else:
+            g_rows = torch.zeros((bsz, v.shape[0]), dtype=v.dtype,
+                                 device=dev)
+            if hi > lo:
+                pos = own_pos_dev[lo:hi]
+                g_rows.index_copy_(0, pos, grads(
+                    lo, hi, p_cols.T.index_select(0, pos).contiguous()))
+        _, undo = ops.amtl_event_batch_sharded(
+            v, p_cols, g_rows.T.contiguous(), local_dev[first:first + bsz],
+            cfg.eta, eta_ks_dev[first:first + bsz])
+        ring.index_copy_(0, ring_slots_dev[s], undo[bsz - keep:])
+    return type(state)(v=v, delta_ring=ring_out, task_ring=plan.task_ring,
+                       ptr=plan.ptr, event=plan.event, p_cache=p_cache,
+                       history=plan.history, key=plan.key)
+
+
 def apply_plan(problem: MTLProblem, cfg: AMTLConfig, state,
-               plan: EventPlan):
+               plan: EventPlan, mesh: TaskMesh | None = None):
     """Run the device side of a plan; returns the new state.
 
     `state.v` and `state.delta_ring` are cloned once, row-major (the
     kernels take contiguous state whatever strides v0 had); the clones are
     updated in place (the delta engine's `ops.amtl_event_inplace`, one
-    launch an event; the batch engine's `amtl_event_batch` and ring
-    writes) and become the new state's tensors.  The dense engine clones
-    its ring instead (`_apply_dense`).
+    launch an event; the batch and sharded engines' `_apply_batch`) and
+    become the new state's tensors.  The dense engine clones its ring
+    instead (`_apply_dense`).
     """
     if cfg.engine == "dense":
         return _apply_dense(problem, cfg, state, plan)
-    dev = state.v.device
-    per_step = cfg.event_batch if cfg.engine == "batch" else 1
-    steps = plan.refresh.shape[0]
-    keep = plan.ring_slots.shape[1]
+    if cfg.engine in ("batch", "sharded"):
+        return _apply_batch(problem, cfg, state, plan, mesh)
     randomized = cfg.prox_rank is not None and problem.reg_name == "nuclear"
-    carried = cfg.prox_every > per_step
+    carried = cfg.prox_every > 1
     thresh = cfg.eta * problem.lam
-
-    def grad(e: int, p_t: Tensor) -> Tensor:
-        """Forward-step gradient of event e at its task's prox column."""
-        t = int(plan.tasks[e])
-        if plan.scalars is None:
-            return problem.task_grad(t, p_t)
-        return problem.task_grad_sampled(t, p_t, plan.scalars[e],
-                                         cfg.batch_size)
-
     v = state.v.clone(memory_format=torch.contiguous_format)
     ring = state.delta_ring.clone(memory_format=torch.contiguous_format)
     p_cache = state.p_cache
-    rb_cols = _to(dev, plan.rb_cols, torch.int64)
-    rb_slots = _to(dev, plan.rb_slots, torch.int64)
-    # lstsq batches take their B gradients in one call a step (full or
-    # minibatch)
-    batched_grads = cfg.engine == "batch" and problem.loss_name == "lstsq"
-    if cfg.engine == "batch":
-        tasks_dev = _to(dev, plan.tasks, torch.int32)
-        eta_ks_dev = _to(dev, plan.eta_ks, torch.float32)
-        ring_slots_dev = _to(dev, plan.ring_slots, torch.int64)
-    if batched_grads and plan.scalars is not None:
-        scalars_dev = _to(dev, plan.scalars, torch.uint32)
-
+    rb_cols = _to(v.device, plan.rb_cols, torch.int64)
+    rb_slots = _to(v.device, plan.rb_slots, torch.int64)
     p = p_cache
-    for s in range(steps):
-        first = s * per_step
-        t0 = int(plan.tasks[first])
-        if plan.refresh[s]:
-            lo, hi = plan.rb_offsets[s], plan.rb_offsets[s + 1]
+    for e in range(plan.refresh.shape[0]):
+        t = int(plan.tasks[e])
+        if plan.refresh[e]:
+            lo, hi = plan.rb_offsets[e], plan.rb_offsets[e + 1]
             v_hat = restore_columns(v, ring, rb_cols[lo:hi], rb_slots[lo:hi])
-            v_hat[:, t0] = v[:, t0]
+            v_hat[:, t] = v[:, t]
             if randomized:
                 p = svt_randomized(v_hat, thresh, rank=cfg.prox_rank,
-                                   key=plan.sketch_keys[s])
+                                   key=plan.sketch_keys[e])
             else:
                 p = backward(problem, v_hat, cfg.eta)
             if carried:
                 p_cache = p
-        if cfg.engine == "delta":
-            p_t = p[:, t0].contiguous()
-            g_t = grad(first, p_t)
-            ops.amtl_event_inplace(v, t0, p_t, g_t, cfg.eta,
-                                   float(plan.eta_ks[first]), ring,
-                                   int(plan.ring_slots[s, 0]))
-        else:
-            ts = tasks_dev[first:first + per_step]
-            p_cols = p.index_select(1, ts)                       # (d, B)
-            p_rows = p_cols.T.contiguous()                       # (B, d)
-            if batched_grads and plan.scalars is None:
-                g_rows = problem.task_grads(ts, p_rows)
-            elif batched_grads:
-                g_rows = problem.task_grads_sampled(
-                    ts, p_rows, scalars_dev[first:first + per_step],
-                    cfg.batch_size)
-            else:
-                g_rows = torch.empty_like(p_rows)
-                for i in range(per_step):
-                    g_rows[i] = grad(first + i, p_rows[i])
-            _, undo = ops.amtl_event_batch(
-                v, p_cols, g_rows.T.contiguous(), ts, cfg.eta,
-                eta_ks_dev[first:first + per_step])
-            ring.index_copy_(0, ring_slots_dev[s], undo[per_step - keep:])
-    return type(state)(v=v, delta_ring=ring, task_ring=plan.task_ring,
-                       ptr=plan.ptr, event=plan.event, p_cache=p_cache,
-                       history=plan.history, key=plan.key)
+        p_t = p[:, t].contiguous()
+        g_t = problem.task_grad(t, p_t) if plan.scalars is None \
+            else problem.task_grad_sampled(t, p_t, plan.scalars[e],
+                                           cfg.batch_size)
+        ops.amtl_event_inplace(v, t, p_t, g_t, cfg.eta,
+                               float(plan.eta_ks[e]), ring,
+                               int(plan.ring_slots[e, 0]))
+    return DeltaAMTLState(v=v, delta_ring=ring, task_ring=plan.task_ring,
+                          ptr=plan.ptr, event=plan.event, p_cache=p_cache,
+                          history=plan.history, key=plan.key)
 
 
 def validate_config(cfg: AMTLConfig, reg_name: str | None = None) -> None:
@@ -539,22 +707,86 @@ def validate_config(cfg: AMTLConfig, reg_name: str | None = None) -> None:
                 "has no column-separable decomposition to distribute)")
 
 
-def _refuse_unported(problem: MTLProblem, cfg: AMTLConfig) -> None:
+def _refuse_dense_ragged(problem: MTLProblem, cfg: AMTLConfig) -> None:
     if cfg.engine == "dense" and problem.row_counts is not None:
         raise ValueError(
             "engine='dense' is the exact uniform seed baseline; ragged "
             "problems (row_counts set) require engine='delta', 'batch', "
             "or 'sharded'")
-    if cfg.engine == "sharded":
-        raise NotImplementedError(
-            "engine='sharded' is not ported yet: the sharded-engine slice "
-            "of the port brings it; use 'dense', 'delta' or 'batch'")
 
 
-def _iterate_metrics(problem: MTLProblem, cfg: AMTLConfig, v: Tensor):
-    """(W, objective, BF residual) of the current iterate V."""
+def _resolve_mesh(problem: MTLProblem, cfg: AMTLConfig, mesh,
+                  device) -> TaskMesh | None:
+    """The reference's checks: a mesh only for engine='sharded', and T
+    divisible by its size; the default mesh is every rank of the world
+    (one without a world), on `device`."""
+    if cfg.engine != "sharded":
+        if mesh is not None:
+            raise ValueError(
+                f"mesh is only meaningful for engine='sharded' "
+                f"(got engine={cfg.engine!r})")
+        return None
+    if mesh is None:
+        mesh = make_task_mesh(device=device)
+    elif not isinstance(mesh, TaskMesh):
+        raise ValueError(f"engine='sharded' needs a {TASK_AXIS!r} TaskMesh "
+                         f"(launch.mesh.make_task_mesh); got {mesh!r}")
+    elif device is not None and not _same_device(torch.device(device),
+                                                 mesh.device):
+        raise ValueError(f"device {device} is not the mesh's device "
+                         f"{mesh.device}")
+    mesh.n_local(problem.num_tasks)            # T divisible by the ranks
+    return mesh
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """a names b (a device without an index names any of its type)."""
+    return a.type == b.type and a.index in (None, b.index)
+
+
+def shard_problem(problem: MTLProblem, mesh: TaskMesh | None) -> MTLProblem:
+    """The rank's block of a global problem, on the rank's device: tasks
+    [rank * n_local, (rank + 1) * n_local) of xs, ys and row_counts.
+
+    The problem may live on the host (a `TaskStore.problem("cpu")`, say)
+    or on the device.  At one rank on the problem's own device it is the
+    problem itself; otherwise the block is a copy of its own, so the
+    global tensors can be freed.
+    """
+    if mesh is None or (mesh.size == 1 and problem.device == mesh.device):
+        return problem
+    n_local = mesh.n_local(problem.num_tasks)
+    lo, hi = mesh.rank * n_local, (mesh.rank + 1) * n_local
+
+    def block(x: Tensor | None) -> Tensor | None:
+        if x is None:
+            return None
+        return x[lo:hi].to(mesh.device, copy=True,
+                           memory_format=torch.contiguous_format)
+
+    return problem._replace(**{f: block(getattr(problem, f))
+                               for f in task_shard_specs()["per_task"]})
+
+
+def _iterate_metrics(problem: MTLProblem, cfg: AMTLConfig, v: Tensor,
+                     mesh: TaskMesh | None = None):
+    """(W, objective, BF residual) of the current (d, T) iterate V.
+
+    With a mesh of n > 1 ranks `problem` is the rank's block: each rank
+    takes its tasks' losses and residual columns, summed over the ranks
+    (a regrouped sum: float32 rounding from the one-process value)."""
     w = backward(problem, v, cfg.eta)
-    return w, problem.objective(w), fixed_point_residual(problem, v, cfg.eta)
+    if mesh is None or mesh.size == 1:
+        return (w, problem.objective(w),
+                fixed_point_residual(problem, v, cfg.eta))
+    lo = mesh.rank * problem.num_tasks
+    cols = slice(lo, lo + problem.num_tasks)
+    w_loc = w[:, cols]
+    loss = sum_partials(problem.loss_value(w_loc).reshape(1), mesh)[0]
+    reg = get_regularizer(problem.reg_name)
+    res = forward(problem, w_loc, cfg.eta) - v[:, cols]
+    sq = sum_partials(torch.sum(res * res).reshape(1), mesh)[0]
+    return w, loss + problem.lam * reg.value(w), torch.sqrt(sq)
 
 
 class AMTLEngine(NamedTuple):
@@ -567,7 +799,13 @@ class AMTLEngine(NamedTuple):
         `events_per_step`); `delay_offsets` may be None (all zero).
         Composes bitwise and never mutates `state`.
     iterate(state) -> V
-        The newest (d, T) iterate held by the state.
+        The newest (d, T) iterate held by the state (sharded: gathered
+        from the ranks, a collective every rank calls).
+    mesh
+        The sharded engine's `TaskMesh` (None for the other engines).
+    problem
+        The problem the engine runs on: the sharded engine's rank block
+        (`shard_problem`), else the problem it was given.
     """
     init: Callable[[Any, Any], Any]
     run: Callable[[Any, Any, int], Any]
@@ -575,6 +813,8 @@ class AMTLEngine(NamedTuple):
     events_per_step: int
     num_tasks: int
     device: torch.device
+    mesh: TaskMesh | None = None
+    problem: MTLProblem | None = None
 
 
 def require_problem_on(problem: MTLProblem, dev: torch.device) -> None:
@@ -587,25 +827,37 @@ def require_problem_on(problem: MTLProblem, dev: torch.device) -> None:
 
 
 def make_engine(problem: MTLProblem, cfg: AMTLConfig,
-                device: torch.device | str | None = None) -> AMTLEngine:
+                device: torch.device | str | None = None,
+                mesh: TaskMesh | None = None) -> AMTLEngine:
     """Build the resumable session engine for `cfg` (the public API).
 
     `device` defaults to CUDA; without a card this raises unless the
     caller passes device="cpu".  The problem's tensors must already be on
     that device.  Validation runs here, eagerly.
+
+    `mesh` (engine='sharded' only) is the rank's `TaskMesh`; the default
+    is every rank of the initialised world, or one rank, on `device`.
+    The sharded engine takes the global problem on the host or the rank's
+    device and keeps the rank's block of it (`shard_problem`).
     """
     validate_config(cfg, problem.reg_name)
-    _refuse_unported(problem, cfg)
-    dev = resolve_device(device)
-    require_problem_on(problem, dev)
+    _refuse_dense_ragged(problem, cfg)
+    mesh = _resolve_mesh(problem, cfg, mesh, device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     num_tasks = problem.num_tasks
-    per_step = cfg.event_batch if cfg.engine == "batch" else 1
+    if mesh is None:
+        require_problem_on(problem, dev)
+    else:
+        problem = shard_problem(problem, mesh)
+    per_step = cfg.event_batch if cfg.engine in ("batch", "sharded") else 1
     init_fn = {"dense": init_state, "delta": init_delta_state,
-               "batch": init_batch_state}[cfg.engine]
+               "batch": init_batch_state}.get(cfg.engine)
 
     def init(v0, key):
-        v0 = torch.as_tensor(v0, dtype=torch.float32, device=dev).clone(
-            memory_format=torch.contiguous_format)
+        v0 = torch.as_tensor(v0, dtype=torch.float32, device=dev)
+        if mesh is not None:
+            return init_sharded_state(cfg, v0, num_tasks, key, mesh)
+        v0 = v0.clone(memory_format=torch.contiguous_format)
         return init_fn(cfg, v0, num_tasks, key)
 
     def run(state, delay_offsets, num_events: int):
@@ -613,7 +865,8 @@ def make_engine(problem: MTLProblem, cfg: AMTLConfig,
             raise ValueError(
                 f"num_events ({num_events}) must be a multiple of "
                 f"event_batch ({per_step}) for engine={cfg.engine!r}")
-        on = current_iterate(state).device
+        on = state.ring.device if isinstance(state, AMTLState) \
+            else state.v.device
         if on != dev:
             raise ValueError(f"the state is on {on}; the engine runs on "
                              f"{dev}")
@@ -623,24 +876,31 @@ def make_engine(problem: MTLProblem, cfg: AMTLConfig,
             offs = delay_offsets.detach().cpu().numpy().astype(np.float32)
         else:
             offs = np.asarray(delay_offsets, np.float32)
-        plan = plan_events(problem, cfg, state, offs, int(num_events))
-        return apply_plan(problem, cfg, state, plan)
+        plan = plan_events(problem, cfg, state, offs, int(num_events), mesh)
+        return apply_plan(problem, cfg, state, plan, mesh)
 
-    return AMTLEngine(init=init, run=run, iterate=current_iterate,
+    def iterate(state) -> Tensor:
+        return current_iterate(state, mesh)
+
+    return AMTLEngine(init=init, run=run, iterate=iterate,
                       events_per_step=per_step, num_tasks=num_tasks,
-                      device=dev)
+                      device=dev, mesh=mesh, problem=problem)
 
 
 def amtl_solve(problem: MTLProblem, cfg: AMTLConfig, v0, key,
                num_epochs: int, events_per_epoch: int | None = None,
                delay_offsets=None,
-               device: torch.device | str | None = None) -> AMTLResult:
+               device: torch.device | str | None = None,
+               mesh: TaskMesh | None = None) -> AMTLResult:
     """Run AMTL for num_epochs * events_per_epoch activations, with the
     objective and fixed-point residual of prox(V) after each epoch.  One
-    epoch defaults to T events."""
-    engine = make_engine(problem, cfg, device)
+    epoch defaults to T events.  With the sharded engine the metrics are
+    taken on the gathered iterate, every rank's tasks on its rank, and
+    every rank returns the same result."""
+    engine = make_engine(problem, cfg, device, mesh)
+    problem = engine.problem
     if events_per_epoch is None:
-        events_per_epoch = problem.num_tasks
+        events_per_epoch = engine.num_tasks
     if events_per_epoch % engine.events_per_step != 0:
         raise ValueError(
             f"events_per_epoch ({events_per_epoch}) must be a multiple of "
@@ -650,12 +910,13 @@ def amtl_solve(problem: MTLProblem, cfg: AMTLConfig, v0, key,
     objs, ress, w = [], [], None
     for _ in range(num_epochs):
         state = engine.run(state, delay_offsets, events_per_epoch)
-        w, obj, res = _iterate_metrics(problem, cfg, engine.iterate(state))
+        w, obj, res = _iterate_metrics(problem, cfg, engine.iterate(state),
+                                       engine.mesh)
         objs.append(obj)
         ress.append(res)
     v = engine.iterate(state)
     if w is None:                      # num_epochs == 0
-        w = _iterate_metrics(problem, cfg, v)[0]
+        w = backward(problem, v, cfg.eta)
     empty = torch.zeros((0,), dtype=torch.float32, device=engine.device)
     return AMTLResult(v, w, torch.stack(objs) if objs else empty,
                       torch.stack(ress) if ress else empty)
@@ -663,18 +924,76 @@ def amtl_solve(problem: MTLProblem, cfg: AMTLConfig, v0, key,
 
 def amtl_events_only(problem: MTLProblem, cfg: AMTLConfig, v0, key,
                      num_events: int, delay_offsets=None,
-                     device: torch.device | str | None = None):
+                     device: torch.device | str | None = None,
+                     mesh: TaskMesh | None = None):
     """Run `num_events` activations with no per-epoch metric tail; returns
-    the final engine state."""
-    engine = make_engine(problem, cfg, device)
+    the final engine state (the rank's own, for the sharded engine)."""
+    engine = make_engine(problem, cfg, device, mesh)
     return engine.run(engine.init(v0, key), delay_offsets, num_events)
 
 
-def current_iterate(state) -> Tensor:
-    """The newest iterate V held by an engine's state."""
+def current_iterate(state, mesh: TaskMesh | None = None) -> Tensor:
+    """The newest (d, T) iterate V held by an engine's state; a sharded
+    state's columns are gathered over `mesh` (a collective: every rank
+    calls it; at one rank, or without a mesh, the state's own v)."""
     if isinstance(state, AMTLState):
         return state.ring[state.ptr]
+    if isinstance(state, ShardedAMTLState):
+        return gather_columns(state.v, mesh)
     return state.v
+
+
+def _map_placed(state: ShardedAMTLState, cfg: AMTLConfig,
+                columns: Callable[[Tensor], Tensor],
+                per_shard: Callable[[Tensor], Tensor]) -> ShardedAMTLState:
+    """`state` with each leaf of `task_shard_specs`' columns class (and the
+    prox cache, where `prox_cache_spec` places it there) mapped by
+    `columns`, and each per_shard leaf by `per_shard`; the replicated
+    leaves as they are."""
+    specs = task_shard_specs()
+    cols = specs["columns"]
+    if prox_cache_spec(cfg.prox_mode,
+                       cfg.prox_every > cfg.event_batch) == "columns":
+        cols += ("p_cache",)
+    out = {f: columns(getattr(state, f)) for f in cols}
+    out.update({f: per_shard(getattr(state, f)) for f in specs["per_shard"]})
+    return state._replace(**out)
+
+
+def gather_state(state: ShardedAMTLState, cfg: AMTLConfig,
+                 mesh: TaskMesh | None) -> ShardedAMTLState:
+    """The reference's global view of a sharded state, on every rank: v
+    (d, T), delta_ring (n_shards, tau+1, d), p_cache (d, T) or the stub
+    (a collective: every rank calls it).  At one rank the state itself."""
+    if mesh is None or mesh.size == 1:
+        return state
+    return _map_placed(state, cfg, lambda x: gather_columns(x, mesh),
+                       lambda x: gather_shards(x, mesh))
+
+
+def global_template(state: ShardedAMTLState, cfg: AMTLConfig,
+                    mesh: TaskMesh | None) -> ShardedAMTLState:
+    """A state of `gather_state`'s shapes whose sharded leaves are left
+    unset (`restore`'s `like`), made with no collective."""
+    if mesh is None or mesh.size == 1:
+        return state
+    n = mesh.size
+    return _map_placed(
+        state, cfg, lambda x: x.new_empty((x.shape[0], x.shape[1] * n)),
+        lambda x: x.new_empty((x.shape[0] * n, *x.shape[1:])))
+
+
+def local_state(state: ShardedAMTLState, cfg: AMTLConfig,
+                mesh: TaskMesh | None) -> ShardedAMTLState:
+    """The rank's own view of a global-view sharded state (the inverse of
+    `gather_state`): its columns of v (and of a distributed carried
+    cache) and its undo ring, each a copy of its own."""
+    if mesh is None or mesh.size == 1:
+        return state
+    n_local = mesh.n_local(state.v.shape[1])
+    cols = slice(mesh.rank * n_local, (mesh.rank + 1) * n_local)
+    return _map_placed(state, cfg, lambda x: x[:, cols].contiguous(),
+                       lambda x: x[mesh.rank:mesh.rank + 1].clone())
 
 
 def default_config(problem: MTLProblem, tau: int = 4, c: float = 0.9,

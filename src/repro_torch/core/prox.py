@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.distributed.sharding import gather_columns, sum_partials
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import to_f32
 
@@ -87,6 +88,65 @@ def svt_randomized(w: Tensor, t: float, *, rank: int, key) -> Tensor:
     s = torch.clamp(s - to_f32(t), min=0.0)
     return ops.svt_reconstruct((q @ ub).contiguous(), s.contiguous(),
                                vt.contiguous()).to(w.dtype)
+
+
+class ProxPlan(NamedTuple):
+    """Collective schedule of the rank-distributed randomized SVT.
+
+    The T task columns of the iterate are split over the mesh's ranks,
+    `n_local = T / n_shards` columns a rank.  One refresh moves
+
+      sum of partials  (d, p)        y = sum_r W_r @ Omega_r
+      gather           (p, n_local)  projected-core blocks b_r = Q^T W_r
+
+    i.e. O(d*p + p*T) bytes in place of the replicated prox's O(d*T)
+    gather of the iterate.  The QR of the (d, p) sketch and the SVD of the
+    (p, T) core are replicated; the reconstruction of a rank's columns is
+    its own.
+    """
+    num_tasks: int     # global T
+    n_local: int       # T // n_shards columns a rank owns
+
+    def comm_bytes_per_refresh(self, d: int, rank: int,
+                               itemsize: int = 4) -> int:
+        """Collective payload a refresh: the (d, p) summed partial plus
+        the gathered (p, T) projected core."""
+        p = sketch_width(rank, d, self.num_tasks)
+        return (d * p + p * self.num_tasks) * itemsize
+
+
+def svt_randomized_dist(w_local: Tensor, t: float, *, rank: int, key,
+                        plan: ProxPlan, mesh=None) -> Tensor:
+    """Rank-distributed randomized SVT of the (d, T) iterate whose (d,
+    n_local) column block `w_local` this rank holds; returns the
+    thresholded reconstruction of the same columns.
+
+    Omega's entries are counter-generated from the seed drawn off `key`
+    (the same folded key on every rank), so the rank's sketch at
+    `row_offset = rank * n_local` generates exactly its row block of the
+    serial `svt_randomized`'s Omega, and the summed partials are the
+    serial contraction W @ Omega.  Then the QR, `b_loc = Q^T W_loc`, the
+    (p, n_local) gather, the SVD, and `ops.svt_reconstruct` on the rank's
+    columns of V^T (made contiguous for the kernel).
+
+    At one rank (`mesh` None or of size 1) both collectives are the
+    identity and every expression is the serial one's: the result is
+    bitwise `svt_randomized(w, t)`.  At n > 1 ranks the sum regroups the
+    sum over T, so the result agrees to float32 rounding, not bitwise.
+    """
+    d = w_local.shape[0]
+    p = sketch_width(rank, d, plan.num_tasks)
+    t_off = 0 if mesh is None else mesh.rank * plan.n_local
+    w32 = w_local.to(torch.float32).contiguous()
+    y = sum_partials(ops.gauss_sketch(w32, _sketch_seed(key), t_off, p),
+                     mesh)                                   # (d, p)
+    q, _ = torch.linalg.qr(y)                                # (d, p)
+    b = gather_columns(q.T @ w32, mesh)                      # (p, T)
+    ub, s, vt = torch.linalg.svd(b, full_matrices=False)
+    s = torch.clamp(s - to_f32(t), min=0.0)
+    vt_loc = vt[:, t_off:t_off + plan.n_local].contiguous()
+    return ops.svt_reconstruct((q @ ub).contiguous(), s.contiguous(),
+                               vt_loc).to(w_local.dtype)
 
 
 # ---------------------------------------------------------------------------

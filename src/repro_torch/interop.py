@@ -4,7 +4,8 @@ Everything crosses as numpy arrays, so the port never sees a JAX array:
 
     problem_from_numpy(xs, ys, loss_name, reg_name, lam, device,
                        row_counts=None)
-    state_from_numpy(kind, leaves, device)  # kind: "dense", "delta", "batch"
+    state_from_numpy(kind, leaves, device)  # "dense", "delta", "batch",
+                                            # "sharded"
     state_to_numpy(state) -> leaves
 
 An LM's parameters and serving cache cross as flat dicts keyed by the
@@ -38,13 +39,23 @@ reference's treedef gives a state the reference engine can run on.  A
 dense-engine `AMTLState` crosses the same way, as its `DENSE_LEAVES`:
 
     ring, ptr, event, history.buf, history.count, key
+
+A `ShardedAMTLState` crosses as the reference's global view, in the
+`LEAVES` order: v (d, T), delta_ring (n_shards, tau+1, d), p_cache (d, T)
+or the stub.  With a mesh of n > 1 ranks (`launch.mesh.TaskMesh`) and
+the engine's config, `state_to_numpy(s, mesh=, cfg=)` gathers the ranks'
+states (a collective every rank calls), and `state_from_numpy("sharded",
+leaves, mesh=, cfg=)` gives each rank its own view; without a mesh the
+state is the one rank's, which is the global view.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.amtl import AMTLState, BatchAMTLState, DeltaAMTLState
+from repro_torch.core.amtl import (AMTLState, BatchAMTLState,
+                                   DeltaAMTLState, ShardedAMTLState,
+                                   gather_state, local_state)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.dynamic_step import DelayHistory
 from repro_torch.core.losses import MTLProblem
@@ -60,7 +71,7 @@ DENSE_LEAVES = ("ring", "ptr", "event", "history.buf", "history.count",
                 "key")
 
 _STATES = {"dense": AMTLState, "delta": DeltaAMTLState,
-           "batch": BatchAMTLState}
+           "batch": BatchAMTLState, "sharded": ShardedAMTLState}
 
 
 def problem_from_numpy(xs, ys, loss_name: str, reg_name: str, lam: float,
@@ -78,15 +89,19 @@ def problem_from_numpy(xs, ys, loss_name: str, reg_name: str, lam: float,
             np.array(row_counts, np.int32), device=dev))
 
 
-def state_from_numpy(kind: str, leaves, device: torch.device | str | None = None):
-    """The port's engine state from the leaves of a reference state."""
+def state_from_numpy(kind: str, leaves,
+                     device: torch.device | str | None = None, *,
+                     mesh=None, cfg=None):
+    """The port's engine state from the leaves of a reference state (for
+    "sharded" on a mesh of n > 1 ranks: the rank's own view, on the
+    mesh's device; `cfg` places the prox cache)."""
     if kind not in _STATES:
         raise ValueError(f"kind must be one of {sorted(_STATES)}, got {kind!r}")
     names = DENSE_LEAVES if kind == "dense" else LEAVES
     if len(leaves) != len(names):
         raise ValueError(f"expected {len(names)} leaves {names}, got "
                          f"{len(leaves)}")
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
 
     def tensor(a):
         return torch.as_tensor(np.array(a, np.float32), device=dev)
@@ -100,17 +115,23 @@ def state_from_numpy(kind: str, leaves, device: torch.device | str | None = None
             key=np.array(key, np.uint32))
     v, ring, task_ring, ptr, event, p_cache, buf, count, key = \
         (np.asarray(a) for a in leaves)
-    return _STATES[kind](
+    state = _STATES[kind](
         v=tensor(v), delta_ring=tensor(ring),
         task_ring=np.array(task_ring, np.int32), ptr=int(ptr),
         event=int(event), p_cache=tensor(p_cache),
         history=DelayHistory(np.array(buf, np.float32),
                              np.array(count, np.int32)),
         key=np.array(key, np.uint32))
+    if kind == "sharded" and mesh is not None and mesh.size > 1:
+        state = local_state(state, cfg, mesh)
+    return state
 
 
-def state_to_numpy(state) -> list[np.ndarray]:
-    """The leaves of the reference state equal to `state`."""
+def state_to_numpy(state, *, mesh=None, cfg=None) -> list[np.ndarray]:
+    """The leaves of the reference state equal to `state` (a sharded
+    state's global view, gathered over `mesh` when it has n > 1 ranks)."""
+    if isinstance(state, ShardedAMTLState):
+        state = gather_state(state, cfg, mesh)
     def host(t: torch.Tensor) -> np.ndarray:
         return t.detach().cpu().numpy().astype(np.float32)
 

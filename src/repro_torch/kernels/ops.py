@@ -129,6 +129,20 @@ def amtl_event_batch(v: torch.Tensor, p_cols: torch.Tensor,
     return ref.amtl_event_batch_ref(v, p_cols, g_cols, tasks, eta, eta_ks)
 
 
+def amtl_event_batch_sharded(v_local: torch.Tensor, p_cols: torch.Tensor,
+                             g_cols: torch.Tensor,
+                             local_tasks: torch.Tensor, eta: float,
+                             eta_ks: torch.Tensor) -> tuple[torch.Tensor,
+                                                           torch.Tensor]:
+    """A rank's batched multi-event update of its (d, n_local) block, in
+    place (the sharded engine): `amtl_event_batch` with the local ids of
+    `ref.shard_local_tasks`, whose sentinel n_local marks another rank's
+    event.  The kernel, like the plain version, drops a sentinel event: it
+    never writes the block, and its undo entry is the reference's."""
+    return amtl_event_batch(v_local, p_cols, g_cols, local_tasks, eta,
+                            eta_ks)
+
+
 def gauss_sketch(w: torch.Tensor, seed: int, row_offset: int,
                  p: int) -> torch.Tensor:
     """(d, p) float32 randomized-SVT sketch W @ Omega."""

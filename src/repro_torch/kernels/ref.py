@@ -109,6 +109,22 @@ def last_occurrence_mask(tasks: Tensor) -> Tensor:
     return ~torch.any(later_dup, dim=1)
 
 
+def shard_local_tasks(tasks, t_offset: int, n_local: int):
+    """Map global task ids onto a rank's local column block: (local ids,
+    owned), numpy or tensors as `tasks` is.
+
+    An owned event gets its column in [0, n_local); an event of another
+    rank gets the sentinel `n_local`, one past the block's last column,
+    which `amtl_event_batch` drops (it never writes the block).
+    """
+    local = tasks - int(t_offset)
+    owned = (local >= 0) & (local < n_local)
+    if isinstance(tasks, Tensor):
+        sentinel = torch.full_like(local, n_local)
+        return torch.where(owned, local, sentinel).to(torch.int32), owned
+    return np.where(owned, local, n_local).astype(np.int32), owned
+
+
 def amtl_event_batch_ref(v: Tensor, p_cols: Tensor, g_cols: Tensor,
                          tasks: Tensor, eta: float,
                          eta_ks: Tensor) -> tuple[Tensor, Tensor]:

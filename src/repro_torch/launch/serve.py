@@ -6,7 +6,7 @@
         --batch 2 --prompt-len 5000 --gen 32         # full width, the card
 
 Port of `repro/launch/serve.py` on one device (sharded serving waits for
-ROADMAP.md Queue 1 item 9).  Prompts come from numpy seeded by --seed, the
+ROADMAP.md Queue 1 item 11(i)).  Prompts come from numpy seeded by --seed, the
 weights from the port's init with a torch.Generator seeded by --seed on the
 device.  On the card every attention call of prefill and decode runs the
 flash-attention CUDA kernels, and every WKV recurrence of rwkv6-3b one of

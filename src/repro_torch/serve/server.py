@@ -26,6 +26,13 @@ problem and engine objects are never rebuilt.  The store is created
 lazily (`TaskStore.from_problem`) at the first fold; its initial capacity
 is exactly the problem's row budget.
 
+The sharded engine (engine="sharded") serves on a 1-rank mesh
+(`launch.mesh.make_task_mesh(1)`, the default outside a
+`torch.distributed` world), where its state is the batch engine's; a
+mesh of more than one rank raises NotImplementedError (ranks stepping
+in lockstep behind one server are ROADMAP.md Queue 1's multi-rank
+serving item).
+
 Device and streams.  The server runs on the card unless the caller
 passes device="cpu" (`repro_torch.device.resolve_device`; no fallback).
 On the card it owns ONE CUDA stream, made in `_configure` after the
@@ -140,6 +147,7 @@ from repro_torch.core.amtl import AMTLConfig, make_engine
 from repro_torch.core.losses import MTLProblem, get_loss
 from repro_torch.data.store import TaskStore
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_task_mesh
 from repro_torch.serve.admission import make_controller
 from repro_torch.serve.faults import FaultPlan
 from repro_torch.serve.learner import BackgroundLearner, LearnerSupervisor
@@ -259,9 +267,9 @@ class AMTLServer:
     def __init__(self, problem: MTLProblem, cfg: AMTLConfig, v0, key,
                  serve_cfg: ServeConfig = ServeConfig(), *,
                  device: torch.device | str | None = None,
-                 delay_offsets=None,
+                 mesh=None, delay_offsets=None,
                  fault_plan: Optional[FaultPlan] = None):
-        self._configure(problem, cfg, serve_cfg, device=device,
+        self._configure(problem, cfg, serve_cfg, device=device, mesh=mesh,
                         delay_offsets=delay_offsets, fault_plan=fault_plan)
         with self._on_stream():
             state = self.engine.init(v0, key)
@@ -270,15 +278,24 @@ class AMTLServer:
     def _configure(self, problem: MTLProblem, cfg: AMTLConfig,
                    serve_cfg: ServeConfig, *,
                    device: torch.device | str | None = None,
-                   delay_offsets=None,
+                   mesh=None, delay_offsets=None,
                    fault_plan: Optional[FaultPlan] = None) -> None:
         """Everything construction-time except building/serving a state
         (shared by `__init__` and `resume`)."""
         self.device = resolve_device(device)
+        if cfg.engine == "sharded" and mesh is None:
+            mesh = make_task_mesh(device=self.device)
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError(
+                f"AMTLServer serves the sharded engine on a 1-rank mesh; a "
+                f"mesh of {mesh.size} ranks needs ranks stepping in "
+                "lockstep behind one server (ROADMAP.md Queue 1, multi-rank "
+                "serving after item 9)")
+        self.mesh = mesh
         self.problem = problem
         self.cfg = cfg
         self.serve_cfg = serve_cfg
-        self.engine = make_engine(problem, cfg, self.device)
+        self.engine = self._make_engine(problem)
         self._stream = None
         if self.device.type == "cuda":
             # The server's one stream, ordered after the caller's work
@@ -353,6 +370,13 @@ class AMTLServer:
         self._n_nonfinite_chunks = 0   # chunks discarded by the guard
         self._n_quarantined = 0        # events quarantined by the guard
         self._quarantine_log: list[dict[int, int]] = []  # per-task counts
+
+    def _make_engine(self, problem: MTLProblem):
+        """The server's engine on `problem` (the mesh goes along only for
+        the sharded engine)."""
+        if self.mesh is None:
+            return make_engine(problem, self.cfg, self.device)
+        return make_engine(problem, self.cfg, self.device, self.mesh)
 
     def _on_stream(self):
         """The server's stream as the current one in the calling thread
@@ -593,7 +617,7 @@ class AMTLServer:
         prev = (self.problem, self.engine)
         store_undo = self._store.append_undoable(tids, xs, ys)
         self.problem = self._store.problem(self.device)
-        self.engine = make_engine(self.problem, self.cfg, self.device)
+        self.engine = self._make_engine(self.problem)
         return (store_undo, prev[0], prev[1], created)
 
     def _unfold_rows(self, fold: Optional[tuple]) -> None:
@@ -777,7 +801,7 @@ class AMTLServer:
     def resume(cls, problem: MTLProblem, cfg: AMTLConfig, v0, key,
                serve_cfg: ServeConfig = ServeConfig(), *,
                device: torch.device | str | None = None,
-               delay_offsets=None,
+               mesh=None, delay_offsets=None,
                fault_plan: Optional[FaultPlan] = None) -> "AMTLServer":
         """Restart-transparent construction: restore the newest VALID
         rotated checkpoint in `serve_cfg.ckpt_dir` if one exists, else a
@@ -796,7 +820,7 @@ class AMTLServer:
         missing or corrupt paired record drops to the remaining store
         records newest-first (the crash-split and bit-rot cases)."""
         server = cls.__new__(cls)
-        server._configure(problem, cfg, serve_cfg, device=device,
+        server._configure(problem, cfg, serve_cfg, device=device, mesh=mesh,
                           delay_offsets=delay_offsets, fault_plan=fault_plan)
         with server._on_stream():
             init_state = server.engine.init(v0, key)
@@ -842,8 +866,7 @@ class AMTLServer:
             if store is not None:
                 server._store = store
                 server.problem = store.problem(server.device)
-                server.engine = make_engine(server.problem, cfg,
-                                            server.device)
+                server.engine = server._make_engine(server.problem)
             state = checkpoint.restore(d, step, like=init_state)
         server._install_state(state)
         return server

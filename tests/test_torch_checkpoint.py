@@ -355,6 +355,9 @@ ENGINES = {
     "dense": dict(engine="dense"),
     "delta": dict(engine="delta", prox_every=2),
     "batch": dict(engine="batch", event_batch=2, prox_every=4),
+    # on both sides' default mesh: one device, one rank
+    "sharded": dict(engine="sharded", event_batch=2, prox_every=4,
+                    prox_rank=3),
 }
 
 

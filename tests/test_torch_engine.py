@@ -197,18 +197,17 @@ def test_validate_config_prox_rank_needs_nuclear():
     dict(engine="delta", batch_size=8),
 ])
 def test_ported_engines_run_and_sharded_refused(problems, case):
-    """The sharded engine waits for its slice; the dense engine and SGD
-    (`batch_size`) are ported and run."""
+    """Every engine is ported and runs: the dense engine, SGD
+    (`batch_size`) and the sharded engine, which no longer refuses (on
+    the default 1-rank mesh outside a torch.distributed world)."""
     _, tp = problems
     cfg = rt.AMTLConfig(eta=0.1, eta_k=0.5, tau=2, **case)
-    if case["engine"] == "sharded":
-        with pytest.raises(NotImplementedError):
-            rt.make_engine(tp, cfg, device="cpu")
-        return
     eng = rt.make_engine(tp, cfg, device="cpu")
     s = eng.run(eng.init(np.zeros((tp.dim, tp.num_tasks), np.float32),
                          rt.core.prng.key_from_seed(0)), None, 4)
     assert s.event == 4 and bool(torch.isfinite(eng.iterate(s)).all())
+    if case["engine"] == "sharded":
+        assert eng.mesh.size == 1 and s.delta_ring.shape == (1, 3, tp.dim)
 
 
 def test_ragged_problem_refused_and_bad_event_count(problems):

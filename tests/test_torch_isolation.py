@@ -56,7 +56,11 @@ for q, kw in ((p, dict(engine="delta", prox_every=2, prox_rank=2)),
               (p._replace(reg_name="l21"), dict(engine="dense")),
               (p._replace(reg_name="l21"), dict(engine="batch",
                                                 event_batch=2,
-                                                prox_every=2))):
+                                                prox_every=2)),
+              (p, dict(engine="sharded", event_batch=2, prox_every=2,
+                       prox_rank=2, prox_mode="distributed")),
+              (r, dict(engine="sharded", event_batch=2, prox_every=4,
+                       batch_size=1))):
     e = rt.make_engine(q, rt.AMTLConfig(eta=0.01, eta_k=0.5, tau=2, **kw),
                        device="cpu")
     e.run(e.init(np.zeros((5, 3), np.float32), np.array([0, 1], np.uint32)),
@@ -64,8 +68,9 @@ for q, kw in ((p, dict(engine="delta", prox_every=2, prox_rank=2)),
 rt.reference_optimum(p._replace(reg_name="l21"), eta=0.01, num_iters=3,
                      device="cpu")
 import repro_torch.checkpoint
+import repro_torch.distributed
 import repro_torch.serve
-from repro_torch.launch import serve_amtl
+from repro_torch.launch import amtl_sharded, mesh, serve_amtl
 serve_amtl.main(["--device", "cpu"])
 from repro_torch.launch import serve
 serve.main(["--arch", "gemma2-2b", "--reduced", "--device", "cpu",

@@ -32,10 +32,11 @@ import repro_torch as rt  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.data import TaskStore  # noqa: E402
 from repro_torch.interop import state_to_numpy  # noqa: E402
+from repro_torch.launch.mesh import TaskMesh  # noqa: E402
 from repro_torch.serve import AMTLServer, ServeConfig  # noqa: E402
 import repro_torch.serve.server as srv_mod  # noqa: E402
 
-ENGINES = ("dense", "delta", "batch")
+ENGINES = ("dense", "delta", "batch", "sharded")
 SERVE_RTOL = 1e-4
 
 
@@ -47,7 +48,7 @@ def problem(small_problem):
 
 
 def _cfg(problem, engine, tau=3, **kw):
-    if engine == "batch":
+    if engine in ("batch", "sharded"):
         kw.setdefault("event_batch", 4)
         kw.setdefault("prox_every", kw["event_batch"])
     return rt.AMTLConfig(eta=1.0 / problem.lipschitz(), eta_k=0.7, tau=tau,
@@ -129,7 +130,7 @@ def test_zero_feedback_learning_server_is_also_frozen(problem):
 @pytest.mark.parametrize("engine", ENGINES)
 def test_feedback_serving_replays_plain_run_bitwise(problem, engine):
     cfg = _cfg(problem, engine)
-    per = 4 if engine == "batch" else 1
+    per = 4 if engine in ("batch", "sharded") else 1
     server = _server(problem, cfg, ServeConfig(chunk_events=2 * per))
     rng = np.random.default_rng(3)
     t, x = _requests(problem, 6)
@@ -160,7 +161,7 @@ def test_serving_buffer_swaps_only_at_chunk_boundaries(problem):
 @pytest.mark.parametrize("engine", ENGINES)
 def test_restart_is_invisible_to_predictions(problem, engine, tmp_path):
     cfg = _cfg(problem, engine)
-    per = 4 if engine == "batch" else 1
+    per = 4 if engine in ("batch", "sharded") else 1
     serve_cfg = ServeConfig(chunk_events=2 * per, ckpt_dir=str(tmp_path),
                             checkpoint_every=2 * per, keep_last=2)
     a = _server(problem, cfg, serve_cfg, key=1)
@@ -354,8 +355,14 @@ def test_serve_config_validates(problem):
     with pytest.raises(ValueError, match="max_batch"):
         _server(problem, _cfg(problem, "delta"),
                 ServeConfig(chunk_events=4, max_batch=0))
-    with pytest.raises(NotImplementedError, match="sharded"):
-        _server(problem, _cfg(problem, "delta")._replace(engine="sharded"))
+    sharded = _cfg(problem, "delta")._replace(engine="sharded")
+    server = _server(problem, sharded)
+    assert server.mesh.size == 1
+    assert torch.equal(server.iterate(), torch.zeros(problem.dim,
+                                                     problem.num_tasks))
+    two = TaskMesh(None, 0, 2, torch.device("cpu"), "gloo")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _server(problem, sharded, mesh=two)
 
 
 def test_stats_telemetry(problem):
@@ -377,13 +384,13 @@ def test_stats_telemetry(problem):
 
 
 # ------------------------------------------------- labeled feedback (store)
-@pytest.mark.parametrize("engine", ("delta", "batch"))
+@pytest.mark.parametrize("engine", ("delta", "batch", "sharded"))
 def test_labeled_feedback_replays_fold_run_sequence_bitwise(problem, engine):
     """After a mix of labeled and label-free feedback the state is bitwise
     the replay: fold the same rows at the same boundaries, rebuild, run,
     over ONE engine session against a replayed TaskStore."""
     cfg = _cfg(problem, engine)
-    per = 4 if engine == "batch" else 1
+    per = 4 if engine in ("batch", "sharded") else 1
     server = _server(problem, cfg, ServeConfig(chunk_events=2 * per))
     rng = np.random.default_rng(16)
     log = []                               # (rows | None, chunk size)
@@ -546,11 +553,12 @@ def _script(num_tasks, d, seed):
     return out
 
 
-@pytest.mark.parametrize("engine", ("delta", "batch"))
+@pytest.mark.parametrize("engine", ("delta", "batch", "sharded"))
 def test_same_script_as_the_jax_server(small_problem, problem, engine):
+    """The sharded engine runs on both sides' 1-rank (1-device) mesh."""
     kw = dict(eta=1.0 / small_problem.lipschitz(), eta_k=0.7, tau=3,
               engine=engine)
-    if engine == "batch":
+    if engine in ("batch", "sharded"):
         kw.update(event_batch=2, prox_every=2)
     sc = dict(chunk_events=4, task_chunk_quota=2, max_pending_per_task=3)
     theirs = JServer(small_problem, JConfig(**kw),
