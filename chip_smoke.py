@@ -37,6 +37,7 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import shutil
@@ -73,18 +74,45 @@ LOGISTIC_EVENTS = 64
 
 # The learn-while-serve server (repro_torch.serve, phase 20) on the ragged
 # store above (make_store) and the uniform cell's batch engine (full
-# gradient, randomized SVT): 64 request batches, each 64 prediction rows and
-# 64 labelled feedback rows (task ids uniform), 4096 events in all; the
-# resume after batch 31 (the checkpoint at 2048 events).  The chaos drive
-# serves the first SERVE_CHAOS_BATCHES batches.  Checkpoints go under
+# gradient, randomized SVT): 16 request batches, each 64 prediction rows and
+# 64 labelled feedback rows (task ids uniform), 1024 events in all; the
+# resume after batch 7 (the checkpoint at 512 events).  The chaos drive
+# serves the first SERVE_CHAOS_BATCHES batches.  The SLO controller decides
+# every SERVE_SLO_WINDOW predict latencies, so each of the phase's servers
+# (16, 8 and 16 predicts) closes at least one window.  Checkpoints go under
 # build/serve_ckpt (a store record is 1.7-3.3 GB; the phase needs
-# SERVE_FREE_BYTES free there and deletes the directory at its end).
-SERVE_BATCHES, SERVE_ROWS, SERVE_RESUME_AT, SERVE_CHAOS_BATCHES = 64, 64, 32, 7
+# SERVE_FREE_BYTES free under build/, checked with HOST_FREE_BYTES of the
+# host's memory before any phase runs, and deletes the directory at its
+# end).  HOST_FREE_BYTES: the parent's peak resident bytes (44.74 GB, its
+# ru_maxrss at phase 22 on an H100 host) and LOCK_RANKS ranks' own peaks
+# (8.49 GB each) are 61.72 GB, 57.5 GiB; 64 GiB leaves 6.5 GiB over them.
+SERVE_BATCHES, SERVE_ROWS, SERVE_RESUME_AT, SERVE_CHAOS_BATCHES = 16, 64, 8, 7
 SERVE_CFG = dict(chunk_events=128, task_chunk_quota=8, max_pending_per_task=64,
                  max_batch=256, slo_ms=250.0, slo_window=32, keep_last=2,
-                 checkpoint_every=2048)
+                 checkpoint_every=512)
+SERVE_SLO_WINDOW = 8
 SERVE_FREE_BYTES = 24e9
+HOST_FREE_BYTES = 64 * 2 ** 30
 SERVE_WAIT_S = 300.0
+
+# The learn-while-serve server on LOCK_RANKS ranks stepping in lockstep
+# (phase 22, `launch.serve_lockstep`) on this card (gloo), at the store and
+# the SERVE_CFG above on the sharded engine (the batch cell's config): the
+# first LOCK_BATCHES request batches, a save after LOCK_SAVE_AT of them
+# (resumed at LOCK_RANKS ranks in a fresh world and at one rank), the
+# threaded drain of LOCK_THREADED batches' feedback with a crash on rank 1,
+# and the distributed prox over LOCK_DIST_BATCHES batches, each against the
+# one-rank server (batch engine) in this process.  Records go under
+# build/serve_ckpt/lockstep.
+LOCK_RANKS, LOCK_BATCHES, LOCK_SAVE_AT = 2, 12, 8
+LOCK_THREADED, LOCK_DIST_BATCHES, LOCK_PREDICTS = 3, 4, 64
+
+# The twins of examples/quickstart.py and hospitals_async.py (phase 23), on
+# the card against their own CPU runs: objectives within TWIN_OBJ_RTOL, the
+# fixed-point residual and the gap to the optimum within TWIN_RESIDUAL_ATOL,
+# the predictions' drift within TWIN_DRIFT_RTOL; the float64 simulator
+# exactly.
+TWIN_OBJ_RTOL, TWIN_RESIDUAL_ATOL, TWIN_DRIFT_RTOL = 1e-5, 1e-4, 1e-4
 
 # The task-sharded engine (phase 21) at the batch cell's configuration
 # (the cell above): one rank in this process, then SHARD_RANKS ranks in a
@@ -215,6 +243,12 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def mark(t0: float, phases: str) -> None:
+    """The seconds into the smoke at the end of `phases`."""
+    log(f"phases {phases} done {time.perf_counter() - t0:.1f} s into the "
+        "smoke")
 
 
 def card_line() -> str:
@@ -3115,6 +3149,17 @@ def l21_phases(problem, problem_cpu, v0, key, offs, dev) -> dict:
 
 # ---------------------------------------------------------------- phase 20 --
 
+def slo_decisions(label: str, server) -> list:
+    """The server's SLO decisions, (p95 ms, level before -> after, chunk
+    budget) each; fails when no window closed."""
+    slo = server.stats()["slo"]
+    if not slo["decisions"]:
+        fail(f"{label}: no SLO window closed ({slo['samples']} predict "
+             f"latencies, window {slo['window']})")
+    return [(round(d["p95_ms"], 3), f"{d['level_before']}->{d['level']}",
+             d["chunk_events"]) for d in slo["decisions"]]
+
+
 def serve_traffic(rows, seed: int) -> list:
     """SERVE_BATCHES request batches: (prediction task ids, features,
     feedback task ids, features, labels), the feedback rows drawn by the
@@ -3251,10 +3296,6 @@ def amtl_serve_phase(dev, seed: int, card: str) -> dict:
     ckpt_dir = ROOT / "build" / "serve_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     ckpt_dir.mkdir(parents=True)
-    free = shutil.disk_usage(ckpt_dir).free
-    if free < SERVE_FREE_BYTES:
-        fail(f"serve phase: {free / 1e9:.1f} GB free under {ckpt_dir}, the "
-             f"checkpoints need {SERVE_FREE_BYTES / 1e9:.0f} GB")
     store0, rows = make_store(seed)
     base = store0.state()
     traffic = serve_traffic(rows, seed)
@@ -3263,7 +3304,8 @@ def amtl_serve_phase(dev, seed: int, card: str) -> dict:
     v0 = (np.float32(0.01) * np.random.default_rng(seed + 5).standard_normal(
         (D, T), dtype=np.float32))
     key = prng.key_from_seed(seed)
-    sc = ServeConfig(**SERVE_CFG, ckpt_dir=str(ckpt_dir))
+    sc = ServeConfig(**dict(SERVE_CFG, slo_window=SERVE_SLO_WINDOW),
+                     ckpt_dir=str(ckpt_dir))
     expected = TaskStore(*base, "lstsq", "nuclear", LAM)
     for _, _, ft, fx, fy in traffic:
         expected.append(ft, fx, fy)
@@ -3337,6 +3379,7 @@ def amtl_serve_phase(dev, seed: int, card: str) -> dict:
         fail("serve: the server's state is not the replay of its chunk log "
              "with the same folds")
     card_events += 2 * sum(a.chunk_log) + sum(b.chunk_log)
+    slo_a, slo_b = slo_decisions("serve", a), slo_decisions("resumed", b)
     del b, replay
     log(f"phase 20 cooperative serving: {SERVE_BATCHES} batches of "
         f"{SERVE_ROWS} predictions + {SERVE_ROWS} labelled rows, "
@@ -3385,6 +3428,7 @@ def amtl_serve_phase(dev, seed: int, card: str) -> dict:
              "log with the same folds")
     card_events += 2 * sum(c.chunk_log)
     slo = c.stats()["slo"]
+    slo_c = slo_decisions("threaded serving", c)
     log(f"phase 20 threaded serving: {len(c.chunk_log)} chunks (sizes "
         f"{min(c.chunk_log)}..{max(c.chunk_log)}), {sum(c.chunk_log)} events,"
         f" {c.pending_feedback} left below a step; serving loop "
@@ -3503,6 +3547,8 @@ def amtl_serve_phase(dev, seed: int, card: str) -> dict:
         "predict_p95_ms": float(np.percentile(lat_learn, 95)),
         "predict_p99_ms": float(np.percentile(lat_thread, 99)),
         "slo_violations": int(slo["violations"]),
+        "slo_decisions": {"serve": slo_a, "resumed": slo_b,
+                          "threaded": slo_c},
         "events_per_sec_learning": sum(a.chunk_log) / learn_s,
         "appends_per_sec": appends / learn_s,
         "fold_ms_median": statistics.median(fold_ms),
@@ -3530,6 +3576,9 @@ def amtl_serve_phase(dev, seed: int, card: str) -> dict:
         f"over the {SERVE_CFG['slo_ms']} ms SLO; events/s while learning "
         f"{metrics['events_per_sec_learning']:.1f}, appends/s "
         f"{metrics['appends_per_sec']:.1f}")
+    log(f"phase 20 SLO decisions (window {SERVE_SLO_WINDOW}; p95 ms, level, "
+        f"chunk budget): cooperative {slo_a}, resumed {slo_b}, threaded "
+        f"{slo_c}")
     log(f"phase 20 card vs CPU (first chunk, {first[1]} events): chunk logs "
         f"equal, max relative |diff| of v/delta_ring {worst:.3g} <= "
         f"{SESSION_RTOL}; launches {want} ({card_events} events on the "
@@ -3871,6 +3920,402 @@ def sharded_phase(dev, seed: int, card: str, problem, v0, offs, key,
             "rank_launches": r0[0]["launches"], "kernels": kernels}
 
 
+# ------------------------------------------------------------- resources --
+
+def host_resources() -> dict:
+    """Free bytes under build/ and the host's MemAvailable; fails before
+    any phase runs when either is short of what the phases need."""
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    free = shutil.disk_usage(build).free
+    with open("/proc/meminfo") as f:
+        mem = {line.split(":")[0]: int(line.split()[1]) * 1024 for line in f}
+    avail = mem["MemAvailable"]
+    log(f"host: {free / 1e9:.1f} GB free under {build} (the checkpoints need "
+        f"{SERVE_FREE_BYTES / 1e9:.0f} GB), MemAvailable "
+        f"{avail / 2 ** 30:.1f} GiB of {mem['MemTotal'] / 2 ** 30:.1f} GiB "
+        f"(the phases need {HOST_FREE_BYTES / 2 ** 30:.0f} GiB)")
+    short = []
+    if free < SERVE_FREE_BYTES:
+        short.append(f"disk under {build}: {free / 1e9:.1f} GB free, "
+                     f"{SERVE_FREE_BYTES / 1e9:.0f} GB needed")
+    if avail < HOST_FREE_BYTES:
+        short.append(f"host memory: {avail / 2 ** 30:.1f} GiB available, "
+                     f"{HOST_FREE_BYTES / 2 ** 30:.0f} GiB needed")
+    if short:
+        fail("short of resources before any phase: " + "; ".join(short))
+    return {"free_bytes": free, "mem_available": avail}
+
+
+# ---------------------------------------------------------------- phase 22 --
+
+def lockstep_spec(dev, seed: int, v0, key, servers: list) -> dict:
+    """A `launch.serve_lockstep` spec at the engine cells' width: the
+    ragged store of `make_store` (each rank draws it and keeps its block),
+    the phase's request batches, arrays back as digests."""
+    return dict(device=dev.type, problem=dict(
+        store_seed=seed, t=T, d=D, lo=COHORT_LO, hi=COHORT_HI, lam=LAM),
+        v0=v0, key=key, digest=True, keep_snapshots=LOCK_DIST_BATCHES,
+        traffic=dict(seed=seed, batches=LOCK_BATCHES, rows=SERVE_ROWS),
+        servers=servers)
+
+
+def lock_compare(label: str, got: dict, want: dict,
+                 k: int | None = None) -> None:
+    """Receipts, predictions, steps, snapshots and the state of `got`
+    bitwise `want`'s (its last k of each where k is given)."""
+    def tail(x):
+        return x if k is None else x[-k:]
+    for name in ("receipts", "preds", "ran"):
+        if got[name] != tail(want[name]):
+            fail(f"{label}: {name} differ from the one-rank server's")
+    def digests(snaps):
+        return [(e, x if isinstance(x, str) else
+                 hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest())
+                for e, x in snaps]
+    if digests(got["snapshots"]) != digests(tail(want["snapshots"])):
+        fail(f"{label}: the snapshots differ from the one-rank server's")
+    if got["state"] != want["state"]:
+        fail(f"{label}: the engine state differs from the one-rank server's")
+
+
+def lock_launches(label: str, res: dict, dev) -> None:
+    """Each kernel of the path launched exactly as the rank's events call
+    for, and no other (on the card: the CPU launches none)."""
+    if dev.type != "cuda":
+        return
+    want = {k: res["expected"].get(k, 0) for k in res["launches"]}
+    if res["launches"] != want:
+        fail(f"{label}: launches {res['launches']}, the rank's events call "
+             f"for {want}")
+
+
+def lockstep_serve_phase(dev, seed: int, card: str) -> dict:
+    """Phase 22: the learn-while-serve AMTLServer on LOCK_RANKS ranks
+    stepping in lockstep on this card (22a cooperative, 22b resume, 22c
+    threaded with a crash on rank 1, 22d the distributed prox), each
+    against the one-rank server in this process; the one-rank runs are
+    freed before the world is spawned."""
+    import gc
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.launch import serve_lockstep
+    from repro_torch.launch.mesh import run_world
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "serve_ckpt" / "lockstep"
+    shutil.rmtree(root, ignore_errors=True)
+    v0 = (np.float32(0.01) * np.random.default_rng(seed + 5).standard_normal(
+        (D, T), dtype=np.float32))
+    key = prng.key_from_seed(seed)
+    cfg = configs(T)[0]
+    shard = cfg._replace(engine="sharded")
+    dist = shard._replace(prox_mode="distributed")
+    sc = {k: v for k, v in SERVE_CFG.items() if k != "checkpoint_every"}
+    # 22c's chunk log is held to the cooperative loop's, so its budget
+    # must not follow the predict latencies the SLO controller reads
+    unslo = dict(sc, slo_ms=None)
+    serve = [("serve", i) for i in range(LOCK_BATCHES)]
+    saved = serve[:LOCK_SAVE_AT] + [("checkpoint",)] + serve[LOCK_SAVE_AT:]
+    fed = [("submit", i) for i in range(LOCK_THREADED)]
+    asks = [("ask", i) for i in range(LOCK_BATCHES)]
+    world_kw = dict(device=dev.type, timeout=SHARD_WORLD_TIMEOUT_S,
+                    collective_timeout=SHARD_COLLECTIVE_TIMEOUT_S,
+                    workdir=str(ROOT / "build"), verbose=False)
+
+    # the one-rank server (batch engine) in this process: the script (its
+    # store by the ranks' blocks), the threaded feedback's cooperative
+    # drain and frozen serving
+    t0 = time.perf_counter()
+    ref, drain, frozen1 = serve_lockstep.session(lockstep_spec(
+        dev, seed, v0, key, [
+            dict(cfg=cfg._asdict(), serve=sc, ops=serve, blocks=LOCK_RANKS),
+            dict(cfg=cfg._asdict(), serve=unslo, ops=fed + [("drain",)],
+                 store=False),
+            dict(cfg=cfg._asdict(), serve=dict(sc, learning=False),
+                 ops=asks)]))
+    one_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    cap = ref["block"][0][1]
+    n_local = T // LOCK_RANKS
+
+    # the world: 22a, 22c, 22d and frozen serving
+    t0 = time.perf_counter()
+    out = run_world(serve_lockstep.session, LOCK_RANKS, lockstep_spec(
+        dev, seed, v0, key, [
+            dict(cfg=shard._asdict(), serve=dict(sc, ckpt_dir=str(root)),
+                 ops=saved),
+            dict(cfg=shard._asdict(), serve=dict(unslo, restart_limit=2,
+                                                 restart_backoff_s=0.01),
+                 faults={1: dict(crash_on_chunks={1})},
+                 ops=fed + [("start",),
+                            ("predict_while", LOCK_PREDICTS, LOCK_THREADED),
+                            ("stop", True)], store=False),
+            dict(cfg=dist._asdict(), serve=sc, ops=serve[:LOCK_DIST_BATCHES],
+                 store=False),
+            dict(cfg=shard._asdict(), serve=dict(sc, learning=False),
+                 ops=asks)]), **world_kw)
+    world_s = time.perf_counter() - t0
+
+    # 22a: cooperative, bitwise the one-rank server
+    for r, res in enumerate(out):
+        run = res[0]
+        lock_compare(f"22a rank {r}", run, ref)
+        if run["store"] != ref["store_blocks"][r] \
+                or run["counts"] != ref["counts"]:
+            fail(f"22a rank {r}: its store shard is not its block of the "
+                 "one-rank store")
+        if run["block"] != ((n_local, cap, D), (n_local, cap, D), n_local):
+            fail(f"22a rank {r}: holds {run['block']} (problem, engine, "
+                 f"store tasks), not its {n_local} tasks alone")
+        lock_launches(f"22a rank {r}", run, dev)
+    r0 = out[0][0]
+    log(f"phase 22a {LOCK_RANKS} ranks, cooperative: {LOCK_BATCHES} batches "
+        f"of {SERVE_ROWS} predictions + {SERVE_ROWS} labelled rows, chunks "
+        f"{sorted(set(r0['chunk_log']))}, a checkpoint after batch "
+        f"{LOCK_SAVE_AT}; receipts, predictions, {len(r0['snapshots'])} "
+        f"snapshots, the chunk log and the state bitwise the one-rank "
+        f"server's; each rank's store shard its block of the one-rank store "
+        f"(capacity {ref['block'][0][1]}); each rank holds (problem, engine, "
+        f"store tasks) {r0['block']}; launches by rank "
+        f"{[res[0]['launches'] for res in out]}, each the count its events "
+        f"call for [{card}]: PASS")
+
+    # 22b: resume in a fresh world, and at one rank, from the 2-rank record
+    t0 = time.perf_counter()
+    again = run_world(serve_lockstep.session, LOCK_RANKS, lockstep_spec(
+        dev, seed, v0, key, [dict(cfg=shard._asdict(),
+                                  serve=dict(sc, ckpt_dir=str(root)),
+                                  resume=True, ops=serve[LOCK_SAVE_AT:])]),
+        **world_kw)
+    world_s += time.perf_counter() - t0
+    k = LOCK_BATCHES - LOCK_SAVE_AT
+    for r, res in enumerate(again):
+        run = res[0]
+        lock_compare(f"22b rank {r}", run, ref, k)
+        if run["store"] != ref["store_blocks"][r] or run["start_event"] \
+                != ref["snapshots"][LOCK_SAVE_AT - 1][0]:
+            fail(f"22b rank {r}: resumed at event {run['start_event']} with "
+                 "another store shard than the uninterrupted server's")
+        lock_launches(f"22b rank {r}", run, dev)
+    t0 = time.perf_counter()
+    one_back = serve_lockstep.session(lockstep_spec(dev, seed, v0, key, [
+        dict(cfg=cfg._asdict(), serve=dict(sc, ckpt_dir=str(root)),
+             resume=True, ops=serve[LOCK_SAVE_AT:])]))[0]
+    one_s += time.perf_counter() - t0
+    lock_compare("22b one rank", one_back, ref, k)
+    if one_back["store"] != ref["store"]:
+        fail("22b one rank: the resumed store is not the uninterrupted one")
+    shutil.rmtree(root, ignore_errors=True)
+    def gb(peak):
+        return f"{peak[0] / 1e9:.2f} GB (+{peak[1] / 1e9:.2f})"
+    log(f"phase 22b resume from the {LOCK_RANKS}-rank record at event "
+        f"{again[0][0]['start_event']}: in a fresh world of {LOCK_RANKS} "
+        f"({again[0][0]['build_s']:.2f} s; host peak (and rise over the "
+        f"call's start) by rank "
+        f"{', '.join(gb(res[0]['build_host_peak']) for res in again)}) and "
+        f"at one rank ({one_back['build_s']:.2f} s; host peak "
+        f"{gb(one_back['build_host_peak'])}), {k} batches: "
+        f"predictions, snapshots, state and store bitwise the uninterrupted "
+        f"server's [{card}]: PASS")
+
+    # 22c: threaded, a scripted crash on rank 1 alone
+    for r, res in enumerate(out):
+        run = res[1]
+        health = run["stats"]["health"]
+        if run["chunk_log"] != drain["chunk_log"] \
+                or run["state"] != drain["state"]:
+            fail(f"22c rank {r}: the drained chunk log or state differs "
+                 "from the cooperative one-rank loop's")
+        if health["learner_restarts"] != (1 if r == 1 else 0) \
+                or run["stops"] != [sum(drain["chunk_log"])]:
+            fail(f"22c rank {r}: restarts {health['learner_restarts']}, "
+                 f"stop {run['stops']}")
+        lock_launches(f"22c rank {r}", run, dev)
+    if out[0][1]["learner_threads"] != (1, False):
+        fail(f"22c: rank 0's collectives came from "
+             f"{out[0][1]['learner_threads']} (threads, main among them)")
+    rec = out[1][1]["stats"]["health"]["recovery_ms"]
+    log(f"phase 22c threaded: the learners drained {out[0][1]['chunk_log']} "
+        f"while every rank predicted {LOCK_PREDICTS} batches, a scripted "
+        f"crash on rank 1 alone healed ({rec[0]:.2f} ms), rank 0's "
+        f"collectives from its learner thread alone; the chunk log and the "
+        f"state bitwise the cooperative one-rank loop's [{card}]: PASS")
+
+    # 22d: the distributed prox against the script's first batches
+    worst, k = 0.0, LOCK_DIST_BATCHES
+    for r, res in enumerate(out):
+        run = res[2]
+        for name in ("receipts", "ran", "streams"):
+            if run[name] != ref[name][:k]:
+                fail(f"22d rank {r}: {name} differ from the one-rank "
+                     "server's (the streams: the event stream)")
+        if run["chunk_log"] != ref["chunk_log"][:len(run["chunk_log"])]:
+            fail(f"22d rank {r}: the chunk log differs")
+        for (e, x), (f, y) in zip(run["snapshots"], ref["snapshots"][:k],
+                                  strict=True):
+            err = float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30))
+            worst = max(worst, err)
+            if e != f or not err <= SHARD_RTOL:
+                fail(f"22d rank {r}: snapshot at event {e} off by {err:.3g} "
+                     f"> {SHARD_RTOL} of scale")
+        lock_launches(f"22d rank {r}", run, dev)
+    log(f"phase 22d distributed prox, {LOCK_DIST_BATCHES} batches: chunks, "
+        f"receipts and the event stream bitwise, every snapshot within "
+        f"{worst:.3g} <= {SHARD_RTOL} of scale of the one-rank server's "
+        f"[{card}]: PASS")
+
+    # the numbers (2 ranks share this card and its host: not scale-out)
+    def ckpt(res):
+        c = res["ckpts"][0]
+        return [c["s"], c["bytes"], *c["host_peak"]]
+
+    def spent(res):
+        """(set-up, each server's) seconds of a session"""
+        return [res[0]["setup_s"]] + [run["total_s"] for run in res]
+    wire = [res[0]["wire"] for res in out]
+    ranks = [f"rank {r}" for r in range(LOCK_RANKS)]
+    metrics = {
+        "card": card,
+        "requests_per_sec_learning": {
+            "1": ref["requests"] / ref["learn_s"],
+            str(LOCK_RANKS): r0["requests"] / r0["learn_s"]},
+        "requests_per_sec_frozen": {
+            "1": frozen1["requests"] / frozen1["ask_s"],
+            str(LOCK_RANKS): out[0][3]["requests"] / out[0][3]["ask_s"]},
+        "fold_s_mean": {n: w["fold_s"] / w["folds"]
+                        for n, w in zip(ranks, wire)},
+        "fold_bytes_mean": {n: w["fold_bytes"] / w["folds"]
+                            for n, w in zip(ranks, wire)},
+        "gather_ms_mean": 1e3 * wire[0]["gather_s"] / wire[0]["gathers"],
+        "checkpoint_s_bytes_host_peak": {
+            n: ckpt(res[0]) for n, res in zip(ranks, out)},
+        "resume_s_host_peak": {
+            "1": [one_back["build_s"], *one_back["build_host_peak"]],
+            **{n: [res[0]["build_s"], *res[0]["build_host_peak"]]
+               for n, res in zip(ranks, again)}},
+        # ru_maxrss: a spawned rank's starts at its parent's peak (Linux
+        # carries it through fork and exec); the sampled peak is its own
+        "max_rss": {"parent": serve_lockstep.max_rss_bytes(), **{
+            n: res[-1]["max_rss"] for n, res in zip(ranks, out)}},
+        "host_peak_sampled": {
+            **{f"{n} world": res[0]["servers_host_peak"]
+               for n, res in zip(ranks, out)},
+            **{f"{n} resume": res[0]["servers_host_peak"]
+               for n, res in zip(ranks, again)}},
+        "device_peak": {n: max(run["device_peak"] for run in res)
+                        for n, res in zip(ranks, out)},
+        "one_rank_s": one_s, "worlds_s": world_s,
+        "session_s": {"one rank": spent([ref, drain, frozen1]),
+                      "resume at one rank": spent([one_back]),
+                      **{f"{n} world": spent(res)
+                         for n, res in zip(ranks, out)},
+                      **{f"{n} resume": spent(res)
+                         for n, res in zip(ranks, again)}},
+        "launches": {"1": ref["launches"],
+                     **{n: res[0]["launches"] for n, res in
+                        zip(ranks, out)}},
+        "seconds": time.perf_counter() - t_phase,
+    }
+    log(f"phase 22 serving ({card}; {LOCK_RANKS} ranks share this card's "
+        f"SMs and its host, and the collectives go through host memory: not "
+        f"scale-out numbers): requests/s learning "
+        f"{metrics['requests_per_sec_learning']['1']:.1f} at one rank, "
+        f"{metrics['requests_per_sec_learning'][str(LOCK_RANKS)]:.1f} at "
+        f"{LOCK_RANKS}; frozen {metrics['requests_per_sec_frozen']['1']:.1f}"
+        f" and {metrics['requests_per_sec_frozen'][str(LOCK_RANKS)]:.1f}; "
+        f"fold a boundary "
+        + ", ".join(f"{n} {metrics['fold_s_mean'][n]:.3f} s / "
+                    f"{metrics['fold_bytes_mean'][n] / 1e9:.3f} GB uploaded"
+                    for n in ranks)
+        + f"; the flip's gather {metrics['gather_ms_mean']:.3f} ms; a "
+          f"checkpoint "
+        + ", ".join(f"{n}: {v[0]:.2f} s / {v[1] / 1e9:.3f} GB, host peak "
+                    f"{gb(v[2:])}" for n, v in
+                    metrics["checkpoint_s_bytes_host_peak"].items())
+        + "; ru_maxrss "
+        + ", ".join(f"{n} {v / 1e9:.2f} GB"
+                    for n, v in metrics["max_rss"].items())
+        + " (a rank's starts at the parent's); each rank's own sampled peak "
+        + ", ".join(f"{n} {v / 1e9:.2f} GB"
+                    for n, v in metrics["host_peak_sampled"].items())
+        + "; device peak "
+        + ", ".join(f"{n} {v / 1e9:.2f} GB"
+                    for n, v in metrics["device_peak"].items()))
+    log(f"phase 22 one rank {one_s:.1f} s, the worlds {world_s:.1f} s with "
+        f"spawn and set-up ({metrics['seconds']:.1f} s); by session "
+        f"(set-up, then each server's s): "
+        + "; ".join(f"{n} " + ", ".join(f"{x:.1f}" for x in v)
+                    for n, v in metrics["session_s"].items()) + ": PASS")
+    log("lockstep_serving " + json.dumps(metrics))
+    return metrics
+
+
+# ---------------------------------------------------------------- phase 23 --
+
+def twin_close(label: str, got, want, rule) -> None:
+    """`got` (the card's) against `want` (the CPU's) under a rule: None
+    exact, ("rel", tol) or ("abs", tol)."""
+    if rule is None:
+        ok = got == want
+    elif rule[0] == "rel":
+        ok = abs(got - want) <= rule[1] * abs(want)
+    else:
+        ok = abs(got - want) <= rule[1]
+    if not ok:
+        fail(f"23 {label}: the card's {got!r} against the CPU's {want!r} "
+             f"({'exact' if rule is None else rule})")
+
+
+def twins_phase(dev, card: str) -> dict:
+    """Phase 23: the twins of examples/quickstart.py and hospitals_async.py
+    on the card against their CPU runs, with the kernels they launch."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import hospitals_async, quickstart
+    t0 = time.perf_counter()
+    obj, res, drift = (("rel", TWIN_OBJ_RTOL), ("abs", TWIN_RESIDUAL_ATOL),
+                       ("rel", TWIN_DRIFT_RTOL))
+    rules = {
+        "quickstart": {"fista": obj, "smtl": obj, "amtl": obj,
+                       "residual": res, "gap": res},
+        "hospitals_async": {"stream_objective": obj, "drift": drift},
+    }
+    launches = {}
+    for name, twin in (("quickstart", quickstart),
+                       ("hospitals_async", hospitals_async)):
+        cpu = twin.main(["--device", "cpu"])
+        sync(dev)
+        ops.reset_launch_counts()
+        got = twin.main(["--device", dev.type])
+        sync(dev)
+        launches[name] = {k: v for k, v in ops.launch_counts().items() if v}
+        for k, want in cpu.items():
+            rule = rules[name].get(k)
+            if isinstance(want, tuple) and rule is not None:
+                for i, (a, b) in enumerate(zip(got[k], want)):
+                    twin_close(f"{name} {k}[{i}]", a, b, rule)
+            else:
+                twin_close(f"{name} {k}", got[k], want, rule)
+        flags = [k for k, v in got.items() if v is True]
+        log(f"phase 23 {name} twin on the card against its CPU run: "
+            f"objectives within {TWIN_OBJ_RTOL} relative, the residual and "
+            f"the gap within {TWIN_RESIDUAL_ATOL}, the drift within "
+            f"{TWIN_DRIFT_RTOL}, every other number exact (the float64 "
+            f"simulator's times and speedup too); bitwise claims {flags} "
+            f"held; launches {launches[name]} [{card}]: PASS")
+    need = {"quickstart": ("amtl_event", "lstsq_grad"),
+            "hospitals_async": ("amtl_event_batch", "lstsq_grad_sampled",
+                                "lstsq_grad")}
+    for name, kernels in need.items():
+        for k in kernels:
+            if dev.type == "cuda" and not launches[name].get(k):
+                fail(f"23 {name}: {k} never launched on the card")
+    seconds = time.perf_counter() - t0
+    log(f"phase 23 twins: {seconds:.1f} s: PASS")
+    return {"launches": launches, "seconds": seconds}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3889,6 +4334,10 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
 
+    # the host's disk and memory, before any phase
+    host_resources()
+    t_smoke = time.perf_counter()
+
     # phase 1: device
     card = card_line()
     log(f"phase 1 device: {torch.cuda.get_device_name(0)} x "
@@ -3905,6 +4354,7 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     info = check_kernels(dev, gen)
     log("phase 3 kernels: PASS")
+    mark(t_smoke, "1-3")
 
     # phase 4: batch-engine session at full width
     problem, v0, offs = make_problem(args.seed, dev)
@@ -4080,24 +4530,41 @@ def main() -> None:
              rl)):
         report_busy(label, prob, cfg, v0, key, offs, n, r["device"], dev)
 
+    mark(t_smoke, "4-9")
+
     # phases 15-19: the dense engine and the l2,1 formulation
     dense_counts = l21_phases(problem, problem_cpu, v0, key, offs, dev)
     del problem_cpu
     torch.cuda.empty_cache()
+    mark(t_smoke, "15-19")
 
     # phases 10-11: gemma2-2b serving at full width; 13-14: rwkv6-3b
     sv = serve_phase(dev, args.seed, card, "gemma2-2b")
     torch.cuda.empty_cache()
+    mark(t_smoke, "10-11")
     rw = serve_phase(dev, args.seed, card, "rwkv6-3b")
     torch.cuda.empty_cache()
+    mark(t_smoke, "13-14")
 
     # phase 20: the learn-while-serve AMTLServer at the engine cells' width
     amtl_serve = amtl_serve_phase(dev, args.seed, card)
     torch.cuda.empty_cache()
+    mark(t_smoke, "20")
 
     # phase 21: the task-sharded engine, one rank and SHARD_RANKS ranks
     sharded = sharded_phase(dev, args.seed, card, problem, v0, offs, key, b)
     torch.cuda.empty_cache()
+    mark(t_smoke, "21")
+
+    # phase 22: the server on LOCK_RANKS ranks stepping in lockstep
+    lockstep = lockstep_serve_phase(dev, args.seed, card)
+    torch.cuda.empty_cache()
+    mark(t_smoke, "22")
+
+    # phase 23: the twins of the quickstart and hospitals examples
+    twins = twins_phase(dev, card)
+    torch.cuda.empty_cache()
+    mark(t_smoke, "23")
 
     kernels = []
     info["lstsq_grad"]["args"] = grad_inputs(dev, args.seed)
@@ -4162,6 +4629,13 @@ def main() -> None:
                 f"each of {SHARD_RANKS} ranks": sharded["rank_launches"][name]}
         if name in sharded["kernels"]:
             kernels[-1]["shard_shape"] = sharded["kernels"][name]
+        if lockstep["launches"]["1"].get(name):
+            kernels[-1]["lockstep_serve_launches"] = {
+                n: c[name] for n, c in lockstep["launches"].items()}
+        example = {n: c[name] for n, c in twins["launches"].items()
+                   if c.get(name)}
+        if example:
+            kernels[-1]["example_launches"] = example
         if name == "lstsq_grad_sampled":
             kernels[-1].update(sampled_single_times(info[name], dev))
         if name == "lstsq_grad":
@@ -4200,6 +4674,8 @@ def main() -> None:
         + (", ".join(k for k, v in parts.items() if v["host_syncs"]) or "none"))
     log("prox_refresh " + json.dumps(parts))
 
+    log(f"smoke: {time.perf_counter() - t_smoke:.1f} s from phase 1 "
+        f"[{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,14 +38,26 @@ mesh of n > 1 ranks (`save(..., mesh=, cfg=)`, a collective every rank
 calls) the ranks' states are gathered, rank 0 writes the record, and
 every rank waits for it at a barrier; `restore(..., mesh=, cfg=)` reads
 the record in every rank and gives each its own view.  At one rank the
-state is the global view and needs no mesh.  A record saved at n ranks
-restores at n ranks.
+state is the global view and needs no mesh.  A record of the sharded,
+batch or delta engine's state restores into any of them, at any number
+of ranks: the undo rings, the one leaf whose layout depends on the rank
+count, are re-placed by the owner of each slot's task
+(`core.amtl.place_rings`).
+
+A record too large for one process to hold is written and read in
+pieces: `save_streamed` writes leaves from chunks (one chunk in memory
+at a time, the CRCs taken on the way), `read_rows` reads a block of a
+leaf's leading axis straight from the file with the CRC32 of its bytes,
+and `crc32_concat` joins the blocks' CRCs into the leaf's, which the
+manifest holds (`read_manifest`).  The record is the one `save` writes.
 """
 from __future__ import annotations
 
 import json
 import os
 import re
+import struct
+import zipfile
 import zlib
 from typing import Any, Optional
 
@@ -248,15 +260,171 @@ def save(ckpt_dir: str, step: int, tree: Any,
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
-    if keep_last is not None:
-        just_written = os.path.basename(path)
-        records = sorted(((int(m.group(1)), f) for f in os.listdir(ckpt_dir)
-                          if (m := _STEP_RE.match(f))),
-                         key=lambda r: (r[0], r[1] == just_written))
-        for _, fname in records[:-keep_last]:
-            if fname != just_written:
-                os.remove(os.path.join(ckpt_dir, fname))
+    _rotate(ckpt_dir, path, keep_last)
     return path
+
+
+def _rotate(ckpt_dir: str, path: str, keep_last: Optional[int]) -> None:
+    """Delete the records beyond the `keep_last` newest, never `path`."""
+    if keep_last is None:
+        return
+    just_written = os.path.basename(path)
+    records = sorted(((int(m.group(1)), f) for f in os.listdir(ckpt_dir)
+                      if (m := _STEP_RE.match(f))),
+                     key=lambda r: (r[0], r[1] == just_written))
+    for _, fname in records[:-keep_last]:
+        if fname != just_written:
+            os.remove(os.path.join(ckpt_dir, fname))
+
+
+def save_streamed(ckpt_dir: str, step: int, leaves: list,
+                  keep_last: Optional[int] = None) -> str:
+    """Write `step_<step>.npz` from leaves given in chunks, the record
+    `save` writes (npy members, the CRC32 manifest, fsync, atomic
+    replace, rotation) with one chunk in memory at a time.
+
+    `leaves` is a list of (flattened key, shape, dtype, chunks); `chunks`
+    yields arrays whose C-order bytes, in turn, are the leaf's (taken as
+    they are, whatever the arrays' own dtypes).
+    """
+    if keep_last is not None and keep_last < 1:
+        raise ValueError(f"keep_last must be >= 1 (got {keep_last}); "
+                         "use keep_last=None to keep every checkpoint")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
+    tmp = path + ".tmp.npz"
+    _sweep_tmp_litter(ckpt_dir, keep=os.path.basename(tmp))
+    crcs = {}
+    with open(tmp, "wb") as f:
+        with zipfile.ZipFile(f, "w", zipfile.ZIP_STORED,
+                             allowZip64=True) as record:
+            for key, shape, dtype, chunks in leaves:
+                dtype = np.dtype(dtype)
+                want = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+                crc, n = 0, 0
+                with record.open(key + ".npy", "w", force_zip64=True) as m:
+                    np.lib.format.write_array_header_1_0(m, {
+                        "descr": np.lib.format.dtype_to_descr(dtype),
+                        "fortran_order": False, "shape": tuple(shape)})
+                    for chunk in chunks:
+                        b = np.ascontiguousarray(chunk).reshape(-1) \
+                            .view(np.uint8)
+                        m.write(b)
+                        crc = zlib.crc32(b, crc)
+                        n += b.nbytes
+                if n != want:
+                    raise ValueError(f"leaf {key!r}: {n} bytes streamed, "
+                                     f"its shape {tuple(shape)} holds {want}")
+                crcs[key] = crc
+            blob = json.dumps(crcs, sort_keys=True).encode("utf-8")
+            with record.open(MANIFEST_KEY + ".npy", "w") as m:
+                np.lib.format.write_array(
+                    m, np.frombuffer(blob, dtype=np.uint8))
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    _rotate(ckpt_dir, path, keep_last)
+    return path
+
+
+def read_manifest(path: str) -> dict[str, int]:
+    """The CRC32 manifest of a record, read alone (no leaf is loaded)."""
+    try:
+        with np.load(path) as data:
+            if MANIFEST_KEY not in data.files:
+                raise CheckpointCorruptError(
+                    path, [], "record carries no integrity manifest")
+            return json.loads(bytes(data[MANIFEST_KEY]).decode("utf-8"))
+    except (CheckpointCorruptError, FileNotFoundError):
+        raise
+    except Exception as e:
+        raise CheckpointCorruptError(path, [], f"unreadable record: {e!r}")
+
+
+def read_rows(path: str, key: str, lo: int, hi: int) -> tuple:
+    """Rows [lo, hi) of the leading axis of leaf `key` of the record at
+    `path`, read from the file alone: (the rows, the CRC32 of their bytes,
+    the leaf's shape).  The leaf must be stored uncompressed, as `save`
+    and `save_streamed` store it."""
+    try:
+        with zipfile.ZipFile(path) as record:
+            info = record.getinfo(key + ".npy")
+    except FileNotFoundError:
+        raise
+    except Exception as e:
+        raise CheckpointCorruptError(path, [key], f"unreadable record: {e!r}")
+    if info.compress_type != zipfile.ZIP_STORED:
+        raise ValueError(f"{path}: leaf {key!r} is compressed; a block of it "
+                         "cannot be read on its own")
+    with open(path, "rb") as f:
+        f.seek(info.header_offset)
+        head = f.read(30)
+        if len(head) < 30 or head[:4] != b"PK\x03\x04":
+            raise CheckpointCorruptError(path, [key], "bad local header")
+        name_len, extra_len = struct.unpack("<HH", head[26:30])
+        f.seek(info.header_offset + 30 + name_len + extra_len)
+        major, _ = np.lib.format.read_magic(f)
+        read = (np.lib.format.read_array_header_1_0 if major == 1
+                else np.lib.format.read_array_header_2_0)
+        shape, fortran, dtype = read(f)
+        if fortran or not shape or not 0 <= lo <= hi <= shape[0]:
+            raise ValueError(f"{path}: leaf {key!r} of shape {shape} "
+                             f"(fortran {fortran}) has no rows [{lo}, {hi})")
+        row = int(np.prod(shape[1:], dtype=np.int64)) * dtype.itemsize
+        out = np.empty((hi - lo,) + tuple(shape[1:]), dtype)
+        f.seek(f.tell() + lo * row)
+        view = out.reshape(-1).view(np.uint8)
+        if f.readinto(view) != view.nbytes:
+            raise CheckpointCorruptError(path, [key], "the leaf is cut short")
+    return out, zlib.crc32(view), tuple(shape)
+
+
+def _gf2_times(mat: list, vec: int) -> int:
+    out, i = 0, 0
+    while vec:
+        if vec & 1:
+            out ^= mat[i]
+        vec >>= 1
+        i += 1
+    return out
+
+
+def _gf2_square(mat: list) -> list:
+    return [_gf2_times(mat, row) for row in mat]
+
+
+def _crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """CRC32 of A || B from crc32(A), crc32(B) and len(B) bytes (zlib's
+    crc32_combine: crc1 is shifted through len2 zero bytes by squaring the
+    one-zero-bit operator over GF(2))."""
+    if len2 <= 0:
+        return crc1
+    odd = [0xEDB88320] + [1 << n for n in range(31)]   # one zero bit
+    even = _gf2_square(odd)                             # two
+    odd = _gf2_square(even)                             # four
+    while True:
+        even = _gf2_square(odd)
+        if len2 & 1:
+            crc1 = _gf2_times(even, crc1)
+        len2 >>= 1
+        if not len2:
+            break
+        odd = _gf2_square(even)
+        if len2 & 1:
+            crc1 = _gf2_times(odd, crc1)
+        len2 >>= 1
+        if not len2:
+            break
+    return crc1 ^ crc2
+
+
+def crc32_concat(parts) -> int:
+    """The CRC32 of byte blocks joined in order, from each block's
+    (CRC32, length)."""
+    crc = 0
+    for c, n in parts:
+        crc = _crc32_combine(crc, int(c), int(n))
+    return crc
 
 
 def record_steps(ckpt_dir: str) -> list[int]:
@@ -331,6 +499,35 @@ def latest_valid_step(ckpt_dir: str, like: Any = None) -> Optional[int]:
     return None
 
 
+def _ring_layout(ckpt_dir: str, step: int, like, mesh, cfg):
+    """(the global `like` with the record's undo-ring shape, the shards it
+    is placed for or None) when `like` is a delta, batch or sharded state
+    whose rings the record holds in another layout; else None."""
+    from repro_torch.core.amtl import (BatchAMTLState, DeltaAMTLState,
+                                       ShardedAMTLState, global_template)
+    if not isinstance(like, (BatchAMTLState, DeltaAMTLState,
+                             ShardedAMTLState)):
+        return None
+    glob = like
+    if isinstance(like, ShardedAMTLState) and mesh is not None:
+        glob = global_template(like, cfg, mesh)
+    try:
+        with zipfile.ZipFile(_resolve_step_path(ckpt_dir, step)) as record:
+            with record.open(".delta_ring.npy") as f:
+                major, _ = np.lib.format.read_magic(f)
+                read = (np.lib.format.read_array_header_1_0 if major == 1
+                        else np.lib.format.read_array_header_2_0)
+                shape = tuple(read(f)[0])
+    except Exception:
+        return None                     # `restore` itself reports it
+    want = tuple(glob.delta_ring.shape)
+    if shape == want or len(shape) not in (2, 3) \
+            or shape[-2:] != want[-2:]:
+        return None
+    return (glob._replace(delta_ring=glob.delta_ring.new_empty(shape)),
+            want[0] if len(want) == 3 else None)
+
+
 def _resolve_step_path(ckpt_dir: str, step: int) -> str:
     """The on-disk filename for `step`, whatever its zero padding: the
     canonical `step_{step:08d}.npz` on ties, else the lexicographically
@@ -356,8 +553,21 @@ def restore(ckpt_dir: str, step: int, like: Any, *, mesh=None,
 
     With a `mesh` of n > 1 ranks (and the sharded engine's `cfg`) every
     rank calls it with its own `like`: the record holds the global view,
-    and each rank gets its own view of each sharded state.
+    and each rank gets its own view of each sharded state.  An engine
+    state whose undo rings the record holds for another rank count is
+    re-placed (see the module doc).
     """
+    placed = _ring_layout(ckpt_dir, step, like, mesh, cfg)
+    if placed is not None:
+        from repro_torch.core.amtl import (ShardedAMTLState, local_state,
+                                           place_rings)
+        template, shards = placed
+        full = restore(ckpt_dir, step, template)
+        full = full._replace(delta_ring=place_rings(
+            full.delta_ring, full.task_ring, full.v.shape[1], shards))
+        if isinstance(like, ShardedAMTLState):
+            return local_state(full, cfg, mesh)
+        return full
     if mesh is not None and mesh.size > 1:
         from repro_torch.core.amtl import global_template, local_state
         full = restore(ckpt_dir, step, _map_sharded(

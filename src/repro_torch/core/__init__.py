@@ -5,8 +5,8 @@ from repro_torch.core.amtl import (AMTLConfig, AMTLEngine, AMTLResult,
                                    amtl_solve, current_iterate,
                                    default_config, gather_state,
                                    init_sharded_state, init_state,
-                                   local_state, make_engine, shard_problem,
-                                   validate_config)
+                                   local_state, make_engine, place_rings,
+                                   shard_problem, validate_config)
 from repro_torch.core.dynamic_step import DelayHistory, dynamic_multiplier
 from repro_torch.core.losses import MTLProblem, get_loss
 from repro_torch.core.operators import (amtl_max_step, backward,
@@ -30,7 +30,7 @@ __all__ = [
     "DeltaAMTLState", "ShardedAMTLState", "amtl_events_only", "amtl_solve",
     "current_iterate", "default_config", "gather_state",
     "init_sharded_state", "init_state", "local_state", "make_engine",
-    "shard_problem", "validate_config",
+    "place_rings", "shard_problem", "validate_config",
     "DelayHistory", "dynamic_multiplier", "MTLProblem", "get_loss",
     "amtl_max_step", "backward", "backward_forward", "fixed_point_residual",
     "forward", "forward_backward", "km_block_update", "km_step",

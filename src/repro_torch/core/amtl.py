@@ -716,15 +716,17 @@ def _refuse_dense_ragged(problem: MTLProblem, cfg: AMTLConfig) -> None:
 
 
 def _resolve_mesh(problem: MTLProblem, cfg: AMTLConfig, mesh,
-                  device) -> TaskMesh | None:
+                  device, num_tasks: int | None = None) -> TaskMesh | None:
     """The reference's checks: a mesh only for engine='sharded', and T
     divisible by its size; the default mesh is every rank of the world
-    (one without a world), on `device`."""
+    (one without a world), on `device`.  With `num_tasks` the problem is
+    the rank's block and must hold T / size tasks."""
     if cfg.engine != "sharded":
-        if mesh is not None:
-            raise ValueError(
-                f"mesh is only meaningful for engine='sharded' "
-                f"(got engine={cfg.engine!r})")
+        for name, arg in (("mesh", mesh), ("num_tasks", num_tasks)):
+            if arg is not None:
+                raise ValueError(
+                    f"{name} is only meaningful for engine='sharded' "
+                    f"(got engine={cfg.engine!r})")
         return None
     if mesh is None:
         mesh = make_task_mesh(device=device)
@@ -735,7 +737,13 @@ def _resolve_mesh(problem: MTLProblem, cfg: AMTLConfig, mesh,
                                                  mesh.device):
         raise ValueError(f"device {device} is not the mesh's device "
                          f"{mesh.device}")
-    mesh.n_local(problem.num_tasks)            # T divisible by the ranks
+    if num_tasks is None:
+        mesh.n_local(problem.num_tasks)        # T divisible by the ranks
+    elif mesh.n_local(num_tasks) != problem.num_tasks:
+        raise ValueError(
+            f"a rank's block of {num_tasks} tasks over {mesh.size} ranks "
+            f"holds {num_tasks // mesh.size} tasks, the problem "
+            f"{problem.num_tasks}")
     return mesh
 
 
@@ -828,7 +836,8 @@ def require_problem_on(problem: MTLProblem, dev: torch.device) -> None:
 
 def make_engine(problem: MTLProblem, cfg: AMTLConfig,
                 device: torch.device | str | None = None,
-                mesh: TaskMesh | None = None) -> AMTLEngine:
+                mesh: TaskMesh | None = None, *,
+                num_tasks: int | None = None) -> AMTLEngine:
     """Build the resumable session engine for `cfg` (the public API).
 
     `device` defaults to CUDA; without a card this raises unless the
@@ -838,17 +847,23 @@ def make_engine(problem: MTLProblem, cfg: AMTLConfig,
     `mesh` (engine='sharded' only) is the rank's `TaskMesh`; the default
     is every rank of the initialised world, or one rank, on `device`.
     The sharded engine takes the global problem on the host or the rank's
-    device and keeps the rank's block of it (`shard_problem`).
+    device and keeps the rank's block of it (`shard_problem`), or, given
+    the global task count `num_tasks`, the rank's block itself (tasks
+    [rank * T / n, (rank + 1) * T / n), on the rank's device), which it
+    keeps as it is.
     """
     validate_config(cfg, problem.reg_name)
     _refuse_dense_ragged(problem, cfg)
-    mesh = _resolve_mesh(problem, cfg, mesh, device)
+    mesh = _resolve_mesh(problem, cfg, mesh, device, num_tasks)
     dev = resolve_device(device) if mesh is None else mesh.device
-    num_tasks = problem.num_tasks
     if mesh is None:
         require_problem_on(problem, dev)
-    else:
+    elif num_tasks is None:
         problem = shard_problem(problem, mesh)
+    else:
+        require_problem_on(problem, dev)
+    if num_tasks is None:
+        num_tasks = problem.num_tasks * (1 if mesh is None else mesh.size)
     per_step = cfg.event_batch if cfg.engine in ("batch", "sharded") else 1
     init_fn = {"dense": init_state, "delta": init_delta_state,
                "batch": init_batch_state}.get(cfg.engine)
@@ -994,6 +1009,33 @@ def local_state(state: ShardedAMTLState, cfg: AMTLConfig,
     cols = slice(mesh.rank * n_local, (mesh.rank + 1) * n_local)
     return _map_placed(state, cfg, lambda x: x[:, cols].contiguous(),
                        lambda x: x[mesh.rank:mesh.rank + 1].clone())
+
+
+def place_rings(ring: Tensor, task_ring, num_tasks: int,
+                shards: int | None) -> Tensor:
+    """Undo rings placed for `shards` ranks, (shards, tau+1, d) as the
+    sharded engine's global view holds them, or as the one (tau+1, d)
+    ring of the delta and batch engines (`shards` None), from either
+    layout.
+
+    Slot s holds the undo entry of an event of task task_ring[s]; the
+    entry is valid on the rank that owns that task, and goes to the rank
+    that owns it under the new placement.  A slot of another rank's task
+    is never read (a rollback restores the rank's own columns) and is
+    zero.  So a record of any rank count resumes at any other, its runs
+    bitwise the uninterrupted run's.
+    """
+    depth = ring.shape[-2]
+    slots = torch.arange(depth, device=ring.device)
+    tasks = torch.as_tensor(np.asarray(task_ring, np.int64),
+                            device=ring.device)
+    if ring.ndim == 3:
+        ring = ring[tasks // (num_tasks // ring.shape[0]), slots]
+    if shards is None:
+        return ring.contiguous()
+    out = ring.new_zeros((shards, *ring.shape))
+    out[tasks // (num_tasks // shards), slots] = ring
+    return out
 
 
 def default_config(problem: MTLProblem, tau: int = 4, c: float = 0.9,

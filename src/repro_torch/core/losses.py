@@ -150,6 +150,14 @@ class MTLProblem(NamedTuple):
     def device(self) -> torch.device:
         return self.xs.device
 
+    def to(self, device) -> "MTLProblem":
+        """The problem with its tensors on `device` (the same tensors
+        where they are there already)."""
+        return self._replace(**{
+            f: None if getattr(self, f) is None
+            else getattr(self, f).to(device)
+            for f in ("xs", "ys", "row_counts")})
+
     def host_row_counts(self) -> np.ndarray:
         """(T,) int64 valid-row counts on the host (n everywhere when the
         problem is uniform).  Reads the device once."""

@@ -56,7 +56,7 @@ class TaskStore:
     """Ragged task cohorts over a shared padded buffer; see module doc."""
 
     def __init__(self, xs, ys, row_counts, loss_name: str, reg_name: str,
-                 lam: float):
+                 lam: float, *, copy: bool = True):
         xs = np.asarray(xs, np.float32)
         ys = np.asarray(ys, np.float32)
         row_counts = np.asarray(row_counts, np.int32)
@@ -70,8 +70,9 @@ class TaskStore:
             raise ValueError(
                 f"row_counts must lie in [0, cap={xs.shape[1]}]; "
                 f"got {row_counts.tolist()}")
-        self._xs = xs.copy()
-        self._ys = ys.copy()
+        # copy=False adopts arrays the caller hands over (a record read)
+        self._xs = xs.copy() if copy else xs
+        self._ys = ys.copy() if copy else ys
         self._row_counts = row_counts.copy()
         self._loss_name = loss_name
         self._reg_name = reg_name
@@ -82,11 +83,14 @@ class TaskStore:
 
     @classmethod
     def from_problem(cls, problem: MTLProblem) -> "TaskStore":
-        """Adopt a problem's buffers; capacity is exactly the problem's n."""
+        """Adopt a problem's buffers; capacity is exactly the problem's n.
+        A device problem's host copies are adopted as they are; a host
+        problem's tensors are copied."""
+        on_host = problem.xs.device.type == "cpu"
         return cls(problem.xs.detach().cpu().numpy(),
                    problem.ys.detach().cpu().numpy(),
                    problem.host_row_counts(), problem.loss_name,
-                   problem.reg_name, problem.lam)
+                   problem.reg_name, problem.lam, copy=on_host)
 
     @classmethod
     def from_ragged(cls, xs_list: Sequence, ys_list: Sequence,
@@ -156,12 +160,15 @@ class TaskStore:
 
     # ---------------------------------------------------------- appends ---
 
-    def append(self, task_ids, features, labels) -> int:
+    def append(self, task_ids, features, labels,
+               capacity: int | None = None) -> int:
         """Append labelled rows (one per task id) in arrival order.
 
         task_ids (k,) int, features (k, d) float, labels (k,) float.  Rows
         land at each task's current row count; capacity doubles (all tasks
-        share one capacity) until every row fits.  Returns k.
+        share one capacity) until every row fits, and until `capacity`
+        rows fit where it is given (a store that holds some tasks of a
+        larger one grows with the whole: `serve.lockstep`).  Returns k.
         """
         task_ids = np.atleast_1d(np.asarray(task_ids, np.int64))
         features = np.asarray(features, np.float32)
@@ -174,17 +181,18 @@ class TaskStore:
                 f"append expects features ({k}, {self.dim}) and labels "
                 f"({k},) for {k} task ids; got {features.shape} and "
                 f"{labels.shape}")
-        if k == 0:
-            return 0
         if (task_ids < 0).any() or (task_ids >= self.num_tasks).any():
             raise ValueError(
                 f"task_ids must lie in [0, {self.num_tasks}); "
                 f"got {np.unique(task_ids).tolist()}")
         final = self._row_counts.copy()
         np.add.at(final, task_ids, 1)
-        need = int(final.max())
+        need = max(int(final.max()), capacity or 0)
         if need > self.capacity:
             self._grow(need)
+            self._problems.clear()
+        if k == 0:
+            return 0
         for t, x_row, y in zip(task_ids, features, labels):
             r = self._row_counts[t]
             self._xs[t, r] = x_row
@@ -193,7 +201,8 @@ class TaskStore:
         self._problems.clear()
         return k
 
-    def append_undoable(self, task_ids, features, labels) -> StoreUndo:
+    def append_undoable(self, task_ids, features, labels,
+                        capacity: int | None = None) -> StoreUndo:
         """`append` plus an undo token that restores the store BITWISE
         (buffers, counts and capacity); one outstanding undo at a time."""
         task_ids = np.atleast_1d(np.asarray(task_ids, np.int64))
@@ -208,7 +217,7 @@ class TaskStore:
                 if r < old_cap:
                     slots.append((int(t), r, self._xs[t, r].copy(),
                                   self._ys[t, r].copy()))
-        self.append(task_ids, features, labels)
+        self.append(task_ids, features, labels, capacity)
         return StoreUndo(old_cap, old_counts, slots)
 
     def rollback(self, undo: StoreUndo) -> None:
@@ -238,6 +247,14 @@ class TaskStore:
     def state(self) -> TaskStoreState:
         return TaskStoreState(self._xs.copy(), self._ys.copy(),
                               self._row_counts.copy())
+
+    def buffers(self) -> TaskStoreState:
+        """The buffers themselves, read-only views (no copy: a shard's
+        record part or digest)."""
+        views = [a.view() for a in (self._xs, self._ys, self._row_counts)]
+        for a in views:
+            a.flags.writeable = False
+        return TaskStoreState(*views)
 
     def save(self, ckpt_dir: str, step: int,
              keep_last: int | None = None) -> str:

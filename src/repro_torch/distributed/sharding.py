@@ -20,6 +20,8 @@ The collectives the engine needs, each on the mesh's group:
                    per-rank undo rings, for a checkpoint)
   sum_partials     the elementwise sum over ranks (the distributed prox's
                    (d, p) partial sketches)
+  broadcast        rank 0's tensor on every rank (the lockstep server's
+                   folded rows, `serve.lockstep`)
   barrier
 
 At one rank each is the identity: no process group, no copy.  The
@@ -27,10 +29,11 @@ tensors stay on the rank's device: gloo takes CUDA tensors in all_gather
 and all_reduce (it copies them through host memory itself; checked on an
 H100 with PyTorch 2.11), NCCL takes them on the card.
 `collective_stats` counts each call, its host seconds (until the call
-returns) and the bytes of its result.
+returns), the bytes of its result and the threads that issued them.
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any
 
@@ -39,7 +42,8 @@ import torch.distributed as dist
 
 TASK_AXIS = "tasks"
 
-_STATS = {"calls": 0, "seconds": 0.0, "bytes": 0}
+_STATS: dict[str, Any] = {"calls": 0, "seconds": 0.0, "bytes": 0,
+                          "threads": set()}
 
 
 def task_shard_specs() -> dict[str, tuple[str, ...]]:
@@ -87,19 +91,22 @@ def prox_cache_spec(prox_mode: str, carried: bool) -> str:
 
 
 def collective_stats() -> dict[str, Any]:
-    """Calls, seconds and result bytes of the collectives since the last
+    """Calls, seconds, result bytes and issuing threads (their
+    `threading.get_ident()`) of the collectives since the last
     `reset_collective_stats` (in this process)."""
-    return dict(_STATS)
+    return dict(_STATS, threads=set(_STATS["threads"]))
 
 
 def reset_collective_stats() -> None:
-    _STATS.update(calls=0, seconds=0.0, bytes=0)
+    _STATS.update(calls=0, seconds=0.0, bytes=0, threads=set())
 
 
-def _record(t0: float, out: torch.Tensor) -> torch.Tensor:
+def _record(t0: float, out: torch.Tensor | None) -> torch.Tensor | None:
     _STATS["calls"] += 1
     _STATS["seconds"] += time.perf_counter() - t0
-    _STATS["bytes"] += out.numel() * out.element_size()
+    if out is not None:
+        _STATS["bytes"] += out.numel() * out.element_size()
+    _STATS["threads"].add(threading.get_ident())
     return out
 
 
@@ -139,8 +146,20 @@ def sum_partials(x: torch.Tensor, mesh) -> torch.Tensor:
     return _record(t0, out)
 
 
+def broadcast(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Rank 0's x on every rank (x is overwritten on the others; its
+    shape and dtype must agree).  The identity at one rank."""
+    if mesh is None or mesh.size == 1:
+        return x
+    t0 = time.perf_counter()
+    dist.broadcast(x, src=0, group=mesh.group)
+    return _record(t0, x)
+
+
 def barrier(mesh) -> None:
     """Wait for every rank of the mesh (nothing at one rank)."""
     if mesh is None or mesh.size == 1:
         return
+    t0 = time.perf_counter()
     dist.barrier(group=mesh.group)
+    _record(t0, None)

@@ -66,11 +66,14 @@ def make_problem(seed: int, dev, d: int, t: int, n: int, lam: float,
             offs.to(torch.float32).cpu().numpy())
 
 
-def make_store(seed: int, t: int, d: int, lo: int, hi: int, lam: float):
+def make_store(seed: int, t: int, d: int, lo: int, hi: int, lam: float,
+               tasks: range | None = None):
     """Ragged lstsq/nuclear cohorts of rng.integers(lo, hi) rows drawn
     from `seed`, rows N(0, 1/d), labels x w*_t + noise with a rank-4 W*,
     padded by a TaskStore.  Returns the store and a maker of further
-    labelled rows of task t."""
+    labelled rows of task t.  With `tasks` (a range) the store holds those
+    tasks alone, padded to the whole store's capacity: every task's rows
+    are drawn, in turn, and the others' dropped."""
     rng = np.random.default_rng(seed + 2)
     sizes = rng.integers(lo, hi, size=t)
     w_star = (rng.standard_normal((d, 4), dtype=np.float32)
@@ -82,8 +85,18 @@ def make_store(seed: int, t: int, d: int, lo: int, hi: int, lam: float):
             k, dtype=np.float32)
         return x, y
 
-    xs, ys = zip(*(rows(i, int(n)) for i, n in enumerate(sizes)))
-    return TaskStore.from_ragged(xs, ys, "lstsq", "nuclear", lam), rows
+    if tasks is None:
+        xs, ys = zip(*(rows(i, int(n)) for i, n in enumerate(sizes)))
+        return TaskStore.from_ragged(xs, ys, "lstsq", "nuclear", lam), rows
+    cap = int(sizes.max())
+    xs = np.zeros((len(tasks), cap, d), np.float32)
+    ys = np.zeros((len(tasks), cap), np.float32)
+    for i, n in enumerate(sizes):
+        x, y = rows(i, int(n))
+        if i in tasks:
+            xs[i - tasks.start, :n], ys[i - tasks.start, :n] = x, y
+    return TaskStore(xs, ys, sizes[tasks.start:tasks.stop], "lstsq",
+                     "nuclear", lam), rows
 
 
 def _problem(p: dict, dev):

@@ -18,7 +18,10 @@ gloo when the ranks share one card or run on the CPU.  A failed init
 raises; nothing falls back.  A rank that raises, or a world that does not
 finish within `timeout`, raises in the parent with the rank's traceback,
 and every rank is stopped; a collective that waits longer than
-`collective_timeout` raises in its rank.
+`collective_timeout` raises in its rank.  A rank that dies without a
+result (a signal, the host's OOM killer) is named with its signal, and
+the other ranks' reports, each due within the collective timeout, are
+awaited and joined to the error.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import datetime
 import os
 import queue as queue_mod
 import shutil
+import signal
 import tempfile
 import time
 import traceback
@@ -140,6 +144,56 @@ def _rank_main(rank: int, n: int, init_file: str, backend: str,
         raise
 
 
+def exit_reason(code: int) -> str:
+    """A dead process's exit code in words: the signal that killed it
+    (a negative code), or the code."""
+    if code is not None and code < 0:
+        try:
+            name = signal.Signals(-code).name
+        except ValueError:
+            name = f"signal {-code}"
+        why = (" (the host's OOM killer is the usual cause)"
+               if -code == signal.SIGKILL else "")
+        return f"was killed by {name}{why}"
+    return f"exited with code {code}"
+
+
+def _world_error(procs, out: dict, results, n: int, reports: list,
+                 wait_s: float) -> RuntimeError:
+    """The error of a world with a failed or dead rank: every rank that
+    died without a result, named with its signal, then every failure
+    report, after waiting up to `wait_s` for the ranks still running to
+    report or die (each raises within its collective timeout)."""
+    reported = {r for r, _ in reports} | set(out)
+    deadline = time.monotonic() + wait_s
+    while time.monotonic() < deadline:
+        running = [r for r in range(n) if r not in reported
+                   and procs[r].exitcode is None]
+        if not running:
+            break
+        try:
+            rank, ok, val = results.get(timeout=0.5)
+        except queue_mod.Empty:
+            continue
+        reported.add(rank)
+        if not ok:
+            reports.append((rank, val))
+    try:                      # a report that raced its rank's exit
+        while True:
+            rank, ok, val = results.get_nowait()
+            reported.add(rank)
+            if not ok:
+                reports.append((rank, val))
+    except queue_mod.Empty:
+        pass
+    dead = [f"rank {r} {exit_reason(procs[r].exitcode)} without a result"
+            for r in range(n)
+            if r not in reported and procs[r].exitcode is not None]
+    return RuntimeError("\n".join(
+        dead + [f"rank {r} of {n} failed:\n{val}"
+                for r, val in sorted(reports)]))
+
+
 def run_world(fn: Callable, n: int, *args, device: str = "cuda",
               timeout: float = 600.0, collective_timeout: float = 120.0,
               workdir: str | None = None,
@@ -188,13 +242,16 @@ def run_world(fn: Callable, n: int, *args, device: str = "cuda",
                     try:
                         rank, ok, val = results.get(timeout=1.0)
                     except queue_mod.Empty:
-                        raise RuntimeError(
-                            f"rank {dead[0]} exited with code "
-                            f"{procs[dead[0]].exitcode} without a result")
+                        raise _world_error(
+                            procs, out, results, n, [],
+                            min(collective_timeout + 10.0,
+                                max(0.0, deadline - time.monotonic())))
                 else:
                     continue
             if not ok:
-                raise RuntimeError(f"rank {rank} of {n} failed:\n{val}")
+                raise _world_error(procs, out, results, n, [(rank, val)],
+                                   min(5.0, max(0.0, deadline -
+                                                time.monotonic())))
             out[rank] = val
         for p in procs:
             p.join(timeout=30.0)

@@ -22,7 +22,11 @@ single-threaded chunk runner):
   * `crash_on_chunks`: raise `InjectedFault` in the chunk runner just
     before the k-th runnable chunk's `engine.run`.  The chunk's
     coalesced events are lost — the platform's documented at-most-once
-    crash window — and a supervised learner auto-restarts past it.
+    crash window — and a supervised learner auto-restarts past it.  On a
+    lockstep rank (`serve.lockstep`) it fires before the boundary that
+    may run chunk k, ahead of the boundary's first collective: nothing is
+    consumed, and the restarted learner joins the same boundary.  Each
+    index fires once.
   * `poison_iterate_on_chunks`: overwrite the k-th chunk's materialized
     iterate with NaN before the snapshot flip, exercising the
     non-finite guard (quarantine + state/store rollback).
@@ -76,6 +80,7 @@ class FaultPlan:
         self._chunk_i = 0
         self._fb_i = 0
         self._ckpt_i = 0
+        self._crashed: set[int] = set()
 
     # ------------------------------------------------------ server hooks --
 
@@ -86,9 +91,16 @@ class FaultPlan:
         self._chunk_i += 1
         return idx
 
+    @property
+    def next_chunk(self) -> int:
+        """The index `begin_chunk` gives next."""
+        return self._chunk_i
+
     def crash_point(self, chunk_idx: int) -> None:
-        """Raise if chunk `chunk_idx` is scripted to crash the runner."""
-        if chunk_idx in self._crash:
+        """Raise if chunk `chunk_idx` is scripted to crash the runner and
+        has not crashed it yet."""
+        if chunk_idx in self._crash and chunk_idx not in self._crashed:
+            self._crashed.add(chunk_idx)
             raise InjectedFault(
                 f"scripted learner crash at chunk {chunk_idx}")
 

@@ -36,6 +36,14 @@ moves that loop onto its own daemon thread:
     the learner joinable again: a later `stop()`/`join()` retries
     cleanly and still surfaces the captured exception exactly once.
 
+On a lockstep world (`serve.lockstep`) the thread is the rank's one
+issuer of collectives while it runs.  Rank 0's loop decides: it runs a
+boundary whenever it has something to send (a chunk, rows, a handed
+checkpoint) or a heartbeat is due, and on `stop()` it drains (or not)
+and sends STOP.  Every other rank's loop joins each boundary and ends on
+rank 0's STOP, or on a breaker flag from any rank; its own `stop()` only
+waits for that.
+
 `LearnerSupervisor` wraps a `BackgroundLearner` with the same
 start/wake/stop surface plus bounded auto-restart: a monitor thread
 waits on the learner's exit event, and on a crash either restarts it
@@ -47,6 +55,8 @@ circuit breaker: the server latches into frozen-serving mode
 (predictions keep flowing, feedback is rejected with a "breaker"
 receipt reason) and the terminal exception surfaces on `stop()`.  A
 dead learner heals or it declares itself down — never silently frozen.
+On a lockstep world the tripped rank's learner then runs once more, to
+carry the breaker flag to every rank at the next boundary.
 """
 from __future__ import annotations
 
@@ -92,6 +102,11 @@ class BackgroundLearner:
         self._stop.clear()
         self._wake.clear()
         self._draining = False
+        self.restart()
+
+    def restart(self) -> None:
+        """A new loop thread after a crash; a stop already asked for
+        stands."""
         self._exit.clear()
         self._thread = threading.Thread(
             target=self._loop, name=self._name, daemon=True)
@@ -111,10 +126,14 @@ class BackgroundLearner:
         boundary, leaving the rest queued.  Re-raises any exception the
         learner thread died with.
         """
+        self.request_stop(drain)
+        return self.join(timeout)
+
+    def request_stop(self, drain: bool) -> None:
+        """Ask the loop to stop (see `stop`) without waiting for it."""
         self._draining = drain
         self._stop.set()
         self._wake.set()
-        return self.join(timeout)
 
     def join(self, timeout: Optional[float] = None) -> int:
         """Join the thread (if any) and surface its exception.
@@ -156,22 +175,49 @@ class BackgroundLearner:
     # --------------------------------------------------------------- loop
     def _loop(self) -> None:
         try:
-            while True:
-                if self._stop.is_set() and not self._draining:
-                    break
-                ran = self._server._step_once()
-                if ran:
-                    self.chunks += 1
-                    self.events += ran
-                    continue
-                if self._stop.is_set():
-                    break               # drained: no runnable chunk left
-                self._wake.wait(self._idle_wait_s)
-                self._wake.clear()
+            lockstep = getattr(self._server, "lockstep", None)
+            if lockstep is None:
+                self._serial_loop()
+            else:
+                self._lockstep_loop(lead=lockstep.rank == 0)
         except BaseException as e:      # surfaced on stop()/join()
             self._exc = e
         finally:
             self._exit.set()
+
+    def _ran(self, n: int) -> bool:
+        if n:
+            self.chunks += 1
+            self.events += n
+        return bool(n)
+
+    def _idle(self) -> None:
+        self._wake.wait(self._idle_wait_s)
+        self._wake.clear()
+
+    def _serial_loop(self) -> None:
+        while True:
+            if self._stop.is_set() and not self._draining:
+                break
+            if self._ran(self._server._step_once()):
+                continue
+            if self._stop.is_set():
+                break               # drained: no runnable chunk left
+            self._idle()
+
+    def _lockstep_loop(self, lead: bool) -> None:
+        server = self._server
+        while not server.world_stopped:
+            if lead and self._stop.is_set() and not self._draining:
+                server._boundary(final=True)
+                break
+            if self._ran(server._boundary(idle=lead)) or not lead \
+                    or server.world_stopped:
+                continue
+            if self._stop.is_set():     # drained: STOP ends every loop
+                server._boundary(final=True)
+                break
+            self._idle()
 
 
 class LearnerSupervisor:
@@ -206,8 +252,10 @@ class LearnerSupervisor:
     def running(self) -> bool:
         # The monitor IS the supervised learner's liveness: it stays up
         # through crash/backoff gaps where the learner thread is dead
-        # but the system is still healing.
-        return self._monitor is not None and self._monitor.is_alive()
+        # but the system is still healing (and a lockstep rank's learner
+        # carrying its breaker flag outlives it).
+        return (self._monitor is not None and self._monitor.is_alive()) \
+            or self._learner.running
 
     @property
     def chunks(self) -> int:
@@ -245,6 +293,11 @@ class LearnerSupervisor:
         """
         self._stop_evt.set()
         exc: Optional[BaseException] = None
+        if getattr(self._server, "lockstep", None) is not None:
+            # the world ends the loop (rank 0's STOP); the monitor heals
+            # the rank's learner until then
+            self._learner.request_stop(drain)
+            self._join_monitor(timeout)
         try:
             events = self._learner.stop(drain=drain, timeout=timeout)
         except TimeoutError:
@@ -252,6 +305,14 @@ class LearnerSupervisor:
         except BaseException as e:
             exc = e  # crash during the stop-drain window
             events = self._learner.events
+        self._join_monitor(timeout)
+        pending, self._pending_exc = self._pending_exc, None
+        exc = exc if exc is not None else pending
+        if exc is not None:
+            raise exc
+        return events
+
+    def _join_monitor(self, timeout: Optional[float]) -> None:
         monitor = self._monitor
         if monitor is not None:
             monitor.join(timeout)
@@ -260,34 +321,41 @@ class LearnerSupervisor:
                     f"learner supervisor did not stop within {timeout}s; "
                     "retry stop()")
             self._monitor = None
-        pending, self._pending_exc = self._pending_exc, None
-        exc = exc if exc is not None else pending
-        if exc is not None:
-            raise exc
-        return events
 
     # -------------------------------------------------------------- monitor
     def _run(self) -> None:
+        # A lockstep rank's loop ends when the world stops, so a stop()
+        # never cuts its heal short: the other ranks wait at the boundary.
+        lockstep = getattr(self._server, "lockstep", None) is not None
         while True:
             self._learner.exited.wait()
-            if self._stop_evt.is_set():
+            if self._stop_evt.is_set() and not lockstep:
                 return
             exc = self._learner.take_exception()
             if exc is None:
-                return  # clean exit without stop(): nothing to heal
+                return  # clean exit: drained, or the world stopped
             self.crashes += 1
             self.crash_log.append(repr(exc))
             if self.restarts >= self.limit:
                 self._pending_exc = exc
                 self.breaker_tripped = True
                 self._server._trip_breaker(exc)
+                if lockstep:
+                    # once more, to carry BREAKER to every rank; if the
+                    # world is gone that fails too, and the trip stands
+                    self._learner.restart()
+                    self._learner.exited.wait()
+                    self._learner.take_exception()
                 return
             started = time.perf_counter()
-            if self._stop_evt.wait(self.backoff_s * (2.0 ** self.restarts)):
+            backoff = self.backoff_s * (2.0 ** self.restarts)
+            if lockstep:
+                time.sleep(backoff)
+            elif self._stop_evt.wait(backoff):
                 self._pending_exc = exc  # stop cut the heal short
                 return
             self.restarts += 1
-            self._learner.start()
+            self._learner.restart()
             self._learner.wake()
             self.recovery_ms.append(
                 1e3 * (time.perf_counter() - started))

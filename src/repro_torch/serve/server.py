@@ -26,12 +26,28 @@ problem and engine objects are never rebuilt.  The store is created
 lazily (`TaskStore.from_problem`) at the first fold; its initial capacity
 is exactly the problem's row budget.
 
-The sharded engine (engine="sharded") serves on a 1-rank mesh
-(`launch.mesh.make_task_mesh(1)`, the default outside a
-`torch.distributed` world), where its state is the batch engine's; a
-mesh of more than one rank raises NotImplementedError (ranks stepping
-in lockstep behind one server are ROADMAP.md Queue 1's multi-rank
-serving item).
+The sharded engine (engine="sharded") serves on the mesh it is given
+(`launch.mesh.make_task_mesh`; one rank outside a `torch.distributed`
+world, where its state is the batch engine's).  On a mesh of n > 1
+ranks the server is SPMD: every rank makes the same calls, and the
+ranks step in lockstep (`serve.lockstep`): rank 0's admission and
+coalescing decide each boundary, one exchange of small host headers and
+a broadcast of the folded rows carry the decision, each rank keeps only
+its own tasks' rows (its block of the problem on its device, its shard
+of the store on the host), and the flip gathers the (d, T) iterate that
+every rank serves.  `problem` is the global problem or the rank's
+block of it (T / n of v0's T tasks).  The results are the one-rank
+server's: bitwise with the replicated prox, the event stream bitwise and
+the iterate to float32 rounding with the distributed one.  Rank 0's
+receipts are the world's decision: the world folds and runs exactly what
+rank 0 accepted.  Another rank's receipts are advisory.  It replays the
+admission against its own queue, which trails rank 0's by up to a
+boundary while a learner runs, so under the per-task cap or SLO
+shedding its receipts can differ from rank 0's (in the cooperative
+loop, without shedding, they are equal).  A scripted crash (`FaultPlan.crash_on_chunks`) fires before a boundary's
+first collective, so nothing is lost: the restarted learner joins the
+same boundary.  A breaker that latches on any rank latches every rank's
+at the next boundary.
 
 Device and streams.  The server runs on the card unless the caller
 passes device="cpu" (`repro_torch.device.resolve_device`; no fallback).
@@ -143,16 +159,22 @@ import torch
 
 from repro_torch import checkpoint
 from repro_torch.checkpoint import CheckpointCorruptError
-from repro_torch.core.amtl import AMTLConfig, make_engine
+from repro_torch.core.amtl import AMTLConfig, make_engine, shard_problem
 from repro_torch.core.losses import MTLProblem, get_loss
 from repro_torch.data.store import TaskStore
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import gather_columns
 from repro_torch.launch.mesh import make_task_mesh
+from repro_torch.serve import lockstep as ls_mod
 from repro_torch.serve.admission import make_controller
 from repro_torch.serve.faults import FaultPlan
 from repro_torch.serve.learner import BackgroundLearner, LearnerSupervisor
 
 Tensor = torch.Tensor
+
+# a lockstep world's rank 0 exchanges a header at least this often while
+# its learner idles, so that no other rank's collective times out
+HEARTBEAT_S = 1.0
 
 
 class ServeConfig(NamedTuple):
@@ -269,29 +291,42 @@ class AMTLServer:
                  device: torch.device | str | None = None,
                  mesh=None, delay_offsets=None,
                  fault_plan: Optional[FaultPlan] = None):
-        self._configure(problem, cfg, serve_cfg, device=device, mesh=mesh,
-                        delay_offsets=delay_offsets, fault_plan=fault_plan)
+        self._configure(problem, cfg, serve_cfg, v0, device=device,
+                        mesh=mesh, delay_offsets=delay_offsets,
+                        fault_plan=fault_plan)
         with self._on_stream():
             state = self.engine.init(v0, key)
         self._install_state(state)
 
     def _configure(self, problem: MTLProblem, cfg: AMTLConfig,
-                   serve_cfg: ServeConfig, *,
+                   serve_cfg: ServeConfig, v0, *,
                    device: torch.device | str | None = None,
                    mesh=None, delay_offsets=None,
                    fault_plan: Optional[FaultPlan] = None) -> None:
         """Everything construction-time except building/serving a state
-        (shared by `__init__` and `resume`)."""
+        (shared by `__init__` and `resume`).  On a mesh of n > 1 ranks a
+        collective: the ranks' row counts are gathered."""
         self.device = resolve_device(device)
         if cfg.engine == "sharded" and mesh is None:
             mesh = make_task_mesh(device=self.device)
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                f"AMTLServer serves the sharded engine on a 1-rank mesh; a "
-                f"mesh of {mesh.size} ranks needs ranks stepping in "
-                "lockstep behind one server (ROADMAP.md Queue 1, multi-rank "
-                "serving after item 9)")
         self.mesh = mesh
+        self.num_tasks = problem.num_tasks
+        self._lockstep = None
+        self._counts = None               # lockstep: the whole store's
+        if mesh is not None and mesh.size > 1:
+            self.num_tasks = int(v0.shape[-1])
+            self._lockstep = ls_mod.Lockstep(mesh, self.num_tasks)
+            if problem.num_tasks == self.num_tasks:
+                problem = shard_problem(problem, mesh)
+            elif problem.num_tasks == self._lockstep.n_local:
+                problem = problem.to(mesh.device)
+            else:
+                raise ValueError(
+                    f"the problem holds {problem.num_tasks} tasks: v0's "
+                    f"{self.num_tasks} or a rank's block of "
+                    f"{self._lockstep.n_local}")
+            self._counts = self._lockstep.global_counts(
+                problem.host_row_counts())
         self.problem = problem
         self.cfg = cfg
         self.serve_cfg = serve_cfg
@@ -344,11 +379,13 @@ class AMTLServer:
         # faults armed (each hook is an integer compare).
         self._faults = fault_plan if fault_plan is not None else FaultPlan()
         self._delay_offsets = delay_offsets
-        self._pending = np.zeros(problem.num_tasks, np.int64)
+        self._pending = np.zeros(self.num_tasks, np.int64)
         # Label-carrying feedback: accepted (task_id, x_row, y) rows in
         # arrival order, folded into the store at the next chunk
-        # boundary; the store is created lazily at the first fold.
-        self._pending_rows: list[tuple[int, np.ndarray, np.float32]] = []
+        # boundary; the store is created lazily at the first fold.  A
+        # lockstep rank other than 0 keeps (task_id, None, None): rank 0
+        # broadcasts the rows it folds.
+        self._pending_rows: list[tuple[int, Any, Any]] = []
         self._store: Optional[TaskStore] = None
         self._rr = 0                       # rotating round-robin offset
         self.chunk_log: list[int] = []     # coalesced chunk sizes, in order
@@ -370,12 +407,30 @@ class AMTLServer:
         self._n_nonfinite_chunks = 0   # chunks discarded by the guard
         self._n_quarantined = 0        # events quarantined by the guard
         self._quarantine_log: list[dict[int, int]] = []  # per-task counts
+        # Lockstep: the world's learner loops ended (STOP or BREAKER), a
+        # threaded checkpoint handed to the learner (asked, flagged by
+        # rank 0, done), and the boundaries' telemetry.
+        self.world_stopped = False
+        self._ckpt_cv = threading.Condition()
+        self._ckpt_asked = self._ckpt_flagged = self._ckpt_done = 0
+        self._ckpt_path: Optional[str] = None
+        self._last_exchange = time.monotonic()
+        self._wire = {"boundaries": 0, "folds": 0, "fold_s": 0.0,
+                      "fold_bytes": 0, "gathers": 0, "gather_s": 0.0}
+
+    @property
+    def lockstep(self) -> Optional[ls_mod.Lockstep]:
+        """The rank's side of a lockstep world (None at one rank)."""
+        return self._lockstep
 
     def _make_engine(self, problem: MTLProblem):
         """The server's engine on `problem` (the mesh goes along only for
-        the sharded engine)."""
+        the sharded engine; a lockstep rank's problem is its block)."""
         if self.mesh is None:
             return make_engine(problem, self.cfg, self.device)
+        if self._lockstep is not None:
+            return make_engine(problem, self.cfg, self.device, self.mesh,
+                               num_tasks=self.num_tasks)
         return make_engine(problem, self.cfg, self.device, self.mesh)
 
     def _on_stream(self):
@@ -417,9 +472,9 @@ class AMTLServer:
                 f"features must be (len(task_ids), d) = "
                 f"({t.shape[0]}, {self.problem.dim}), got "
                 f"{tuple(x.shape)}")
-        if t.size and (t.min() < 0 or t.max() >= self.problem.num_tasks):
+        if t.size and (t.min() < 0 or t.max() >= self.num_tasks):
             raise ValueError(
-                f"task_ids must be in [0, {self.problem.num_tasks}), got "
+                f"task_ids must be in [0, {self.num_tasks}), got "
                 f"range [{t.min()}, {t.max()}]")
         snap = self._serving                  # ONE atomic reference read
         if self._stream is not None:
@@ -472,12 +527,14 @@ class AMTLServer:
         (the receipt's `reason` says why).  A row whose features or label
         are not finite is rejected at admission with its event.
         Label-free items are pure event triggers against the standing
-        data.  Thread-safe; wakes a running learner."""
+        data.  Thread-safe; wakes a running learner.  On a lockstep world
+        only rank 0's receipt is the world's decision; another rank's is
+        advisory (see the module doc)."""
         t = np.asarray(task_ids, np.int64).reshape(-1)
-        if t.size and (t.min() < 0 or t.max() >= self.problem.num_tasks):
+        if t.size and (t.min() < 0 or t.max() >= self.num_tasks):
             raise ValueError(
                 f"feedback task_ids must be in "
-                f"[0, {self.problem.num_tasks}), got range "
+                f"[0, {self.num_tasks}), got range "
                 f"[{t.min()}, {t.max()}]")
         if (features is None) != (labels is None):
             raise ValueError("features and labels must be given together "
@@ -521,6 +578,7 @@ class AMTLServer:
             finite = (np.isfinite(rows[0]).all(axis=1)
                       & np.isfinite(rows[1]))
         cap = self.serve_cfg.max_pending_per_task
+        keep = self._lockstep is None or self._lockstep.rank == 0
         accepted = rejected = nonfinite = 0
         with self._queue_lock:
             for i, ti in enumerate(t):
@@ -533,7 +591,8 @@ class AMTLServer:
                     self._pending[ti] += 1
                     if rows is not None:
                         self._pending_rows.append(
-                            (int(ti), rows[0][i], rows[1][i]))
+                            (int(ti), rows[0][i], rows[1][i]) if keep
+                            else (int(ti), None, None))
                     accepted += 1
         with self._stats_lock:
             self._n_rejected += rejected
@@ -564,7 +623,7 @@ class AMTLServer:
                   else self.serve_cfg.chunk_events)
         quota = self.serve_cfg.task_chunk_quota
         quota = budget if quota is None else quota
-        num_tasks = self.problem.num_tasks
+        num_tasks = self.num_tasks
         with self._queue_lock:
             order = [(self._rr + i) % num_tasks for i in range(num_tasks)]
             taken = np.zeros(num_tasks, np.int64)
@@ -618,21 +677,76 @@ class AMTLServer:
         store_undo = self._store.append_undoable(tids, xs, ys)
         self.problem = self._store.problem(self.device)
         self.engine = self._make_engine(self.problem)
-        return (store_undo, prev[0], prev[1], created)
+        return (store_undo, prev[0], prev[1], created, None)
+
+    def _fold_rows_lockstep(self, ids: np.ndarray, xs: np.ndarray,
+                            ys: np.ndarray) -> tuple:
+        """A lockstep rank's fold of the rows rank 0 broadcast: its own
+        tasks' rows into its shard (created from its block at the first
+        fold), grown with the whole store; its block re-uploaded and the
+        engine rebuilt on it.  Returns `_fold_pending_rows`' undo record
+        with the previous whole-store counts."""
+        t0 = time.perf_counter()
+        created = self._store is None
+        if created:
+            self._store = TaskStore.from_problem(self.problem)
+        prev = (self.problem, self.engine, self._counts)
+        store_undo, self._counts = self._lockstep.fold(
+            self._store, self._counts, ids, xs, ys)
+        self.problem = self._store.problem(self.device)
+        self.engine = self._make_engine(self.problem)
+        if self._stream is not None:
+            self._stream.synchronize()        # the upload, for the timing
+        nbytes = sum(x.numel() * x.element_size() for x in
+                     (self.problem.xs, self.problem.ys,
+                      self.problem.row_counts))
+        with self._stats_lock:
+            self._wire["folds"] += 1
+            self._wire["fold_s"] += time.perf_counter() - t0
+            self._wire["fold_bytes"] += nbytes
+        return (store_undo, prev[0], prev[1], created, prev[2])
 
     def _unfold_rows(self, fold: Optional[tuple]) -> None:
-        """Unwind one `_fold_pending_rows` (state lock held): the store,
-        problem, and engine return bitwise to their pre-fold snapshots.
-        A store created BY the rolled-back fold is discarded outright."""
+        """Unwind one fold (state lock held): the store, problem, and
+        engine (and a lockstep rank's whole-store counts) return bitwise
+        to their pre-fold snapshots.  A store created BY the rolled-back
+        fold is discarded outright."""
         if fold is None:
             return
-        store_undo, prev_problem, prev_engine, created = fold
+        store_undo, prev_problem, prev_engine, created, prev_counts = fold
         if created:
             self._store = None
         else:
             self._store.rollback(store_undo)
         self.problem = prev_problem
         self.engine = prev_engine
+        if prev_counts is not None:
+            self._counts = prev_counts
+
+    def _commit(self, state, v: Tensor, n: int, taken: np.ndarray,
+                fold: Optional[tuple]) -> bool:
+        """The non-finite guard and the flip of a chunk's `state` with
+        iterate `v` (state lock held).  A non-finite v discards the chunk:
+        the state, snapshot and chunk log stay, the fold unwinds bitwise
+        and the chunk's events are logged per task, never re-queued.
+        Returns whether the chunk committed."""
+        if not bool(torch.isfinite(v).all()):
+            self._unfold_rows(fold)
+            with self._stats_lock:
+                self._n_nonfinite_chunks += 1
+                self._n_quarantined += n
+                self._quarantine_log.append(
+                    {int(t): int(k) for t, k in enumerate(taken) if k > 0})
+            return False
+        self._state = state
+        self.chunk_log.append(n)
+        self._serving = ServingSnapshot(v, int(state.event))  # the flip
+        self._events_since_ckpt += n
+        return True
+
+    def _cadence_due(self) -> bool:
+        every = self.serve_cfg.checkpoint_every
+        return every is not None and self._events_since_ckpt >= every
 
     def _step_once(self) -> int:
         """One chunk boundary: fold rows -> coalesce -> `engine.run` ->
@@ -650,6 +764,8 @@ class AMTLServer:
         quarantined), so drain loops always make progress past a
         poisoned chunk.
         """
+        if self._lockstep is not None:
+            return self._boundary()
         with self._state_lock, self._on_stream():
             fold = self._fold_pending_rows()
             taken = self._coalesce()
@@ -661,26 +777,101 @@ class AMTLServer:
             state = self.engine.run(self._state, self._delay_offsets, n)
             v = self.engine.iterate(state)
             v = self._faults.poison(chunk_idx, v)  # scripted NaN iterate
-            if not bool(torch.isfinite(v).all()):
-                # Quarantine: nothing commits.  The last committed
-                # snapshot keeps serving, the fold unwinds bitwise, and
-                # the chunk's events are logged per task, never
-                # re-queued.
-                self._unfold_rows(fold)
-                with self._stats_lock:
-                    self._n_nonfinite_chunks += 1
-                    self._n_quarantined += n
-                    self._quarantine_log.append(
-                        {int(t): int(k) for t, k in enumerate(taken)
-                         if k > 0})
-                return n
-            self._state = state
-            self.chunk_log.append(n)
-            self._serving = ServingSnapshot(v, int(state.event))  # the flip
-            self._events_since_ckpt += n
-            every = self.serve_cfg.checkpoint_every
-            if every is not None and self._events_since_ckpt >= every:
+            if self._commit(state, v, n, taken, fold) and self._cadence_due():
                 self.checkpoint()
+            return n
+
+    def _boundary(self, final: bool = False, idle: bool = False) -> int:
+        """One boundary of a lockstep rank (`serve.lockstep`, state lock
+        held, on the server's stream).
+
+        Rank 0 drains its queue (rows, then the coalesced chunk) into its
+        header; `final` sends STOP instead, and `idle` (its learner's
+        poll) exchanges nothing when there is nothing to send and no
+        heartbeat is due.  Every rank then exchanges its header, folds
+        the broadcast rows, runs the chunk, gathers the iterate for the
+        flip and checkpoints where asked.  A scripted crash fires first,
+        before any collective.  Returns the chunk's events.  A one-rank
+        server keeps the reference's boundary, `_step_once` (its crash
+        window, its one-pass store record: ROADMAP.md, "The lockstep
+        server")."""
+        ls = self._lockstep
+        with self._state_lock, self._on_stream():
+            self._faults.crash_point(self._faults.next_chunk)
+            head = ls.header()
+            rows, taken, rr = [], None, self._rr
+            if self._breaker_exc is not None:
+                head[ls_mod.FLAGS] |= ls_mod.BREAKER
+            elif ls.rank == 0:
+                if final:
+                    head[ls_mod.FLAGS] |= ls_mod.STOP
+                else:
+                    with self._queue_lock:
+                        rows, self._pending_rows = self._pending_rows, []
+                    taken = self._coalesce()
+                    head[ls_mod.EVENTS] = taken.sum()
+                    head[ls_mod.ROWS] = len(rows)
+                    head[ls_mod.HEADER:] = taken
+                with self._ckpt_cv:
+                    if self._ckpt_asked > self._ckpt_flagged:
+                        head[ls_mod.FLAGS] |= ls_mod.CHECKPOINT
+                        self._ckpt_flagged += 1
+                quiet = time.monotonic() - self._last_exchange < HEARTBEAT_S
+                if idle and quiet and not head[:ls_mod.HEADER].any():
+                    return 0
+            heads = ls.exchange(head)
+            self._last_exchange = time.monotonic()
+            with self._stats_lock:
+                self._wire["boundaries"] += 1
+            tripped = np.flatnonzero(heads[:, ls_mod.FLAGS] & ls_mod.BREAKER)
+            if tripped.size:
+                # the world latches frozen together; rank 0 puts its
+                # drained queue back as it was
+                if taken is not None:
+                    with self._queue_lock:
+                        self._pending += taken
+                        self._pending_rows[:0] = rows
+                        self._rr = rr
+                with self._stats_lock:
+                    if self._breaker_exc is None:
+                        self._breaker_exc = RuntimeError(
+                            f"the learner circuit breaker latched on rank "
+                            f"{int(tripped[0])} of the lockstep world")
+                self.world_stopped = True
+                return 0
+            head = heads[0]
+            n, k = int(head[ls_mod.EVENTS]), int(head[ls_mod.ROWS])
+            taken = head[ls_mod.HEADER:]
+            if ls.rank != 0:
+                with self._queue_lock:
+                    self._pending = np.maximum(self._pending - taken, 0)
+                    del self._pending_rows[:k]
+            fold = None
+            if k:
+                fold = self._fold_rows_lockstep(
+                    *ls.broadcast_rows(rows, k, self.problem.dim))
+            if n:
+                chunk_idx = self._faults.begin_chunk()
+                state = self.engine.run(self._state, self._delay_offsets, n)
+                local = self._faults.poison(chunk_idx, state.v)
+                if self._stream is not None:
+                    self._stream.synchronize()
+                t0 = time.perf_counter()
+                v = gather_columns(local, self.mesh)   # the flip's gather
+                with self._stats_lock:
+                    self._wire["gathers"] += 1
+                    self._wire["gather_s"] += time.perf_counter() - t0
+                if self._commit(state, v, n, taken, fold) \
+                        and self._cadence_due():
+                    self._write_checkpoint()
+            if head[ls_mod.FLAGS] & ls_mod.CHECKPOINT:
+                path = self._write_checkpoint()
+                with self._ckpt_cv:
+                    self._ckpt_done += 1
+                    self._ckpt_path = path
+                    self._ckpt_cv.notify_all()
+            if head[ls_mod.FLAGS] & ls_mod.STOP:
+                self.world_stopped = True
             return n
 
     def step(self) -> int:
@@ -730,6 +921,7 @@ class AMTLServer:
                 "learner circuit breaker is latched (restart budget "
                 "exhausted); the server is in frozen-serving mode"
             ) from self._breaker_exc
+        self.world_stopped = False
         if self._learner is None:
             limit = self.serve_cfg.restart_limit
             if limit is None:
@@ -781,21 +973,52 @@ class AMTLServer:
         writes leaves an unpaired NEWER store record, which resume
         tolerates, never an engine state whose data is missing.  A
         label-free server writes no store subdir.  The fault plan's
-        checkpoint hook sits exactly in that split window."""
+        checkpoint hook sits exactly in that split window.
+
+        On a lockstep world every rank calls it (a collective).  While the
+        learner runs it is handed to the learner thread, which takes it
+        at the next boundary on every rank; the call returns once this
+        rank's learner has written it."""
         if self.serve_cfg.ckpt_dir is None:
             return None
+        if self._lockstep is not None and self.learner_running:
+            return self._handed_checkpoint()
         with self._state_lock, self._on_stream():
-            if self._store is not None:
-                self._store.save(
-                    os.path.join(self.serve_cfg.ckpt_dir, "store"),
-                    int(self._state.event),
-                    keep_last=self.serve_cfg.keep_last)
-            self._faults.checkpoint_point()  # scripted crash-split
-            path = checkpoint.save(self.serve_cfg.ckpt_dir,
-                                   int(self._state.event), self._state,
-                                   keep_last=self.serve_cfg.keep_last)
-            self._events_since_ckpt = 0
+            return self._write_checkpoint()
+
+    def _write_checkpoint(self) -> str:
+        """The store record (a lockstep world's assembled from the ranks'
+        parts), the fault hook, then the engine record (state lock held,
+        on the server's stream)."""
+        step, keep = int(self._state.event), self.serve_cfg.keep_last
+        if self._store is not None:
+            store_dir = os.path.join(self.serve_cfg.ckpt_dir, "store")
+            if self._lockstep is None:
+                self._store.save(store_dir, step, keep_last=keep)
+            else:
+                self._lockstep.save_store(self._store, self._counts,
+                                          store_dir, step, keep)
+        self._faults.checkpoint_point()  # scripted crash-split
+        path = checkpoint.save(self.serve_cfg.ckpt_dir, step, self._state,
+                               keep_last=keep, mesh=self.mesh, cfg=self.cfg)
+        self._events_since_ckpt = 0
         return path
+
+    def _handed_checkpoint(self) -> str:
+        """Ask the running learner for a checkpoint and wait until this
+        rank's learner has written the one asked (rank 0 flags it in the
+        next boundary's header)."""
+        with self._ckpt_cv:
+            self._ckpt_asked += 1
+            want = self._ckpt_asked
+        self._learner.wake()
+        with self._ckpt_cv:
+            while self._ckpt_done < want:
+                if not self.learner_running:
+                    raise RuntimeError("the learner stopped before the "
+                                       "checkpoint it was handed was taken")
+                self._ckpt_cv.wait(0.05)
+            return self._ckpt_path
 
     @classmethod
     def resume(cls, problem: MTLProblem, cfg: AMTLConfig, v0, key,
@@ -820,8 +1043,9 @@ class AMTLServer:
         missing or corrupt paired record drops to the remaining store
         records newest-first (the crash-split and bit-rot cases)."""
         server = cls.__new__(cls)
-        server._configure(problem, cfg, serve_cfg, device=device, mesh=mesh,
-                          delay_offsets=delay_offsets, fault_plan=fault_plan)
+        server._configure(problem, cfg, serve_cfg, v0, device=device,
+                          mesh=mesh, delay_offsets=delay_offsets,
+                          fault_plan=fault_plan)
         with server._on_stream():
             init_state = server.engine.init(v0, key)
         d = serve_cfg.ckpt_dir
@@ -838,10 +1062,16 @@ class AMTLServer:
             return server
         store_dir = os.path.join(d, "store")
 
-        def _try_store(s: int) -> Optional[TaskStore]:
+        def _try_store(s: int) -> Optional[tuple]:
+            """(store, whole-store counts or None), or None; on a lockstep
+            world a collective whose outcome every rank shares."""
             try:
+                if server._lockstep is not None:
+                    return server._lockstep.restore_store(
+                        store_dir, s, problem.loss_name, problem.reg_name,
+                        problem.lam)
                 return TaskStore.restore(store_dir, s, problem.loss_name,
-                                         problem.reg_name, problem.lam)
+                                         problem.reg_name, problem.lam), None
             except (FileNotFoundError, CheckpointCorruptError):
                 return None
 
@@ -864,10 +1094,13 @@ class AMTLServer:
                     "silently change the session")
         with server._on_stream():
             if store is not None:
-                server._store = store
-                server.problem = store.problem(server.device)
+                server._store, counts = store
+                if counts is not None:
+                    server._counts = counts
+                server.problem = server._store.problem(server.device)
                 server.engine = server._make_engine(server.problem)
-            state = checkpoint.restore(d, step, like=init_state)
+            state = checkpoint.restore(d, step, like=init_state,
+                                       mesh=server.mesh, cfg=cfg)
         server._install_state(state)
         return server
 
@@ -882,9 +1115,14 @@ class AMTLServer:
 
     @property
     def store_rows(self) -> Optional[int]:
-        """Total rows in the store (None until labeled rows fold)."""
+        """Total rows in the store, every rank's on a lockstep world (None
+        until labeled rows fold)."""
         store = self._store
-        return None if store is None else store.num_rows
+        if store is None:
+            return None
+        if self._lockstep is not None:
+            return int(self._counts.sum())
+        return store.num_rows
 
     def stats(self) -> dict[str, Any]:
         sup = (self._learner
@@ -918,3 +1156,13 @@ class AMTLServer:
             "slo": None if self._slo is None else self._slo.snapshot(),
             "health": health,
         }
+
+    def wire_stats(self) -> Optional[dict[str, Any]]:
+        """A lockstep rank's boundaries: how many, the folds' seconds and
+        bytes uploaded to its device, the flips' gathers and seconds (None
+        at one rank)."""
+        if self._lockstep is None:
+            return None
+        with self._stats_lock:
+            return dict(self._wire, rank=self._lockstep.rank,
+                        ranks=self._lockstep.size)

@@ -70,7 +70,9 @@ rt.reference_optimum(p._replace(reg_name="l21"), eta=0.01, num_iters=3,
 import repro_torch.checkpoint
 import repro_torch.distributed
 import repro_torch.serve
-from repro_torch.launch import amtl_sharded, mesh, serve_amtl
+import repro_torch.serve.lockstep
+from repro_torch.launch import (amtl_sharded, hospitals_async, mesh,
+                                quickstart, serve_amtl, serve_lockstep)
 serve_amtl.main(["--device", "cpu"])
 from repro_torch.launch import serve
 serve.main(["--arch", "gemma2-2b", "--reduced", "--device", "cpu",
@@ -133,6 +135,23 @@ def test_lm_entry_points_without_device_need_cuda():
             serve.main(["--arch", arch, "--reduced", "--batch", "1",
                         "--prompt-len", "4", "--gen", "2"])
         assert init_params(cfg, device="cpu").device.type == "cpu"
+
+
+def test_example_twins_without_device_need_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    from repro_torch.launch import hospitals_async, quickstart
+    for twin in (quickstart, hospitals_async):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            twin.main([])
+
+
+def test_lockstep_session_without_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    from repro_torch.launch import serve_lockstep
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_lockstep.session(dict(device="cuda", servers=[]))
 
 
 def test_unported_archs_raise_naming_their_roadmap_item():

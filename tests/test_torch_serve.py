@@ -361,8 +361,8 @@ def test_serve_config_validates(problem):
     assert torch.equal(server.iterate(), torch.zeros(problem.dim,
                                                      problem.num_tasks))
     two = TaskMesh(None, 0, 2, torch.device("cpu"), "gloo")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _server(problem, sharded, mesh=two)
+    with pytest.raises(ValueError, match="divisible"):
+        _server(problem, sharded, mesh=two)      # T 5 over 2 ranks
 
 
 def test_stats_telemetry(problem):
