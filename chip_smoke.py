@@ -21,7 +21,11 @@ l2,1 session, FISTA's reference optimum) and the learn-while-serve
 and a bitwise resume, threaded learning, chaos under a FaultPlan), and
 the task-sharded engine (one rank in process, then two ranks sharing
 the card in a gloo world: both proxes, a straggler shard, a checkpoint
-restored into a fresh world, SGD on the ragged store) — holds
+restored into a fresh world, SGD on the ragged store), and gemma2-2b
+training with the AMTL head in every step (phase 24: AdamW steps at full
+width, every attention forward in the flash kernel and every backward in
+the flash backward kernel, step 0 against the plain attention, the
+head's rounds against a CPU replay) — holds
 the card's runs against the port's own CPU runs, replays or plain-kernel
 runs of the same states, and times
 each kernel (the prox's two kernels and the engines' state updates
@@ -37,8 +41,10 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -338,6 +344,7 @@ def check_kernels(dev, gen) -> dict:
     check_shard_shapes(dev, gen)
     info.update(check_l21_km_kernels(dev, gen))
     info.update(check_flash_kernel(dev, gen))
+    info.update(check_flash_bwd(dev, gen))
     info.update(check_rwkv_kernel(dev, gen))
     ops.reset_launch_counts()
     return info
@@ -1354,6 +1361,242 @@ def check_flash_kernel(dev, gen) -> dict:
     return {"flash_attention": dict(served["prefill global"], served=served)}
 
 
+# ------------------------------------------------- flash attention backward --
+
+# The backward kernel against its plain version (`ref.mha_bwd_ref`, float32
+# formulas, the same o and do), by each gradient's max |diff| over its max
+# |value|.  In float32 the two sum 2 hd-long dots and up to S-long sums in
+# other orders: 1e-4.  In bf16 both take the same rounded inputs, compute
+# in float32 and round each gradient once, so they differ by a bf16 ulp of
+# the gradient (2^-8 of its max at most) plus float32 noise: 2^-7.
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+BWD_TILE = 32              # csrc/flash_attention_bwd.cu's BR and BK
+
+
+def grad_errs(got, want) -> list:
+    """max |got - want| / max |want| of each of (dq, dk, dv)."""
+    return [((g.float() - w.float()).abs().max()
+             / w.float().abs().max().clamp_min(1e-30)).item()
+            for g, w in zip(got, want)]
+
+
+def check_flash_bwd(dev, gen) -> dict:
+    """The flash-attention backward kernel against its plain version on
+    the card: at the training shapes (gemma2-2b, B 2, S 2048, H 8, Hkv 4,
+    hd 256, softcap 50: a global layer and a local one, window 4096) and at
+    edge cases (a window smaller than S, S not a multiple of the 32-row
+    tile, hd 64, 72 and 128, float32 and bf16, non-causal, GQA groups 1, 2
+    and 8, rows with no kept key, a query offset and a key count), by
+    FLASH_BWD_TOL; two launches bitwise; the autograd path of `ops.mha`
+    launching it; and controls at the training shape that must exceed the
+    limit (the plain version with the causal edge a tile later, and with
+    the window a tile wider).  Returns the bf16 training case for the timing
+    phase."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.kernels import flash_attention_bwd as k_bwd
+    s = 2048
+    # (label, B, Sq, Skv, H, Hkv, hd, causal, window, softcap, q_offset,
+    #  kv_len)
+    cases = [
+        ("train global", 2, s, s, 8, 4, 256, True, None, 50.0, 0, None),
+        ("train local", 2, s, s, 8, 4, 256, True, 4096, 50.0, 0, None),
+        ("window 300 < S 1000", 1, 1000, 1000, 8, 4, 256, True, 300, 50.0, 0,
+         None),
+        ("S 37, GQA 4:1, hd 64", 1, 37, 37, 4, 1, 64, True, None, None, 0,
+         None),
+        ("hd 128, S 257", 1, 257, 257, 8, 4, 128, True, None, 50.0, 0, None),
+        ("hd 72, window 16, groups 1", 1, 130, 130, 2, 2, 72, True, 16, None,
+         0, None),
+        ("non-causal, kv_len 100", 2, 65, 129, 4, 4, 64, False, None, 30.0, 0,
+         100),
+        ("q_offset 48, kv_len 64", 1, 16, 80, 4, 2, 128, True, 32, None, 48,
+         64),
+        ("rows with no kept key", 1, 256, 256, 8, 4, 256, True, 64, 50.0, 0,
+         100),
+        ("GQA 8:1", 1, 300, 300, 8, 1, 128, True, None, None, 0, None),
+    ]
+    worst, runs, train = {}, 0, None
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        for label, b, sq, skv, h, hkv, hd, causal, window, cap, qo, kvl \
+                in cases:
+            q = torch.randn(b, sq, h, hd, generator=gen, device=dev).to(dt)
+            k = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dt)
+            v = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dt)
+            kw = dict(causal=causal, window=window, softcap=cap, q_offset=qo,
+                      kv_len=kvl)
+            o = k_flash.flash_attention(q, k, v, **kw)
+            do = torch.randn(b, sq, h, hd, generator=gen, device=dev).to(dt)
+            pkw = dict(causal=causal, window=window, softcap=cap,
+                       q_offset=qo, kv_valid_len=kvl)
+            want = ref.mha_bwd_ref(q, k, v, o, do, **pkw)
+            got = k_bwd.flash_attention_bwd(q, k, v, o, do, **kw)
+            again = k_bwd.flash_attention_bwd(q, k, v, o, do, **kw)
+            torch.cuda.synchronize()
+            errs = grad_errs(got, want)
+            if any(g.dtype != dt for g in got) or not all(
+                    torch.isfinite(g.float()).all() for g in got) \
+                    or not max(errs) <= FLASH_BWD_TOL[dt_name]:
+                fail(f"flash_attention_bwd {label} {dt_name}: max |diff| / "
+                     f"max |grad| (dq, dk, dv) {errs} > "
+                     f"{FLASH_BWD_TOL[dt_name]} (or dtype, or not finite)")
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"flash_attention_bwd {label} {dt_name}: two launches "
+                     "differ")
+            worst[dt_name] = max(worst.get(dt_name, 0.0), max(errs))
+            runs += 1
+            if label == "train global" and dt_name == "bfloat16":
+                abs_err = max((g.float() - w.float()).abs().max().item()
+                              for g, w in zip(got, want))
+                train = dict(args=(q, k, v, o, do, kw), err=abs_err,
+                             rel_err=max(errs))
+    # the autograd path: ops.mha under grad launches the kernel once
+    q, k, v, o, do, kw = train["args"]
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    before = k_bwd.launches
+    out = ops.mha(qa, ka, va, causal=True, softcap=50.0)
+    out.backward(do)
+    direct = k_bwd.flash_attention_bwd(q, k, v, out.detach(), do, **kw)
+    if k_bwd.launches != before + 2 or not all(
+            torch.equal(a.grad, g) for a, g in zip((qa, ka, va), direct)):
+        fail("ops.mha's autograd backward did not launch the kernel once, "
+             "or its gradients are not the direct call's")
+    # controls at the training shape (bf16): the plain version with a mask
+    # moved by a tile must exceed the limit
+    got = k_bwd.flash_attention_bwd(q, k, v, o, do, **kw)
+    limit = FLASH_BWD_TOL["bfloat16"]
+    controls = []
+    for what, pkw in (("causal edge a tile later",
+                       dict(causal=True, softcap=50.0, q_offset=BWD_TILE)),
+                      ("window a tile wide",
+                       dict(causal=True, softcap=50.0, window=BWD_TILE))):
+        e = max(grad_errs(got, ref.mha_bwd_ref(q, k, v, o, do, **pkw)))
+        if not e > limit:
+            fail(f"flash_attention_bwd control ({what}): {e:.3g} <= {limit}: "
+                 "the gate does not see it")
+        controls.append(f"{what} {e:.3g}")
+    log(f"flash_attention_bwd: {runs} (case, dtype) runs within "
+        f"{FLASH_BWD_TOL} of each gradient's max |value| of the plain "
+        f"version (ref.mha_bwd_ref); worst "
+        + ", ".join(f"{d} {e:.3g}" for d, e in sorted(worst.items()))
+        + "; two launches bitwise; ops.mha's autograd backward is the "
+        "kernel's call; controls (bf16 training shape, must exceed "
+        f"{limit:.3g}): " + "; ".join(controls)
+        + "; cases: training shapes (B 2, S 2048, H 8, Hkv 4, hd 256, "
+        "softcap 50, global and window 4096) and edges (window 300 < S, S "
+        "37/257/1000/130/65/16/300 off the 32-row tile, hd 64/72/128, "
+        "non-causal, GQA 1/2/4/8, q_offset, kv_len, rows with no kept key)")
+    return {"flash_attention_bwd": train}
+
+
+def flash_bwd_cost(args_) -> tuple[float, float]:
+    """(bytes, operations) of one backward call: q, k, v, o, do read once,
+    dq, dk, dv written once; five products of 2 hd operations a kept
+    (query, key) pair and head."""
+    q, k, v, o, do, kw = args_
+    b, sq, h, hd = q.shape
+    kv_len = k.shape[1] if kw["kv_len"] is None else kw["kv_len"]
+    el = q.element_size()
+    nbytes = el * 2 * (3 * q.numel() + 2 * k.numel())
+    pairs = kept_pairs(sq, kv_len, kw["causal"], kw["window"],
+                       kw["q_offset"])
+    return nbytes, 10.0 * hd * pairs * b * h
+
+
+def flex_bwd_library(args_, dev):
+    """The yardstick for the backward, never called by the port:
+    flex_attention's backward under torch.compile (softcap as score_mod,
+    the causal mask as a block mask) on the same q, k, v and do.  Returns
+    (call, what); call is None where it does not compile."""
+    import torch
+    q, k, v, o, do, kw = args_
+    sq, skv = q.shape[1], k.shape[1]
+    cap = kw["softcap"]
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+
+        def score_mod(score, b_, h_, q_idx, kv_idx):
+            return cap * torch.tanh(score / cap)
+
+        def mask_mod(b_, h_, q_idx, kv_idx):
+            return kv_idx <= q_idx
+
+        mask = create_block_mask(mask_mod, None, None, sq, skv, device=dev)
+        fa = torch.compile(flex_attention)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        # the compiled backward frees ("donates") its saved buffers unless
+        # told not to, and then runs once: keep them, at the forward's
+        # compile and the backward's, to time it again
+        from torch._functorch import config as functorch_config
+        keep = functorch_config.patch(donated_buffer=False)
+        with keep:
+            out = fa(qt, kt, vt, score_mod=score_mod, block_mask=mask,
+                     enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+
+        def call():
+            with keep:
+                return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                           retain_graph=True)
+        call()
+        return call, "flex_attention's backward under torch.compile"
+    except Exception as e:      # a yardstick that does not run is reported
+        return None, f"flex_attention: {type(e).__name__}: {str(e)[:200]}"
+
+
+def flash_bwd_times(info: dict, launches: int, dev) -> dict:
+    """The backward kernel at the training shape (bf16, B 2, S 2048, H 8,
+    Hkv 4, hd 256, causal, softcap 50): L2-warm, and L2-cold over three
+    distinct inputs in turn (each call reads 67 MB, more than the L2
+    holds, so warm and cold differ little), beside its bound, the plain
+    version and flex_attention's compiled backward.  Returns its kernels
+    line entry."""
+    import itertools
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention_bwd as k_bwd
+    saved = k_bwd.launches
+    q, k, v, o, do, kw = info["args"]
+    nbytes, flops = flash_bwd_cost(info["args"])
+    bnd, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    warm = cuda_ms(lambda: k_bwd.flash_attention_bwd(q, k, v, o, do, **kw),
+                   reps=5, inner=3)
+    sets = [(q, k, v, o, do)] + [tuple(torch.randn_like(t) for t in
+                                       (q, k, v, o, do)) for _ in range(2)]
+    ring = itertools.cycle(sets)
+    cold = cuda_ms(lambda: k_bwd.flash_attention_bwd(*next(ring), **kw),
+                   reps=5, inner=3)
+    pkw = dict(causal=kw["causal"], window=kw["window"],
+               softcap=kw["softcap"], q_offset=kw["q_offset"],
+               kv_valid_len=kw["kv_len"])
+    p_ms = cuda_ms(lambda: ref.mha_bwd_ref(q, k, v, o, do, **pkw), reps=3,
+                   inner=1, warmup=1, backlog=False)
+    call, what = flex_bwd_library(info["args"], dev)
+    l_ms = cuda_ms(call, reps=5, inner=3) if call is not None else None
+    k_bwd.launches = saved          # timing launches are not the path's
+    log(f"phase 12 flash_attention_bwd training shape (B 2, S 2048, H 8, "
+        f"Hkv 4, hd 256, causal, softcap 50, bf16): {warm * 1e3:.2f} us "
+        f"L2-warm, {cold * 1e3:.2f} us L2-cold (3 inputs in turn), bound "
+        f"{bnd * 1e3:.2f} us by {by} ({flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB; {flops / (warm * 1e-3) / 1e12:.2f} "
+        f"TFLOP/s); plain {p_ms * 1e3:.1f} us; library "
+        + ("null" if l_ms is None else f"{l_ms * 1e3:.2f} us")
+        + f" ({what}); {launches} launches on the training run")
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                replaces="none: the port's own gradient of "
+                         "src/repro/kernels/flash_attention.py:96 (the "
+                         "reference differentiates its jnp mha, "
+                         "src/repro/models/attention.py:52)",
+                launches=launches, max_abs_err=info["err"], ms=warm,
+                plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=l_ms,
+                l2_cold_ms=cold)
+
+
 def wkv_inputs(gen, dev, b, ell, h, d, dtype, log_w0, state_scale):
     """r, k, v (B, L, H, D) in `dtype`, the decay w = exp(-exp(log_w0 +
     0.5 N)) float32 (-6: the served init's w ~ 0.9975; 1.9: w near 1e-3),
@@ -1883,10 +2126,12 @@ def rel_err(got, want) -> float:
                  / want.float().abs().max())
 
 
-def serve_profile(fn, label: str, parts: dict, phase: int) -> None:
+def serve_profile(fn, label: str, parts: dict, phase: int) -> dict:
     """Device time by kernel of fn() from torch.profiler's CUDA activity,
     and the share of each part: `parts` maps a label to the substrings of
-    the CUDA kernel names that make it up."""
+    the CUDA kernel names that make it up.  Returns {"device_ms": total,
+    part: {"ms", "share"}, "top": [[kernel, ms, count], ...]}, or
+    {"device_ms": "not measured"} where the profiler cannot trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -1896,19 +2141,22 @@ def serve_profile(fn, label: str, parts: dict, phase: int) -> None:
     except RuntimeError as e:       # no CUPTI tracing on this machine
         log(f"phase {phase} {label} device time by kernel: not measured "
             f"({e})")
-        return
+        return {"device_ms": "not measured"}
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
     total = sum(t for _, t, _ in rows)
-    shares = []
+    out = {"device_ms": total / 1e3}
     for part, names in parts.items():
         t = sum(t for k, t, _ in rows if any(n in k for n in names))
-        shares.append(f"{part} {t / 1e3:.1f} ms "
-                      f"({100 * t / max(total, 1e-9):.1f}%)")
+        out[part] = {"ms": t / 1e3, "share": t / max(total, 1e-9)}
+    out["top"] = [[k[:60], t / 1e3, n] for k, t, n in rows[:8]]
     log(f"phase {phase} {label} device time {total / 1e3:.1f} ms, of which "
-        + ", ".join(shares) + ", torch.profiler; top: "
+        + ", ".join(f"{part} {v['ms']:.1f} ms ({100 * v['share']:.1f}%)"
+                    for part, v in out.items() if part in parts)
+        + ", torch.profiler; top: "
         + "; ".join(f"{k[:50]} {t / 1e3:.1f} ms x{n}" for k, t, n in rows[:8]))
+    return out
 
 
 def wkv_sequential_inplace(r, k, v, w, u, state, *, chunk: int):
@@ -3920,6 +4168,264 @@ def sharded_phase(dev, seed: int, card: str, problem, v0, offs, key,
             "rank_launches": r0[0]["launches"], "kernels": kernels}
 
 
+# ---------------------------------------------------------------- phase 24 --
+
+# gemma2-2b training at its published width (configs/gemma2_2b.py: 26
+# layers, d_model 2304, 8 heads, GQA kv 4, head_dim 256, d_ff 9216, vocab
+# 256000, window 4096, softcaps 50 and 30, GeGLU, tied embeddings, bf16):
+# random weights from --seed, batch 2 x seq 2048 from synthetic_lm_batches,
+# remat on, TRAIN_STEPS steps of AdamW (an fp32 master, mu and nu) with the
+# head's AMTL round (T 16, tau 4, nuclear) inside each.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
+# Step 0's loss and every parameter leaf's gradient through the kernels
+# against the same step with the plain attention (`ref.mha_ref` under
+# autograd) on the card, by ||diff|| / ||plain grad|| a leaf: bf16
+# rounding differences (the sm90 forward rounds P to bf16, the plain
+# version does not) carried through 26 layers and back.  On an H100 the
+# sound readings were a loss 1.3e-5 apart and leaves 0.0149 (median) to
+# 0.0197 (worst, the FFN gates); the control, the plain run with the local
+# layers' window cut to 1024, read 0.078 (median) to 0.103.  Limits 1e-3
+# and 0.05.
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_RTOL = 0.05
+# The head's ring after the run against a CPU replay of its rounds from the
+# card's pooled states: float32 sums in another order.
+HEAD_RTOL = 1e-5
+# The local layers' window in the control run, which must fail the gate.
+TRAIN_CONTROL_WINDOW = 1024
+# The device-time parts of a train step, by kernel name.
+TRAIN_PARTS = {"flash_attention_bwd": ("fa_bwd_",),
+               "flash sm90": ("flash_sm90_kernel",),
+               "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet")}
+
+
+def train_grads(model, batch, cfg, p) -> tuple:
+    """The train step's loss (LM loss plus probe_weight times the probe
+    loss at the head's read p) and the gradient of every parameter leaf,
+    by path, without an update."""
+    import torch
+    from repro_torch.core.mtl_head import probe_loss
+    from repro_torch.models.transformer import forward
+    from repro_torch.optim.optimizers import tree_items
+    params = model.tree()
+    for leaf in model.parameters():
+        leaf.grad = None
+    with torch.enable_grad():
+        loss, metrics = forward(params, batch, cfg, remat=True)
+        total = loss + cfg.mtl.probe_weight * probe_loss(
+            p, metrics["pooled"], batch["task_ids"],
+            batch["mtl_targets"].float())
+        total.backward()
+    grads = {".".join(path): leaf.grad for path, leaf in tree_items(params)}
+    for leaf in model.parameters():
+        leaf.grad = None
+    return float(total.detach()), grads
+
+
+def leaf_errs(got: dict, want: dict) -> dict:
+    """Per leaf: (max |got - want| / max |want|, ||got - want|| / ||want||)
+    in float32."""
+    out = {}
+    for k in want:
+        g, w = got[k].float(), want[k].float()
+        d = g - w
+        out[k] = ((d.abs().max() / w.abs().max().clamp_min(1e-30)).item(),
+                  (d.norm() / w.norm().clamp_min(1e-30)).item())
+    return out
+
+
+def train_phase(dev, seed: int, card: str) -> dict:
+    """Phase 24: `repro_torch.launch.train`'s path (init_train_state,
+    ShardedBatcher over batches_for, make_train_step) at gemma2-2b's full
+    width.  Fails unless step 0's loss and gradients through the kernels
+    match the plain attention's, each step's staleness and mask are the
+    host replay's bits, the head's ring matches a CPU replay of its rounds,
+    each step launches exactly 52 sm90 forwards (26 and 26 under remat) and
+    26 backwards and no plain attention, and every loss is finite."""
+    from unittest import mock
+    import torch
+    from repro_torch.core import mtl_head, prng
+    from repro_torch.data import ShardedBatcher
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import (default_optimizer,
+                                          init_train_state, make_train_step,
+                                          train_keys)
+    from repro_torch.models import init_params
+
+    t_phase = time.perf_counter()
+    free0, total_mem = torch.cuda.mem_get_info(dev)
+    cfg = train_mod.train_config("gemma2-2b", reduced=False)
+    mcfg = cfg.mtl
+    n_layers = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = init_params(cfg, seed=seed, device=dev)
+    model.requires_grad_(True)
+    sync(dev)
+    log(f"phase 24 gemma2-2b training: {model.num_params() / 1e6:.1f}M "
+        f"parameters ({n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}"
+        f"), {free0 / 1e9:.1f} GB free of {total_mem / 1e9:.1f} GB before "
+        "the phase")
+    data = ShardedBatcher(train_mod.batches_for(cfg, TRAIN_SEQ, TRAIN_BATCH),
+                          device=dev)
+    batches = [next(data) for _ in range(TRAIN_STEPS)]
+
+    # step 0 through the kernels against the plain attention, no update
+    p0 = torch.zeros((cfg.d_model, mcfg.num_tasks), dtype=torch.float32,
+                     device=dev)       # the zero head's read at step 0
+    ops.reset_launch_counts()
+    loss_k, grads_k = train_grads(model, batches[0], cfg, p0)
+    counts = ops.launch_counts()
+    grads_k = {k: g.clone() for k, g in grads_k.items()}
+    with mock.patch.object(ops, "mha", ref.mha_ref):
+        loss_p, grads_p = train_grads(model, batches[0], cfg, p0)
+        errs = leaf_errs(grads_k, grads_p)
+        del grads_p
+        # control: the local layers' window cut to TRAIN_CONTROL_WINDOW in
+        # the plain run must fail the gate
+        cut = dataclasses.replace(cfg, sliding_window=TRAIN_CONTROL_WINDOW)
+        _, grads_c = train_grads(model, batches[0], cut, p0)
+        cerrs = leaf_errs(grads_k, grads_c)
+        del grads_c
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    sound = max(e[1] for e in errs.values())
+    control = max(e[1] for e in cerrs.values())
+    worst = sorted(errs.items(), key=lambda kv: -kv[1][1])[:3]
+    cworst = sorted(cerrs.items(), key=lambda kv: -kv[1][1])[:3]
+    log(f"phase 24 step 0 through the kernels against the plain attention "
+        f"on the card: loss {loss_k:.6f} vs {loss_p:.6f} ({loss_err:.3g}); "
+        "gradients (max |diff| / max |grad|, ||diff|| / ||grad||) a leaf: "
+        f"worst {worst}, median "
+        f"{statistics.median(e[1] for e in errs.values()):.3g}; control "
+        f"(plain run, local window {TRAIN_CONTROL_WINDOW}) worst {cworst}, "
+        f"median {statistics.median(e[1] for e in cerrs.values()):.3g}; "
+        f"limits: loss {TRAIN_LOSS_RTOL}, ||diff|| / ||grad|| "
+        f"{TRAIN_GRAD_RTOL} a leaf, the control above it")
+    if not (math.isfinite(loss_k) and loss_err <= TRAIN_LOSS_RTOL
+            and sound <= TRAIN_GRAD_RTOL):
+        fail(f"phase 24 step 0: kernels against the plain attention: loss "
+             f"{loss_err:.3g} > {TRAIN_LOSS_RTOL} or a leaf's gradient "
+             f"{sound:.3g} > {TRAIN_GRAD_RTOL} of its norm")
+    if not control > TRAIN_GRAD_RTOL:
+        fail(f"phase 24 control (window {TRAIN_CONTROL_WINDOW}): worst leaf "
+             f"{control:.3g} <= {TRAIN_GRAD_RTOL}: the gate does not see it")
+    log(f"phase 24 step 0: worst leaf {sound:.3g} <= {TRAIN_GRAD_RTOL} < "
+        f"control {control:.3g}, loss {loss_err:.3g} <= {TRAIN_LOSS_RTOL}: "
+        "PASS")
+    want_step = {"flash_attention": 2 * n_layers,
+                 "flash_attention_bwd": n_layers}
+    if any(n != want_step.get(k, 0) for k, n in counts.items()):
+        fail(f"phase 24 step 0 gradients: launches {counts}, want "
+             f"{want_step}")
+    del grads_k
+    torch.cuda.empty_cache()
+
+    # the training run
+    opt = default_optimizer(cfg, lr=3e-4, total_steps=TRAIN_STEPS)
+    state = init_train_state(cfg, opt, device=dev, model=model)
+    step_fn = make_train_step(cfg, opt, remat=True)
+    plain_calls = {"mha_ref": 0, "mha_bwd_ref": 0}
+
+    def counted(name):
+        fn = getattr(ref, name)
+
+        def call(*a, **kw):
+            plain_calls[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    rows, step_ms, records = [], [], []
+    with mock.patch.object(ref, "mha_ref", counted("mha_ref")), \
+            mock.patch.object(ref, "mha_bwd_ref", counted("mha_bwd_ref")):
+        for i, batch in enumerate(batches):
+            ops.reset_launch_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            if i == TRAIN_STEPS - 1:
+                done = []
+                parts = serve_profile(
+                    lambda: (done.append(step_fn(state, batch)), sync(dev)),
+                    f"train step {i}", TRAIN_PARTS, 24)
+                state, m = done[0] if done else step_fn(state, batch)
+            else:
+                state, m = step_fn(state, batch)
+            sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = ops.launch_counts()
+            routes = k_flash.route_counts()
+            want = {"flash_attention": 2 * n_layers,
+                    "flash_attention_bwd": n_layers}
+            if any(n != want.get(k, 0) for k, n in counts.items()) \
+                    or routes != {"sm90": 2 * n_layers, "split": 0,
+                                  "simt": 0}:
+                fail(f"phase 24 step {i}: launches {counts}, routes "
+                     f"{routes}; want {want}, all forwards on sm90")
+            loss = float(m["loss"])
+            if not math.isfinite(loss):
+                fail(f"phase 24 step {i}: loss {loss}")
+            k_read, k_act = train_keys(i)
+            nu = np.minimum(prng.randint_shaped(
+                k_read, (mcfg.num_tasks,), 0, mcfg.tau + 1), i)
+            mask = prng.bernoulli(prng.split(k_act)[1],
+                                  mcfg.activation_rate, (mcfg.num_tasks,))
+            if not (np.array_equal(m["mtl_nu"], nu)
+                    and np.array_equal(m["mtl_mask"], mask)):
+                fail(f"phase 24 step {i}: staleness {m['mtl_nu']} / mask "
+                     f"{m['mtl_mask']} are not the host replay's {nu} / "
+                     f"{mask}")
+            records.append((m["pooled"].cpu(), batch["task_ids"].cpu(),
+                            batch["mtl_targets"].cpu()))
+            rows.append(dict(step=i, loss=loss, lm_loss=float(m["lm_loss"]),
+                             probe_loss=float(m["probe_loss"]),
+                             mtl_v_norm=float(m["mtl_v_norm"]), ms=ms))
+            step_ms.append(ms)
+    if any(plain_calls.values()):
+        fail(f"phase 24: the plain attention ran on the training path: "
+             f"{plain_calls}")
+    # the head's rounds replayed on the CPU from the card's pooled states
+    cpu = mtl_head.init_mtl_state(cfg.d_model, mcfg)
+    reg = mtl_head.get_regularizer(mcfg.reg_name)
+    for i, (pooled, tids, tg) in enumerate(records):
+        k_read, k_act = train_keys(i)
+        v_hat, nu = mtl_head.stale_read(cpu, mcfg, k_read)
+        p = reg.prox(v_hat, mtl_head.prox_threshold(mcfg))
+        cpu, _ = mtl_head.amtl_head_update(cpu, pooled, tids, tg.float(),
+                                           mcfg, k_act, read=(p, nu))
+    ring = state.mtl.ring.cpu()
+    head_err = ((ring - cpu.ring).abs().max()
+                / cpu.ring.abs().max().clamp_min(1e-30)).item()
+    if not (head_err <= HEAD_RTOL and state.mtl.ptr == cpu.ptr):
+        fail(f"phase 24: the head's ring after {TRAIN_STEPS} steps is "
+             f"{head_err:.3g} of its scale from the CPU replay (> "
+             f"{HEAD_RTOL}) or its pointer differs")
+    peak = torch.cuda.max_memory_allocated(dev)
+    steady = statistics.median(step_ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"phase 24 {TRAIN_STEPS} steps: losses "
+        + ", ".join(f"{r['loss']:.4f}" for r in rows)
+        + f" (finite); step ms " + ", ".join(f"{ms:.1f}" for ms in step_ms)
+        + f" (the first warms up, the last profiled); steady "
+        f"{steady:.1f} ms, {tokens / (steady * 1e-3):.1f} tokens/s; "
+        f"launches a step exactly sm90 {2 * n_layers} (26 + 26 under remat) "
+        f"and flash_attention_bwd {n_layers}, no plain attention; staleness "
+        "and masks bitwise the host replay; head ring against the CPU "
+        f"replay {head_err:.3g} of its scale <= {HEAD_RTOL}; peak device "
+        f"memory {peak / 1e9:.2f} GB; card {card}: PASS")
+    del state, model, batches, data, records
+    torch.cuda.empty_cache()
+    free1, _ = torch.cuda.mem_get_info(dev)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 24: {seconds:.1f} s; {free1 / 1e9:.1f} GB free after")
+    return dict(rows=rows, step_ms=step_ms, steady_ms=steady,
+                tokens_per_s=tokens / (steady * 1e-3), peak_bytes=peak,
+                loss_err=loss_err, grad_err=sound, control=control,
+                head_err=head_err, parts=parts,
+                launches={"flash_attention": 2 * n_layers * TRAIN_STEPS,
+                          "flash_attention_bwd": n_layers * TRAIN_STEPS},
+                seconds=seconds)
+
+
 # ------------------------------------------------------------- resources --
 
 def host_resources() -> dict:
@@ -4566,6 +5072,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     mark(t_smoke, "23")
 
+    # phase 24: gemma2-2b training at full width with the AMTL head
+    train = train_phase(dev, args.seed, card)
+    mark(t_smoke, "24")
+
     kernels = []
     info["lstsq_grad"]["args"] = grad_inputs(dev, args.seed)
     launches = {k: (dl if k == "amtl_event" else b)["counts"][k]
@@ -4659,6 +5169,11 @@ def main() -> None:
     flash = kernels[[k["name"] for k in kernels].index("flash_attention")]
     flash["routes"] = flash_times(info["flash_attention"]["served"], dev)
     flash["library_ms"] = flash["routes"]["sm90"]["library_ms"]
+    flash["train_launches"] = train["launches"]["flash_attention"]
+    kernels.append(flash_bwd_times(
+        info["flash_attention_bwd"],
+        train["launches"]["flash_attention_bwd"], dev))
+    del info["flash_attention_bwd"]
     wkv = kernels[[k["name"] for k in kernels].index("rwkv6_scan")]
     wkv["routes"] = rwkv_times(info["rwkv6_scan"], rw["routes"])
     l21_km_times(info)
@@ -4674,6 +5189,8 @@ def main() -> None:
         + (", ".join(k for k, v in parts.items() if v["host_syncs"]) or "none"))
     log("prox_refresh " + json.dumps(parts))
 
+    log("training " + json.dumps({k: v for k, v in train.items()
+                                  if k != "rows"}))
     log(f"smoke: {time.perf_counter() - t_smoke:.1f} s from phase 1 "
         f"[{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)

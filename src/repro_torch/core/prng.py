@@ -14,10 +14,16 @@ reference's for the same key:
     randint(key, 0, n)  JAX's two-word modulus over split(key, 2)
     uniform(key)        the 23 high bits of bits(key) as a mantissa in [1, 2), minus 1
 
+and their shaped forms, which the MTL head's staleness and activation
+mask draw (`randint_shaped`, `uniform_shaped`, `bernoulli`): element i of
+a row-major shape takes the counter pair (0, i), as partitionable threefry
+counts by element index.
+
 A key is a numpy uint32 array of shape (2,), the layout of a raw
 `jax.random.PRNGKey`.  The chain is sequential in the key, so there is
 nothing to vectorize: the hash runs on Python ints, which are faster than
-numpy scalars at this size.
+numpy scalars at this size.  The shaped draws hash all their counters at
+once in numpy uint32 arithmetic, which wraps as the hash does.
 """
 from __future__ import annotations
 
@@ -142,3 +148,61 @@ def randint(key, minval: int, maxval: int) -> int:
 def uniform(key) -> np.float32:
     """`jax.random.uniform(key)`: float32 in [0, 1)."""
     return uniform_pair(to_pair(key))
+
+
+# --------------------------------------------------------- shaped draws ---
+
+def _rotl(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+
+def threefry2x32_array(k0: int, k1: int, x0: np.ndarray,
+                       x1: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """`threefry2x32` of many counter pairs at once (uint32 arrays)."""
+    ks = (np.uint32(k0), np.uint32(k1), np.uint32(k0 ^ k1 ^ 0x1BD11BDA))
+    x0 = x0.astype(np.uint32) + ks[0]
+    x1 = x1.astype(np.uint32) + ks[1]
+    rots = ((13, 15, 26, 6), (17, 29, 16, 24))
+    for i in range(5):
+        for r in rots[i % 2]:
+            x0 = x0 + x1
+            x1 = _rotl(x1, r) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
+def bits_shaped(key, shape: tuple[int, ...]) -> np.ndarray:
+    """`jax.random.bits(key, shape, uint32)`, partitionable mode: element
+    i (row-major) is x0 ^ x1 of threefry(key, (0, i))."""
+    k0, k1 = to_pair(key)
+    n = int(np.prod(shape, dtype=np.int64))
+    ctr = np.arange(n, dtype=np.uint32)
+    x0, x1 = threefry2x32_array(k0, k1, np.zeros(n, np.uint32), ctr)
+    return (x0 ^ x1).reshape(shape)
+
+
+def randint_shaped(key, shape: tuple[int, ...], minval: int,
+                   maxval: int) -> np.ndarray:
+    """`jax.random.randint(key, shape, minval, maxval)` for int32 bounds,
+    as int32: two sets of bits from split(key, 2) folded by JAX's two-word
+    modulus."""
+    k_hi, k_lo = split(key, 2)
+    hi, lo = bits_shaped(k_hi, shape), bits_shaped(k_lo, shape)
+    span = np.uint32(1 if maxval <= minval else (maxval - minval) & _M)
+    mult = np.uint32((1 << 16) % int(span))
+    mult = np.uint32(int(mult) * int(mult) % int(span))
+    off = (hi % span) * mult + lo % span
+    return (np.int64(minval) + (off % span)).astype(np.int32)
+
+
+def uniform_shaped(key, shape: tuple[int, ...]) -> np.ndarray:
+    """`jax.random.uniform(key, shape)`: float32 in [0, 1)."""
+    b = (bits_shaped(key, shape) >> np.uint32(9)) | np.uint32(0x3F800000)
+    return np.maximum(np.float32(0.0), b.view(np.float32) - np.float32(1.0))
+
+
+def bernoulli(key, p: float, shape: tuple[int, ...]) -> np.ndarray:
+    """`jax.random.bernoulli(key, p, shape)` for a Python float p: a
+    float32 uniform below float32(p)."""
+    return uniform_shaped(key, shape) < np.float32(p)

@@ -11,8 +11,13 @@ port's, on an explicit `device`.
   dataset (139 tasks, 22-251 samples, 28 features; paper Table II).
 * `make_mnist_like` — balanced binary classification task packs shaped
   like the paper's 5 MNIST one-vs-one tasks (d=100 after projection).
+* `synthetic_lm_batches` — token streams with per-sequence task ids and
+  scalar MTL targets for the transformer + AMTL head (host numpy batches,
+  the reference's bytes; `data.ShardedBatcher` places them).
 """
 from __future__ import annotations
+
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -66,3 +71,33 @@ def make_mnist_like(num_tasks: int = 5, samples: int = 2000, dim: int = 100,
         ys.append(np.where(x @ w_t > 0, 1.0, -1.0))
         xs.append(x)
     return SimProblem(xs, ys, "logistic", "nuclear", 0.05)
+
+
+def synthetic_lm_batches(vocab: int, seq: int, batch: int, num_tasks: int,
+                         seed: int = 0, vision_seq: int = 0,
+                         d_model: int = 0, audio_dim: int = 0
+                         ) -> Iterator[dict]:
+    """Infinite stream of LM batches with MTL task structure, as numpy
+    arrays drawn exactly as the reference draws them.
+
+    Each sequence belongs to a task; the scalar MTL target is a noisy
+    linear functional of the task id (so the probes have signal to find).
+    """
+    rng = np.random.default_rng(seed)
+    while True:
+        tokens = rng.integers(0, vocab, size=(batch, seq), dtype=np.int32)
+        targets = np.roll(tokens, -1, axis=1)
+        task_ids = rng.integers(0, num_tasks, size=(batch,), dtype=np.int32)
+        mtl_targets = (task_ids.astype(np.float32) / num_tasks
+                       + 0.05 * rng.standard_normal(batch).astype(np.float32))
+        out = {"tokens": tokens, "targets": targets, "task_ids": task_ids,
+               "mtl_targets": mtl_targets}
+        if vision_seq:
+            out["vision_embeds"] = (0.05 * rng.standard_normal(
+                (batch, vision_seq, d_model))).astype(np.float32)
+        if audio_dim:
+            out.pop("tokens")
+            out["features"] = (0.5 * rng.standard_normal(
+                (batch, seq, audio_dim))).astype(np.float32)
+            out["mask"] = rng.random((batch, seq)) < 0.3
+        yield out

@@ -22,6 +22,15 @@ A bfloat16 array may come with ml_dtypes' `bfloat16` dtype (what
 `np.asarray` of a JAX bfloat16 array gives) or as its raw uint16 bits;
 either way its bits are carried unchanged.
 
+A training state crosses as the flat dict of the reference's `TrainState`
+leaves keyed by '.'-joined path ("params.embed", "opt_state.master.embed",
+"opt_state.mu...", "opt_state.nu..." for AdamW, "opt_state.embed.vr" for
+Adafactor, "mtl.ring", "mtl.ptr", "mtl.step", "mtl.delay_buf",
+"mtl.delay_cnt", "step"), so both packages compute the same steps:
+
+    train_state_from_numpy(cfg, flat, optimizer, device) -> TrainState
+    train_state_to_numpy(state) -> flat   # floats as float32
+
 A TaskStore crosses as its `TaskStoreState` leaves (xs, ys, row_counts),
 host numpy on both sides: `store.state()` gives them, and
 `TaskStore(*leaves, loss_name, reg_name, lam)` takes them, in either
@@ -59,6 +68,7 @@ from repro_torch.core.amtl import (AMTLState, BatchAMTLState,
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.dynamic_step import DelayHistory
 from repro_torch.core.losses import MTLProblem
+from repro_torch.core.mtl_head import MTLHeadState
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import KVCache
 from repro_torch.models.rwkv import RWKVState
@@ -229,3 +239,55 @@ def kv_cache_from_numpy(cfg: ArchConfig, flat: dict,
         return {k: build(v) for k, v in node.items()}
 
     return build(tree)
+
+
+def train_state_from_numpy(cfg: ArchConfig, flat: dict, optimizer,
+                           device: torch.device | str | None = None):
+    """The port's `launch.steps.TrainState` from the reference's leaves
+    (keys as in the module doc): the params (trainable) in their dtypes,
+    the optimizer's state in float32 in `optimizer.init`'s layout, the
+    head's ring on `device` and its host counters."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim.optimizers import tree_items
+    dev = resolve_device(device)
+    params = {k[len("params."):]: a for k, a in flat.items()
+              if k.startswith("params.")}
+    model = lm_params_from_numpy(cfg, params, dev)
+    model.requires_grad_(True)
+    opt_state = optimizer.init(model.tree())
+    with torch.no_grad():
+        for path, leaf in tree_items(opt_state):
+            key = "opt_state." + ".".join(path)
+            if key not in flat:
+                raise ValueError(f"no leaf {key!r} for the {optimizer.name} "
+                                 "state")
+            leaf.copy_(_tensor(flat[key], torch.float32, dev))
+    mtl = MTLHeadState(
+        ring=_tensor(flat["mtl.ring"], torch.float32, dev),
+        ptr=int(flat["mtl.ptr"]), step=int(flat["mtl.step"]),
+        delay_buf=np.array(flat["mtl.delay_buf"], np.float32),
+        delay_cnt=np.array(flat["mtl.delay_cnt"], np.int32))
+    return TrainState(model, opt_state, mtl, int(flat["step"]))
+
+
+def train_state_to_numpy(state) -> dict:
+    """The leaves of the reference's `TrainState` equal to `state`, keyed
+    as in the module doc; params and optimizer state as float32 (an exact
+    upcast of bfloat16), the counters as int32."""
+    from repro_torch.optim.optimizers import tree_items
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t.detach().float().cpu().numpy()
+
+    out = {"params." + ".".join(path): host(leaf)
+           for path, leaf in tree_items(state.params.tree())}
+    out.update({"opt_state." + ".".join(path): host(leaf)
+                for path, leaf in tree_items(state.opt_state)})
+    m = state.mtl
+    out.update({"mtl.ring": host(m.ring),
+                "mtl.ptr": np.asarray(m.ptr, np.int32),
+                "mtl.step": np.asarray(m.step, np.int32),
+                "mtl.delay_buf": np.array(m.delay_buf, np.float32),
+                "mtl.delay_cnt": np.array(m.delay_cnt, np.int32),
+                "step": np.asarray(state.step, np.int32)})
+    return out

@@ -114,30 +114,26 @@ def split_plan_for(q: torch.Tensor, k: torch.Tensor,
                       _build.sm_count(q.device))
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, window: int | None = None,
-                    softcap: float | None = None, q_offset: int = 0,
-                    kv_len: int | None = None,
-                    route: str | None = None) -> torch.Tensor:
-    """(B, Sq, H, hd) attention output, in q's dtype, from contiguous CUDA
-    q (B, Sq, H, hd) and k, v (B, Skv, Hkv, hd) of one dtype (float32 or
-    bfloat16), with H a multiple of Hkv and hd <= 256.  `q_offset` is the
-    position of q's first row, `kv_len` (default Skv) the number of valid
-    keys; window and softcap are off when None.  All are host values.
-    `route` forces one of ROUTES (default: `route(...)`'s choice); a
-    route that does not take the call raises."""
-    global launches, launches_sm90, launches_split, launches_simt
-    name = "flash_attention"
-    dev = _build.require_cuda(name, q=q, k=k, v=v)
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"{name}: q, k, v must share one dtype of "
-                         f"{list(_DTYPES)}; got {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
+def check_call(name: str, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, window, softcap, kv_len, **more):
+    """The checked (B, Sq, Skv, H, Hkv, hd, window, cap, kv_len) of an
+    attention call on q (B, Sq, H, hd) and k, v (B, Skv, Hkv, hd) of one
+    dtype of _DTYPES (and any `more` tensors of q's shape and dtype), as
+    the kernels take them: window 0 and cap 0.0 where off, kv_len Skv by
+    default.  Raises ValueError on anything a kernel does not take."""
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype
+                                     for t in (k, v, *more.values())):
+        raise ValueError(f"{name}: q, k, v{''.join(', ' + m for m in more)} "
+                         f"must share one dtype of {list(_DTYPES)}; got "
+                         + ", ".join(str(t.dtype) for t in
+                                     (q, k, v, *more.values())))
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
-            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
-        raise ValueError(f"{name} expects q (B, Sq, H, hd), k and v "
-                         f"(B, Skv, Hkv, hd); got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
+            or any(t.shape != q.shape for t in more.values()):
+        raise ValueError(f"{name} expects q{''.join(', ' + m for m in more)} "
+                         f"(B, Sq, H, hd), k and v (B, Skv, Hkv, hd); got "
+                         + ", ".join(str(tuple(t.shape)) for t in
+                                     (q, k, v, *more.values())))
     b, sq, h, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if h % hkv or not 0 < hd <= MAX_HEAD_DIM or min(b, sq, skv) < 1:
@@ -155,6 +151,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cap = 0.0 if softcap is None else _build.host_scalar(name, softcap)
     if softcap is not None and not cap > 0:
         raise ValueError(f"{name}: softcap must be positive, got {cap}")
+    return b, sq, skv, h, hkv, hd, window, cap, kv_len
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: int | None = None,
+                    softcap: float | None = None, q_offset: int = 0,
+                    kv_len: int | None = None,
+                    route: str | None = None) -> torch.Tensor:
+    """(B, Sq, H, hd) attention output, in q's dtype, from contiguous CUDA
+    q (B, Sq, H, hd) and k, v (B, Skv, Hkv, hd) of one dtype (float32 or
+    bfloat16), with H a multiple of Hkv and hd <= 256.  `q_offset` is the
+    position of q's first row, `kv_len` (default Skv) the number of valid
+    keys; window and softcap are off when None.  All are host values.
+    `route` forces one of ROUTES (default: `route(...)`'s choice); a
+    route that does not take the call raises."""
+    global launches, launches_sm90, launches_split, launches_simt
+    name = "flash_attention"
+    dev = _build.require_cuda(name, q=q, k=k, v=v)
+    b, sq, skv, h, hkv, hd, window, cap, kv_len = check_call(
+        name, q, k, v, window, softcap, kv_len)
     if route is None:
         route = _choose(q.dtype, b, sq, skv, h, hkv, hd, kv_len)
     elif not accepts(route, q.dtype, sq, h, hkv, hd):

@@ -10,6 +10,12 @@ launch; `launch_counts` reads them and `reset_launch_counts` zeroes them,
 so a run can show which kernels its path went through.  Flash attention
 and the WKV also count each of their routes (`flash_attention.route_counts`,
 `rwkv6_scan.route_counts`).
+
+`mha` is differentiable where grad is on and an input asks for it: a
+`torch.autograd.Function` whose forward takes the same routes as without
+grad and whose backward is the `flash_attention_bwd` kernel for CUDA
+tensors and its plain version (`ref.mha_bwd_ref`) for CPU tensors.  Under
+`torch.inference_mode()` or `no_grad` nothing changes.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch
 from repro_torch.kernels import amtl_event as _amtl_event
 from repro_torch.kernels import amtl_event_batch as _amtl_event_batch
 from repro_torch.kernels import flash_attention as _flash_attention
+from repro_torch.kernels import flash_attention_bwd as _flash_attention_bwd
 from repro_torch.kernels import gauss_sketch as _gauss_sketch
 from repro_torch.kernels import km_update as _km_update
 from repro_torch.kernels import l21_prox as _l21_prox
@@ -37,6 +44,7 @@ KERNELS = {
     "sample_mask": _sample_mask,
     "lstsq_grad": _lstsq_grad,
     "flash_attention": _flash_attention,
+    "flash_attention_bwd": _flash_attention_bwd,
     "rwkv6_scan": _rwkv6_scan,
     "km_update": _km_update,
     "l21_prox": _l21_prox,
@@ -257,6 +265,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         window=window, causal=causal, softcap=softcap)
 
 
+def _mha_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: dict, kv_chunk: int) -> torch.Tensor:
+    if _on_cuda("flash_attention", q):
+        return _flash_attention.flash_attention(
+            q, k, v, causal=mask["causal"], window=mask["window"],
+            softcap=mask["softcap"], q_offset=mask["q_offset"],
+            kv_len=mask["kv_valid_len"])
+    return ref.mha_ref(q, k, v, kv_chunk=kv_chunk, **mask)
+
+
+def mha_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, do: torch.Tensor, *, causal: bool,
+                 window: int | None = None, softcap: float | None = None,
+                 q_offset: int = 0, kv_valid_len: int | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `mha` at q, k, v with output o and its gradient do:
+    the `flash_attention_bwd` kernel on the card, its plain version on the
+    CPU."""
+    if _on_cuda("flash_attention_bwd", q):
+        return _flash_attention_bwd.flash_attention_bwd(
+            q, k, v, o, do, causal=causal, window=window, softcap=softcap,
+            q_offset=q_offset, kv_len=kv_valid_len)
+    return ref.mha_bwd_ref(q, k, v, o, do, causal=causal, window=window,
+                           softcap=softcap, q_offset=q_offset,
+                           kv_valid_len=kv_valid_len)
+
+
+class _MHA(torch.autograd.Function):
+    """`mha` with its gradient: the forward's route, then `mha_backward`
+    on the saved q, k, v and output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, kv_chunk):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out = _mha_forward(q, k, v, mask, kv_chunk)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = mask
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = mha_backward(q, k, v, out, do.contiguous(), **ctx.mask)
+        return dq, dk, dv, None, None
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
         window: int | None = None, softcap: float | None = None,
         q_offset: int = 0, kv_valid_len: int | None = None,
@@ -264,14 +318,13 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     """The model's attention: q (B, Sq, H, hd), k, v (B, Skv, Hkv, hd) ->
     (B, Sq, H, hd), with a query offset and a valid key count (host ints).
     `kv_chunk` is the plain version's chunk of keys (the order of its sums);
-    on the card `flash_attention.route` picks the kernel, whatever it is."""
-    if _on_cuda("flash_attention", q):
-        return _flash_attention.flash_attention(
-            q, k, v, causal=causal, window=window, softcap=softcap,
-            q_offset=q_offset, kv_len=kv_valid_len)
-    return ref.mha_ref(q, k, v, causal=causal, window=window, softcap=softcap,
-                       q_offset=q_offset, kv_valid_len=kv_valid_len,
-                       kv_chunk=kv_chunk)
+    on the card `flash_attention.route` picks the kernel, whatever it is.
+    Differentiable when grad is on and q, k or v requires it."""
+    mask = dict(causal=causal, window=window, softcap=softcap,
+                q_offset=q_offset, kv_valid_len=kv_valid_len)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _MHA.apply(q, k, v, mask, kv_chunk)
+    return _mha_forward(q, k, v, mask, kv_chunk)
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

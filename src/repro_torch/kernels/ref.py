@@ -546,6 +546,68 @@ def mha_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     return out.to(q.dtype)
 
 
+def mha_bwd_ref(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, *,
+                causal: bool, window: int | None = None,
+                softcap: float | None = None, q_offset: int = 0,
+                kv_valid_len: int | None = None, row_chunk: int = 1024
+                ) -> tuple[Tensor, Tensor, Tensor]:
+    """(dq, dk, dv) of `mha_ref`'s function at q, k, v, given its output o
+    and the output's gradient do, by the explicit formulas, in float32,
+    each gradient in its input's dtype.  The flash backward kernel's plain
+    version (csrc/flash_attention_bwd.cu computes the same quantities):
+
+        x = scale q.k, s = cap tanh(x / cap) (s = x without a cap), P the
+        softmax of s over the kept keys (0 where a row keeps none),
+        dV = P^T dO, dP = dO V^T, D = rowsum(dO * O), dS = P (dP - D),
+        dX = dS (1 - (s / cap)^2), dQ = scale dX K, dK = scale dX^T Q,
+
+    dK and dV of a kv head summed over its H / Hkv query heads.  D comes
+    from the o given (as the kernel takes it), so a rounded o rounds D as
+    the kernel's does.  Query rows go `row_chunk` at a time."""
+    b, sq, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    dev = q.device
+    scale = (1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))).to(dev)
+    valid = skv if kv_valid_len is None else int(kv_valid_len)
+    kf, vf = k.float(), v.float()
+    kv_pos = torch.arange(skv, device=dev)
+    dq = torch.empty((b, sq, h, hd), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, skv, hkv, hd), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, skv, hkv, hd), dtype=torch.float32, device=dev)
+    for r0 in range(0, sq, row_chunk):
+        r1 = min(sq, r0 + row_chunk)
+        n = r1 - r0
+        qg = q[:, r0:r1].reshape(b, n, hkv, g, hd).float()
+        dog = do[:, r0:r1].reshape(b, n, hkv, g, hd).float()
+        og = o[:, r0:r1].reshape(b, n, hkv, g, hd).float()
+        q_pos = int(q_offset) + torch.arange(r0, r1, device=dev)
+        keep = (kv_pos[None, :] < valid).expand(n, skv)
+        if causal:
+            keep = keep & (kv_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            keep = keep & (kv_pos[None, :] > q_pos[:, None] - window)
+        x = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+        if softcap is not None:
+            th = torch.tanh(x / softcap)
+            s = softcap * th
+        else:
+            s = x
+        s = torch.where(keep, s, torch.tensor(NEG_INF, device=dev))
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * keep
+        p = p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+        dv += torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
+        dd = (dog * og).sum(dim=-1).permute(0, 2, 3, 1)     # (b, hkv, g, q)
+        ds = p * (dp - dd[..., None])
+        if softcap is not None:
+            ds = ds * (1.0 - th * th)
+        dq[:, r0:r1] = (torch.einsum("bhgqk,bkhd->bqhgd", ds, kf)
+                        * scale).reshape(b, n, h, hd)
+        dk += torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def mha_split_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                   window: int | None = None, softcap: float | None = None,
                   q_offset: int = 0, kv_valid_len: int | None = None,

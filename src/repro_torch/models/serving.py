@@ -28,9 +28,9 @@ from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.rwkv import RWKVState
 from repro_torch.models.layers import apply_ffn, apply_norm
-from repro_torch.models.transformer import (_window, embed_tokens, layer,
+from repro_torch.models.transformer import (_window, embed_tokens,
                                             lm_logits, require_ported,
-                                            scan_groups)
+                                            scan_groups, unstack)
 
 Tensor = torch.Tensor
 
@@ -126,8 +126,7 @@ def prefill(params: dict, tokens: Tensor, cfg: ArchConfig,
     cache = init_cache(cfg, b, s_max, x.dtype, device=x.device)
     for gi, group in enumerate(scan_groups(cfg)):
         stacked = params[f"group{gi}"]
-        for li in range(group.n):
-            lp = layer(stacked, li)
+        for li, lp in enumerate(unstack(stacked, group.n)):
             for i, kind in enumerate(group.period):
                 x = _prefill_block(kind, lp[f"b{i}"], x, cfg, s_max,
                                    cache[f"group{gi}"][f"b{i}"], li)
@@ -155,8 +154,7 @@ def decode_step(params: dict, cache: dict, token: Tensor, pos: int,
     for gi, group in enumerate(scan_groups(cfg)):
         stacked = params[f"group{gi}"]
         gcache = cache[f"group{gi}"]
-        for li in range(group.n):
-            lp = layer(stacked, li)
+        for li, lp in enumerate(unstack(stacked, group.n)):
             for i, kind in enumerate(group.period):
                 x = _decode_block(kind, lp[f"b{i}"], x,
                                   _layer_cache(gcache[f"b{i}"], li),

@@ -11,8 +11,15 @@ stacked over its repeat count, as `jax.vmap(init_period)` stacks them, so
 
 are both the state_dict keys here and the '.'-joined pytree paths there
 (`interop.lm_params_from_numpy` maps one to the other).  Layer l of a group
-reads the views leaf[l].  Training (`forward`, `cross_entropy`), MoE, SSM,
-shared and cross attention are later slices and raise.
+reads the views leaf.unbind(0)[l] (`unstack`); under autograd the unbind
+gathers the layers' gradients into the stacked leaf's in one step.
+
+`forward` is the training forward (loss and the pooled state for the MTL
+probes), with the reference's remat at its scan body's granularity (a
+period of blocks) through `torch.utils.checkpoint`.  Training runs the
+attention blocks (the flash kernels forward, `flash_attention_bwd`
+backward); rwkv training waits for a WKV backward kernel and raises.  MoE,
+SSM, shared and cross attention are later slices and raise.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, BlockKind
 from repro_torch.device import resolve_device
@@ -33,6 +41,7 @@ from repro_torch.models.layers import (apply_ffn, apply_norm, dense_init,
 Tensor = torch.Tensor
 
 PORTED_KINDS = ("attn", "local", "global", "rwkv")
+TRAINED_KINDS = ("attn", "local", "global")
 
 
 class ScanGroup(NamedTuple):
@@ -59,9 +68,10 @@ def scan_groups(cfg: ArchConfig) -> list[ScanGroup]:
     return groups
 
 
-def require_ported(cfg: ArchConfig) -> None:
+def require_ported(cfg: ArchConfig, training: bool = False) -> None:
     """Raise for a config that needs a block kind (other than attn, local,
-    global and rwkv) or a feature the port does not have yet."""
+    global and rwkv) or a feature the port does not have yet; with
+    `training`, also for a block kind that has no backward kernel yet."""
     kinds = set(cfg.layer_kinds) - set(PORTED_KINDS)
     if kinds or cfg.moe or cfg.mla or cfg.feature_dim or cfg.mtp \
             or cfg.kv_cache_dtype != "model":
@@ -69,11 +79,18 @@ def require_ported(cfg: ArchConfig) -> None:
             f"{cfg.name}: block kinds {sorted(kinds)} (or MoE, MLA, audio, "
             "MTP, the int8 KV cache) are not ported yet (ROADMAP.md, "
             "Queue 1 item 11)")
+    untrained = set(cfg.layer_kinds) - set(TRAINED_KINDS)
+    if training and untrained:
+        raise NotImplementedError(
+            f"{cfg.name}: training block kinds {sorted(untrained)} needs a "
+            "backward kernel the port does not have yet (rwkv: the WKV "
+            "backward; ROADMAP.md, Queue 1 item 11(j))")
 
 
 class ParamTree(nn.Module):
-    """A nested dict of tensors held as frozen parameters, so that the
-    state_dict keys are the '.'-joined paths of the dict."""
+    """A nested dict of tensors held as parameters, so that the state_dict
+    keys are the '.'-joined paths of the dict.  They are made frozen
+    (serving); training turns them on with `requires_grad_(True)`."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -90,10 +107,21 @@ class ParamTree(nn.Module):
         return out
 
 
-def layer(tree: dict, i: int) -> dict:
-    """Layer i of a stacked tree: every leaf's view [i]."""
-    return {k: layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def unstack(tree: dict, n: int) -> list[dict]:
+    """The n layers of a stacked tree, each leaf's views from one
+    `unbind(0)` (one backward step for the stacked leaf's gradient)."""
+    def split(node):
+        if isinstance(node, dict):
+            return {k: split(v) for k, v in node.items()}
+        return node.unbind(0)
+
+    def pick(node, i):
+        if isinstance(node, dict):
+            return {k: pick(v, i) for k, v in node.items()}
+        return node[i]
+
+    parts = split(tree)
+    return [pick(parts, i) for i in range(n)]
 
 
 def _init_block(kind: BlockKind, cfg: ArchConfig, dtype: torch.dtype,
@@ -209,15 +237,27 @@ def apply_block(kind: BlockKind, p: dict, x: Tensor,
     return x + apply_ffn(p["ffn"], h, cfg.activation)
 
 
-def backbone_forward(params: dict, x: Tensor, cfg: ArchConfig) -> Tensor:
-    """Run all scan groups over x (B, S, D), layer by layer."""
+def _apply_period(period: tuple[BlockKind, ...], lp: dict, x: Tensor,
+                  cfg: ArchConfig) -> Tensor:
+    for i, kind in enumerate(period):
+        x = apply_block(kind, lp[f"b{i}"], x, cfg)
+    return x
+
+
+def backbone_forward(params: dict, x: Tensor, cfg: ArchConfig,
+                     remat: bool = False) -> Tensor:
+    """Run all scan groups over x (B, S, D), period by period.  With
+    `remat` and grad on, each period is a `torch.utils.checkpoint` region
+    (non-reentrant): only its input is kept, and the backward recomputes
+    it, as the reference's `jax.checkpoint` of its scan body does."""
     require_ported(cfg)
     for gi, group in enumerate(scan_groups(cfg)):
-        stacked = params[f"group{gi}"]
-        for li in range(group.n):
-            lp = layer(stacked, li)
-            for i, kind in enumerate(group.period):
-                x = apply_block(kind, lp[f"b{i}"], x, cfg)
+        for lp in unstack(params[f"group{gi}"], group.n):
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(_apply_period, group.period, lp, x, cfg,
+                               use_reentrant=False)
+            else:
+                x = _apply_period(group.period, lp, x, cfg)
     return x
 
 
@@ -238,3 +278,35 @@ def lm_logits(params: dict, h: Tensor, cfg: ArchConfig) -> Tensor:
     else:
         logits = h @ params["unembed"].to(h.dtype)
     return softcap(logits.float(), cfg.logit_softcap)
+
+
+def cross_entropy(logits: Tensor, targets: Tensor,
+                  weights: Tensor | None = None) -> Tensor:
+    """Mean CE over weighted positions.  logits float32 (B, S, V)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, targets.long()[..., None],
+                                dim=-1)[..., 0]
+    nll = lse - gold
+    if weights is None:
+        return torch.mean(nll)
+    w = weights.float()
+    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def forward(params, batch: dict, cfg: ArchConfig, remat: bool = True
+            ) -> tuple[Tensor, dict]:
+    """Training forward of `params` (an `LM` or its tree) on a batch of
+    "tokens" and "targets" (B, S).  Returns (loss, metrics) with the
+    reference's "lm_loss", "aux_loss" (0: no MoE) and "pooled", the
+    float32 mean over the sequence of the backbone's last hidden state
+    (B, D), which the MTL probes read."""
+    require_ported(cfg, training=True)
+    tree = params.tree() if isinstance(params, ParamTree) else params
+    x = embed_tokens(tree, batch["tokens"], cfg)
+    h = backbone_forward(tree, x, cfg, remat=remat)
+    loss = cross_entropy(lm_logits(tree, h, cfg), batch["targets"])
+    metrics = {"lm_loss": loss,
+               "aux_loss": torch.zeros((), dtype=torch.float32,
+                                       device=loss.device),
+               "pooled": torch.mean(h.float(), dim=1)}
+    return loss, metrics

@@ -23,6 +23,7 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import amtl_event as k_event  # noqa: E402
 from repro_torch.kernels import amtl_event_batch as k_batch  # noqa: E402
 from repro_torch.kernels import flash_attention as k_flash  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as k_flash_bwd  # noqa: E402,E501
 from repro_torch.kernels import gauss_sketch as k_sketch  # noqa: E402
 from repro_torch.kernels import km_update as k_km  # noqa: E402
 from repro_torch.kernels import l21_prox as k_l21  # noqa: E402
@@ -74,6 +75,12 @@ import repro_torch.serve.lockstep
 from repro_torch.launch import (amtl_sharded, hospitals_async, mesh,
                                 quickstart, serve_amtl, serve_lockstep)
 serve_amtl.main(["--device", "cpu"])
+import repro_torch.optim
+from repro_torch.core import mtl_head
+from repro_torch.data import pipeline
+from repro_torch.launch import train
+train.main(["--arch", "gemma2-2b", "--reduced", "--device", "cpu",
+            "--steps", "2", "--batch", "1", "--seq", "8"])
 from repro_torch.launch import serve
 serve.main(["--arch", "gemma2-2b", "--reduced", "--device", "cpu",
             "--batch", "1", "--prompt-len", "5", "--gen", "2"])
@@ -120,6 +127,20 @@ def test_chip_smoke_names_no_jax_or_reference():
         for n in names:
             assert n.split(".")[0] not in ("jax", "jaxlib", "repro"), \
                 f"chip_smoke.py imports {n}"
+
+
+def test_train_entry_points_without_device_need_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    from repro_torch.launch import steps, train
+    from repro_torch.data import ShardedBatcher
+    cfg = get_config("gemma2-2b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.init_train_state(cfg, steps.default_optimizer(cfg))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "gemma2-2b", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedBatcher(iter([]))
 
 
 def test_lm_entry_points_without_device_need_cuda():
@@ -225,6 +246,12 @@ def test_cpu_tensors_take_plain_versions_and_launch_nothing():
     q, kv = torch.randn(5, 4, 8), torch.randn(5, 2, 8)
     ops.flash_attention(q, kv, kv, causal=True, window=3, softcap=20.0)
     ops.mha(q[None], kv[None], kv[None], causal=False, kv_valid_len=4)
+    qg = q[None].clone().requires_grad_()
+    ops.mha(qg, kv[None], kv[None], causal=True, window=3,
+            softcap=20.0).sum().backward()
+    assert qg.grad is not None
+    ops.mha_backward(q[None], kv[None], kv[None], q[None], q[None],
+                     causal=True)
     r = torch.randn(1, 6, 2, 32)
     state = torch.zeros(1, 2, 32, 32)
     ops.wkv(r, r, r, torch.rand(1, 6, 2, 32), torch.randn(2, 32), state,
@@ -281,6 +308,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             k_flash.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(),
                                     causal=True, route=route)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_flash_bwd.flash_attention_bwd(q, q, q, q, q, causal=True)
     r = torch.zeros(1, 4, 2, 32)
     with pytest.raises(ValueError, match="CUDA"):
         k_rwkv.wkv(r, r, r, r, torch.zeros(2, 32), torch.zeros(1, 2, 32, 32))
@@ -306,7 +335,7 @@ def test_kernel_library_is_named_by_its_sources():
         "amtl_event.cu", "amtl_event_batch.cu", "gauss_sketch.cu",
         "svt_reconstruct.cu", "lstsq_grad.cu", "lstsq_grad_sampled.cu",
         "flash_attention.cu", "flash_attention_sm90.cu", "flash_decode.cu",
-        "rwkv6_scan.cu", "rwkv6_chunked.cu", "km_update.cu", "l21_prox.cu"}
+        "flash_attention_bwd.cu", "rwkv6_scan.cu", "rwkv6_chunked.cu", "km_update.cu", "l21_prox.cu"}
     assert {p.name for p in _build.headers()} == {
         "counter_hash.cuh", "km_column.cuh"}
     assert path.name.startswith("librepro_torch_kernels-")

@@ -131,3 +131,48 @@ def test_km_relaxation_matches(dynamic):
         np.testing.assert_array_equal(th.count, np.asarray(jh.count))
         assert tk.dtype == np.float32
         np.testing.assert_allclose(tk, np.asarray(jk), rtol=2e-7)
+
+
+# ------------------------------------------------------- shaped draws ---
+# The MTL head's draws: randint(key, (T,), 0, tau + 1) for the staleness
+# and bernoulli(key, rate, (T,)) for the activation mask, bitwise at odd
+# and even T (partitionable threefry counts by element index).
+
+SHAPED_T = (1, 4, 16, 17, 128)
+
+
+@pytest.mark.parametrize("n", SHAPED_T)
+def test_shaped_bits_and_randint_match_jax(n):
+    for seed in range(6):
+        key = jax.random.fold_in(jax.random.PRNGKey(seed), 3 * n)
+        kk = np.asarray(key)
+        np.testing.assert_array_equal(
+            prng.bits_shaped(kk, (n,)),
+            np.asarray(jax.random.bits(key, (n,), jnp.uint32)))
+        for lo, hi in ((0, 5), (0, 1), (3, 1000), (-4, 9)):
+            got = prng.randint_shaped(kk, (n,), lo, hi)
+            want = np.asarray(jax.random.randint(key, (n,), lo, hi))
+            assert got.dtype == want.dtype == np.int32
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", SHAPED_T)
+def test_shaped_uniform_and_bernoulli_match_jax(n):
+    for seed in range(6):
+        key = jax.random.fold_in(jax.random.PRNGKey(seed + 100), n)
+        kk = np.asarray(key)
+        u = prng.uniform_shaped(kk, (n,))
+        assert u.dtype == np.float32
+        np.testing.assert_array_equal(
+            u, np.asarray(jax.random.uniform(key, (n,))))
+        for rate in (0.0, 0.3, 0.5, 1.0):
+            np.testing.assert_array_equal(
+                prng.bernoulli(kk, rate, (n,)),
+                np.asarray(jax.random.bernoulli(key, rate, (n,))))
+
+
+def test_shaped_draw_of_one_is_the_scalar_draw():
+    key = prng.key_from_seed(11)
+    assert int(prng.randint_shaped(key, (1,), 0, 7)[0]) == \
+        prng.randint(key, 0, 7)
+    assert prng.uniform_shaped(key, (1,))[0] == prng.uniform(key)
