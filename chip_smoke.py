@@ -24,8 +24,8 @@ the card in a gloo world: both proxes, a straggler shard, a checkpoint
 restored into a fresh world, SGD on the ragged store), and gemma2-2b
 training with the AMTL head in every step (phase 24: AdamW steps at full
 width, every attention forward in the flash kernel and every backward in
-the flash backward kernel, step 0 against the plain attention, the
-head's rounds against a CPU replay) — holds
+the tensor-core flash backward kernel, step 0 against the plain attention,
+the head's rounds against a CPU replay) — holds
 the card's runs against the port's own CPU runs, replays or plain-kernel
 runs of the same states, and times
 each kernel (the prox's two kernels and the engines' state updates
@@ -1363,14 +1363,21 @@ def check_flash_kernel(dev, gen) -> dict:
 
 # ------------------------------------------------- flash attention backward --
 
-# The backward kernel against its plain version (`ref.mha_bwd_ref`, float32
-# formulas, the same o and do), by each gradient's max |diff| over its max
-# |value|.  In float32 the two sum 2 hd-long dots and up to S-long sums in
-# other orders: 1e-4.  In bf16 both take the same rounded inputs, compute
-# in float32 and round each gradient once, so they differ by a bf16 ulp of
-# the gradient (2^-8 of its max at most) plus float32 noise: 2^-7.
+# Each backward route against its plain version on the same o and do, by
+# each gradient's max |diff| over its max |value|: `simt` against
+# `ref.mha_bwd_ref` (float32 formulas), `sm90` against
+# `ref.mha_bwd_ref(..., p_dtype=torch.bfloat16)` (P and dS rounded to bf16
+# where they feed a product, as the kernel rounds them).  In float32 the
+# two sum 2 hd-long dots and up to S-long sums in other orders: 1e-4.  In
+# bf16 both take the same rounded inputs, compute in float32 and round
+# each gradient once, so they differ by a bf16 ulp of the gradient (2^-8
+# of its max at most) plus float32 noise (for sm90 also the other side of
+# a bf16 rounding of some P and dS terms): 2^-7.
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
-BWD_TILE = 32              # csrc/flash_attention_bwd.cu's BR and BK
+BWD_TILE = 32              # the controls' shift: simt's BR and BK, sm90's dq key tile
+BWD_SOURCES = {"sm90": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+               "simt": "src/repro_torch/csrc/flash_attention_bwd.cu"}
+BWD_P_DTYPE = {"sm90": "bfloat16", "simt": None}
 
 
 def grad_errs(got, want) -> list:
@@ -1380,20 +1387,31 @@ def grad_errs(got, want) -> list:
             for g, w in zip(got, want)]
 
 
+def bwd_plain(route: str, q, k, v, o, do, pkw):
+    """The plain version of backward route `route` on these inputs."""
+    import torch
+    from repro_torch.kernels import ref
+    p_dtype = BWD_P_DTYPE[route]
+    return ref.mha_bwd_ref(q, k, v, o, do, **pkw, p_dtype=(
+        None if p_dtype is None else getattr(torch, p_dtype)))
+
+
 def check_flash_bwd(dev, gen) -> dict:
-    """The flash-attention backward kernel against its plain version on
+    """The flash-attention backward routes against their plain versions on
     the card: at the training shapes (gemma2-2b, B 2, S 2048, H 8, Hkv 4,
     hd 256, softcap 50: a global layer and a local one, window 4096) and at
-    edge cases (a window smaller than S, S not a multiple of the 32-row
-    tile, hd 64, 72 and 128, float32 and bf16, non-causal, GQA groups 1, 2
-    and 8, rows with no kept key, a query offset and a key count), by
-    FLASH_BWD_TOL; two launches bitwise; the autograd path of `ops.mha`
-    launching it; and controls at the training shape that must exceed the
-    limit (the plain version with the causal edge a tile later, and with
-    the window a tile wider).  Returns the bf16 training case for the timing
-    phase."""
+    edge cases (a window smaller than S, S not a multiple of the tiles, hd
+    64, 72 and 128, float32 and bf16, non-causal, GQA groups 1, 2, 4 and 8,
+    rows with no kept key, a query offset and a key count), every route
+    that takes a case (`sm90` bf16 at hd 64/128/256, `simt` all), by
+    FLASH_BWD_TOL; two launches bitwise; the default route `sm90` for every
+    bf16 case at those head dims; the autograd path of `ops.mha` launching
+    the sm90 route once; and controls at the training shape, for each
+    route, that must exceed the limit (its plain version with the causal
+    edge a tile later, and with the window a tile wide).  Returns the bf16
+    training case with each route's error for the timing phase."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.kernels import flash_attention as k_flash
     from repro_torch.kernels import flash_attention_bwd as k_bwd
     s = 2048
@@ -1417,7 +1435,7 @@ def check_flash_bwd(dev, gen) -> dict:
          100),
         ("GQA 8:1", 1, 300, 300, 8, 1, 128, True, None, None, 0, None),
     ]
-    worst, runs, train = {}, 0, None
+    worst, runs, train = {}, {}, {}
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
         for label, b, sq, skv, h, hkv, hd, causal, window, cap, qo, kvl \
@@ -1431,62 +1449,85 @@ def check_flash_bwd(dev, gen) -> dict:
             do = torch.randn(b, sq, h, hd, generator=gen, device=dev).to(dt)
             pkw = dict(causal=causal, window=window, softcap=cap,
                        q_offset=qo, kv_valid_len=kvl)
-            want = ref.mha_bwd_ref(q, k, v, o, do, **pkw)
-            got = k_bwd.flash_attention_bwd(q, k, v, o, do, **kw)
-            again = k_bwd.flash_attention_bwd(q, k, v, o, do, **kw)
-            torch.cuda.synchronize()
-            errs = grad_errs(got, want)
-            if any(g.dtype != dt for g in got) or not all(
-                    torch.isfinite(g.float()).all() for g in got) \
-                    or not max(errs) <= FLASH_BWD_TOL[dt_name]:
-                fail(f"flash_attention_bwd {label} {dt_name}: max |diff| / "
-                     f"max |grad| (dq, dk, dv) {errs} > "
-                     f"{FLASH_BWD_TOL[dt_name]} (or dtype, or not finite)")
-            if not all(torch.equal(x, y) for x, y in zip(got, again)):
-                fail(f"flash_attention_bwd {label} {dt_name}: two launches "
-                     "differ")
-            worst[dt_name] = max(worst.get(dt_name, 0.0), max(errs))
-            runs += 1
+            want_route = "sm90" if dt == torch.bfloat16 \
+                and hd in k_flash.SM90_HEAD_DIMS else "simt"
+            if k_bwd.route(dt, b, sq, skv, h, hkv, hd,
+                           skv if kvl is None else kvl) != want_route:
+                fail(f"flash_attention_bwd {label} {dt_name}: the default "
+                     f"route is not {want_route}")
+            for r in k_bwd.ROUTES:
+                if not k_bwd.accepts(r, dt, sq, h, hkv, hd):
+                    continue
+                want = bwd_plain(r, q, k, v, o, do, pkw)
+                got = k_bwd.flash_attention_bwd(q, k, v, o, do, route=r,
+                                                **kw)
+                again = k_bwd.flash_attention_bwd(q, k, v, o, do, route=r,
+                                                  **kw)
+                torch.cuda.synchronize()
+                errs = grad_errs(got, want)
+                if any(g.dtype != dt for g in got) or not all(
+                        torch.isfinite(g.float()).all() for g in got) \
+                        or not max(errs) <= FLASH_BWD_TOL[dt_name]:
+                    fail(f"flash_attention_bwd ({r}) {label} {dt_name}: max "
+                         f"|diff| / max |grad| (dq, dk, dv) {errs} > "
+                         f"{FLASH_BWD_TOL[dt_name]} (or dtype, or not "
+                         "finite)")
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    fail(f"flash_attention_bwd ({r}) {label} {dt_name}: two "
+                         "launches differ")
+                key = f"{r} {dt_name}"
+                worst[key] = max(worst.get(key, 0.0), max(errs))
+                runs[r] = runs.get(r, 0) + 1
+                if label == "train global" and dt_name == "bfloat16":
+                    abs_err = max((g.float() - w.float()).abs().max().item()
+                                  for g, w in zip(got, want))
+                    train[r] = dict(err=abs_err, rel_err=max(errs),
+                                    got=got)
+                del got, again, want
             if label == "train global" and dt_name == "bfloat16":
-                abs_err = max((g.float() - w.float()).abs().max().item()
-                              for g, w in zip(got, want))
-                train = dict(args=(q, k, v, o, do, kw), err=abs_err,
-                             rel_err=max(errs))
-    # the autograd path: ops.mha under grad launches the kernel once
+                train["args"] = (q, k, v, o, do, kw)
+    # the autograd path: ops.mha under grad launches the sm90 route once
     q, k, v, o, do, kw = train["args"]
     qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
-    before = k_bwd.launches
+    before = k_bwd.launches, k_bwd.route_counts()
     out = ops.mha(qa, ka, va, causal=True, softcap=50.0)
     out.backward(do)
     direct = k_bwd.flash_attention_bwd(q, k, v, out.detach(), do, **kw)
-    if k_bwd.launches != before + 2 or not all(
-            torch.equal(a.grad, g) for a, g in zip((qa, ka, va), direct)):
-        fail("ops.mha's autograd backward did not launch the kernel once, "
-             "or its gradients are not the direct call's")
-    # controls at the training shape (bf16): the plain version with a mask
-    # moved by a tile must exceed the limit
-    got = k_bwd.flash_attention_bwd(q, k, v, o, do, **kw)
+    after = k_bwd.route_counts()
+    if k_bwd.launches != before[0] + 2 \
+            or after["sm90"] != before[1]["sm90"] + 2 \
+            or after["simt"] != before[1]["simt"] or not all(
+                torch.equal(a.grad, g) for a, g in zip((qa, ka, va), direct)):
+        fail("ops.mha's autograd backward did not launch the sm90 route "
+             "once, or its gradients are not the direct call's")
+    del qa, ka, va, out, direct
+    # controls at the training shape (bf16), each route against its own
+    # plain version with a mask moved by a tile: must exceed the limit
     limit = FLASH_BWD_TOL["bfloat16"]
+    pkw = dict(causal=True, softcap=50.0)
     controls = []
-    for what, pkw in (("causal edge a tile later",
-                       dict(causal=True, softcap=50.0, q_offset=BWD_TILE)),
-                      ("window a tile wide",
-                       dict(causal=True, softcap=50.0, window=BWD_TILE))):
-        e = max(grad_errs(got, ref.mha_bwd_ref(q, k, v, o, do, **pkw)))
-        if not e > limit:
-            fail(f"flash_attention_bwd control ({what}): {e:.3g} <= {limit}: "
-                 "the gate does not see it")
-        controls.append(f"{what} {e:.3g}")
-    log(f"flash_attention_bwd: {runs} (case, dtype) runs within "
-        f"{FLASH_BWD_TOL} of each gradient's max |value| of the plain "
-        f"version (ref.mha_bwd_ref); worst "
+    for r in k_bwd.ROUTES:
+        got = train[r].pop("got")
+        for what, moved in (("causal edge a tile later",
+                             dict(q_offset=BWD_TILE)),
+                            ("window a tile wide", dict(window=BWD_TILE))):
+            e = max(grad_errs(got, bwd_plain(r, q, k, v, o, do,
+                                             {**pkw, **moved})))
+            if not e > limit:
+                fail(f"flash_attention_bwd ({r}) control ({what}): {e:.3g} "
+                     f"<= {limit}: the gate does not see it")
+            controls.append(f"{r} {what} {e:.3g}")
+    log(f"flash_attention_bwd: {runs} (case, dtype) runs a route within "
+        f"{FLASH_BWD_TOL} of each gradient's max |value| of the route's "
+        "plain version (ref.mha_bwd_ref; p_dtype bf16 for sm90); worst "
         + ", ".join(f"{d} {e:.3g}" for d, e in sorted(worst.items()))
-        + "; two launches bitwise; ops.mha's autograd backward is the "
-        "kernel's call; controls (bf16 training shape, must exceed "
+        + "; two launches bitwise; default route sm90 for bf16 at hd "
+        "64/128/256, simt otherwise; ops.mha's autograd backward is the "
+        "sm90 route's call; controls (bf16 training shape, must exceed "
         f"{limit:.3g}): " + "; ".join(controls)
         + "; cases: training shapes (B 2, S 2048, H 8, Hkv 4, hd 256, "
         "softcap 50, global and window 4096) and edges (window 300 < S, S "
-        "37/257/1000/130/65/16/300 off the 32-row tile, hd 64/72/128, "
+        "37/257/1000/130/65/16/300 off the tiles, hd 64/72/128, "
         "non-causal, GQA 1/2/4/8, q_offset, kv_len, rows with no kept key)")
     return {"flash_attention_bwd": train}
 
@@ -1548,53 +1589,86 @@ def flex_bwd_library(args_, dev):
         return None, f"flex_attention: {type(e).__name__}: {str(e)[:200]}"
 
 
-def flash_bwd_times(info: dict, launches: int, dev) -> dict:
-    """The backward kernel at the training shape (bf16, B 2, S 2048, H 8,
+def flash_bwd_times(info: dict, launches: dict, dev) -> dict:
+    """Both backward routes at the training shape (bf16, B 2, S 2048, H 8,
     Hkv 4, hd 256, causal, softcap 50): L2-warm, and L2-cold over three
     distinct inputs in turn (each call reads 67 MB, more than the L2
-    holds, so warm and cold differ little), beside its bound, the plain
-    version and flex_attention's compiled backward.  Returns its kernels
-    line entry."""
+    holds, so warm and cold differ little), each beside the bound, its
+    plain version and flex_attention's compiled backward, with its
+    TFLOP/s and share of the bound; `launches` holds each route's count on
+    the training run.  Returns the kernels line entry: the sm90 route (the
+    training path's) with both routes' figures under `routes`."""
     import itertools
     import torch
-    from repro_torch.kernels import ref
     from repro_torch.kernels import flash_attention_bwd as k_bwd
-    saved = k_bwd.launches
+    saved = k_bwd.launches, k_bwd.route_counts()
     q, k, v, o, do, kw = info["args"]
     nbytes, flops = flash_bwd_cost(info["args"])
     bnd, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
-    warm = cuda_ms(lambda: k_bwd.flash_attention_bwd(q, k, v, o, do, **kw),
-                   reps=5, inner=3)
     sets = [(q, k, v, o, do)] + [tuple(torch.randn_like(t) for t in
                                        (q, k, v, o, do)) for _ in range(2)]
-    ring = itertools.cycle(sets)
-    cold = cuda_ms(lambda: k_bwd.flash_attention_bwd(*next(ring), **kw),
-                   reps=5, inner=3)
     pkw = dict(causal=kw["causal"], window=kw["window"],
                softcap=kw["softcap"], q_offset=kw["q_offset"],
                kv_valid_len=kw["kv_len"])
-    p_ms = cuda_ms(lambda: ref.mha_bwd_ref(q, k, v, o, do, **pkw), reps=3,
-                   inner=1, warmup=1, backlog=False)
     call, what = flex_bwd_library(info["args"], dev)
     l_ms = cuda_ms(call, reps=5, inner=3) if call is not None else None
-    k_bwd.launches = saved          # timing launches are not the path's
-    log(f"phase 12 flash_attention_bwd training shape (B 2, S 2048, H 8, "
-        f"Hkv 4, hd 256, causal, softcap 50, bf16): {warm * 1e3:.2f} us "
-        f"L2-warm, {cold * 1e3:.2f} us L2-cold (3 inputs in turn), bound "
-        f"{bnd * 1e3:.2f} us by {by} ({flops / 1e9:.2f} GFLOP, "
-        f"{nbytes / 1e6:.2f} MB; {flops / (warm * 1e-3) / 1e12:.2f} "
-        f"TFLOP/s); plain {p_ms * 1e3:.1f} us; library "
-        + ("null" if l_ms is None else f"{l_ms * 1e3:.2f} us")
-        + f" ({what}); {launches} launches on the training run")
+    routes = {}
+    for r in k_bwd.ROUTES:
+        reps = dict(reps=11, inner=10) if r == "sm90" else dict(reps=5,
+                                                                inner=3)
+        warm = cuda_ms(lambda: k_bwd.flash_attention_bwd(
+            q, k, v, o, do, route=r, **kw), **reps)
+        ring = itertools.cycle(sets)
+        cold = cuda_ms(lambda: k_bwd.flash_attention_bwd(
+            *next(ring), route=r, **kw), **reps)
+        p_ms = cuda_ms(lambda: bwd_plain(r, q, k, v, o, do, pkw), reps=3,
+                       inner=1, warmup=1, backlog=False)
+        routes[r] = dict(source=BWD_SOURCES[r], launches=launches[r],
+                         max_abs_err=info[r]["err"], ms=warm,
+                         l2_cold_ms=cold, plain_ms=p_ms, bound_ms=bnd,
+                         bound_by=by, library_ms=l_ms,
+                         tflops=flops / (warm * 1e-3) / 1e12,
+                         bound_share=bnd / warm)
+        log(f"phase 12 flash_attention_bwd ({r}) training shape (B 2, S "
+            f"2048, H 8, Hkv 4, hd 256, causal, softcap 50, bf16): "
+            f"{warm * 1e3:.2f} us L2-warm, {cold * 1e3:.2f} us L2-cold (3 "
+            f"inputs in turn), bound {bnd * 1e3:.2f} us by {by} "
+            f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
+            f"{routes[r]['tflops']:.2f} TFLOP/s, {100 * bnd / warm:.1f} % of "
+            f"the bound); plain {p_ms * 1e3:.1f} us (p_dtype "
+            f"{BWD_P_DTYPE[r]}); library "
+            + ("null" if l_ms is None else f"{l_ms * 1e3:.2f} us")
+            + f" ({what}); {launches[r]} launches on the training run")
+    sm = routes["sm90"]
+    # the tail of the sm90 route's ~2 waves (256 blocks a kernel, one an
+    # SM): B 4 runs twice the blocks in ~4 waves (its time by kernel is
+    # phase 24's profile, TRAIN_PARTS)
+    q4, k4, v4, o4, do4 = (torch.cat([t, t]) for t in (q, k, v, o, do))
+    b4 = cuda_ms(lambda: k_bwd.flash_attention_bwd(q4, k4, v4, o4, do4,
+                                                   **kw), reps=11, inner=5)
+    del q4, k4, v4, o4, do4
+    sm["b4_ms"] = b4
+    log(f"phase 12 flash_attention_bwd (sm90) B 4 (512 blocks a kernel) "
+        f"{b4 * 1e3:.2f} us, {b4 / sm['ms']:.3f}x B 2's "
+        f"{sm['ms'] * 1e3:.2f} us")
+    if l_ms is not None:
+        log(f"phase 12 flash_attention_bwd: sm90 {sm['ms'] * 1e3:.2f} us "
+            f"against flex_attention's {l_ms * 1e3:.2f} us "
+            f"({l_ms / sm['ms']:.2f}x); simt "
+            f"{routes['simt']['ms'] / sm['ms']:.1f}x sm90")
+    k_bwd.launches = saved[0]       # timing launches are not the path's
+    k_bwd.launches_sm90 = saved[1]["sm90"]
+    k_bwd.launches_simt = saved[1]["simt"]
     return dict(name="flash_attention_bwd", route="cuda",
-                source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                source=sm["source"],
                 replaces="none: the port's own gradient of "
                          "src/repro/kernels/flash_attention.py:96 (the "
                          "reference differentiates its jnp mha, "
                          "src/repro/models/attention.py:52)",
-                launches=launches, max_abs_err=info["err"], ms=warm,
-                plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=l_ms,
-                l2_cold_ms=cold)
+                launches=sum(launches.values()),
+                max_abs_err=sm["max_abs_err"], ms=sm["ms"],
+                plain_ms=sm["plain_ms"], bound_ms=bnd, bound_by=by,
+                library_ms=l_ms, l2_cold_ms=sm["l2_cold_ms"], routes=routes)
 
 
 def wkv_inputs(gen, dev, b, ell, h, d, dtype, log_w0, state_scale):
@@ -4195,6 +4269,8 @@ HEAD_RTOL = 1e-5
 TRAIN_CONTROL_WINDOW = 1024
 # The device-time parts of a train step, by kernel name.
 TRAIN_PARTS = {"flash_attention_bwd": ("fa_bwd_",),
+               "bwd lse": ("fa_bwd_sm90_lse",), "bwd dq": ("fa_bwd_sm90_dq",),
+               "bwd dkdv": ("fa_bwd_sm90_dkdv",),
                "flash sm90": ("flash_sm90_kernel",),
                "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet")}
 
@@ -4241,13 +4317,15 @@ def train_phase(dev, seed: int, card: str) -> dict:
     match the plain attention's, each step's staleness and mask are the
     host replay's bits, the head's ring matches a CPU replay of its rounds,
     each step launches exactly 52 sm90 forwards (26 and 26 under remat) and
-    26 backwards and no plain attention, and every loss is finite."""
+    26 backwards, all on the backward's sm90 route, and no plain attention,
+    and every loss is finite."""
     from unittest import mock
     import torch
     from repro_torch.core import mtl_head, prng
     from repro_torch.data import ShardedBatcher
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.kernels import flash_attention_bwd as k_bwd
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.steps import (default_optimizer,
                                           init_train_state, make_train_step,
@@ -4277,6 +4355,7 @@ def train_phase(dev, seed: int, card: str) -> dict:
     ops.reset_launch_counts()
     loss_k, grads_k = train_grads(model, batches[0], cfg, p0)
     counts = ops.launch_counts()
+    bwd_routes = k_bwd.route_counts()
     grads_k = {k: g.clone() for k, g in grads_k.items()}
     with mock.patch.object(ops, "mha", ref.mha_ref):
         loss_p, grads_p = train_grads(model, batches[0], cfg, p0)
@@ -4315,9 +4394,11 @@ def train_phase(dev, seed: int, card: str) -> dict:
         "PASS")
     want_step = {"flash_attention": 2 * n_layers,
                  "flash_attention_bwd": n_layers}
-    if any(n != want_step.get(k, 0) for k, n in counts.items()):
-        fail(f"phase 24 step 0 gradients: launches {counts}, want "
-             f"{want_step}")
+    if any(n != want_step.get(k, 0) for k, n in counts.items()) \
+            or bwd_routes != {"sm90": n_layers, "simt": 0}:
+        fail(f"phase 24 step 0 gradients: launches {counts}, backward "
+             f"routes {bwd_routes}; want {want_step}, every backward on "
+             "sm90")
     del grads_k
     torch.cuda.empty_cache()
 
@@ -4354,13 +4435,16 @@ def train_phase(dev, seed: int, card: str) -> dict:
             ms = (time.perf_counter() - t0) * 1e3
             counts = ops.launch_counts()
             routes = k_flash.route_counts()
+            bwd_routes = k_bwd.route_counts()
             want = {"flash_attention": 2 * n_layers,
                     "flash_attention_bwd": n_layers}
             if any(n != want.get(k, 0) for k, n in counts.items()) \
                     or routes != {"sm90": 2 * n_layers, "split": 0,
-                                  "simt": 0}:
+                                  "simt": 0} \
+                    or bwd_routes != {"sm90": n_layers, "simt": 0}:
                 fail(f"phase 24 step {i}: launches {counts}, routes "
-                     f"{routes}; want {want}, all forwards on sm90")
+                     f"{routes}, backward routes {bwd_routes}; want {want}, "
+                     "all forwards and backwards on sm90")
             loss = float(m["loss"])
             if not math.isfinite(loss):
                 fail(f"phase 24 step {i}: loss {loss}")
@@ -4408,7 +4492,8 @@ def train_phase(dev, seed: int, card: str) -> dict:
         + f" (the first warms up, the last profiled); steady "
         f"{steady:.1f} ms, {tokens / (steady * 1e-3):.1f} tokens/s; "
         f"launches a step exactly sm90 {2 * n_layers} (26 + 26 under remat) "
-        f"and flash_attention_bwd {n_layers}, no plain attention; staleness "
+        f"and flash_attention_bwd {n_layers}, all on its sm90 route (0 "
+        "simt), no plain attention; staleness "
         "and masks bitwise the host replay; head ring against the CPU "
         f"replay {head_err:.3g} of its scale <= {HEAD_RTOL}; peak device "
         f"memory {peak / 1e9:.2f} GB; card {card}: PASS")
@@ -4422,7 +4507,9 @@ def train_phase(dev, seed: int, card: str) -> dict:
                 loss_err=loss_err, grad_err=sound, control=control,
                 head_err=head_err, parts=parts,
                 launches={"flash_attention": 2 * n_layers * TRAIN_STEPS,
-                          "flash_attention_bwd": n_layers * TRAIN_STEPS},
+                          "flash_attention_bwd": n_layers * TRAIN_STEPS,
+                          "flash_attention_bwd_routes": {
+                              "sm90": n_layers * TRAIN_STEPS, "simt": 0}},
                 seconds=seconds)
 
 
@@ -5172,7 +5259,7 @@ def main() -> None:
     flash["train_launches"] = train["launches"]["flash_attention"]
     kernels.append(flash_bwd_times(
         info["flash_attention_bwd"],
-        train["launches"]["flash_attention_bwd"], dev))
+        train["launches"]["flash_attention_bwd_routes"], dev))
     del info["flash_attention_bwd"]
     wkv = kernels[[k["name"] for k in kernels].index("rwkv6_scan")]
     wkv["routes"] = rwkv_times(info["rwkv6_scan"], rw["routes"])

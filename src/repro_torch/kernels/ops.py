@@ -69,6 +69,7 @@ def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
     _flash_attention.reset_route_counts()
+    _flash_attention_bwd.reset_route_counts()
     _rwkv6_scan.reset_route_counts()
 
 

@@ -549,7 +549,8 @@ def mha_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
 def mha_bwd_ref(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, *,
                 causal: bool, window: int | None = None,
                 softcap: float | None = None, q_offset: int = 0,
-                kv_valid_len: int | None = None, row_chunk: int = 1024
+                kv_valid_len: int | None = None, row_chunk: int = 1024,
+                p_dtype: torch.dtype | None = None
                 ) -> tuple[Tensor, Tensor, Tensor]:
     """(dq, dk, dv) of `mha_ref`'s function at q, k, v, given its output o
     and the output's gradient do, by the explicit formulas, in float32,
@@ -563,7 +564,11 @@ def mha_bwd_ref(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, *,
 
     dK and dV of a kv head summed over its H / Hkv query heads.  D comes
     from the o given (as the kernel takes it), so a rounded o rounds D as
-    the kernel's does.  Query rows go `row_chunk` at a time."""
+    the kernel's does.  Query rows go `row_chunk` at a time.  `p_dtype`
+    (default None: float32) rounds P to that dtype before P^T dO and dX
+    before dX K and dX^T Q, dX itself coming from the float32 P: with
+    bfloat16 that is the rounding of the tensor-core route
+    (csrc/flash_attention_bwd_sm90.cu), for chip_smoke.py."""
     b, sq, h, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -596,12 +601,15 @@ def mha_bwd_ref(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, *,
         s = torch.where(keep, s, torch.tensor(NEG_INF, device=dev))
         p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * keep
         p = p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
-        dv += torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+        pv = p if p_dtype is None else p.to(p_dtype).float()
+        dv += torch.einsum("bhgqk,bqhgd->bkhd", pv, dog)
         dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
         dd = (dog * og).sum(dim=-1).permute(0, 2, 3, 1)     # (b, hkv, g, q)
         ds = p * (dp - dd[..., None])
         if softcap is not None:
             ds = ds * (1.0 - th * th)
+        if p_dtype is not None:
+            ds = ds.to(p_dtype).float()
         dq[:, r0:r1] = (torch.einsum("bhgqk,bkhd->bqhgd", ds, kf)
                         * scale).reshape(b, n, h, hd)
         dk += torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale

@@ -1,8 +1,9 @@
 """The gradient of the port's attention against `jax.grad` of the
 reference's jnp `mha`, on the CPU.
 
-The flash backward kernel (csrc/flash_attention_bwd.cu) runs only on the
-card; here its plain version `ref.mha_bwd_ref` (the same formulas: the
+The flash backward kernels (csrc/flash_attention_bwd.cu and, for bf16 at
+hd 64/128/256, csrc/flash_attention_bwd_sm90.cu) run only on the card;
+here their plain version `ref.mha_bwd_ref` (the same formulas: the
 softmax recomputed, D = rowsum(dO * O), the softcap's derivative
 1 - tanh^2) and the autograd path of `ops.mha` (which sends a CPU tensor's
 backward to it) are held to the reference's gradients, in float32, to
@@ -148,3 +149,51 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_bad_shapes():
     with pytest.raises(ValueError, match="CUDA"):
         k_bwd.flash_attention_bwd(q, q, q, q, q, causal=True)
     assert k_bwd.launches == 0
+
+
+# The sm90 route rounds P and dS to bf16 where they feed a product; with
+# float32 inputs that moves each gradient by at most a bf16 rounding (2^-9
+# relative) of each term, summed: within 4e-3 of its scale (seen at most
+# 2.6e-3 on these cases).
+P_BF16_RTOL = 4e-3
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_backward_p_dtype_rounds_only_p_and_ds(case):
+    """`p_dtype=None` is `mha_bwd_ref` itself, and so is float32 (a
+    rounding that changes nothing: the rounded P and dS are the only
+    change); bfloat16 rounds them and stays within P_BF16_RTOL of
+    `jax.grad` of the reference's `mha`."""
+    b, sq, skv, h, hkv, hd, causal, window, cap, qo, kvl = case
+    q, k, v, do = _inputs(sum(case[:6]) + 2, b, sq, skv, h, hkv, hd)
+    want = _jax_grads(q, k, v, do, causal, window, cap, qo, kvl)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=qo,
+              kv_valid_len=kvl)
+    o = ref.mha_ref(tq, tk, tv, kv_chunk=16, **kw)
+    plain = ref.mha_bwd_ref(tq, tk, tv, o, tdo, **kw)
+    for same in (None, torch.float32):
+        got = ref.mha_bwd_ref(tq, tk, tv, o, tdo, p_dtype=same, **kw)
+        assert all(torch.equal(g, p) for g, p in zip(got, plain))
+    rounded = ref.mha_bwd_ref(tq, tk, tv, o, tdo, p_dtype=torch.bfloat16,
+                              **kw)
+    for g, p, w in zip(rounded, plain, want):
+        assert g.dtype == torch.float32 and not torch.equal(g, p)
+        assert _rel(g, w) <= P_BF16_RTOL
+
+
+def test_plain_backward_p_dtype_keeps_bf16_inputs_close():
+    """bf16 inputs, as the sm90 route takes them: the rounded P and dS
+    move each gradient by less than FLASH_BWD_TOL (2^-7) of chip_smoke.py
+    from the unrounded plain version, so the kernel's gate tells the two
+    roundings apart only through the kernel's own error."""
+    q, k, v, do = _inputs(6, 2, 64, 64, 4, 2, 64)
+    tq, tk, tv, tdo = (torch.from_numpy(a).bfloat16() for a in (q, k, v, do))
+    kw = dict(causal=True, window=40, softcap=50.0)
+    o = ref.mha_ref(tq, tk, tv, **kw)
+    plain = ref.mha_bwd_ref(tq, tk, tv, o, tdo, **kw)
+    rounded = ref.mha_bwd_ref(tq, tk, tv, o, tdo, p_dtype=torch.bfloat16,
+                              **kw)
+    for g, p in zip(rounded, plain):
+        assert g.dtype == torch.bfloat16
+        assert _rel(g.float(), p.float().numpy()) <= 2.0 ** -7

@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.models import attention as jattn  # noqa: E402
 from repro_torch.kernels import flash_attention as k_flash  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as k_bwd  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -227,3 +228,64 @@ def test_reset_launch_counts_zeroes_each_route():
     ops.reset_launch_counts()
     assert k_flash.route_counts() == {"sm90": 0, "split": 0, "simt": 0}
     assert ops.launch_counts()["flash_attention"] == 0
+
+
+# ---------------------------------------------------- backward routes ---
+
+@pytest.mark.parametrize("dtype,sq,h,hkv,hd,want", [
+    (torch.bfloat16, 2048, 8, 4, 256, "sm90"),     # gemma2-2b training
+    (torch.bfloat16, 257, 8, 4, 128, "sm90"),
+    (torch.bfloat16, 37, 4, 1, 64, "sm90"),
+    (torch.bfloat16, 1, 8, 4, 256, "sm90"),        # any Sq
+    (torch.float32, 2048, 8, 4, 256, "simt"),
+    (torch.float32, 37, 4, 1, 64, "simt"),
+    (torch.bfloat16, 130, 2, 2, 72, "simt"),       # phase 3's hd 72
+    (torch.bfloat16, 500, 20, 20, 80, "simt"),     # hubert-xlarge
+    (torch.bfloat16, 500, 32, 32, 112, "simt"),    # zamba2-7b
+])
+def test_backward_route_picks_by_dtype_and_head_dim(dtype, sq, h, hkv, hd,
+                                                    want):
+    assert k_bwd.route(dtype, 2, sq, sq, h, hkv, hd, sq) == want
+    assert k_bwd.accepts(want, dtype, sq, h, hkv, hd)
+    assert k_bwd.accepts("simt", dtype, sq, h, hkv, hd)
+
+
+def test_backward_routes_refuse_what_they_do_not_take():
+    assert not k_bwd.accepts("sm90", torch.float32, 2048, 8, 4, 256)
+    assert not k_bwd.accepts("sm90", torch.bfloat16, 130, 2, 2, 72)
+    assert k_bwd.ROUTES == ("sm90", "simt")
+    with pytest.raises(ValueError, match="unknown route"):
+        k_bwd.accepts("split", torch.bfloat16, 1, 8, 4, 256)
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 72),
+                                      (torch.float32, 64),
+                                      (torch.float32, 256)])
+def test_backward_wrapper_refuses_a_forced_route_that_does_not_take(dtype,
+                                                                    hd):
+    q = torch.zeros(1, 4, 2, hd, dtype=dtype)
+    with pytest.raises(ValueError, match="route 'sm90' does not take"):
+        k_bwd.flash_attention_bwd(q, q, q, q, q, causal=True, route="sm90")
+    with pytest.raises(ValueError, match="unknown route"):
+        k_bwd.flash_attention_bwd(q, q, q, q, q, causal=True, route="fast")
+    assert k_bwd.route_counts() == {"sm90": 0, "simt": 0}
+
+
+@pytest.mark.parametrize("route", [None, "sm90", "simt"])
+def test_backward_wrapper_refuses_cpu_tensors_on_every_route(route):
+    q = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_bwd.flash_attention_bwd(q, q, q, q, q, causal=True, route=route)
+    assert k_bwd.launches == 0
+    assert k_bwd.route_counts() == {"sm90": 0, "simt": 0}
+
+
+def test_reset_launch_counts_zeroes_each_backward_route():
+    k_bwd.launches_sm90, k_bwd.launches_simt, k_bwd.launches = 3, 4, 7
+    assert k_bwd.route_counts() == {"sm90": 3, "simt": 4}
+    k_bwd.reset_route_counts()
+    assert k_bwd.route_counts() == {"sm90": 0, "simt": 0}
+    k_bwd.launches_sm90, k_bwd.launches_simt = 1, 2
+    ops.reset_launch_counts()
+    assert k_bwd.route_counts() == {"sm90": 0, "simt": 0}
+    assert ops.launch_counts()["flash_attention_bwd"] == 0

@@ -335,9 +335,10 @@ def test_kernel_library_is_named_by_its_sources():
         "amtl_event.cu", "amtl_event_batch.cu", "gauss_sketch.cu",
         "svt_reconstruct.cu", "lstsq_grad.cu", "lstsq_grad_sampled.cu",
         "flash_attention.cu", "flash_attention_sm90.cu", "flash_decode.cu",
-        "flash_attention_bwd.cu", "rwkv6_scan.cu", "rwkv6_chunked.cu", "km_update.cu", "l21_prox.cu"}
+        "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu",
+        "rwkv6_scan.cu", "rwkv6_chunked.cu", "km_update.cu", "l21_prox.cu"}
     assert {p.name for p in _build.headers()} == {
-        "counter_hash.cuh", "km_column.cuh"}
+        "counter_hash.cuh", "km_column.cuh", "sm90_wgmma.cuh"}
     assert path.name.startswith("librepro_torch_kernels-")
 
 
