@@ -12,7 +12,8 @@ published by a TaskStore (batch, delta and logistic sessions, a store
 append between two chunks), gemma2-2b serving (prefill and greedy
 decode through `repro_torch.launch.serve`, every bf16 prefill attention
 call in the tensor-core flash kernel and every decode call in the split-KV
-kernel) and rwkv6-3b serving (every bf16 prefill WKV in the chunked
+kernel; granite-8b, nemotron-4-15b and gemma3-12b the same way, phases
+26-28) and rwkv6-3b serving (every bf16 prefill WKV in the chunked
 tensor-core kernel and every decode WKV in the recurrent one), the dense
 engine and the l2,1 (joint feature learning) formulation (dense sessions
 with the km_update and l21_prox kernels, dense == delta bitwise, a batch
@@ -25,7 +26,9 @@ restored into a fresh world, SGD on the ragged store), and gemma2-2b
 training with the AMTL head in every step (phase 24: AdamW steps at full
 width, every attention forward in the flash kernel and every backward in
 the tensor-core flash backward kernel, step 0 against the plain attention,
-the head's rounds against a CPU replay) — holds
+the head's rounds against a CPU replay) and rwkv6-3b training (phase 25:
+every WKV forward in the chunked kernel, every backward in the WKV
+backward kernel, step 0 against the plain WKV under autograd) — holds
 the card's runs against the port's own CPU runs, replays or plain-kernel
 runs of the same states, and times
 each kernel (the prox's two kernels and the engines' state updates
@@ -41,6 +44,7 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -346,6 +350,7 @@ def check_kernels(dev, gen) -> dict:
     info.update(check_flash_kernel(dev, gen))
     info.update(check_flash_bwd(dev, gen))
     info.update(check_rwkv_kernel(dev, gen))
+    info.update(check_wkv_bwd(dev, gen))
     ops.reset_launch_counts()
     return info
 
@@ -1889,6 +1894,223 @@ def check_rwkv_kernel(dev, gen) -> dict:
     return {"rwkv6_scan": dict(chunked, served=served)}
 
 
+# ----------------------------------------------------------- WKV backward --
+
+# The WKV backward (csrc/rwkv6_bwd.cu) against its plain versions, by each
+# gradient's max |diff| over its max |value|: `ref.wkv_bwd_exact_ref` (the
+# same token-by-token formulas) everywhere, and `ref.wkv_bwd_ref` (autograd
+# through the chunked form, the CPU path) at the model's decays.  In
+# float32 both sum in float32 in other orders: on an H100 the kernel read
+# at most 4.7e-7 against the exact formulas, so the limit is 1e-5.  In bf16
+# both round each gradient once from float32 sums, so they differ by a bf16
+# ulp of the value (2^-8 of the max at most): limit 2^-7 (on an H100 the
+# training shape read 3.2e-3 against both).  The controls, built from the
+# exact plain version, must exceed a limit against it: the state dropped at
+# the checkpoint nearest the middle, the bonus left out, and where the
+# decays are far from 1 (w ~ 0.7), the decays read one token late (at the
+# model's w ~ 0.9975 that shift read only 9.3e-3, too near the limit to
+# count as a control).
+WKV_BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+WKV_BWD_NAMES = ("dr", "dk", "dv", "dw", "du")
+WKV_TRAIN_SHAPE = (2, 2048, 40, 64)     # rwkv6-3b training: B, L, H, D
+
+
+def wkv_bwd_inputs(gen, dev, b, ell, h, d, dtype, log_w0):
+    """r, k, v, do (B, L, H, D) in `dtype` (0.5 N), w = exp(-exp(log_w0 +
+    0.5 N)) float32 (w = 1 for log_w0 None), u (H, D) ~ 0.5 N."""
+    import torch
+    r, k, v, w, u, _ = wkv_inputs(gen, dev, b, ell, h, d, dtype,
+                                  -6.0 if log_w0 is None else log_w0, 0.0)
+    if log_w0 is None:
+        w = torch.ones_like(w)
+    do = (0.5 * torch.randn(b, ell, h, d, generator=gen, device=dev)).to(
+        dtype)
+    return r, k, v, w, u, do
+
+
+def wkv_bwd_errs(got, want) -> list:
+    return [float((g.float() - x.float()).abs().max()
+                  / x.float().abs().max().clamp_min(1e-30))
+            for g, x in zip(got, want)]
+
+
+def wkv_bwd_controls(args_, late: bool) -> dict:
+    """The exact plain gradient with the state dropped at the checkpoint
+    boundary nearest the middle (two independent halves), with the bonus
+    left out (u = 0) and, with `late` (decays far enough from 1 that a
+    shift shows), with the decays read one token late."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_bwd as k_wb
+    r, k, v, w, u, do = args_
+    ell = r.shape[1]
+    cut = max(k_wb.CKPT_EVERY, ell // 2 // k_wb.CKPT_EVERY * k_wb.CKPT_EVERY)
+    a = ref.wkv_bwd_exact_ref(*(t[:, :cut] for t in (r, k, v, w)), u,
+                              do[:, :cut])
+    b = ref.wkv_bwd_exact_ref(*(t[:, cut:] for t in (r, k, v, w)), u,
+                              do[:, cut:])
+    dropped = [torch.cat([x, y], 1) for x, y in zip(a[:4], b[:4])] \
+        + [a[4] + b[4]]
+    out = {"state dropped at a checkpoint": dropped,
+           "bonus left out": list(ref.wkv_bwd_exact_ref(
+               r, k, v, w, torch.zeros_like(u), do))}
+    if late:
+        out["decays one token late"] = list(ref.wkv_bwd_exact_ref(
+            r, k, v, torch.cat([w[:, :1], w[:, :-1]], 1), u, do))
+    return out
+
+
+def check_wkv_bwd(dev, gen) -> dict:
+    """The WKV backward against its plain versions on the card: the
+    training shape at the model's decays against both, L off the
+    checkpoint and the chunk, L < 16, D 32, float32, and w near 1e-3, 1e-6
+    and 1 against the exact formulas; two launches bitwise each; the
+    controls, which must fail the gate; `ops.wkv`'s autograd launching the
+    kernel once.  Returns the training-shape inputs for the timing phase."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rwkv6_bwd as k_wb
+    chunk = get_config("rwkv6-3b").rwkv.chunk
+    b0, l0, h0, d0 = WKV_TRAIN_SHAPE
+    # (label, B, L, H, D, dtype, log_w0 (None: w = 1), against the chunked
+    # plain version too, controls)
+    cases = [("training shape", b0, l0, h0, d0, "bfloat16", -6.0, True,
+              False),
+             ("L 203", 2, 203, 3, 64, "bfloat16", -6.0, True, True),
+             ("L 203 float32", 2, 203, 3, 64, "float32", -1.0, False, True),
+             ("L 5", 2, 5, 3, 64, "float32", -1.0, False, False),
+             ("L 1", 1, 1, 2, 64, "bfloat16", -1.0, False, False),
+             ("L 13 D 32", 2, 13, 4, 32, "float32", -1.0, False, False),
+             ("L 100 D 32 bf16", 2, 100, 8, 32, "bfloat16", -6.0, True,
+              False),
+             ("w near 1e-3", 1, 160, 3, 64, "float32", 1.9, False, False),
+             ("w near 1e-6", 1, 160, 3, 64, "float32", 2.63, False, False),
+             ("w = 1", 1, 160, 3, 64, "float32", None, False, False)]
+    worst, controls, served = {}, {}, None
+    for label, b, ell, h, d, dt, log_w0, chunked, with_controls in cases:
+        args_ = wkv_bwd_inputs(gen, dev, b, ell, h, d, getattr(torch, dt),
+                               log_w0)
+        got = k_wb.wkv_bwd(*args_)
+        again = k_wb.wkv_bwd(*args_)
+        exact = ref.wkv_bwd_exact_ref(*args_)
+        torch.cuda.synchronize()
+        tol = WKV_BWD_TOL[dt]
+        if not all(bool(torch.isfinite(g).all()) for g in got) \
+                or [g.dtype for g in got] != [args_[0].dtype] * 3 \
+                + [torch.float32] * 2:
+            fail(f"rwkv6_bwd {label}: a gradient is not finite or of the "
+                 "wrong dtype")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"rwkv6_bwd {label}: two launches differ")
+        errs = {"exact": wkv_bwd_errs(got, exact)}
+        if chunked:
+            errs["chunked"] = wkv_bwd_errs(
+                got, ref.wkv_bwd_ref(*args_, chunk))
+        for yard, e in errs.items():
+            if not max(e) <= tol:
+                fail(f"rwkv6_bwd {label}: against the {yard} plain version "
+                     f"{dict(zip(WKV_BWD_NAMES, e))} > {tol}")
+        worst[label] = {yard: max(e) for yard, e in errs.items()}
+        if with_controls:
+            for name, bad in wkv_bwd_controls(args_,
+                                              late=log_w0 > -6.0).items():
+                e = max(wkv_bwd_errs(bad, exact))
+                if not e > tol:
+                    fail(f"rwkv6_bwd {label}: the control '{name}' passes "
+                         f"the gate ({e:.3g} <= {tol})")
+                controls[f"{label}: {name}"] = e
+        if label == "training shape":
+            served = dict(args=args_, err=max(
+                float((g.float() - x.float()).abs().max())
+                for g, x in zip(got, exact)))
+        del exact
+    # ops.wkv under grad on the card: a _WKV node whose backward is one
+    # launch of the kernel, its gradients the wrapper's
+    r, k, v, w, u, do = wkv_bwd_inputs(gen, dev, 2, 300, 4, 64,
+                                       torch.bfloat16, -6.0)
+    leaves = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
+    before = k_wb.launches
+    out = ops.wkv(*leaves, None, chunk=chunk)
+    grads = torch.autograd.grad(out, leaves, do)
+    if type(out.grad_fn).__name__ != "_WKVBackward" \
+            or k_wb.launches != before + 1:
+        fail("ops.wkv under grad on the card did not take the rwkv6_bwd "
+             "kernel once")
+    if not all(torch.equal(g, x) for g, x in
+               zip(grads, k_wb.wkv_bwd(r, k, v, w, u, do))):
+        fail("ops.wkv's gradients on the card are not the kernel's")
+    log("rwkv6_bwd: each gradient's max |diff| / max |value| (worst of dr, "
+        "dk, dv, dw, du) against the exact plain version and, at the "
+        "model's decays, the chunked one, two launches bitwise each: "
+        + "; ".join(f"{k} " + ", ".join(f"{y} {e:.3g}" for y, e in v.items())
+                    for k, v in worst.items())
+        + f" (limits {WKV_BWD_TOL}); controls (each above the limit): "
+        + "; ".join(f"{k} {e:.3g}" for k, e in controls.items())
+        + "; ops.wkv under grad: one launch, the kernel's gradients")
+    return {"rwkv6_bwd": served}
+
+
+def wkv_bwd_cost(args_) -> tuple[float, float]:
+    """(bytes, float32 operations) of the gradient, whatever the design:
+    r, k, v, do read and dr, dk, dv written in their dtype, w read and dw
+    written in float32, u and du; 14 D^2 operations a (token, head): one
+    state step and one dS step (3 D^2 each) and four D-long dots a row
+    (dr', dk', dv', dw: 8 D^2).  The kernel's second state step (the
+    rebuild) and second copy of the dS step are its design's, not the
+    function's, and are not counted."""
+    r, k, v, w, u, do = args_
+    b, ell, h, d = r.shape
+    el = r.element_size()
+    nbytes = el * 7 * r.numel() + 4 * (2 * w.numel() + 2 * u.numel())
+    return nbytes, 14.0 * d * d * b * ell * h
+
+
+def wkv_bwd_times(info: dict, launches: int, dev) -> dict:
+    """The WKV backward at the rwkv6-3b training shape (bf16, B 2, L 2048,
+    H 40, D 64): L2-warm, and L2-cold over three distinct inputs in turn
+    (each call moves 231 MB, more than the L2 holds), beside its bound and
+    its plain version (`ref.wkv_bwd_ref`, autograd through the chunked
+    form, as the CPU path runs it).  No PyTorch call computes this
+    gradient, so there is no library time.  Returns the kernels line
+    entry; `launches` is the training run's count."""
+    import itertools
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_bwd as k_wb
+    saved = k_wb.launches
+    args_ = info["args"]
+    chunk = get_config("rwkv6-3b").rwkv.chunk
+    nbytes, flops = wkv_bwd_cost(args_)
+    bnd, by = bound_ms(nbytes, flops, FP32_FLOP_PER_S)
+    sets = [args_] + [tuple(t.clone() for t in args_) for _ in range(2)]
+    warm = cuda_ms(lambda: k_wb.wkv_bwd(*args_), reps=11, inner=5)
+    ring = itertools.cycle(sets)
+    cold = cuda_ms(lambda: k_wb.wkv_bwd(*next(ring)), reps=11, inner=5)
+    p_ms = cuda_ms(lambda: ref.wkv_bwd_ref(*args_, chunk), reps=3, inner=1,
+                   warmup=1, backlog=False)
+    k_wb.launches = saved           # timing launches are not the path's
+    log(f"phase 12 rwkv6_bwd training shape (B 2, L 2048, H 40, D 64, "
+        f"bf16): {warm * 1e3:.2f} us L2-warm, {cold * 1e3:.2f} us L2-cold "
+        f"(3 inputs in turn), bound {bnd * 1e3:.2f} us by {by} "
+        f"({nbytes / 1e6:.1f} MB {nbytes / HBM_BYTES_PER_S * 1e6:.2f} us; "
+        f"{flops / 1e9:.2f} GFLOP float32 "
+        f"{flops / FP32_FLOP_PER_S * 1e6:.2f} us; {100 * bnd / warm:.1f} % "
+        f"of the bound); plain {p_ms * 1e3:.1f} us (wkv_bwd_ref, autograd "
+        f"through the chunked form); library null (no PyTorch call computes "
+        f"the WKV gradient); {launches} launches on the training run")
+    return dict(name="rwkv6_bwd", route="cuda",
+                source="src/repro_torch/csrc/rwkv6_bwd.cu",
+                replaces="none: the port's own gradient of "
+                         "src/repro/kernels/rwkv6_scan.py:64 (the reference "
+                         "differentiates its jnp _wkv_chunked, "
+                         "src/repro/models/rwkv.py:72)",
+                launches=launches, max_abs_err=info["err"], ms=warm,
+                plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None,
+                l2_cold_ms=cold, bound_share=bnd / warm)
+
+
 def wkv_cost(args_, route: str) -> tuple[float, list]:
     """(bytes, [(operations, rate), ...]) of one WKV call on `route`.
     Bytes: r, k, v and out in their dtype, w and u float32, the state read
@@ -2190,11 +2412,6 @@ def flex_library(args_, dev):
 
 # ---------------------------------------------------------- phases 10-11 --
 
-def cast_tree(tree: dict, dtype) -> dict:
-    return {k: cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype)
-            for k, v in tree.items()}
-
-
 def rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()
                  / want.float().abs().max())
@@ -2249,23 +2466,92 @@ def wkv_sequential_inplace(r, k, v, w, u, state, *, chunk: int):
 SERVED = {"gemma2-2b": ("flash_attention", "mha", "mha_ref", None,
                         (10, 11)),
           "rwkv6-3b": ("rwkv6_scan", "wkv", "wkv_inplace_ref",
-                       wkv_sequential_inplace, (13, 14))}
+                       wkv_sequential_inplace, (13, 14)),
+          "granite-8b": ("flash_attention", "mha", "mha_ref", None,
+                         (26, 26)),
+          "nemotron-4-15b": ("flash_attention", "mha", "mha_ref", None,
+                             (27, 27)),
+          "gemma3-12b": ("flash_attention", "mha", "mha_ref", None,
+                         (28, 28))}
+# The dense archs served at their published widths beside gemma2-2b
+# (configs/granite_8b.py: 36 layers, d_model 4096, 32 heads, GQA kv 8, hd
+# 128, SwiGLU, RMSNorm, untied, 8254.7M parameters; nemotron_4_15b.py: 32
+# layers, d_model 6144, 48 heads, kv 8, hd 128, squared ReLU, LayerNorm,
+# untied vocab 256000, 15628.8M; gemma3_12b.py: 48 layers = 8 x (5 local
+# with window 1024 + 1 global), d_model 3840, 16 heads, kv 8, hd 256,
+# qk-norm, GeGLU, tied vocab 262144, 11765.4M), bf16, random weights from
+# --seed, at gemma2's batch and prompt.
+DENSE_ARCHS = ("granite-8b", "nemotron-4-15b", "gemma3-12b")
+# Their greedy decode steps: 8, not 32, to keep the whole smoke near 900 s
+# (with 32 it took 880.8 s from phase 1 on an H100 80GB HBM3 at 700 W);
+# 8 still decodes past every local layer's 1024-slot ring.
+DENSE_GEN = 8
+SERVE_GENS = {"gemma2-2b": SERVE_GEN, "rwkv6-3b": SERVE_GEN,
+              **{a: DENSE_GEN for a in DENSE_ARCHS}}
 # The CUDA kernels of each arch's kernel module, by the substrings of
 # their names in a profile: flash attention's three routes, the WKV's two.
+FLASH_PARTS = {"flash sm90": ("flash_sm90_kernel",),
+               "flash split": ("flash_decode_kernel",
+                               "flash_decode_combine"),
+               "flash simt": ("flash_attention_kernel",)}
 PROFILE_PARTS = {
-    "gemma2-2b": {"flash sm90": ("flash_sm90_kernel",),
-                  "flash split": ("flash_decode_kernel",
-                                  "flash_decode_combine"),
-                  "flash simt": ("flash_attention_kernel",)},
+    "gemma2-2b": FLASH_PARTS,
     "rwkv6-3b": {"wkv chunked": ("rwkv6_chunked_kernel",),
-                 "wkv recurrent": ("rwkv6_scan_kernel",)}}
+                 "wkv recurrent": ("rwkv6_scan_kernel",)},
+    **{a: FLASH_PARTS for a in DENSE_ARCHS}}
 # The routes a served bf16 run must take, in launches a layer: gemma2-2b
 # every prefill layer on sm90, every decode call on split; rwkv6-3b every
 # prefill layer on chunked, every decode call on recurrent.  Each arch's
 # float32 prefill takes the last route named.
-SERVE_ROUTES = {"gemma2-2b": {"sm90": 1, "split": SERVE_GEN - 1, "simt": 0},
-                "rwkv6-3b": {"chunked": 1, "recurrent": SERVE_GEN - 1}}
-SERVE_F32_ROUTE = {"gemma2-2b": "simt", "rwkv6-3b": "recurrent"}
+SERVE_ROUTES = {a: {"sm90": 1, "split": SERVE_GENS[a] - 1, "simt": 0}
+                for a in ("gemma2-2b",) + DENSE_ARCHS}
+SERVE_ROUTES["rwkv6-3b"] = {"chunked": 1, "recurrent": SERVE_GEN - 1}
+SERVE_F32_ROUTE = {"gemma2-2b": "simt", "rwkv6-3b": "recurrent",
+                   **{a: "simt" for a in DENSE_ARCHS}}
+# The float32 prefill copies the served weights to float32 leaf by leaf
+# after the bf16 model is dropped; where all the float32 weights would pass
+# F32_WEIGHTS_BYTES (nemotron-4-15b's are 62.5 GB of the card's 80) it runs
+# the first layers that fit, and says so.
+F32_WEIGHTS_BYTES = 48e9
+
+
+def float32_model(tree: dict, cfg):
+    """The weights of `tree` (the only reference to them: the caller has
+    dropped its model) in float32, each leaf cast as its bf16 one is
+    released, cut to the first periods of the one scan group whose float32
+    weights fit F32_WEIGHTS_BYTES.  Returns (LM, its config, kept periods,
+    the float32 bytes of all)."""
+    import torch
+    from repro_torch.models import LM
+    from repro_torch.models.transformer import scan_groups
+    (group,) = scan_groups(cfg)
+
+    def leaves(node, pre=""):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{pre}{k}.")
+            else:
+                yield pre + k, v
+
+    sizes = {k: v.numel() for k, v in leaves(tree)}
+    in_group = sum(n for k, n in sizes.items() if k.startswith("group0."))
+    full = 4 * sum(sizes.values())
+    rest = full - 4 * in_group
+    keep = group.n if full <= F32_WEIGHTS_BYTES else max(
+        1, int((F32_WEIGHTS_BYTES - rest) // (4 * in_group / group.n)))
+
+    def cast(node, cut):
+        for k in list(node):
+            if isinstance(node[k], dict):
+                cast(node[k], cut or k == "group0")
+            else:      # replacing the entry releases the bf16 leaf
+                leaf = node[k].detach()
+                node[k] = (leaf[:keep] if cut else leaf).to(torch.float32)
+
+    cast(tree, False)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_periods=keep,
+                                num_layers=keep * len(group.period))
+    return LM(cfg32, tree), cfg32, keep, full
 
 
 def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
@@ -2273,18 +2559,17 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
     weights with the kernel's `ops` function replaced by its plain version:
     the kernel's prefill and teacher-forced decode logits against the plain
     run's, and a float32 prefill of batch 1 held tighter."""
-    import dataclasses
     from unittest import mock
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.launch import host_time, serve
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    from repro_torch.models import LM, init_params
+    from repro_torch.models import init_params
 
     kname, op, plain_name, second, (ph, ph32) = SERVED[arch]
     plain = getattr(ref, plain_name)
     cfg = serve.serve_config(arch)
-    b, p, g = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    b, p, g = SERVE_BATCH, SERVE_PROMPT, SERVE_GENS[arch]
     t0 = time.perf_counter()
     model = init_params(cfg, seed=seed, device=dev)
     sync(dev)
@@ -2326,7 +2611,7 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
         f"tokens/s, {1e3 * run['decode_s'] / (g - 1):.2f} ms a step), "
         f"{kname} launches {counts[kname]} = "
         f"{cfg.num_layers} + {cfg.num_layers} x {g - 1}{routes}; card {card}")
-    if kname == "flash_attention":
+    if arch == "gemma2-2b":
         ht = host_time.measure(model, prompts, reps=10)
         log(f"phase {ph} {arch} decode step: {ht['step_host_ms']:.2f} ms of "
             f"host time (every launch queued) of {ht['step_wall_ms']:.2f} ms "
@@ -2389,19 +2674,26 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
                   "3 decode steps", PROFILE_PARTS[arch], ph)
     del cache
 
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    model32 = LM(cfg32, cast_tree(model.tree(), torch.float32))
+    tree = model.tree()
     del model
+    torch.cuda.empty_cache()
+    model32, cfg32, keep, f32_bytes = float32_model(tree, cfg)
+    del tree
+    layers32 = cfg32.num_layers
+    which = (f"all {layers32} layers" if layers32 == cfg.num_layers else
+             f"the first {layers32} of {cfg.num_layers} layers: the float32 "
+             f"weights of all would be {f32_bytes / 1e9:.1f} GB, over "
+             f"{F32_WEIGHTS_BYTES / 1e9:.0f}")
     prefill32 = make_prefill_step(cfg32, s_max=p)
     ops.reset_launch_counts()
     lk, _ = prefill32(model32, prompts[:1])
-    if ops.launch_counts()[kname] != cfg.num_layers:
+    if ops.launch_counts()[kname] != layers32:
         fail(f"serve {arch} float32: the prefill did not launch the kernel "
              "once a layer")
     f32_route = SERVE_F32_ROUTE[arch]
-    if kmod.route_counts()[f32_route] != cfg.num_layers:
+    if kmod.route_counts()[f32_route] != layers32:
         fail(f"serve {arch} float32: routes {kmod.route_counts()}, want "
-             f"{f32_route} {cfg.num_layers} (float32 prefill stays on the "
+             f"{f32_route} {layers32} (float32 prefill stays on the "
              "CUDA cores)")
     with mock.patch.object(ops, op, plain):
         lp, _ = prefill32(model32, prompts[:1])
@@ -2409,13 +2701,15 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
     if not e32 <= SERVE_F32_RTOL or not bool(torch.isfinite(lk).all()):
         fail(f"serve {arch} float32: kernel against plain prefill logits "
              f"{e32:.3g} > {SERVE_F32_RTOL} of max|logits|")
-    log(f"phase {ph32} serve {arch} float32 prefill (B 1, S {p}, TF32 off): "
-        f"kernel against plain within {e32:.3g} of max|logits| <= "
+    log(f"phase {ph32} serve {arch} float32 prefill (B 1, S {p}, TF32 off, "
+        f"{which}; the bf16 model dropped and its weights cast leaf by "
+        f"leaf): kernel against plain within {e32:.3g} of max|logits| <= "
         f"{SERVE_F32_RTOL}: PASS")
     del model32
     torch.cuda.empty_cache()
     return dict(counts=counts, routes=got_routes, prefill_tps=prefill_tps,
-                decode_tps=decode_tps, errs=errs, e32=e32, tol=tol)
+                decode_tps=decode_tps, errs=errs, e32=e32, tol=tol,
+                f32_layers=layers32)
 
 
 # ------------------------------------------------------------- phases 4-6 --
@@ -4242,30 +4536,31 @@ def sharded_phase(dev, seed: int, card: str, problem, v0, offs, key,
             "rank_launches": r0[0]["launches"], "kernels": kernels}
 
 
-# ---------------------------------------------------------------- phase 24 --
+# ----------------------------------------------------------- phases 24-25 --
 
-# gemma2-2b training at its published width (configs/gemma2_2b.py: 26
-# layers, d_model 2304, 8 heads, GQA kv 4, head_dim 256, d_ff 9216, vocab
-# 256000, window 4096, softcaps 50 and 30, GeGLU, tied embeddings, bf16):
+# Training at a published width: gemma2-2b (phase 24; configs/gemma2_2b.py:
+# 26 layers, d_model 2304, 8 heads, GQA kv 4, head_dim 256, d_ff 9216,
+# vocab 256000, window 4096, softcaps 50 and 30, GeGLU, tied embeddings,
+# bf16) and rwkv6-3b (phase 25; configs/rwkv6_3b.py: 32 layers, d_model
+# 2560, 40 heads of 64, d_ff 8960, vocab 65536, bf16, 3073.5M parameters):
 # random weights from --seed, batch 2 x seq 2048 from synthetic_lm_batches,
 # remat on, TRAIN_STEPS steps of AdamW (an fp32 master, mu and nu) with the
 # head's AMTL round (T 16, tau 4, nuclear) inside each.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
 # Step 0's loss and every parameter leaf's gradient through the kernels
-# against the same step with the plain attention (`ref.mha_ref` under
-# autograd) on the card, by ||diff|| / ||plain grad|| a leaf: bf16
-# rounding differences (the sm90 forward rounds P to bf16, the plain
-# version does not) carried through 26 layers and back.  On an H100 the
-# sound readings were a loss 1.3e-5 apart and leaves 0.0149 (median) to
-# 0.0197 (worst, the FFN gates); the control, the plain run with the local
-# layers' window cut to 1024, read 0.078 (median) to 0.103.  Limits 1e-3
-# and 0.05.
+# against the same step with the arch's kernel op replaced by its plain
+# version under autograd on the card, by ||diff|| / ||plain grad|| a leaf:
+# bf16 rounding differences carried through the layers and back.  On an
+# H100 the sound gemma2-2b readings were a loss 1.3e-5 apart and leaves
+# 0.0149 (median) to 0.0197 (worst, the FFN gates); its control, the plain
+# run with the local layers' window cut to 1024, read 0.078 (median) to
+# 0.103.  Limits 1e-3 and 0.05, for both archs.
 TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_RTOL = 0.05
 # The head's ring after the run against a CPU replay of its rounds from the
 # card's pooled states: float32 sums in another order.
 HEAD_RTOL = 1e-5
-# The local layers' window in the control run, which must fail the gate.
+# gemma2-2b's control: the local layers' window in the plain run.
 TRAIN_CONTROL_WINDOW = 1024
 # The device-time parts of a train step, by kernel name.
 TRAIN_PARTS = {"flash_attention_bwd": ("fa_bwd_",),
@@ -4273,12 +4568,122 @@ TRAIN_PARTS = {"flash_attention_bwd": ("fa_bwd_",),
                "bwd dkdv": ("fa_bwd_sm90_dkdv",),
                "flash sm90": ("flash_sm90_kernel",),
                "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet")}
+RWKV_TRAIN_PARTS = {"rwkv6_bwd": ("rwkv6_bwd_",),
+                    "wkv chunked": ("rwkv6_chunked_kernel",),
+                    "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet")}
+
+
+def wkv_plain_grad(r, k, v, w, u, state, *, chunk: int):
+    """`ops.wkv`'s training call through its plain version under autograd
+    (`ref.wkv_chunked_ref`, differentiated by PyTorch): phase 25's
+    yardstick."""
+    from repro_torch.kernels import ref
+    if state is not None:
+        fail("phase 25: the training call handed ops.wkv a state")
+    return ref.wkv_chunked_ref(r, k, v, w, u, chunk)[0].to(r.dtype)
+
+
+def wkv_kernels_forward(backward):
+    """`ops.wkv`'s training call with the kernels' forward and `backward`
+    (r, k, v, w, u, do, chunk -> dr, dk, dv, dw, du) as its gradient: the
+    runs that hold the backward kernel alone, on the same forward
+    activations bit for bit."""
+    import torch
+    from repro_torch.kernels import ops
+
+    class KernelForward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, r, k, v, w, u, chunk):
+            ctx.save_for_backward(r, k, v, w, u)
+            ctx.chunk = chunk
+            return ops._wkv_forward(r, k, v, w, u, None, chunk)
+
+        @staticmethod
+        def backward(ctx, do):
+            r, k, v, w, u = ctx.saved_tensors
+            return (*backward(r, k, v, w, u, do.to(r.dtype), ctx.chunk),
+                    None)
+
+    def call(r, k, v, w, u, state, *, chunk: int):
+        if state is not None:
+            fail("phase 25: the training call handed ops.wkv a state")
+        return KernelForward.apply(r, k, v, w, u, chunk)
+    return call
+
+
+def wkv_bwd_ref_cut(r, k, v, w, u, do, chunk: int):
+    """The plain backward (`ref.wkv_bwd_ref`) of two independent halves,
+    cut at the chunk boundary nearest the middle: the state's gradient
+    dropped there, as phase 3's control drops it.  Every leaf's plain
+    gradient stays non-zero."""
+    import torch
+    from repro_torch.kernels import ref
+    ell = r.shape[1]
+    cut = max(chunk, ell // 2 // chunk * chunk)
+    a = ref.wkv_bwd_ref(*(t[:, :cut] for t in (r, k, v, w)), u, do[:, :cut],
+                        chunk)
+    b = ref.wkv_bwd_ref(*(t[:, cut:] for t in (r, k, v, w)), u, do[:, cut:],
+                        chunk)
+    return (*(torch.cat([x, y], 1) for x, y in zip(a[:4], b[:4])),
+            a[4] + b[4])
+
+
+def wkv_ref_backward(r, k, v, w, u, do, chunk: int):
+    from repro_torch.kernels import ref
+    return ref.wkv_bwd_ref(r, k, v, w, u, do, chunk)
+
+
+# The run that holds rwkv6-3b's backward kernel (the kernels' forward, the
+# plain backward) and its control (the same with the state's gradient
+# dropped at the middle).
+wkv_plain_backward = wkv_kernels_forward(wkv_ref_backward)
+wkv_plain_backward_cut = wkv_kernels_forward(wkv_bwd_ref_cut)
+
+
+# Each trained arch: its phase, the kernel module of its forward and of
+# its backward, the `ops` function that reaches them, that function's
+# plain version under autograd, the run step 0's gradients are held
+# against (None: the plain version), the control (a function and a config
+# change; its run must fail the gate), the `ref` functions that must not
+# run on the kernels' path, the forward's routes a layer (twice under
+# remat) and the backward's, the leaves whose gradient must be non-zero,
+# and the profile's parts.
+#
+# rwkv6-3b's random-weight bf16 model amplifies any difference in its
+# WKV's float32 sums through 32 layers: on an H100 two plain versions
+# (chunk 128 and 64) read 0.096 apart (worst leaf), the kernels against
+# the plain version 0.142 (median 0.11).  So the whole plain run is only a
+# logged reading there (with the loss gate and the non-zero leaves), and
+# the gate holds the backward kernel alone: the kernels' forward with the
+# plain backward, the same activations bit for bit (read 0.0215, median
+# 0.0193), at TRAIN_GRAD_RTOL.
+TRAINED = {
+    "gemma2-2b": dict(
+        phase=24, fwd="flash_attention", bwd="flash_attention_bwd", op="mha",
+        plain="mha_ref", held=None, control=("mha_ref", dict(
+            sliding_window=TRAIN_CONTROL_WINDOW)),
+        control_label=f"plain run, local window {TRAIN_CONTROL_WINDOW}",
+        plain_calls=("mha_ref", "mha_bwd_ref"),
+        fwd_routes={"sm90": 2, "split": 0, "simt": 0},
+        bwd_routes={"sm90": 1, "simt": 0}, nonzero=(), parts=TRAIN_PARTS),
+    "rwkv6-3b": dict(
+        phase=25, fwd="rwkv6_scan", bwd="rwkv6_bwd", op="wkv",
+        plain=wkv_plain_grad, held=wkv_plain_backward,
+        control=(wkv_plain_backward_cut, {}),
+        control_label="the kernels' forward, the plain backward with the "
+                      "state's gradient dropped at the middle",
+        plain_calls=("wkv_chunked_ref", "wkv_inplace_ref", "wkv_bwd_ref",
+                     "wkv_bwd_exact_ref"),
+        fwd_routes={"chunked": 2, "recurrent": 0}, bwd_routes=None,
+        nonzero=("wr", "wk", "wv", "w0", "w_lora_a", "w_lora_b", "u"),
+        parts=RWKV_TRAIN_PARTS)}
 
 
 def train_grads(model, batch, cfg, p) -> tuple:
     """The train step's loss (LM loss plus probe_weight times the probe
     loss at the head's read p) and the gradient of every parameter leaf,
-    by path, without an update."""
+    by path (zeros for a leaf the loss does not reach), without an
+    update."""
     import torch
     from repro_torch.core.mtl_head import probe_loss
     from repro_torch.models.transformer import forward
@@ -4292,7 +4697,8 @@ def train_grads(model, batch, cfg, p) -> tuple:
             p, metrics["pooled"], batch["task_ids"],
             batch["mtl_targets"].float())
         total.backward()
-    grads = {".".join(path): leaf.grad for path, leaf in tree_items(params)}
+    grads = {".".join(path): leaf.grad if leaf.grad is not None
+             else torch.zeros_like(leaf) for path, leaf in tree_items(params)}
     for leaf in model.parameters():
         leaf.grad = None
     return float(total.detach()), grads
@@ -4310,95 +4716,120 @@ def leaf_errs(got: dict, want: dict) -> dict:
     return out
 
 
-def train_phase(dev, seed: int, card: str) -> dict:
-    """Phase 24: `repro_torch.launch.train`'s path (init_train_state,
-    ShardedBatcher over batches_for, make_train_step) at gemma2-2b's full
+def train_phase(dev, seed: int, card: str, arch: str) -> dict:
+    """Phases 24-25: `repro_torch.launch.train`'s path (init_train_state,
+    ShardedBatcher over batches_for, make_train_step) at `arch`'s full
     width.  Fails unless step 0's loss and gradients through the kernels
-    match the plain attention's, each step's staleness and mask are the
-    host replay's bits, the head's ring matches a CPU replay of its rounds,
-    each step launches exactly 52 sm90 forwards (26 and 26 under remat) and
-    26 backwards, all on the backward's sm90 route, and no plain attention,
-    and every loss is finite."""
+    match the plain version's under autograd (and the control does not),
+    each step's staleness and mask are the host replay's bits, the head's
+    ring matches a CPU replay of its rounds, each step launches exactly
+    2 x layers forwards (layers and layers under remat) and layers
+    backwards on their routes, and no plain version, and every loss is
+    finite."""
     from unittest import mock
     import torch
     from repro_torch.core import mtl_head, prng
     from repro_torch.data import ShardedBatcher
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import flash_attention as k_flash
-    from repro_torch.kernels import flash_attention_bwd as k_bwd
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.steps import (default_optimizer,
                                           init_train_state, make_train_step,
                                           train_keys)
     from repro_torch.models import init_params
 
+    spec = TRAINED[arch]
+    ph, op = spec["phase"], spec["op"]
+    fwd_mod, bwd_mod = ops.KERNELS[spec["fwd"]], ops.KERNELS[spec["bwd"]]
+    plain, (control_fn, control_cfg) = spec["plain"], spec["control"]
+    plain = getattr(ref, plain) if isinstance(plain, str) else plain
+    control_fn = getattr(ref, control_fn) if isinstance(control_fn, str) \
+        else control_fn
     t_phase = time.perf_counter()
     free0, total_mem = torch.cuda.mem_get_info(dev)
-    cfg = train_mod.train_config("gemma2-2b", reduced=False)
+    cfg = train_mod.train_config(arch, reduced=False)
     mcfg = cfg.mtl
     n_layers = cfg.num_layers
     torch.cuda.reset_peak_memory_stats(dev)
     model = init_params(cfg, seed=seed, device=dev)
     model.requires_grad_(True)
     sync(dev)
-    log(f"phase 24 gemma2-2b training: {model.num_params() / 1e6:.1f}M "
+    log(f"phase {ph} {arch} training: {model.num_params() / 1e6:.1f}M "
         f"parameters ({n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}"
         f"), {free0 / 1e9:.1f} GB free of {total_mem / 1e9:.1f} GB before "
         "the phase")
     data = ShardedBatcher(train_mod.batches_for(cfg, TRAIN_SEQ, TRAIN_BATCH),
                           device=dev)
     batches = [next(data) for _ in range(TRAIN_STEPS)]
+    want_step = {spec["fwd"]: 2 * n_layers, spec["bwd"]: n_layers}
+    want_fwd = {r: n * n_layers for r, n in spec["fwd_routes"].items()}
+    want_bwd = None if spec["bwd_routes"] is None else {
+        r: n * n_layers for r, n in spec["bwd_routes"].items()}
 
-    # step 0 through the kernels against the plain attention, no update
+    def bwd_routes():
+        return None if want_bwd is None else bwd_mod.route_counts()
+
+    # step 0 through the kernels against the plain version, no update
     p0 = torch.zeros((cfg.d_model, mcfg.num_tasks), dtype=torch.float32,
                      device=dev)       # the zero head's read at step 0
     ops.reset_launch_counts()
     loss_k, grads_k = train_grads(model, batches[0], cfg, p0)
-    counts = ops.launch_counts()
-    bwd_routes = k_bwd.route_counts()
+    counts, routes0 = ops.launch_counts(), bwd_routes()
     grads_k = {k: g.clone() for k, g in grads_k.items()}
-    with mock.patch.object(ops, "mha", ref.mha_ref):
+    with mock.patch.object(ops, op, plain):
         loss_p, grads_p = train_grads(model, batches[0], cfg, p0)
         errs = leaf_errs(grads_k, grads_p)
-        del grads_p
-        # control: the local layers' window cut to TRAIN_CONTROL_WINDOW in
-        # the plain run must fail the gate
-        cut = dataclasses.replace(cfg, sliding_window=TRAIN_CONTROL_WINDOW)
-        _, grads_c = train_grads(model, batches[0], cut, p0)
+    del grads_p
+    held = errs
+    if spec["held"] is not None:
+        with mock.patch.object(ops, op, spec["held"]):
+            _, grads_h = train_grads(model, batches[0], cfg, p0)
+        held = leaf_errs(grads_k, grads_h)
+        del grads_h
+    # the control's run must fail the gate
+    with mock.patch.object(ops, op, control_fn):
+        _, grads_c = train_grads(model, batches[0],
+                                 dataclasses.replace(cfg, **control_cfg), p0)
         cerrs = leaf_errs(grads_k, grads_c)
         del grads_c
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    sound = max(e[1] for e in errs.values())
+    sound = max(e[1] for e in held.values())
     control = max(e[1] for e in cerrs.values())
-    worst = sorted(errs.items(), key=lambda kv: -kv[1][1])[:3]
-    cworst = sorted(cerrs.items(), key=lambda kv: -kv[1][1])[:3]
-    log(f"phase 24 step 0 through the kernels against the plain attention "
+    zero = [k for k, g in grads_k.items()
+            if k.split(".")[-1] in spec["nonzero"] and not float(g.norm()) > 0]
+
+    def reading(e: dict) -> str:
+        return (f"worst {sorted(e.items(), key=lambda kv: -kv[1][1])[:3]}, "
+                f"median {statistics.median(x[1] for x in e.values()):.3g}")
+    gate_run = f"the plain {op}" if spec["held"] is None else \
+        "the kernels' forward with the plain backward"
+    log(f"phase {ph} step 0 through the kernels against the plain {op} "
         f"on the card: loss {loss_k:.6f} vs {loss_p:.6f} ({loss_err:.3g}); "
         "gradients (max |diff| / max |grad|, ||diff|| / ||grad||) a leaf: "
-        f"worst {worst}, median "
-        f"{statistics.median(e[1] for e in errs.values()):.3g}; control "
-        f"(plain run, local window {TRAIN_CONTROL_WINDOW}) worst {cworst}, "
-        f"median {statistics.median(e[1] for e in cerrs.values()):.3g}; "
-        f"limits: loss {TRAIN_LOSS_RTOL}, ||diff|| / ||grad|| "
+        + reading(errs)
+        + ("" if spec["held"] is None else
+           f" (a reading, not gated); against {gate_run}: " + reading(held))
+        + f"; control ({spec['control_label']}) " + reading(cerrs)
+        + f"; limits: loss {TRAIN_LOSS_RTOL}, ||diff|| / ||grad|| "
         f"{TRAIN_GRAD_RTOL} a leaf, the control above it")
     if not (math.isfinite(loss_k) and loss_err <= TRAIN_LOSS_RTOL
-            and sound <= TRAIN_GRAD_RTOL):
-        fail(f"phase 24 step 0: kernels against the plain attention: loss "
+            and sound <= TRAIN_GRAD_RTOL) or zero:
+        fail(f"phase {ph} step 0: kernels against {gate_run}: loss "
              f"{loss_err:.3g} > {TRAIN_LOSS_RTOL} or a leaf's gradient "
-             f"{sound:.3g} > {TRAIN_GRAD_RTOL} of its norm")
+             f"{sound:.3g} > {TRAIN_GRAD_RTOL} of its norm, or no gradient "
+             f"in {zero}")
     if not control > TRAIN_GRAD_RTOL:
-        fail(f"phase 24 control (window {TRAIN_CONTROL_WINDOW}): worst leaf "
+        fail(f"phase {ph} control ({spec['control_label']}): worst leaf "
              f"{control:.3g} <= {TRAIN_GRAD_RTOL}: the gate does not see it")
-    log(f"phase 24 step 0: worst leaf {sound:.3g} <= {TRAIN_GRAD_RTOL} < "
-        f"control {control:.3g}, loss {loss_err:.3g} <= {TRAIN_LOSS_RTOL}: "
-        "PASS")
-    want_step = {"flash_attention": 2 * n_layers,
-                 "flash_attention_bwd": n_layers}
+    log(f"phase {ph} step 0: against {gate_run} worst leaf {sound:.3g} <= "
+        f"{TRAIN_GRAD_RTOL} < control {control:.3g}, loss {loss_err:.3g} "
+        f"<= {TRAIN_LOSS_RTOL}"
+        + (f", every {'/'.join(spec['nonzero'])} leaf's gradient non-zero"
+           if spec["nonzero"] else "") + ": PASS")
     if any(n != want_step.get(k, 0) for k, n in counts.items()) \
-            or bwd_routes != {"sm90": n_layers, "simt": 0}:
-        fail(f"phase 24 step 0 gradients: launches {counts}, backward "
-             f"routes {bwd_routes}; want {want_step}, every backward on "
-             "sm90")
+            or routes0 != want_bwd:
+        fail(f"phase {ph} step 0 gradients: launches {counts}, backward "
+             f"routes {routes0}; want {want_step}, backward routes "
+             f"{want_bwd}")
     del grads_k
     torch.cuda.empty_cache()
 
@@ -4406,7 +4837,7 @@ def train_phase(dev, seed: int, card: str) -> dict:
     opt = default_optimizer(cfg, lr=3e-4, total_steps=TRAIN_STEPS)
     state = init_train_state(cfg, opt, device=dev, model=model)
     step_fn = make_train_step(cfg, opt, remat=True)
-    plain_calls = {"mha_ref": 0, "mha_bwd_ref": 0}
+    plain_calls = {name: 0 for name in spec["plain_calls"]}
 
     def counted(name):
         fn = getattr(ref, name)
@@ -4417,8 +4848,9 @@ def train_phase(dev, seed: int, card: str) -> dict:
         return call
 
     rows, step_ms, records = [], [], []
-    with mock.patch.object(ref, "mha_ref", counted("mha_ref")), \
-            mock.patch.object(ref, "mha_bwd_ref", counted("mha_bwd_ref")):
+    with contextlib.ExitStack() as stack:
+        for name in plain_calls:
+            stack.enter_context(mock.patch.object(ref, name, counted(name)))
         for i, batch in enumerate(batches):
             ops.reset_launch_counts()
             sync(dev)
@@ -4427,27 +4859,23 @@ def train_phase(dev, seed: int, card: str) -> dict:
                 done = []
                 parts = serve_profile(
                     lambda: (done.append(step_fn(state, batch)), sync(dev)),
-                    f"train step {i}", TRAIN_PARTS, 24)
+                    f"train step {i}", spec["parts"], ph)
                 state, m = done[0] if done else step_fn(state, batch)
             else:
                 state, m = step_fn(state, batch)
             sync(dev)
             ms = (time.perf_counter() - t0) * 1e3
             counts = ops.launch_counts()
-            routes = k_flash.route_counts()
-            bwd_routes = k_bwd.route_counts()
-            want = {"flash_attention": 2 * n_layers,
-                    "flash_attention_bwd": n_layers}
-            if any(n != want.get(k, 0) for k, n in counts.items()) \
-                    or routes != {"sm90": 2 * n_layers, "split": 0,
-                                  "simt": 0} \
-                    or bwd_routes != {"sm90": n_layers, "simt": 0}:
-                fail(f"phase 24 step {i}: launches {counts}, routes "
-                     f"{routes}, backward routes {bwd_routes}; want {want}, "
-                     "all forwards and backwards on sm90")
+            routes = fwd_mod.route_counts()
+            if any(n != want_step.get(k, 0) for k, n in counts.items()) \
+                    or routes != want_fwd or bwd_routes() != want_bwd:
+                fail(f"phase {ph} step {i}: launches {counts}, routes "
+                     f"{routes}, backward routes {bwd_routes()}; want "
+                     f"{want_step}, routes {want_fwd}, backward routes "
+                     f"{want_bwd}")
             loss = float(m["loss"])
             if not math.isfinite(loss):
-                fail(f"phase 24 step {i}: loss {loss}")
+                fail(f"phase {ph} step {i}: loss {loss}")
             k_read, k_act = train_keys(i)
             nu = np.minimum(prng.randint_shaped(
                 k_read, (mcfg.num_tasks,), 0, mcfg.tau + 1), i)
@@ -4455,7 +4883,7 @@ def train_phase(dev, seed: int, card: str) -> dict:
                                   mcfg.activation_rate, (mcfg.num_tasks,))
             if not (np.array_equal(m["mtl_nu"], nu)
                     and np.array_equal(m["mtl_mask"], mask)):
-                fail(f"phase 24 step {i}: staleness {m['mtl_nu']} / mask "
+                fail(f"phase {ph} step {i}: staleness {m['mtl_nu']} / mask "
                      f"{m['mtl_mask']} are not the host replay's {nu} / "
                      f"{mask}")
             records.append((m["pooled"].cpu(), batch["task_ids"].cpu(),
@@ -4465,7 +4893,7 @@ def train_phase(dev, seed: int, card: str) -> dict:
                              mtl_v_norm=float(m["mtl_v_norm"]), ms=ms))
             step_ms.append(ms)
     if any(plain_calls.values()):
-        fail(f"phase 24: the plain attention ran on the training path: "
+        fail(f"phase {ph}: a plain version ran on the training path: "
              f"{plain_calls}")
     # the head's rounds replayed on the CPU from the card's pooled states
     cpu = mtl_head.init_mtl_state(cfg.d_model, mcfg)
@@ -4480,20 +4908,21 @@ def train_phase(dev, seed: int, card: str) -> dict:
     head_err = ((ring - cpu.ring).abs().max()
                 / cpu.ring.abs().max().clamp_min(1e-30)).item()
     if not (head_err <= HEAD_RTOL and state.mtl.ptr == cpu.ptr):
-        fail(f"phase 24: the head's ring after {TRAIN_STEPS} steps is "
+        fail(f"phase {ph}: the head's ring after {TRAIN_STEPS} steps is "
              f"{head_err:.3g} of its scale from the CPU replay (> "
              f"{HEAD_RTOL}) or its pointer differs")
     peak = torch.cuda.max_memory_allocated(dev)
     steady = statistics.median(step_ms[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    log(f"phase 24 {TRAIN_STEPS} steps: losses "
+    log(f"phase {ph} {TRAIN_STEPS} steps: losses "
         + ", ".join(f"{r['loss']:.4f}" for r in rows)
         + f" (finite); step ms " + ", ".join(f"{ms:.1f}" for ms in step_ms)
         + f" (the first warms up, the last profiled); steady "
         f"{steady:.1f} ms, {tokens / (steady * 1e-3):.1f} tokens/s; "
-        f"launches a step exactly sm90 {2 * n_layers} (26 + 26 under remat) "
-        f"and flash_attention_bwd {n_layers}, all on its sm90 route (0 "
-        "simt), no plain attention; staleness "
+        f"launches a step exactly {spec['fwd']} {2 * n_layers} ({n_layers} "
+        f"+ {n_layers} under remat, routes {want_fwd}) and {spec['bwd']} "
+        f"{n_layers}" + ("" if want_bwd is None else f" (routes {want_bwd})")
+        + f", no plain {op}; staleness "
         "and masks bitwise the host replay; head ring against the CPU "
         f"replay {head_err:.3g} of its scale <= {HEAD_RTOL}; peak device "
         f"memory {peak / 1e9:.2f} GB; card {card}: PASS")
@@ -4501,15 +4930,18 @@ def train_phase(dev, seed: int, card: str) -> dict:
     torch.cuda.empty_cache()
     free1, _ = torch.cuda.mem_get_info(dev)
     seconds = time.perf_counter() - t_phase
-    log(f"phase 24: {seconds:.1f} s; {free1 / 1e9:.1f} GB free after")
+    log(f"phase {ph}: {seconds:.1f} s; {free1 / 1e9:.1f} GB free after")
+    launches = {k: n * TRAIN_STEPS for k, n in want_step.items()}
+    launches["fwd_routes"] = {r: n * TRAIN_STEPS for r, n in want_fwd.items()}
+    if want_bwd is not None:
+        launches["bwd_routes"] = {r: n * TRAIN_STEPS
+                                  for r, n in want_bwd.items()}
     return dict(rows=rows, step_ms=step_ms, steady_ms=steady,
                 tokens_per_s=tokens / (steady * 1e-3), peak_bytes=peak,
-                loss_err=loss_err, grad_err=sound, control=control,
-                head_err=head_err, parts=parts,
-                launches={"flash_attention": 2 * n_layers * TRAIN_STEPS,
-                          "flash_attention_bwd": n_layers * TRAIN_STEPS,
-                          "flash_attention_bwd_routes": {
-                              "sm90": n_layers * TRAIN_STEPS, "simt": 0}},
+                loss_err=loss_err, grad_err=sound,
+                plain_grad_err=max(e[1] for e in errs.values()),
+                control=control,
+                head_err=head_err, parts=parts, launches=launches,
                 seconds=seconds)
 
 
@@ -5138,6 +5570,12 @@ def main() -> None:
     rw = serve_phase(dev, args.seed, card, "rwkv6-3b")
     torch.cuda.empty_cache()
     mark(t_smoke, "13-14")
+    # phases 26-28: granite-8b, nemotron-4-15b, gemma3-12b at full width
+    dense = {}
+    for arch in DENSE_ARCHS:
+        dense[arch] = serve_phase(dev, args.seed, card, arch)
+        torch.cuda.empty_cache()
+    mark(t_smoke, "26-28")
 
     # phase 20: the learn-while-serve AMTLServer at the engine cells' width
     amtl_serve = amtl_serve_phase(dev, args.seed, card)
@@ -5159,9 +5597,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     mark(t_smoke, "23")
 
-    # phase 24: gemma2-2b training at full width with the AMTL head
-    train = train_phase(dev, args.seed, card)
+    # phase 24: gemma2-2b training at full width with the AMTL head; 25:
+    # rwkv6-3b
+    train = train_phase(dev, args.seed, card, "gemma2-2b")
     mark(t_smoke, "24")
+    rwkv_train = train_phase(dev, args.seed, card, "rwkv6-3b")
+    mark(t_smoke, "25")
 
     kernels = []
     info["lstsq_grad"]["args"] = grad_inputs(dev, args.seed)
@@ -5257,12 +5698,18 @@ def main() -> None:
     flash["routes"] = flash_times(info["flash_attention"]["served"], dev)
     flash["library_ms"] = flash["routes"]["sm90"]["library_ms"]
     flash["train_launches"] = train["launches"]["flash_attention"]
+    flash["dense_serve_launches"] = {
+        a: dict(r["routes"], float32_prefill_simt=r["f32_layers"])
+        for a, r in dense.items()}
     kernels.append(flash_bwd_times(
-        info["flash_attention_bwd"],
-        train["launches"]["flash_attention_bwd_routes"], dev))
+        info["flash_attention_bwd"], train["launches"]["bwd_routes"], dev))
     del info["flash_attention_bwd"]
     wkv = kernels[[k["name"] for k in kernels].index("rwkv6_scan")]
     wkv["routes"] = rwkv_times(info["rwkv6_scan"], rw["routes"])
+    wkv["train_launches"] = rwkv_train["launches"]["fwd_routes"]
+    kernels.append(wkv_bwd_times(info["rwkv6_bwd"],
+                                 rwkv_train["launches"]["rwkv6_bwd"], dev))
+    del info["rwkv6_bwd"]
     l21_km_times(info)
     parts = prox_refresh_breakdown(dev, args.seed)
     log(f"phase 12 prox refresh (svt_randomized, d {D}, T {T}, rank {RANK}, "
@@ -5278,6 +5725,11 @@ def main() -> None:
 
     log("training " + json.dumps({k: v for k, v in train.items()
                                   if k != "rows"}))
+    log("training rwkv6-3b " + json.dumps({k: v for k, v in rwkv_train.items()
+                                           if k != "rows"}))
+    log("dense serves " + json.dumps({a: {k: r[k] for k in (
+        "prefill_tps", "decode_tps", "errs", "e32", "tol", "f32_layers")}
+        for a, r in dense.items()}))
     log(f"smoke: {time.perf_counter() - t_smoke:.1f} s from phase 1 "
         f"[{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)

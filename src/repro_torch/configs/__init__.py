@@ -14,6 +14,9 @@ from repro_torch.configs.base import (ArchConfig, MLACfg, MoECfg, MTLCfg,
 _MODULES = {
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "granite-8b": "repro_torch.configs.granite_8b",
+    "nemotron-4-15b": "repro_torch.configs.nemotron_4_15b",
+    "gemma3-12b": "repro_torch.configs.gemma3_12b",
 }
 
 # Archs of the reference that the port does not serve yet, with the item of
@@ -21,9 +24,6 @@ _MODULES = {
 _PENDING = {
     "deepseek-v3-671b": "MLA attention and the MoE FFN",
     "dbrx-132b": "the MoE FFN",
-    "nemotron-4-15b": "the relu2 dense path",
-    "granite-8b": "the swiglu dense path",
-    "gemma3-12b": "the local x5 / global period",
     "zamba2-7b": "the Mamba-2 SSD block and shared attention",
     "llama-3.2-vision-11b": "gated cross-attention",
     "hubert-xlarge": "the audio encoder",

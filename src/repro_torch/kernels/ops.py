@@ -15,7 +15,10 @@ and the WKV also count each of their routes (`flash_attention.route_counts`,
 `torch.autograd.Function` whose forward takes the same routes as without
 grad and whose backward is the `flash_attention_bwd` kernel for CUDA
 tensors and its plain version (`ref.mha_bwd_ref`) for CPU tensors.  Under
-`torch.inference_mode()` or `no_grad` nothing changes.
+`torch.inference_mode()` or `no_grad` nothing changes.  `wkv` is
+differentiable the same way: the forward's routes from a zero state, the
+backward the `rwkv6_bwd` kernel for CUDA tensors and `ref.wkv_bwd_ref` for
+CPU tensors.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from repro_torch.kernels import l21_prox as _l21_prox
 from repro_torch.kernels import lstsq_grad as _lstsq_grad
 from repro_torch.kernels import lstsq_grad_sampled as _lstsq_grad_sampled
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_bwd as _rwkv6_bwd
 from repro_torch.kernels import rwkv6_scan as _rwkv6_scan
 from repro_torch.kernels import sample_mask as _sample_mask
 from repro_torch.kernels import svt_reconstruct as _svt_reconstruct
@@ -46,6 +50,7 @@ KERNELS = {
     "flash_attention": _flash_attention,
     "flash_attention_bwd": _flash_attention_bwd,
     "rwkv6_scan": _rwkv6_scan,
+    "rwkv6_bwd": _rwkv6_bwd,
     "km_update": _km_update,
     "l21_prox": _l21_prox,
 }
@@ -344,15 +349,73 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ref.rwkv6_scan_ref(r, k, v, w, u)
 
 
+def wkv_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor, do: torch.Tensor, *,
+                 chunk: int) -> tuple[torch.Tensor, ...]:
+    """(dr, dk, dv, dw, du) of `wkv` from a zero state at r, k, v, w, u
+    with the output's gradient do: the `rwkv6_bwd` kernel on the card,
+    `ref.wkv_bwd_ref` (the gradient of the chunked form, `chunk` its
+    order of sums) on the CPU."""
+    if _on_cuda("rwkv6_bwd", r):
+        return _rwkv6_bwd.wkv_bwd(r, k, v, w, u, do)
+    return ref.wkv_bwd_ref(r, k, v, w, u, do, chunk)
+
+
+def _wkv_forward(r, k, v, w, u, state, chunk):
+    """`wkv` from `state`, or from zeros where state is None (the final
+    state then dropped)."""
+    if state is None:
+        b, _, h, d = r.shape
+        state = torch.zeros((b, h, d, d), dtype=torch.float32,
+                            device=r.device)
+    if _on_cuda("rwkv6_scan", r):
+        return _rwkv6_scan.wkv(r, k, v, w, u, state)
+    return ref.wkv_inplace_ref(r, k, v, w, u, state, chunk=chunk)
+
+
+class _WKV(torch.autograd.Function):
+    """`wkv` from a zero state with its gradient: the forward's route on a
+    state of its own (not handed to autograd), then `wkv_backward` on the
+    saved inputs."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, chunk):
+        r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
+        w, u = w.contiguous(), u.contiguous()
+        out = _wkv_forward(r, k, v, w, u, None, chunk)
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.chunk = chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        r, k, v, w, u = ctx.saved_tensors
+        grads = wkv_backward(r, k, v, w, u, do.to(r.dtype).contiguous(),
+                             chunk=ctx.chunk)
+        return (*grads, None)
+
+
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-        u: torch.Tensor, state: torch.Tensor, *, chunk: int) -> torch.Tensor:
+        u: torch.Tensor, state: torch.Tensor | None, *,
+        chunk: int) -> torch.Tensor:
     """The model's WKV: r, k, v (B, L, H, D), w (B, L, H, D) float32, u
     (H, D) float32, from `state` (B, H, D, D) float32, which is overwritten
     with the state after the last token; returns out (B, L, H, D) in r's
     dtype.  `chunk` is the plain version's chunk (the order of its sums);
     on the card `rwkv6_scan.route` picks the kernel (the sub-chunked
     tensor-core route for bf16 prefill, the token-by-token recurrence for
-    the rest) whatever it is."""
-    if _on_cuda("rwkv6_scan", r):
-        return _rwkv6_scan.wkv(r, k, v, w, u, state)
-    return ref.wkv_inplace_ref(r, k, v, w, u, state, chunk=chunk)
+    the rest) whatever it is.
+
+    With grad on and r, k, v, w or u requiring it, the call is a `_WKV`
+    node: it starts from zeros, keeps no state and writes none, so `state`
+    must be None there (a state, which training never carries, raises).
+    Without grad, state None starts from zeros and the final state is
+    dropped."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u)):
+        if state is not None:
+            raise ValueError(
+                "ops.wkv under grad starts from zeros and keeps no state: "
+                "pass state=None (training runs the time mix without one)")
+        return _WKV.apply(r, k, v, w, u, chunk)
+    return _wkv_forward(r, k, v, w, u, state, chunk)

@@ -926,3 +926,68 @@ def wkv_inplace_ref(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
     out, s = wkv_chunked_ref(r, k, v, w, u, chunk, state)
     state.copy_(s)
     return out.to(r.dtype)
+
+
+def wkv_bwd_ref(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+                do: Tensor, chunk: int
+                ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The gradient of `wkv_chunked_ref` from a zero state, as `jax.grad`
+    takes it through the reference's `_wkv_chunked`: autograd through the
+    same sums (log-space cumulative decays re-centred at half a chunk).
+
+    r, k, v, do (B, L, H, D); w (B, L, H, D) float32; u (H, D) float32.
+    Returns (dr, dk, dv in r's dtype, dw, du float32).  The CPU path of
+    `ops.wkv`'s gradient and the yardstick at the model's decays; at edge
+    decays (w near 1e-3 over a 128-token chunk) its dw loses precision as
+    the reference's does, and `wkv_bwd_exact_ref` is the yardstick.
+    """
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (r, k, v, w, u)]
+        out, _ = wkv_chunked_ref(*leaves, chunk)
+        grads = torch.autograd.grad(out, leaves, do.to(out.dtype))
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (r, k, v, w, u)))
+
+
+def wkv_bwd_exact_ref(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+                      do: Tensor
+                      ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The exact gradient of `wkv_ref`'s recurrence from a zero state,
+    token by token, in float32 (float64 for float64 inputs): the
+    formulas of `csrc/rwkv6_bwd.cu`.  With S_t the state before token t
+    and dS_t its gradient (dS_L = 0):
+
+        dr_t = S_t do_t + u * k_t (v_t . do_t)
+        dk_t = dS_t+1 v_t + u * r_t (v_t . do_t)
+        dv_t = dS_t+1^T k_t + (r_t . (u * k_t)) do_t
+        dw_t = rowsum(dS_t+1 * S_t),  du = sum_b,t r_t * k_t (v_t . do_t)
+        dS_t = r_t do_t^T + diag(w_t) dS_t+1
+
+    Returns (dr, dk, dv in r's dtype, dw, du in the compute dtype).  Keeps
+    every S_t: (B, L, H, D, D) floats, for tests and moderate L.
+    """
+    ct = torch.float64 if r.dtype == torch.float64 else torch.float32
+    r32, k32, v32, w32, do32 = (t.to(ct) for t in (r, k, v, w, do))
+    u32 = u.to(ct)
+    b, ell, h, d = r.shape
+    s = torch.zeros((b, h, d, d), dtype=ct, device=r.device)
+    states = []
+    for t in range(ell):
+        states.append(s)
+        s = w32[:, t, :, :, None] * s \
+            + k32[:, t, :, :, None] * v32[:, t, :, None, :]
+    vdo = (v32 * do32).sum(-1, keepdim=True)              # (B, L, H, 1)
+    ruk = (r32 * u32 * k32).sum(-1, keepdim=True)
+    dr, dk, dv, dw = (torch.empty_like(r32) for _ in range(4))
+    ds = torch.zeros_like(s)
+    for t in reversed(range(ell)):
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", states[t], do32[:, t]) \
+            + u32 * k32[:, t] * vdo[:, t]
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", ds, v32[:, t]) \
+            + u32 * r32[:, t] * vdo[:, t]
+        dv[:, t] = torch.einsum("bhij,bhi->bhj", ds, k32[:, t]) \
+            + ruk[:, t] * do32[:, t]
+        dw[:, t] = (ds * states[t]).sum(-1)
+        ds = r32[:, t, :, :, None] * do32[:, t, :, None, :] \
+            + w32[:, t, :, :, None] * ds
+    du = (r32 * k32 * vdo).sum((0, 1))
+    return dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw, du

@@ -4,11 +4,18 @@
         --reduced --device cpu --steps 50            # the CPU twin
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
         --steps 4 --batch 2 --seq 2048               # full width, the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
+        --reduced --device cpu --steps 3 --seq 32 --batch 2
 
 Each step is `launch.steps.make_train_step`'s: the backbone's forward
 and backward (on the card every attention call in the flash kernels, its
-gradient in `flash_attention_bwd`), the smooth optimizer's update (AdamW,
-or Adafactor for deepseek), and one AMTL round of the multi-task head.
+gradient in `flash_attention_bwd`; every WKV in the `rwkv6_scan` kernels,
+its gradient in `rwkv6_bwd`), the smooth optimizer's update (AdamW, or
+Adafactor for deepseek), and one AMTL round of the multi-task head.  Any
+arch of `configs.SERVED` trains: gemma2-2b and rwkv6-3b at full width on
+one card; granite-8b, nemotron-4-15b and gemma3-12b reduced (at full
+width their AdamW state alone, 12 bytes a parameter, passes one card's 80
+GB: the sharded LM is ROADMAP item 11(i)).
 The batches are `synthetic_lm_batches`' stream (the reference's bytes
 for the same seed), placed one ahead by `data.ShardedBatcher`.  It prints
 the reference's log line; `main` returns the per-step numbers.

@@ -5,14 +5,19 @@ of Finch, as it is: static token-shift mixes for r, k, v, g, LoRA
 data-dependence on the decay w only, and `ln_x` as one LayerNorm over all
 of d_model.  Every WKV recurrence, of prefill and of decode (L = 1), goes
 through `ops.wkv`: the rwkv6_scan CUDA kernel for CUDA tensors, the
-reference's chunked form (`ref.wkv_chunked_ref`) for CPU tensors.
+reference's chunked form (`ref.wkv_chunked_ref`) for CPU tensors; in
+training its gradient goes through `ops.wkv_backward`.
 
 One deliberate difference: the WKV state is updated in place.  A time mix
 given a state reads its `wkv` tensor (B, H, D, D) float32 and overwrites it
 with the state after the last token, and returns that same tensor where
 the reference returns a new one; without a state it starts from a new
-zero tensor.  The decay w and the bonus u stay float32 end to end, as in
-the reference (a bfloat16 w near 1 would round to 0.996 or 1.0).
+zero tensor.  The training call (no state, none returned) hands
+`ops.wkv` no state at all: under grad that is the differentiable WKV
+(the `rwkv6_bwd` kernel on the card), which starts from zeros and writes
+nothing autograd holds.  The decay w and the bonus u stay float32 end to
+end, as in the reference (a bfloat16 w near 1 would round to 0.996 or
+1.0).
 """
 from __future__ import annotations
 
@@ -136,7 +141,10 @@ def rwkv_time_mix(p: dict, x: Tensor, cfg: ArchConfig, *,
     h = cfg.d_model // hs
     xx = _shift(x, state.x_prev_att if state is not None else None)
     r, k, v, g, w = _projections(p, x, xx, h, hs)
-    wkv = state.wkv if state is not None else _new_wkv(x, cfg)
+    # the training call keeps no state (None in, none out): under grad the
+    # WKV is then an autograd node that writes no tensor autograd holds
+    wkv = state.wkv if state is not None \
+        else _new_wkv(x, cfg) if return_state else None
     out = ops.wkv(r, k, v, w, p["u"], wkv, chunk=r_cfg.chunk)
     out = _output(p, out, g, x.dtype)
     if not return_state:

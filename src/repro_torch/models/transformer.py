@@ -18,8 +18,9 @@ gathers the layers' gradients into the stacked leaf's in one step.
 probes), with the reference's remat at its scan body's granularity (a
 period of blocks) through `torch.utils.checkpoint`.  Training runs the
 attention blocks (the flash kernels forward, `flash_attention_bwd`
-backward); rwkv training waits for a WKV backward kernel and raises.  MoE,
-SSM, shared and cross attention are later slices and raise.
+backward) and the rwkv blocks (the WKV kernels forward, `rwkv6_bwd`
+backward).  MoE, SSM, shared and cross attention are later slices and
+raise.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ from repro_torch.models.layers import (apply_ffn, apply_norm, dense_init,
 Tensor = torch.Tensor
 
 PORTED_KINDS = ("attn", "local", "global", "rwkv")
-TRAINED_KINDS = ("attn", "local", "global")
+TRAINED_KINDS = ("attn", "local", "global", "rwkv")
 
 
 class ScanGroup(NamedTuple):
@@ -83,8 +84,8 @@ def require_ported(cfg: ArchConfig, training: bool = False) -> None:
     if training and untrained:
         raise NotImplementedError(
             f"{cfg.name}: training block kinds {sorted(untrained)} needs a "
-            "backward kernel the port does not have yet (rwkv: the WKV "
-            "backward; ROADMAP.md, Queue 1 item 11(j))")
+            "backward kernel the port does not have yet (ROADMAP.md, "
+            "Queue 1 item 11)")
 
 
 class ParamTree(nn.Module):

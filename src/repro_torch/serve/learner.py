@@ -106,11 +106,14 @@ class BackgroundLearner:
 
     def restart(self) -> None:
         """A new loop thread after a crash; a stop already asked for
-        stands."""
-        self._exit.clear()
-        self._thread = threading.Thread(
-            target=self._loop, name=self._name, daemon=True)
-        self._thread.start()
+        stands.  The thread is made and started under the join lock, so a
+        `join` racing a supervisor's restart never meets it unstarted."""
+        with self._join_lock:
+            self._exit.clear()
+            thread = threading.Thread(
+                target=self._loop, name=self._name, daemon=True)
+            thread.start()
+            self._thread = thread
 
     def wake(self) -> None:
         """Called by `submit_feedback`: new work may be runnable."""
