@@ -1896,15 +1896,18 @@ def check_rwkv_kernel(dev, gen) -> dict:
 
 # ----------------------------------------------------------- WKV backward --
 
-# The WKV backward (csrc/rwkv6_bwd.cu) against its plain versions, by each
-# gradient's max |diff| over its max |value|: `ref.wkv_bwd_exact_ref` (the
-# same token-by-token formulas) everywhere, and `ref.wkv_bwd_ref` (autograd
+# The WKV backward's routes (csrc/rwkv6_bwd_chunked.cu, bf16 at D 64;
+# csrc/rwkv6_bwd.cu, all) against their plain versions, by each gradient's
+# max |diff| over its max |value|: `ref.wkv_bwd_exact_ref` (the
+# token-by-token formulas) everywhere, and `ref.wkv_bwd_ref` (autograd
 # through the chunked form, the CPU path) at the model's decays.  In
-# float32 both sum in float32 in other orders: on an H100 the kernel read
-# at most 4.7e-7 against the exact formulas, so the limit is 1e-5.  In bf16
-# both round each gradient once from float32 sums, so they differ by a bf16
-# ulp of the value (2^-8 of the max at most): limit 2^-7 (on an H100 the
-# training shape read 3.2e-3 against both).  The controls, built from the
+# float32 (recurrent only) both sum in float32 in other orders: on an H100
+# the kernel read at most 4.7e-7 against the exact formulas, so the limit
+# is 1e-5.  In bf16 both round each gradient once from float32 sums, so
+# they differ by a bf16 ulp of the value (at most 2^-7 of the max, at a
+# value just above a power of two); the chunked route's TF32 operands add
+# about 2^-11 of a term before that rounding: limit 2^-7 (on an H100 the
+# training shape read 3.2e-3 recurrent, 6.3e-3 chunked, a one-ulp flip).  The controls, built from the
 # exact plain version, must exceed a limit against it: the state dropped at
 # the checkpoint nearest the middle, the bonus left out, and where the
 # decays are far from 1 (w ~ 0.7), the decays read one token late (at the
@@ -1961,12 +1964,17 @@ def wkv_bwd_controls(args_, late: bool) -> dict:
 
 
 def check_wkv_bwd(dev, gen) -> dict:
-    """The WKV backward against its plain versions on the card: the
-    training shape at the model's decays against both, L off the
-    checkpoint and the chunk, L < 16, D 32, float32, and w near 1e-3, 1e-6
-    and 1 against the exact formulas; two launches bitwise each; the
-    controls, which must fail the gate; `ops.wkv`'s autograd launching the
-    kernel once.  Returns the training-shape inputs for the timing phase."""
+    """The WKV backward's routes against their plain versions on the card:
+    each case on every route that takes it (`chunked`: bf16 at D 64;
+    `recurrent`: all), against the exact formulas and, at the model's
+    decays, the chunked form's autograd; `chunked` also logged against its
+    own factorisation (`wkv_bwd_subchunk_ref`, TF32 operands).  Cases: the
+    training shape, L off the checkpoint, the chunk and the sub-chunk, L <
+    16, L 1, D 32, float32, and w near 1e-3, 1e-6 and 1 in float32 and in
+    bf16; two launches bitwise each; the controls, which must fail the
+    gate; `ops.wkv`'s autograd launching the `chunked` route once.
+    Returns the training-shape inputs and each route's error there for
+    the timing phase."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
@@ -1979,6 +1987,7 @@ def check_wkv_bwd(dev, gen) -> dict:
               False),
              ("L 203", 2, 203, 3, 64, "bfloat16", -6.0, True, True),
              ("L 203 float32", 2, 203, 3, 64, "float32", -1.0, False, True),
+             ("L 100", 2, 100, 8, 64, "bfloat16", -6.0, True, False),
              ("L 5", 2, 5, 3, 64, "float32", -1.0, False, False),
              ("L 1", 1, 1, 2, 64, "bfloat16", -1.0, False, False),
              ("L 13 D 32", 2, 13, 4, 32, "float32", -1.0, False, False),
@@ -1986,32 +1995,48 @@ def check_wkv_bwd(dev, gen) -> dict:
               False),
              ("w near 1e-3", 1, 160, 3, 64, "float32", 1.9, False, False),
              ("w near 1e-6", 1, 160, 3, 64, "float32", 2.63, False, False),
-             ("w = 1", 1, 160, 3, 64, "float32", None, False, False)]
+             ("w = 1", 1, 160, 3, 64, "float32", None, False, False),
+             ("w near 1e-3 bf16", 1, 160, 3, 64, "bfloat16", 1.9, False,
+              False),
+             ("w near 1e-6 bf16", 1, 160, 3, 64, "bfloat16", 2.63, False,
+              False),
+             ("w = 1 bf16", 1, 160, 3, 64, "bfloat16", None, False, False)]
     worst, controls, served = {}, {}, None
     for label, b, ell, h, d, dt, log_w0, chunked, with_controls in cases:
         args_ = wkv_bwd_inputs(gen, dev, b, ell, h, d, getattr(torch, dt),
                                log_w0)
-        got = k_wb.wkv_bwd(*args_)
-        again = k_wb.wkv_bwd(*args_)
         exact = ref.wkv_bwd_exact_ref(*args_)
-        torch.cuda.synchronize()
+        plain = ref.wkv_bwd_ref(*args_, chunk) if chunked else None
         tol = WKV_BWD_TOL[dt]
-        if not all(bool(torch.isfinite(g).all()) for g in got) \
-                or [g.dtype for g in got] != [args_[0].dtype] * 3 \
-                + [torch.float32] * 2:
-            fail(f"rwkv6_bwd {label}: a gradient is not finite or of the "
-                 "wrong dtype")
-        if not all(torch.equal(x, y) for x, y in zip(got, again)):
-            fail(f"rwkv6_bwd {label}: two launches differ")
-        errs = {"exact": wkv_bwd_errs(got, exact)}
-        if chunked:
-            errs["chunked"] = wkv_bwd_errs(
-                got, ref.wkv_bwd_ref(*args_, chunk))
-        for yard, e in errs.items():
-            if not max(e) <= tol:
-                fail(f"rwkv6_bwd {label}: against the {yard} plain version "
-                     f"{dict(zip(WKV_BWD_NAMES, e))} > {tol}")
-        worst[label] = {yard: max(e) for yard, e in errs.items()}
+        errs_at = {}
+        for rt in k_wb.ROUTES:
+            if not k_wb.accepts(rt, args_[0].dtype, d):
+                continue
+            got = k_wb.wkv_bwd(*args_, route=rt)
+            again = k_wb.wkv_bwd(*args_, route=rt)
+            torch.cuda.synchronize()
+            if not all(bool(torch.isfinite(g).all()) for g in got) \
+                    or [g.dtype for g in got] != [args_[0].dtype] * 3 \
+                    + [torch.float32] * 2:
+                fail(f"rwkv6_bwd ({rt}) {label}: a gradient is not finite "
+                     "or of the wrong dtype")
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"rwkv6_bwd ({rt}) {label}: two launches differ")
+            errs = {"exact": wkv_bwd_errs(got, exact)}
+            if plain is not None:
+                errs["chunked"] = wkv_bwd_errs(got, plain)
+            for yard, e in errs.items():
+                if not max(e) <= tol:
+                    fail(f"rwkv6_bwd ({rt}) {label}: against the {yard} plain "
+                         f"version {dict(zip(WKV_BWD_NAMES, e))} > {tol}")
+            worst[f"{label} ({rt})"] = {yard: max(e)
+                                        for yard, e in errs.items()}
+            if rt == "chunked":         # its own factorisation: logged
+                worst[f"{label} ({rt})"]["subchunk"] = max(wkv_bwd_errs(
+                    got, ref.wkv_bwd_subchunk_ref(*args_, operands="tf32")))
+            errs_at[rt] = max(float((g.float() - x.float()).abs().max())
+                              for g, x in zip(got, exact))
+            del got, again
         if with_controls:
             for name, bad in wkv_bwd_controls(args_,
                                               late=log_w0 > -6.0).items():
@@ -2021,33 +2046,36 @@ def check_wkv_bwd(dev, gen) -> dict:
                          f"the gate ({e:.3g} <= {tol})")
                 controls[f"{label}: {name}"] = e
         if label == "training shape":
-            served = dict(args=args_, err=max(
-                float((g.float() - x.float()).abs().max())
-                for g, x in zip(got, exact)))
-        del exact
+            served = dict(args=args_, err=errs_at)
+        del exact, plain
     # ops.wkv under grad on the card: a _WKV node whose backward is one
-    # launch of the kernel, its gradients the wrapper's
+    # launch of the chunked route, its gradients the wrapper's
     r, k, v, w, u, do = wkv_bwd_inputs(gen, dev, 2, 300, 4, 64,
                                        torch.bfloat16, -6.0)
     leaves = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
-    before = k_wb.launches
+    before, routes0 = k_wb.launches, k_wb.route_counts()
     out = ops.wkv(*leaves, None, chunk=chunk)
     grads = torch.autograd.grad(out, leaves, do)
+    routes1 = k_wb.route_counts()
     if type(out.grad_fn).__name__ != "_WKVBackward" \
-            or k_wb.launches != before + 1:
+            or k_wb.launches != before + 1 \
+            or routes1["chunked"] != routes0["chunked"] + 1 \
+            or routes1["recurrent"] != routes0["recurrent"]:
         fail("ops.wkv under grad on the card did not take the rwkv6_bwd "
-             "kernel once")
+             f"chunked route once: routes {routes0} -> {routes1}")
     if not all(torch.equal(g, x) for g, x in
-               zip(grads, k_wb.wkv_bwd(r, k, v, w, u, do))):
+               zip(grads, k_wb.wkv_bwd(r, k, v, w, u, do, route="chunked"))):
         fail("ops.wkv's gradients on the card are not the kernel's")
     log("rwkv6_bwd: each gradient's max |diff| / max |value| (worst of dr, "
-        "dk, dv, dw, du) against the exact plain version and, at the "
-        "model's decays, the chunked one, two launches bitwise each: "
+        "dk, dv, dw, du) by case and route against the exact plain version "
+        "and, at the model's decays, the chunked form's autograd (both "
+        "gated), and for chunked its own factorisation (subchunk, TF32 "
+        "operands, logged), two launches bitwise each: "
         + "; ".join(f"{k} " + ", ".join(f"{y} {e:.3g}" for y, e in v.items())
                     for k, v in worst.items())
         + f" (limits {WKV_BWD_TOL}); controls (each above the limit): "
         + "; ".join(f"{k} {e:.3g}" for k, e in controls.items())
-        + "; ops.wkv under grad: one launch, the kernel's gradients")
+        + "; ops.wkv under grad: one chunked launch, the kernel's gradients")
     return {"rwkv6_bwd": served}
 
 
@@ -2066,49 +2094,102 @@ def wkv_bwd_cost(args_) -> tuple[float, float]:
     return nbytes, 14.0 * d * d * b * ell * h
 
 
-def wkv_bwd_times(info: dict, launches: int, dev) -> dict:
-    """The WKV backward at the rwkv6-3b training shape (bf16, B 2, L 2048,
-    H 40, D 64): L2-warm, and L2-cold over three distinct inputs in turn
-    (each call moves 231 MB, more than the L2 holds), beside its bound and
-    its plain version (`ref.wkv_bwd_ref`, autograd through the chunked
-    form, as the CPU path runs it).  No PyTorch call computes this
-    gradient, so there is no library time.  Returns the kernels line
-    entry; `launches` is the training run's count."""
+WKV_BWD_SOURCES = {"chunked": "src/repro_torch/csrc/rwkv6_bwd_chunked.cu",
+                   "recurrent": "src/repro_torch/csrc/rwkv6_bwd.cu"}
+
+
+def wkv_bwd_times(info: dict, launches: dict, dev) -> dict:
+    """Both WKV backward routes at the rwkv6-3b training shape (bf16, B 2,
+    L 2048, H 40, D 64): L2-warm, and L2-cold over three distinct inputs
+    in turn (each call moves 231 MB, more than the L2 holds), each beside
+    two bounds (the gradient's 14 D^2 operations in float32 on the CUDA
+    cores, and at the TF32 rate, the `chunked` route's type: bytes bound
+    it there) and its plain version (`chunked`: `wkv_bwd_subchunk_ref`;
+    `recurrent`: `wkv_bwd_ref`, autograd through the chunked form, as the
+    CPU path runs it); then both routes over lengths 1 to 256, the
+    evidence for CHUNKED_MIN_LEN.  No PyTorch call computes this gradient,
+    so there is no library time.  `launches` holds each route's count on
+    the training run.  Returns the kernels line entry: the chunked route
+    (the training path's) with both routes' figures under `routes`."""
     import itertools
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_bwd as k_wb
-    saved = k_wb.launches
+    saved = k_wb.launches, k_wb.route_counts()
     args_ = info["args"]
     chunk = get_config("rwkv6-3b").rwkv.chunk
     nbytes, flops = wkv_bwd_cost(args_)
-    bnd, by = bound_ms(nbytes, flops, FP32_FLOP_PER_S)
+    bounds = {"float32": bound_ms(nbytes, flops, FP32_FLOP_PER_S),
+              "tf32": bound_ms(nbytes, flops, TF32_FLOP_PER_S)}
+    own = {"chunked": "tf32", "recurrent": "float32"}
+    plains = {"chunked": (lambda: ref.wkv_bwd_subchunk_ref(
+                  *args_, operands="tf32"), "wkv_bwd_subchunk_ref, TF32 "
+                  "operands"),
+              "recurrent": (lambda: ref.wkv_bwd_ref(*args_, chunk),
+                            "wkv_bwd_ref, autograd through the chunked "
+                            "form")}
     sets = [args_] + [tuple(t.clone() for t in args_) for _ in range(2)]
-    warm = cuda_ms(lambda: k_wb.wkv_bwd(*args_), reps=11, inner=5)
-    ring = itertools.cycle(sets)
-    cold = cuda_ms(lambda: k_wb.wkv_bwd(*next(ring)), reps=11, inner=5)
-    p_ms = cuda_ms(lambda: ref.wkv_bwd_ref(*args_, chunk), reps=3, inner=1,
-                   warmup=1, backlog=False)
-    k_wb.launches = saved           # timing launches are not the path's
-    log(f"phase 12 rwkv6_bwd training shape (B 2, L 2048, H 40, D 64, "
-        f"bf16): {warm * 1e3:.2f} us L2-warm, {cold * 1e3:.2f} us L2-cold "
-        f"(3 inputs in turn), bound {bnd * 1e3:.2f} us by {by} "
-        f"({nbytes / 1e6:.1f} MB {nbytes / HBM_BYTES_PER_S * 1e6:.2f} us; "
-        f"{flops / 1e9:.2f} GFLOP float32 "
-        f"{flops / FP32_FLOP_PER_S * 1e6:.2f} us; {100 * bnd / warm:.1f} % "
-        f"of the bound); plain {p_ms * 1e3:.1f} us (wkv_bwd_ref, autograd "
-        f"through the chunked form); library null (no PyTorch call computes "
-        f"the WKV gradient); {launches} launches on the training run")
-    return dict(name="rwkv6_bwd", route="cuda",
-                source="src/repro_torch/csrc/rwkv6_bwd.cu",
+    routes = {}
+    for rt in k_wb.ROUTES:
+        inner = 10 if rt == "chunked" else 5
+        warm = cuda_ms(lambda: k_wb.wkv_bwd(*args_, route=rt), reps=11,
+                       inner=inner)
+        ring = itertools.cycle(sets)
+        cold = cuda_ms(lambda: k_wb.wkv_bwd(*next(ring), route=rt), reps=11,
+                       inner=inner)
+        plain, what = plains[rt]
+        p_ms = cuda_ms(plain, reps=3, inner=1, warmup=1, backlog=False)
+        bnd, by = bounds[own[rt]]
+        routes[rt] = dict(source=WKV_BWD_SOURCES[rt], launches=launches[rt],
+                          max_abs_err=info["err"][rt], ms=warm,
+                          l2_cold_ms=cold, plain_ms=p_ms, bound_ms=bnd,
+                          bound_by=by, bound_float32_ms=bounds["float32"][0],
+                          bound_tf32_ms=bounds["tf32"][0], library_ms=None,
+                          bound_share=bnd / warm)
+        log(f"phase 12 rwkv6_bwd ({rt}) training shape (B 2, L 2048, H 40, D "
+            f"64, bf16): {warm * 1e3:.2f} us L2-warm, {cold * 1e3:.2f} us "
+            f"L2-cold (3 inputs in turn); bounds: float32 "
+            f"{bounds['float32'][0] * 1e3:.2f} us by {bounds['float32'][1]} "
+            f"({100 * bounds['float32'][0] / warm:.1f} %), TF32 "
+            f"{bounds['tf32'][0] * 1e3:.2f} us by {bounds['tf32'][1]} "
+            f"({100 * bounds['tf32'][0] / warm:.1f} %) ({nbytes / 1e6:.1f} MB "
+            f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f} us; {flops / 1e9:.2f} GFLOP"
+            f" {flops / FP32_FLOP_PER_S * 1e6:.2f} us at 67, "
+            f"{flops / TF32_FLOP_PER_S * 1e6:.2f} us at 495 TFLOP/s); its own"
+            f" type's bound {bnd * 1e3:.2f} us ({100 * bnd / warm:.1f} %); "
+            f"plain {p_ms * 1e3:.1f} us ({what}); library null (no PyTorch "
+            f"call computes the WKV gradient); {launches[rt]} launches on the "
+            "training run")
+    ch, rc = routes["chunked"], routes["recurrent"]
+    log(f"phase 12 rwkv6_bwd: chunked {ch['ms'] * 1e3:.2f} us against "
+        f"recurrent {rc['ms'] * 1e3:.2f} us in the same run "
+        f"({rc['ms'] / ch['ms']:.2f}x; a quarter of recurrent is "
+        f"{rc['ms'] / 4 * 1e3:.2f} us)")
+    sweep = []
+    for ell in (1, 4, 8, 16, 32, 64, 256):
+        a = wkv_bwd_inputs(torch.Generator(device=dev).manual_seed(ell), dev,
+                           2, ell, 40, 64, torch.bfloat16, -6.0)
+        times = [cuda_ms(lambda rt=rt: k_wb.wkv_bwd(*a, route=rt), reps=11)
+                 for rt in ("chunked", "recurrent")]
+        sweep.append(f"L {ell} {times[0] * 1e3:.2f} / {times[1] * 1e3:.2f}")
+    log("phase 12 rwkv6_bwd chunked / recurrent us by length (B 2, H 40, D "
+        f"64, bf16; CHUNKED_MIN_LEN {k_wb.CHUNKED_MIN_LEN}): "
+        + ", ".join(sweep))
+    k_wb.launches = saved[0]        # timing launches are not the path's
+    k_wb.launches_chunked = saved[1]["chunked"]
+    k_wb.launches_recurrent = saved[1]["recurrent"]
+    return dict(name="rwkv6_bwd", route="cuda", source=ch["source"],
                 replaces="none: the port's own gradient of "
                          "src/repro/kernels/rwkv6_scan.py:64 (the reference "
                          "differentiates its jnp _wkv_chunked, "
                          "src/repro/models/rwkv.py:72)",
-                launches=launches, max_abs_err=info["err"], ms=warm,
-                plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None,
-                l2_cold_ms=cold, bound_share=bnd / warm)
+                launches=sum(launches.values()),
+                max_abs_err=ch["max_abs_err"], ms=ch["ms"],
+                plain_ms=ch["plain_ms"], bound_ms=ch["bound_ms"],
+                bound_by=ch["bound_by"], library_ms=None,
+                l2_cold_ms=ch["l2_cold_ms"], bound_share=ch["bound_share"],
+                routes=routes)
 
 
 def wkv_cost(args_, route: str) -> tuple[float, list]:
@@ -4569,6 +4650,11 @@ TRAIN_PARTS = {"flash_attention_bwd": ("fa_bwd_",),
                "flash sm90": ("flash_sm90_kernel",),
                "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet")}
 RWKV_TRAIN_PARTS = {"rwkv6_bwd": ("rwkv6_bwd_",),
+                    "bwd states": ("rwkv6_bwd_states_kernel",),
+                    "bwd chunk": ("rwkv6_bwd_chunk_kernel",),
+                    "bwd du": ("rwkv6_bwd_chunked_du_kernel",),
+                    "bwd recurrent": ("rwkv6_bwd_kernel",
+                                      "rwkv6_bwd_du_kernel"),
                     "wkv chunked": ("rwkv6_chunked_kernel",),
                     "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet")}
 
@@ -4674,7 +4760,8 @@ TRAINED = {
                       "state's gradient dropped at the middle",
         plain_calls=("wkv_chunked_ref", "wkv_inplace_ref", "wkv_bwd_ref",
                      "wkv_bwd_exact_ref"),
-        fwd_routes={"chunked": 2, "recurrent": 0}, bwd_routes=None,
+        fwd_routes={"chunked": 2, "recurrent": 0},
+        bwd_routes={"chunked": 1, "recurrent": 0},
         nonzero=("wr", "wk", "wv", "w0", "w_lora_a", "w_lora_b", "u"),
         parts=RWKV_TRAIN_PARTS)}
 
@@ -5708,7 +5795,7 @@ def main() -> None:
     wkv["routes"] = rwkv_times(info["rwkv6_scan"], rw["routes"])
     wkv["train_launches"] = rwkv_train["launches"]["fwd_routes"]
     kernels.append(wkv_bwd_times(info["rwkv6_bwd"],
-                                 rwkv_train["launches"]["rwkv6_bwd"], dev))
+                                 rwkv_train["launches"]["bwd_routes"], dev))
     del info["rwkv6_bwd"]
     l21_km_times(info)
     parts = prox_refresh_breakdown(dev, args.seed)

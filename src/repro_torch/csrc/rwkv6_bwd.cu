@@ -60,8 +60,12 @@
 //   sequential walk over L on the CUDA cores, the states rebuilt once more
 //   in the backward sweep, the checkpoint scratch (335.5 MB at the
 //   training shape, written and read once more a call on top of the 231
-//   MB the gradient moves); the chunked tensor-core form of
-//   rwkv6_chunked.cu is the redesign.
+//   MB the gradient moves).  The redesign is csrc/rwkv6_bwd_chunked.cu
+//   (the `chunked` route: sub-chunks on the tensor cores), which
+//   kernels/rwkv6_bwd.py :: route now sends every bf16 call at D 64 from
+//   CHUNKED_MIN_LEN tokens, the whole training path.  This file is the
+//   `recurrent` route: float32, D 32, bf16 below that length, and any call
+//   forced to it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -76,6 +76,7 @@ def reset_launch_counts() -> None:
     _flash_attention.reset_route_counts()
     _flash_attention_bwd.reset_route_counts()
     _rwkv6_scan.reset_route_counts()
+    _rwkv6_bwd.reset_route_counts()
 
 
 def km_update(v: torch.Tensor, p: torch.Tensor, g: torch.Tensor, eta: float,
@@ -353,9 +354,11 @@ def wkv_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  w: torch.Tensor, u: torch.Tensor, do: torch.Tensor, *,
                  chunk: int) -> tuple[torch.Tensor, ...]:
     """(dr, dk, dv, dw, du) of `wkv` from a zero state at r, k, v, w, u
-    with the output's gradient do: the `rwkv6_bwd` kernel on the card,
-    `ref.wkv_bwd_ref` (the gradient of the chunked form, `chunk` its
-    order of sums) on the CPU."""
+    with the output's gradient do: the `rwkv6_bwd` kernel of
+    `rwkv6_bwd.route` on the card (the sub-chunked tensor-core route for
+    bf16 at D 64, the token-by-token gradient for the rest),
+    `ref.wkv_bwd_ref` (the gradient of the chunked form, `chunk` its order
+    of sums) on the CPU."""
     if _on_cuda("rwkv6_bwd", r):
         return _rwkv6_bwd.wkv_bwd(r, k, v, w, u, do)
     return ref.wkv_bwd_ref(r, k, v, w, u, do, chunk)

@@ -803,6 +803,51 @@ def round_operand(x: Tensor, operands: str) -> Tensor:
     raise ValueError(f"operands must be one of {OPERANDS}, got {operands!r}")
 
 
+def _subchunk_scores(rs: Tensor, ks: Tensor, ws: Tensor, u32: Tensor,
+                     operands: str) -> tuple[Tensor, dict]:
+    """The scores A[s, t] of each sub-chunk (rs, ks, ws: (B, H, n, sub, D),
+    u32 broadcast to them without the token axis), as
+    `csrc/wkv_subchunk.cuh` takes them: a pair in one block of 4 tokens
+    and the bonus exact, a pair across blocks as X_s . Y_t (see
+    `wkv_subchunk_ref`), A rounded as an operand.  Returns (A (B, H, n,
+    sub, sub), {(t, g): Y_t rounded, for the query block starting at g}).
+    """
+    sub = ws.shape[-2]
+    a = torch.zeros((*ws.shape[:-2], sub, sub), dtype=ws.dtype,
+                    device=ws.device)
+    for t in range(sub):                # within blocks of 4, and the bonus
+        p = ks[..., t, :]
+        a[..., t, t] = (rs[..., t, :] * u32 * p).sum(-1)
+        for s in range(t + 1, 4 * (t // 4) + 4):
+            a[..., s, t] = (rs[..., s, :] * p).sum(-1)
+            p = p * ws[..., s, :]
+    x_rows, block_w, y_rows = [], [], {}    # across blocks
+    for g in range(0, sub, 4):
+        prod = torch.ones_like(ws[..., 0, :])
+        for s in range(g, g + 4):
+            x_rows.append(rs[..., s, :] * prod)
+            prod = prod * ws[..., s, :]
+        prod = torch.ones_like(prod)    # the block's product, last w first
+        for s in reversed(range(g, g + 4)):
+            prod = prod * ws[..., s, :]
+        block_w.append(prod)
+    xs = round_operand(torch.stack(x_rows, dim=-2), operands)
+    for t in range(sub - 4):
+        prod = torch.ones_like(ws[..., 0, :])
+        for j in reversed(range(t + 1, 4 * (t // 4) + 4)):
+            prod = prod * ws[..., j, :]
+        y = ks[..., t, :] * prod
+        for g in range(4 * (t // 4) + 4, sub, 4):
+            if g > 4 * (t // 4) + 4:
+                y = y * block_w[g // 4 - 1]
+            yr = round_operand(y, operands)
+            y_rows[(t, g)] = yr
+            a[..., g:g + 4, t] = torch.einsum("bhnsd,bhnd->bhns",
+                                              xs[..., g:g + 4, :], yr)
+    a = round_operand(a, operands)
+    return a, y_rows
+
+
 WKV_SUB = 16                # csrc/rwkv6_chunked.cu's SUB: tokens a state step
 
 
@@ -865,37 +910,7 @@ def wkv_subchunk_ref(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
     rt = round_operand(rs * torch.stack(e_rows, dim=-2), operands)
     kt = round_operand(ks * torch.stack(f_rows, dim=-2), operands)
 
-    a = torch.zeros((b, h, n, sub, sub), dtype=torch.float32,
-                    device=r.device)
-    for t in range(sub):                # within blocks of 4, and the bonus
-        p = ks[..., t, :]
-        a[..., t, t] = (rs[..., t, :] * u32 * p).sum(-1)
-        for s in range(t + 1, 4 * (t // 4) + 4):
-            a[..., s, t] = (rs[..., s, :] * p).sum(-1)
-            p = p * ws[..., s, :]
-    x_rows, block_w = [], []            # across blocks
-    for g in range(0, sub, 4):
-        prod = torch.ones_like(ws[..., 0, :])
-        for s in range(g, g + 4):
-            x_rows.append(rs[..., s, :] * prod)
-            prod = prod * ws[..., s, :]
-        prod = torch.ones_like(prod)    # the block's product, last w first
-        for s in reversed(range(g, g + 4)):
-            prod = prod * ws[..., s, :]
-        block_w.append(prod)
-    xs = round_operand(torch.stack(x_rows, dim=-2), operands)
-    for t in range(sub - 4):
-        prod = torch.ones_like(ws[..., 0, :])
-        for j in reversed(range(t + 1, 4 * (t // 4) + 4)):
-            prod = prod * ws[..., j, :]
-        y = ks[..., t, :] * prod
-        for g in range(4 * (t // 4) + 4, sub, 4):
-            if g > 4 * (t // 4) + 4:
-                y = y * block_w[g // 4 - 1]
-            yr = round_operand(y, operands)
-            a[..., g:g + 4, t] = torch.einsum("bhnsd,bhnd->bhns",
-                                              xs[..., g:g + 4, :], yr)
-    a = round_operand(a, operands)
+    a, _ = _subchunk_scores(rs, ks, ws, u32, operands)
     vo = round_operand(vs, operands)
 
     st = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
@@ -991,3 +1006,255 @@ def wkv_bwd_exact_ref(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
             + w32[:, t, :, :, None] * ds
     du = (r32 * k32 * vdo).sum((0, 1))
     return dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw, du
+
+
+WKV_BWD_CHUNK = 64          # csrc/rwkv6_bwd_chunked.cu's CHUNK: tokens a
+                            # stored state
+
+
+def _running(ws: Tensor, reverse: bool) -> tuple[Tensor, Tensor]:
+    """Running products of ws (..., n, D) along its token axis, each row
+    the product of the w's before it (after it, with `reverse`), and the
+    total, multiplied in the walk's order."""
+    prod = torch.ones_like(ws[..., 0, :])
+    rows = [None] * ws.shape[-2]
+    order = range(ws.shape[-2])
+    for t in (reversed(order) if reverse else order):
+        rows[t] = prod
+        prod = prod * ws[..., t, :]
+    return torch.stack(rows, dim=-2), prod
+
+
+def _chunk_decays(ws: Tensor, reverse: bool) -> tuple[Tensor, Tensor]:
+    """`_running` over a 64-token chunk (ws (..., 64, D)) as the chunked
+    backward's first launch takes it: each run of WKV_SUB tokens walked on
+    its own, then times the runs after it (before it, forwards), and the
+    chunk's whole decay as the runs' product in the walk's order."""
+    n = ws.shape[-2] // WKV_SUB
+    parts = [_running(ws[..., i * WKV_SUB:(i + 1) * WKV_SUB, :], reverse)
+             for i in range(n)]
+    rows = []
+    for i, (loc, _) in enumerate(parts):
+        scale = torch.ones_like(parts[0][1])
+        for o in (range(n - 1, i, -1) if reverse else range(i)):
+            scale = scale * parts[o][1]
+        rows.append(loc * scale[..., None, :])
+    total = torch.ones_like(parts[0][1])
+    for o in (reversed(range(n)) if reverse else range(n)):
+        total = total * parts[o][1]
+    return torch.cat(rows, dim=-2), total
+
+
+def wkv_bwd_subchunk_ref(r: Tensor, k: Tensor, v: Tensor, w: Tensor,
+                         u: Tensor, do: Tensor, *, operands: str = "tf32"
+                         ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The gradient of `wkv_ref` from a zero state in the factorisation of
+    the chunked backward route (csrc/rwkv6_bwd_chunked.cu), step for step.
+
+    r, k, v, do (B, L, H, D); w (B, L, H, D); u (H, D).  The tokens are
+    padded to a multiple of WKV_BWD_CHUNK with r = k = v = do = 0, w = 1.
+    The state before each 64-token chunk and the state's gradient after it
+    come from 64-token steps (the kernel's first launch); inside a chunk
+    both are stepped in sub-chunks of WKV_SUB tokens.  For a sub-chunk
+    with S its starting state, G the gradient of the state after it, E_s =
+    prod_{j<s} w_j, F_t = prod_{t<j<16} w_j, E = prod_j w_j, P(t, s) =
+    prod_{t<j<s} w_j, A the forward's scores (`_subchunk_scores`) and
+    dA[s, t] = do_s . v_t:
+
+        dr_s = E_s * (S do_s) + sum_{t<s} dA[s,t] k_t * P(t,s)
+               + dA[s,s] u * k_s
+        dk_t = F_t * (G v_t) + sum_{s>t} dA[s,t] r_s * P(t,s)
+               + dA[t,t] u * r_t
+        dv_t = (k_t * F_t)^T G + sum_{s>=t} A[s,t] do_s
+        dw_t = E_t F_t rowsum(G * S) + F_t q_t + E_t p_t
+               + sum_{s>t} r_s * P(t,s) * Z[s,t]
+        du   = sum r_t * k_t dA[t,t]
+        S <- diag(E) S + sum_t (k_t * F_t) v_t^T   (forward)
+        G <- diag(E) G + sum_s (r_s * E_s) do_s^T  (backward)
+
+    with q_0 = 0, q_t+1 = w_t q_t + k_t * (G v_t); p_15 = 0, p_t-1 = w_t
+    p_t + r_t * (S do_t); Z[s, 0] = 0, Z[s, t+1] = w_t Z[s, t] + dA[s,t]
+    k_t.  dw_t = rowsum(dS_t+1 * S_t) is never divided by a decay.  A
+    pair of tokens in one block of 4 is summed as it stands; a pair across
+    blocks is factored at the block boundary as the forward factors A: for
+    dr at the query's block start g (Xd_s = prod_{g<=j<s} w_j times the
+    product of dA with the forward's Y_t), for dk at the end e of the
+    key's block (Sf_t = prod_{t<j<e} w_j times the product of dA with Xt_s
+    = r_s prod_{e<=j<s} w_j).  The products' operands are rounded as the
+    kernel rounds them (`round_operand(., operands)`): r * E, k * F, v,
+    do, Y, Xt, dA in the across-block products, and A; S and G go as hi =
+    round(S) and lo = round(S - hi).  Sums are float32 (float64 for
+    float64 inputs, with operands float32 only).  Returns (dr, dk, dv in
+    r's dtype, dw, du in the compute dtype).
+    """
+    ct = torch.float64 if r.dtype == torch.float64 else torch.float32
+    if ct == torch.float64 and operands != "float32":
+        raise ValueError("float64 inputs take operands='float32'")
+
+    def rnd(x):
+        return round_operand(x, operands)
+
+    sub, chunk = WKV_SUB, WKV_BWD_CHUNK
+    nsub = chunk // sub
+    b, ell, h, d = r.shape
+    pad = (-ell) % chunk
+    r_, k_, v_, o_, w_ = (t.to(ct) for t in (r, k, v, do, w))
+    if pad:
+        pads = (0, 0, 0, 0, 0, pad)
+        r_, k_, v_, o_ = (torch.nn.functional.pad(t, pads)
+                          for t in (r_, k_, v_, o_))
+        w_ = torch.nn.functional.pad(w_, pads, value=1.0)
+    n = (ell + pad) // chunk
+    u_ = u.to(ct)
+
+    def split(t):              # (B, L, H, D) -> (B, H, n, nsub, sub, D)
+        return t.reshape(b, n, nsub, sub, h, d).permute(0, 4, 1, 2, 3, 5)
+
+    rq, kq, vq, oq, wq = (split(t) for t in (r_, k_, v_, o_, w_))
+    vo, oo = rnd(vq), rnd(oq)
+
+    # the first launch: the state before each chunk (forward) and the
+    # state's gradient after it (backward), in 64-token steps
+    def whole(t):
+        return t.reshape(b, h, n, chunk, d)
+
+    f64, e_back = _chunk_decays(whole(wq), reverse=True)
+    e64, e_fwd = _chunk_decays(whole(wq), reverse=False)
+    kv = torch.einsum("bhcti,bhctj->bhcij", rnd(whole(kq) * f64), whole(vo))
+    rd = torch.einsum("bhcsi,bhcsj->bhcij", rnd(whole(rq) * e64), whole(oo))
+    st = torch.zeros((b, h, d, d), dtype=ct, device=r.device)
+    s_start, g_end = [], [None] * n
+    for c in range(n):
+        s_start.append(st)
+        st = e_back[:, :, c, :, None] * st + kv[:, :, c]
+    st = torch.zeros_like(st)
+    for c in reversed(range(n)):
+        g_end[c] = st
+        st = e_fwd[:, :, c, :, None] * st + rd[:, :, c]
+
+    # inside a chunk: each sub-chunk's starting state and its end gradient
+    e_rows, e_sub = _running(wq, reverse=False)         # E_s, E
+    f_rows, _ = _running(wq, reverse=True)              # F_t
+    kf = rnd(kq * f_rows)
+    states, grads = [torch.stack(s_start, 2)], [torch.stack(g_end, 2)]
+    for q in range(nsub - 1):
+        states.append(e_sub[:, :, :, q, :, None] * states[-1]
+                      + torch.einsum("bhcti,bhctj->bhcij", kf[:, :, :, q],
+                                     vo[:, :, :, q]))
+    re = rnd(rq * e_rows)
+    for q in reversed(range(1, nsub)):
+        grads.insert(0, e_sub[:, :, :, q, :, None] * grads[0]
+                     + torch.einsum("bhcsi,bhcsj->bhcij", re[:, :, :, q],
+                                    oo[:, :, :, q]))
+    nn = n * nsub
+
+    def flat(t):               # (B, H, n, nsub, ...) -> (B, H, n * nsub, ...)
+        return t.reshape(b, h, nn, *t.shape[4:])
+
+    s_q, g_q = flat(torch.stack(states, 3)), flat(torch.stack(grads, 3))
+    rs, ks, ws, vs, os_ = (flat(t) for t in (rq, kq, wq, vo, oo))
+    es, fs, kfs = flat(e_rows), flat(f_rows), flat(kf)
+    u32 = u_[None, :, None, :]
+
+    a, y_rows = _subchunk_scores(rs, ks, ws, u32, operands)
+    da = torch.einsum("bhnsj,bhntj->bhnst", os_, vs)    # dA[s, t]
+
+    def hi_lo(x):
+        hi = rnd(x)
+        return hi, rnd(x - hi)
+
+    s_hi, s_lo = hi_lo(s_q)
+    g_hi, g_lo = hi_lo(g_q)
+    sd = torch.einsum("bhnsj,bhnij->bhnsi", os_, s_hi) \
+        + torch.einsum("bhnsj,bhnij->bhnsi", os_, s_lo)  # S do_s
+    gv = torch.einsum("bhntj,bhnij->bhnti", vs, g_hi) \
+        + torch.einsum("bhntj,bhnij->bhnti", vs, g_lo)   # G v_t
+    dv = torch.einsum("bhnti,bhnij->bhntj", kfs, g_hi) \
+        + torch.einsum("bhnti,bhnij->bhntj", kfs, g_lo) \
+        + torch.einsum("bhnst,bhnsj->bhntj", a, os_)
+
+    # within-block decays: Xd_s from the block's start, Sf_t to its end;
+    # Xt_s for each key block b before s's: r_s prod_{4(b+1)<=j<s} w_j
+    xd, sf = torch.ones_like(rs), torch.ones_like(rs)
+    xt_rows, wb = {}, []
+    prod = torch.ones_like(ws[..., 0, :])
+    for s in range(sub):
+        if s % 4 == 0:
+            prod = torch.ones_like(prod)
+        xd[..., s, :] = prod
+        xt = rs[..., s, :] * prod
+        for blk in reversed(range(s // 4)):
+            if blk < s // 4 - 1:
+                xt = xt * wb[blk + 1]
+            xt_rows[(s, blk)] = rnd(xt)
+        prod = prod * ws[..., s, :]
+        if s % 4 == 3:
+            wb.append(prod)
+    prod = torch.ones_like(prod)
+    for t in reversed(range(sub)):
+        if t % 4 == 3:
+            prod = torch.ones_like(prod)
+        sf[..., t, :] = prod
+        prod = prod * ws[..., t, :]
+    dar = rnd(da)
+    drx, dkx = torch.zeros_like(rs), torch.zeros_like(rs)
+    for (t, g), yr in y_rows.items():           # dr across blocks
+        drx[..., g:g + 4, :] += dar[..., g:g + 4, t, None] * yr[..., None, :]
+    for (s, blk), xr in xt_rows.items():        # dk across blocks
+        t0 = 4 * blk
+        dkx[..., t0:t0 + 4, :] += dar[..., s, t0:t0 + 4, None] \
+            * xr[..., None, :]
+
+    dr, dk = torch.empty_like(rs), torch.empty_like(rs)
+    for s in range(sub):
+        g = 4 * (s // 4)
+        acc = da[..., s, s, None] * (u32 * ks[..., s, :])
+        p = torch.ones_like(acc)
+        for t in reversed(range(g, s)):
+            acc = acc + da[..., s, t, None] * (ks[..., t, :] * p)
+            p = p * ws[..., t, :]
+        dr[..., s, :] = es[..., s, :] * sd[..., s, :] \
+            + xd[..., s, :] * drx[..., s, :] + acc
+        acc = da[..., s, s, None] * (u32 * rs[..., s, :])
+        p = torch.ones_like(acc)
+        for t in range(s + 1, g + 4):
+            acc = acc + da[..., t, s, None] * (rs[..., t, :] * p)
+            p = p * ws[..., t, :]
+        dk[..., s, :] = fs[..., s, :] * gv[..., s, :] \
+            + sf[..., s, :] * dkx[..., s, :] + acc
+
+    # dw_t = rowsum(dS_t+1 * S_t) in four terms
+    rowsum = (g_q * s_q).sum(-1)                         # (B, H, N, D)
+    dw = torch.empty_like(rs)
+    qv = torch.zeros_like(rowsum)
+    t2 = []
+    for t in range(sub):
+        t2.append(fs[..., t, :] * qv)
+        qv = ws[..., t, :] * qv + ks[..., t, :] * gv[..., t, :]
+    pv = torch.zeros_like(rowsum)
+    t3 = [None] * sub
+    for t in reversed(range(sub)):
+        t3[t] = es[..., t, :] * pv
+        pv = ws[..., t, :] * pv + rs[..., t, :] * sd[..., t, :]
+    t4 = [torch.zeros_like(rowsum) for _ in range(sub)]
+    for s in range(1, sub):
+        z, zs = torch.zeros_like(rowsum), []
+        for t in range(s):
+            zs.append(z)
+            z = ws[..., t, :] * z + da[..., s, t, None] * ks[..., t, :]
+        y = rs[..., s, :]
+        for t in reversed(range(s)):
+            t4[t] = t4[t] + y * zs[t]
+            y = y * ws[..., t, :]
+    for t in range(sub):
+        dw[..., t, :] = es[..., t, :] * fs[..., t, :] * rowsum + t2[t] \
+            + t3[t] + t4[t]
+    diag = torch.diagonal(da, dim1=-2, dim2=-1)          # (B, H, N, sub)
+    du = (rs * ks * diag[..., None]).sum(-2).reshape(b, h, n, nsub, d) \
+        .sum(3).sum(2).sum(0)
+
+    def out(t):                # (B, H, N, sub, D) -> (B, L, H, D)
+        return t.reshape(b, h, n * chunk, d).permute(0, 2, 1, 3)[:, :ell]
+
+    return (out(dr).to(r.dtype), out(dk).to(r.dtype), out(dv).to(r.dtype),
+            out(dw).contiguous(), du)

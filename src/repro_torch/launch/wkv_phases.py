@@ -69,8 +69,9 @@ def build(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
         cu, so = out / f"{name}.cu", out / f"{name}.so"
         cu.write_text(text)
         procs[name] = (so, subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-shared", "-o", str(so), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT,
             text=True))
     libs = {}
     for name, (so, proc) in procs.items():
