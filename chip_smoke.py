@@ -13,7 +13,11 @@ append between two chunks), gemma2-2b serving (prefill and greedy
 decode through `repro_torch.launch.serve`, every bf16 prefill attention
 call in the tensor-core flash kernel and every decode call in the split-KV
 kernel; granite-8b, nemotron-4-15b and gemma3-12b the same way, phases
-26-28) and rwkv6-3b serving (every bf16 prefill WKV in the chunked
+26-28; zamba2-7b, its Mamba-2 SSD in plain PyTorch and its shared
+attention at hd 112 on the CUDA-core prefill kernel, and
+llama-3.2-vision-11b, its gated cross-attention over stub vision
+embeddings, phases 29-30, each also in its reduced config against the
+CPU) and rwkv6-3b serving (every bf16 prefill WKV in the chunked
 tensor-core kernel and every decode WKV in the recurrent one), the dense
 engine and the l2,1 (joint feature learning) formulation (dense sessions
 with the km_update and l21_prox kernels, dense == delta bitwise, a batch
@@ -1258,6 +1262,19 @@ def check_flash_kernel(dev, gen) -> dict:
         # 64 rows a kv head; rows 23-31 keep no key
         ("Sq 32, rows with no kept key", 2, 32, 256, 8, 4, 256, True, 64,
          50.0, 140, 100),
+        # zamba2-7b's hd 112 (no sm90 head dim): the prefill on simt with
+        # H = Hkv, the decode on split
+        ("hd 112, H = Hkv 32", 1, 300, 300, 32, 32, 112, True, None, None, 0,
+         None),
+        ("hd 112 decode, H = Hkv 32", 2, 1, 1000, 32, 32, 112, False, None,
+         None, 900, 901),
+        # llama-3.2-vision-11b's cross-attention: non-causal, Sq != Skv,
+        # Skv 1601 not a multiple of a key tile, GQA 4; its decode with 4
+        # rows a kv head over the 1601 keys
+        ("cross: Sq 300 over 1601 keys, GQA 4", 2, 300, 1601, 32, 8, 128,
+         False, None, None, 0, None),
+        ("cross decode over 1601 keys, GQA 4", 2, 1, 1601, 32, 8, 128, False,
+         None, None, 0, None),
     ]
     served, worst, row_worst, split_worst, runs = {}, {}, {}, {}, 0
     controls, empty = [], 0
@@ -1362,7 +1379,10 @@ def check_flash_kernel(dev, gen) -> dict:
         "and a 5032-slot cache) and edge cases (S 37, 129; Hkv 1, GQA 8:1; hd "
         "64/72/128; window >= S, window emptying splits; q_offset; kv_len 1, "
         "64, 100; splits past the causal edge; Sq 3 decode; rows with no "
-        "kept key); ops.flash_attention against the O(S^2) oracle")
+        "kept key), zamba2-7b's hd 112 (H = Hkv 32, prefill and decode) and "
+        "llama-3.2-vision-11b's cross-attention (Sq 300 and 1 over 1601 "
+        "keys, GQA 4, non-causal); ops.flash_attention against the O(S^2) "
+        "oracle")
     return {"flash_attention": dict(served["prefill global"], served=served)}
 
 
@@ -2396,6 +2416,80 @@ def flash_times(served: dict, dev) -> dict:
     return routes
 
 
+def flash_hybrid_times(dev) -> dict:
+    """Phase 12 at the hybrid archs' flash shapes, bf16, on the route the
+    wrapper picks: L2-warm (one input, again and again) and L2-cold (the
+    call walks 3 distinct inputs in turn, 5 at a decode shape, as a pass
+    meets its layers' caches), each with its bound, and flex_attention
+    under torch.compile at the two prefill shapes.  Returns each shape's
+    figures for the kernels line."""
+    import itertools
+    import torch
+    from repro_torch.kernels import flash_attention as k_flash
+    # (label, B, Sq, Skv, H, Hkv, hd, causal, kv_len, flex yardstick):
+    # zamba2-7b's prefill (hd 112: simt) and decode over the 5008-slot
+    # cache (split); llama-3.2-vision-11b's cross-attention prefill over
+    # the 1601 vision keys (sm90) and its decode (split)
+    shapes = (
+        ("zamba2-7b prefill", 2, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 112,
+         True, None, True),
+        ("llama cross prefill", 2, SERVE_PROMPT, 1601, 32, 8, 128, False,
+         None, True),
+        ("zamba2-7b decode", 2, 1, SERVE_PROMPT + DENSE_GEN, 32, 32, 112,
+         False, SERVE_PROMPT + 1, False),
+        ("llama cross decode", 2, 1, 1601, 32, 8, 128, False, None, False))
+    saved = k_flash.launches, k_flash.route_counts()
+    g = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for label, b, sq, skv, h, hkv, hd, causal, kvl, flex in shapes:
+        cold = 3 if sq > 1 else 5
+
+        def make():
+            return (torch.randn(b, sq, h, hd, generator=g, device=dev,
+                                dtype=torch.bfloat16),
+                    torch.randn(b, skv, hkv, hd, generator=g, device=dev,
+                                dtype=torch.bfloat16),
+                    torch.randn(b, skv, hkv, hd, generator=g, device=dev,
+                                dtype=torch.bfloat16))
+        inputs = [make() for _ in range(cold)]
+        kw = dict(causal=causal, window=None, softcap=None, q_offset=0,
+                  kv_len=kvl)
+        q, k, v = inputs[0]
+        spec = kernel_spec("flash_attention", (q, k, v, kw), dev)
+        bnd, by = bound_ms(spec["nbytes"], spec["flops"], spec["rate"])
+        route = k_flash.route(q.dtype, b, sq, skv, h, hkv, hd,
+                              skv if kvl is None else kvl)
+        reps, inner = (3, 3) if sq > 1 else (21, 10)
+        warm = cuda_ms(spec["kfn"], reps=reps, inner=inner)
+        ring = itertools.cycle(inputs)
+        cold_ms = cuda_ms(lambda: k_flash.flash_attention(*next(ring), **kw),
+                          reps=reps, inner=inner)
+        l_ms, what = None, "not timed at a decode shape"
+        if flex:
+            prep, call, what = flex_library((q, k, v, kw), dev)
+            if prep is not None:
+                args_ = prep(q, k, v)
+                l_ms = cuda_ms(lambda: call(*args_), reps=reps, inner=inner)
+        out[label] = dict(route=route, source=FLASH_SOURCES[route],
+                          shape=[b, sq, skv, h, hkv, hd], causal=causal,
+                          ms=cold_ms, l2_warm_ms=warm, bound_ms=bnd,
+                          bound_by=by, library_ms=l_ms)
+        mask = "causal" if causal else "non-causal"
+        log(f"phase 12 flash_attention {label} (B {b}, Sq {sq}, Skv {skv}, "
+            f"H {h}, Hkv {hkv}, hd {hd}, {mask}, bf16; {route}): {cold_ms * 1e3:.2f} us L2-cold over {cold} "
+            f"inputs, {warm * 1e3:.2f} us L2-warm, bound {bnd * 1e3:.2f} us "
+            f"by {by} ({spec['flops'] / 1e9:.2f} GFLOP, "
+            f"{spec['nbytes'] / 1e6:.2f} MB; {100 * bnd / cold_ms:.1f}% of "
+            "the bound); library "
+            + ("null" if l_ms is None else f"{l_ms * 1e3:.2f} us")
+            + f" ({what})")
+        del inputs, q, k, v
+    k_flash.launches = saved[0]
+    k_flash.launches_sm90, k_flash.launches_split, k_flash.launches_simt = (
+        saved[1]["sm90"], saved[1]["split"], saved[1]["simt"])
+    return out
+
+
 def kept_pairs(sq: int, kv_len: int, causal: bool, window, q_offset: int) -> int:
     """(query, key) pairs that the masks keep, for one (batch, head)."""
     i = q_offset + np.arange(sq, dtype=np.int64)
@@ -2420,14 +2514,14 @@ def flash_cost(args_) -> tuple[float, float]:
 def flex_library(args_, dev):
     """The flash yardstick for one call's masks, never called by the port:
     torch.nn.attention's flex_attention under torch.compile, with the
-    softcap as a score_mod and the masks (causal, window, q_offset, kv_len)
-    as a block mask; where it does not compile (a decode's single query
-    row), the bf16 composite softmax(cap tanh(q k^T scale / cap)) v over
-    the kv_len valid keys.  Returns (prep, call, what): prep(q, k, v) gives
-    call's arguments (layout changes, outside any timing), and call(...)
-    the output in flex's layout; what names the yardstick and its max
-    |diff| against the plain version.  (None, None, reason) if neither
-    runs."""
+    softcap (where there is one) as a score_mod and the masks (causal,
+    window, q_offset, kv_len) as a block mask; where it does not compile
+    (a decode's single query row), the bf16 composite softmax(cap tanh(q
+    k^T scale / cap)) v over the kv_len valid keys.  Returns (prep, call,
+    what): prep(q, k, v) gives call's arguments (layout changes, outside
+    any timing), and call(...) the output in flex's layout; what names
+    the yardstick and its max |diff| against the plain version.  (None,
+    None, reason) if neither runs."""
     import torch
     from repro_torch.kernels import ref
     q, k, v, kw = args_
@@ -2449,6 +2543,8 @@ def flex_library(args_, dev):
 
         def score_mod(score, b_, h_, q_idx, kv_idx):
             return cap * torch.tanh(score / cap)
+        if cap is None:
+            score_mod = None
 
         def mask_mod(b_, h_, q_idx, kv_idx):
             keep = kv_idx < kvl
@@ -2483,7 +2579,8 @@ def flex_library(args_, dev):
 
     def call(qg, kt, vt):
         x = (qg @ kt) * scale
-        x = cap * torch.tanh(x / cap)
+        if cap is not None:
+            x = cap * torch.tanh(x / cap)
         return (torch.softmax(x.float(), dim=-1).to(qg.dtype) @ vt).reshape(
             b, h, 1, hd)
     err = diff(call(*prep(q, k, v)))
@@ -2498,14 +2595,18 @@ def rel_err(got, want) -> float:
                  / want.float().abs().max())
 
 
-def serve_profile(fn, label: str, parts: dict, phase: int) -> dict:
+def serve_profile(fn, label: str, parts: dict, phase: int,
+                  ranges: dict | None = None) -> dict:
     """Device time by kernel of fn() from torch.profiler's CUDA activity,
     and the share of each part: `parts` maps a label to the substrings of
-    the CUDA kernel names that make it up.  Returns {"device_ms": total,
-    part: {"ms", "share"}, "top": [[kernel, ms, count], ...]}, or
-    {"device_ms": "not measured"} where the profiler cannot trace."""
+    the CUDA kernel names that make it up, `ranges` a label to the name of
+    a profiler range that fn() opens (`profile_ranges`), whose kernels'
+    device time it counts.  Returns {"device_ms": total, part: {"ms",
+    "share"}, "top": [[kernel, ms, count], ...]}, or {"device_ms": "not
+    measured"} where the profiler cannot trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    ranges = ranges or {}
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2514,18 +2615,26 @@ def serve_profile(fn, label: str, parts: dict, phase: int) -> dict:
         log(f"phase {phase} {label} device time by kernel: not measured "
             f"({e})")
         return {"device_ms": "not measured"}
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    # a range may also show as a device-side annotation: not a kernel
+    rows = [(e.key, e.self_device_time_total, e.count) for e in events
+            if e.device_type == DeviceType.CUDA
+            and e.key not in ranges.values()]
     rows.sort(key=lambda r: -r[1])
     total = sum(t for _, t, _ in rows)
     out = {"device_ms": total / 1e3}
     for part, names in parts.items():
         t = sum(t for k, t, _ in rows if any(n in k for n in names))
         out[part] = {"ms": t / 1e3, "share": t / max(total, 1e-9)}
+    for part, name in ranges.items():
+        t = sum(e.device_time_total for e in events
+                if e.key == name and e.device_type == DeviceType.CPU)
+        out[part] = {"ms": t / 1e3, "share": t / max(total, 1e-9)}
     out["top"] = [[k[:60], t / 1e3, n] for k, t, n in rows[:8]]
     log(f"phase {phase} {label} device time {total / 1e3:.1f} ms, of which "
         + ", ".join(f"{part} {v['ms']:.1f} ms ({100 * v['share']:.1f}%)"
-                    for part, v in out.items() if part in parts)
+                    for part, v in out.items()
+                    if part in parts or part in ranges)
         + ", torch.profiler; top: "
         + "; ".join(f"{k[:50]} {t / 1e3:.1f} ms x{n}" for k, t, n in rows[:8]))
     return out
@@ -2541,6 +2650,16 @@ def wkv_sequential_inplace(r, k, v, w, u, state, *, chunk: int):
     return out.to(r.dtype)
 
 
+def mha_dense_plain(q, k, v, *, causal: bool, window=None, softcap=None,
+                    q_offset: int = 0, kv_valid_len=None, kv_chunk=1024):
+    """`ops.mha`'s contract through the dense softmax with an explicit
+    keep mask (`masked_attention`): a second plain version of the
+    attention, for the bf16 noise yardstick of the hybrid serves."""
+    keep = keep_mask(q.shape[1], k.shape[1], causal, window, q_offset,
+                     kv_valid_len, q.device)
+    return masked_attention(q, k, v, keep, softcap)
+
+
 # Each served arch: its kernel, the `ops` function that reaches it, that
 # function's plain version, a second plain version (the bf16 noise
 # yardstick, or None), and the phases of its bf16 and float32 runs.
@@ -2553,7 +2672,11 @@ SERVED = {"gemma2-2b": ("flash_attention", "mha", "mha_ref", None,
           "nemotron-4-15b": ("flash_attention", "mha", "mha_ref", None,
                              (27, 27)),
           "gemma3-12b": ("flash_attention", "mha", "mha_ref", None,
-                         (28, 28))}
+                         (28, 28)),
+          "zamba2-7b": ("flash_attention", "mha", "mha_ref", mha_dense_plain,
+                        (29, 29)),
+          "llama-3.2-vision-11b": ("flash_attention", "mha", "mha_ref",
+                                   mha_dense_plain, (30, 30))}
 # The dense archs served at their published widths beside gemma2-2b
 # (configs/granite_8b.py: 36 layers, d_model 4096, 32 heads, GQA kv 8, hd
 # 128, SwiGLU, RMSNorm, untied, 8254.7M parameters; nemotron_4_15b.py: 32
@@ -2563,32 +2686,66 @@ SERVED = {"gemma2-2b": ("flash_attention", "mha", "mha_ref", None,
 # qk-norm, GeGLU, tied vocab 262144, 11765.4M), bf16, random weights from
 # --seed, at gemma2's batch and prompt.
 DENSE_ARCHS = ("granite-8b", "nemotron-4-15b", "gemma3-12b")
+# The hybrid and vision archs served the same way (configs/zamba2_7b.py:
+# 81 layers = 13 x (5 mamba + 1 shared_attn) + 3 mamba, d_model 3584, one
+# weight-tied attention block of 32 heads, kv 32, hd 112 with rank-64 LoRA
+# at each of its 13 invocations, GeGLU d_ff 14336, Mamba-2 state 64, heads
+# of 64, expand 2, chunk 128, vocab 32000, 5749.4M parameters;
+# llama_3_2_vision_11b.py: 40 layers = 8 x (4 attn + 1 cross), d_model
+# 4096, 32 heads, kv 8, hd 128, SwiGLU, vocab 128256, rope theta 5e5, gated
+# cross-attention over 1601 stub vision embeddings, 10110.7M).  Their
+# zero-initialized leaves (the cross gates, the LoRA b matrices) and the
+# SSD's constants (A_log 0, D 1, dt_bias 0) would leave whole paths inert,
+# so both phases draw them from --seed first (`wake_inert_leaves`).
+HYBRID_ARCHS = ("zamba2-7b", "llama-3.2-vision-11b")
 # Their greedy decode steps: 8, not 32, to keep the whole smoke near 900 s
 # (with 32 it took 880.8 s from phase 1 on an H100 80GB HBM3 at 700 W);
 # 8 still decodes past every local layer's 1024-slot ring.
 DENSE_GEN = 8
 SERVE_GENS = {"gemma2-2b": SERVE_GEN, "rwkv6-3b": SERVE_GEN,
-              **{a: DENSE_GEN for a in DENSE_ARCHS}}
+              **{a: DENSE_GEN for a in DENSE_ARCHS + HYBRID_ARCHS}}
 # The CUDA kernels of each arch's kernel module, by the substrings of
-# their names in a profile: flash attention's three routes, the WKV's two.
+# their names in a profile: flash attention's three routes, the WKV's two;
+# for the hybrid archs also cuBLAS's matmuls, and (by a profiler range
+# around each call) the mamba mixers and their chunked SSD.
 FLASH_PARTS = {"flash sm90": ("flash_sm90_kernel",),
                "flash split": ("flash_decode_kernel",
                                "flash_decode_combine"),
                "flash simt": ("flash_attention_kernel",)}
+CUBLAS_PARTS = {"cuBLAS": ("gemm", "nvjet", "cutlass", "xmma", "cublas")}
 PROFILE_PARTS = {
     "gemma2-2b": FLASH_PARTS,
     "rwkv6-3b": {"wkv chunked": ("rwkv6_chunked_kernel",),
                  "wkv recurrent": ("rwkv6_scan_kernel",)},
-    **{a: FLASH_PARTS for a in DENSE_ARCHS}}
-# The routes a served bf16 run must take, in launches a layer: gemma2-2b
-# every prefill layer on sm90, every decode call on split; rwkv6-3b every
-# prefill layer on chunked, every decode call on recurrent.  Each arch's
-# float32 prefill takes the last route named.
+    **{a: FLASH_PARTS for a in DENSE_ARCHS},
+    **{a: {**FLASH_PARTS, **CUBLAS_PARTS} for a in HYBRID_ARCHS}}
+PROFILE_RANGES = {"zamba2-7b": {"mamba mixer": "mamba_forward",
+                                "SSD": "_ssd_chunked"}}
+# The routes a served bf16 run must take, in launches a pass (a prefill
+# or a decode step) of each attention call (or WKV): gemma2-2b every
+# prefill call on sm90, every decode call on split; rwkv6-3b every prefill
+# WKV on chunked, every decode call on recurrent; zamba2-7b's hd 112 is no
+# sm90 head dim, so its prefill calls run on simt.  Each arch's float32
+# prefill takes the last route named.
 SERVE_ROUTES = {a: {"sm90": 1, "split": SERVE_GENS[a] - 1, "simt": 0}
-                for a in ("gemma2-2b",) + DENSE_ARCHS}
+                for a in ("gemma2-2b", "llama-3.2-vision-11b")
+                + DENSE_ARCHS}
 SERVE_ROUTES["rwkv6-3b"] = {"chunked": 1, "recurrent": SERVE_GEN - 1}
+SERVE_ROUTES["zamba2-7b"] = {"simt": 1, "split": DENSE_GEN - 1, "sm90": 0}
 SERVE_F32_ROUTE = {"gemma2-2b": "simt", "rwkv6-3b": "recurrent",
-                   **{a: "simt" for a in DENSE_ARCHS}}
+                   **{a: "simt" for a in DENSE_ARCHS + HYBRID_ARCHS}}
+# The kernel launches of a served pass, by block kind: one a WKV, one an
+# attention call (a shared_attn invocation among them), two a cross layer
+# (its self-attention and its cross-attention); a mamba block runs none.
+PASS_LAUNCHES = {"rwkv": 1, "attn": 1, "local": 1, "global": 1,
+                 "shared_attn": 1, "cross": 2}
+# The reduced config of a hybrid arch (float32, the SSD in plain PyTorch)
+# on the card against the port's CPU run of the same weights: prefill
+# logits, every cache leaf and DENSE_GEN teacher-forced decode steps, by
+# max |diff| over max |value| (no kernel covers the SSD, so this is its
+# card gate).
+CARD_CPU_PROMPT = 200
+CARD_CPU_RTOL = 1e-4
 # The float32 prefill copies the served weights to float32 leaf by leaf
 # after the bf16 model is dropped; where all the float32 weights would pass
 # F32_WEIGHTS_BYTES (nemotron-4-15b's are 62.5 GB of the card's 80) it runs
@@ -2599,13 +2756,14 @@ F32_WEIGHTS_BYTES = 48e9
 def float32_model(tree: dict, cfg):
     """The weights of `tree` (the only reference to them: the caller has
     dropped its model) in float32, each leaf cast as its bf16 one is
-    released, cut to the first periods of the one scan group whose float32
-    weights fit F32_WEIGHTS_BYTES.  Returns (LM, its config, kept periods,
-    the float32 bytes of all)."""
+    released; where the float32 weights of all would pass
+    F32_WEIGHTS_BYTES, cut to the first periods of the model's one scan
+    group that fit.  Returns (LM, its config, kept periods of the first
+    group, the float32 bytes of all)."""
     import torch
     from repro_torch.models import LM
     from repro_torch.models.transformer import scan_groups
-    (group,) = scan_groups(cfg)
+    groups = scan_groups(cfg)
 
     def leaves(node, pre=""):
         for k, v in node.items():
@@ -2618,8 +2776,14 @@ def float32_model(tree: dict, cfg):
     in_group = sum(n for k, n in sizes.items() if k.startswith("group0."))
     full = 4 * sum(sizes.values())
     rest = full - 4 * in_group
-    keep = group.n if full <= F32_WEIGHTS_BYTES else max(
-        1, int((F32_WEIGHTS_BYTES - rest) // (4 * in_group / group.n)))
+    keep = groups[0].n
+    if full > F32_WEIGHTS_BYTES:
+        if len(groups) != 1:
+            fail(f"{cfg.name}: float32 weights of {full / 1e9:.1f} GB over "
+                 f"{F32_WEIGHTS_BYTES / 1e9:.0f} and {len(groups)} scan "
+                 "groups: no cut to the first periods")
+        keep = max(1, int((F32_WEIGHTS_BYTES - rest)
+                          // (4 * in_group / keep)))
 
     def cast(node, cut):
         for k in list(node):
@@ -2630,16 +2794,144 @@ def float32_model(tree: dict, cfg):
                 node[k] = (leaf[:keep] if cut else leaf).to(torch.float32)
 
     cast(tree, False)
-    cfg32 = dataclasses.replace(cfg, dtype="float32", num_periods=keep,
-                                num_layers=keep * len(group.period))
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    if keep < groups[0].n:
+        cfg32 = dataclasses.replace(cfg32, num_periods=keep,
+                                    num_layers=keep * len(groups[0].period))
     return LM(cfg32, tree), cfg32, keep, full
+
+
+def pass_launches(cfg) -> int:
+    """Launches of the served kernel in one pass (a prefill or a decode
+    step) of `cfg`, by PASS_LAUNCHES."""
+    return sum(PASS_LAUNCHES.get(k, 0) for k in cfg.layer_kinds)
+
+
+INERT_DRAWS = {"gate": ("uniform", 0.5, 1.5), "lora_q_b": ("normal", 0.02),
+               "lora_o_b": ("normal", 0.02), "A_log": ("uniform", -1.0, 1.0),
+               "dt_bias": ("uniform", -2.0, 0.0), "D": ("uniform", 0.5, 1.5),
+               "conv_b": ("normal", 0.1)}
+
+
+def wake_inert_leaves(model, seed: int) -> list:
+    """Draw the leaves that the reference's init leaves inert (the cross
+    gates 0, the LoRA b matrices 0, the SSD's A_log 0, D 1, dt_bias 0 and
+    conv bias 0) from a generator seeded by `seed`, in place: gate U(0.5,
+    1.5), LoRA b 0.02 N, A_log U(-1, 1), dt_bias U(-2, 0), D U(0.5, 1.5),
+    conv_b 0.1 N.  Returns the paths drawn."""
+    import torch
+    gen = torch.Generator(device=model.device).manual_seed(seed + 5)
+    drawn = []
+    with torch.no_grad():
+        for path, leaf in model.named_parameters():
+            how = INERT_DRAWS.get(path.rsplit(".", 1)[-1])
+            if how is None:
+                continue
+            t = torch.empty(leaf.shape, dtype=torch.float32,
+                            device=leaf.device)
+            if how[0] == "uniform":
+                t.uniform_(how[1], how[2], generator=gen)
+            else:
+                t.normal_(0.0, how[1], generator=gen)
+            leaf.copy_(t)
+            drawn.append(path)
+    return drawn
+
+
+def vision_input(cfg, b: int, seed: int, dev):
+    """The stub vision embeddings of a vlm (`serve.make_vision_embeds`) on
+    the card in the model's dtype; None for any other config."""
+    import torch
+    from repro_torch.launch import serve
+    vis = serve.make_vision_embeds(cfg, b, seed)
+    return None if vis is None else torch.as_tensor(vis, device=dev).to(
+        getattr(torch, cfg.dtype))
+
+
+def card_cpu_phase(arch: str, seed: int, dev, ph: int) -> dict:
+    """The reduced config of `arch` (float32) with the same weights on the
+    card and on the CPU, woken as the full-width run's: prefill logits at
+    CARD_CPU_PROMPT tokens, every cache leaf (KVCache, SSMState, CrossKV),
+    and DENSE_GEN decode steps teacher-forced by the CPU run's tokens,
+    each by max |diff| over max |value| <= CARD_CPU_RTOL."""
+    import torch
+    from repro_torch.interop import kv_cache_to_numpy
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import LM, init_params
+    cfg = serve.serve_config(arch, reduced=True)
+    cpu_model = init_params(cfg, seed=seed, device="cpu")
+    wake_inert_leaves(cpu_model, seed)
+    card_model = LM(cfg, _to_device(cpu_model.tree(), dev))
+    p, g = CARD_CPU_PROMPT, DENSE_GEN
+    prompts = torch.as_tensor(serve.make_prompts(cfg, 2, p + g, seed))
+    vis = serve.make_vision_embeds(cfg, 2, seed)
+    runs = {}
+    for name, model, d in (("cpu", cpu_model, torch.device("cpu")),
+                           ("card", card_model, dev)):
+        prefill = make_prefill_step(cfg, s_max=p + g)
+        decode = make_decode_step(cfg)
+        lg, cache = prefill(model, prompts[:, :p].to(d),
+                            None if vis is None else torch.as_tensor(
+                                vis, device=d))
+        logits = [lg.cpu()]
+        for i in range(g):
+            lg, cache = decode(model, cache, prompts[:, p + i:p + i + 1].to(d),
+                               p + i)
+            logits.append(lg.cpu())
+        runs[name] = (logits, kv_cache_to_numpy(cache))
+    (lc, cc), (lk, ck) = runs["cpu"], runs["card"]
+    errs = [rel_err(a, b) for a, b in zip(lk, lc)]
+    leaf_errs = {k: float(np.abs(ck[k] - cc[k]).max()
+                          / max(np.abs(cc[k]).max(), 1e-30)) for k in cc}
+    worst_leaf = max(leaf_errs, key=leaf_errs.get)
+    if set(ck) != set(cc) or not max(errs) <= CARD_CPU_RTOL \
+            or not leaf_errs[worst_leaf] <= CARD_CPU_RTOL:
+        fail(f"{arch} reduced card vs CPU: logits prefill {errs[0]:.3g}, "
+             f"decode {max(errs[1:]):.3g}, worst cache leaf {worst_leaf} "
+             f"{leaf_errs[worst_leaf]:.3g} > {CARD_CPU_RTOL}")
+    log(f"phase {ph} {arch} reduced ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, float32, TF32 off) card vs the port's CPU run of "
+        f"the same weights, B 2 prompt {p} + {g} teacher-forced decode "
+        f"steps: logits prefill {errs[0]:.3g}, decode {max(errs[1:]):.3g}, "
+        f"{len(cc)} cache leaves at the end, worst {worst_leaf} "
+        f"{leaf_errs[worst_leaf]:.3g}, all <= {CARD_CPU_RTOL} of max "
+        "|value|: PASS")
+    return dict(prefill=errs[0], decode=max(errs[1:]),
+                worst_leaf=leaf_errs[worst_leaf])
+
+
+def _to_device(tree: dict, dev) -> dict:
+    return {k: _to_device(v, dev) if isinstance(v, dict) else
+            v.detach().to(dev) for k, v in tree.items()}
+
+
+@contextlib.contextmanager
+def profile_ranges(arch: str):
+    """Wrap the functions named by PROFILE_RANGES[arch] (module
+    functions of repro_torch.models.ssm) in profiler ranges of their
+    names, for `serve_profile`'s `ranges`."""
+    from unittest import mock
+    import torch
+    from repro_torch.models import ssm
+    names = list(PROFILE_RANGES.get(arch, {}).values())
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            fn = getattr(ssm, name)
+
+            def ranged(*a, _fn=fn, _name=name, **kw):
+                with torch.profiler.record_function(_name):
+                    return _fn(*a, **kw)
+            stack.enter_context(mock.patch.object(ssm, name, ranged))
+        yield
 
 
 def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
     """`arch` at full width through the port's serve driver, then the same
     weights with the kernel's `ops` function replaced by its plain version:
     the kernel's prefill and teacher-forced decode logits against the plain
-    run's, and a float32 prefill of batch 1 held tighter."""
+    run's, and a float32 prefill of batch 1 held tighter.  A hybrid arch
+    also runs its reduced config on the card against the CPU."""
     from unittest import mock
     import torch
     from repro_torch.kernels import ops, ref
@@ -2653,29 +2945,35 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
     b, p, g = SERVE_BATCH, SERVE_PROMPT, SERVE_GENS[arch]
     t0 = time.perf_counter()
     model = init_params(cfg, seed=seed, device=dev)
+    woken = wake_inert_leaves(model, seed)
     sync(dev)
     log(f"phase {ph} {arch}: {model.num_params() / 1e6:.1f}M parameters "
         f"({cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.dtype}) "
-        f"initialized on the card in {time.perf_counter() - t0:.2f} s")
+        f"initialized on the card in {time.perf_counter() - t0:.2f} s"
+        + (f"; {len(woken)} inert leaves drawn from the seed "
+           f"({', '.join(sorted({w.rsplit('.', 1)[-1] for w in woken}))})"
+           if woken else ""))
     prompts = torch.as_tensor(serve.make_prompts(cfg, b, p, seed),
                               device=dev)
-    serve.generate(model, prompts[:, :128], 2)      # warm up
+    vis = vision_input(cfg, b, seed, dev)
+    serve.generate(model, prompts[:, :128], 2, vision_embeds=vis)  # warm up
 
     ops.reset_launch_counts()
-    run = serve.generate(model, prompts, g)
+    run = serve.generate(model, prompts, g, vision_embeds=vis)
     counts = ops.launch_counts()
-    want = cfg.num_layers * g
+    n_pass = pass_launches(cfg)
+    want = n_pass * g
     if counts[kname] != want or \
             any(n for k, n in counts.items() if k != kname):
         fail(f"serve {arch}: launches {counts}, want {kname} = "
-             f"{cfg.num_layers} + {cfg.num_layers} x {g - 1} = {want}")
+             f"{n_pass} + {n_pass} x {g - 1} = {want}")
     kmod = ops.KERNELS[kname]
     got_routes = kmod.route_counts()
-    want_r = {r: cfg.num_layers * n for r, n in SERVE_ROUTES[arch].items()}
+    want_r = {r: n_pass * n for r, n in SERVE_ROUTES[arch].items()}
     on_prefill, on_decode = list(SERVE_ROUTES[arch])[:2]
     if got_routes != want_r:
         fail(f"serve {arch}: {kname} routes {got_routes}, want {want_r} "
-             f"(every prefill layer on {on_prefill}, every decode call on "
+             f"(every prefill call on {on_prefill}, every decode call on "
              f"{on_decode})")
     routes = (f" (routes {got_routes}: prefill on {on_prefill}, decode on "
               f"{on_decode})")
@@ -2691,7 +2989,7 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
         f"{g - 1} steps in {run['decode_s']:.3f} s ({decode_tps:.1f} "
         f"tokens/s, {1e3 * run['decode_s'] / (g - 1):.2f} ms a step), "
         f"{kname} launches {counts[kname]} = "
-        f"{cfg.num_layers} + {cfg.num_layers} x {g - 1}{routes}; card {card}")
+        f"{n_pass} + {n_pass} x {g - 1}{routes}; card {card}")
     if arch == "gemma2-2b":
         ht = host_time.measure(model, prompts, reps=10)
         log(f"phase {ph} {arch} decode step: {ht['step_host_ms']:.2f} ms of "
@@ -2706,7 +3004,7 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
     decode = make_decode_step(cfg)
     ops.reset_launch_counts()
     with mock.patch.object(ops, op, plain):
-        lg, cache = prefill(model, prompts)
+        lg, cache = prefill(model, prompts, vis)
         plain_logits, plain_toks = [lg], [lg[:, -1].argmax(-1)[:, None]]
         for i in range(g - 1):
             lg, cache = decode(model, cache, plain_toks[-1], p + i)
@@ -2719,7 +3017,7 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
     def forced_errs():
         """Prefill and the g - 1 teacher-forced decode steps against the
         plain run's logits."""
-        lg, cache = prefill(model, prompts)
+        lg, cache = prefill(model, prompts, vis)
         errs = [rel_err(lg, plain_logits[0])]
         for i in range(g - 1):
             lg, cache = decode(model, cache, plain_toks[i], p + i)
@@ -2748,11 +3046,15 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
         f"decode (teacher-forced, {g - 1} steps) {max(errs[1:]):.3g} <= "
         f"{tol:.3g}{noise}; the greedy run's tokens equal the plain run's "
         f"at {100 * agree:.1f}% of positions: PASS")
-    serve_profile(lambda: (prefill(model, prompts), sync(dev)),
-                  f"prefill (B {b}, S {p})", PROFILE_PARTS[arch], ph)
-    serve_profile(lambda: ([decode(model, cache, plain_toks[i], p + i)
-                            for i in range(g - 4, g - 1)], sync(dev)),
-                  "3 decode steps", PROFILE_PARTS[arch], ph)
+    ranges = PROFILE_RANGES.get(arch)
+    with profile_ranges(arch):
+        prof = serve_profile(lambda: (prefill(model, prompts, vis),
+                                      sync(dev)),
+                             f"prefill (B {b}, S {p})", PROFILE_PARTS[arch],
+                             ph, ranges)
+        serve_profile(lambda: ([decode(model, cache, plain_toks[i], p + i)
+                                for i in range(g - 4, g - 1)], sync(dev)),
+                      "3 decode steps", PROFILE_PARTS[arch], ph, ranges)
     del cache
 
     tree = model.tree()
@@ -2765,32 +3067,40 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
              f"the first {layers32} of {cfg.num_layers} layers: the float32 "
              f"weights of all would be {f32_bytes / 1e9:.1f} GB, over "
              f"{F32_WEIGHTS_BYTES / 1e9:.0f}")
+    n32 = pass_launches(cfg32)
+    vis32 = None if vis is None else vis[:1].float()
     prefill32 = make_prefill_step(cfg32, s_max=p)
     ops.reset_launch_counts()
-    lk, _ = prefill32(model32, prompts[:1])
-    if ops.launch_counts()[kname] != layers32:
-        fail(f"serve {arch} float32: the prefill did not launch the kernel "
-             "once a layer")
+    lk, _ = prefill32(model32, prompts[:1], vis32)
+    if ops.launch_counts()[kname] != n32:
+        fail(f"serve {arch} float32: the prefill launched the kernel "
+             f"{ops.launch_counts()[kname]} times, want {n32}")
     f32_route = SERVE_F32_ROUTE[arch]
-    if kmod.route_counts()[f32_route] != layers32:
+    if kmod.route_counts()[f32_route] != n32:
         fail(f"serve {arch} float32: routes {kmod.route_counts()}, want "
-             f"{f32_route} {layers32} (float32 prefill stays on the "
+             f"{f32_route} {n32} (float32 prefill stays on the "
              "CUDA cores)")
     with mock.patch.object(ops, op, plain):
-        lp, _ = prefill32(model32, prompts[:1])
+        lp, _ = prefill32(model32, prompts[:1], vis32)
     e32 = rel_err(lk, lp)
     if not e32 <= SERVE_F32_RTOL or not bool(torch.isfinite(lk).all()):
         fail(f"serve {arch} float32: kernel against plain prefill logits "
              f"{e32:.3g} > {SERVE_F32_RTOL} of max|logits|")
     log(f"phase {ph32} serve {arch} float32 prefill (B 1, S {p}, TF32 off, "
-        f"{which}; the bf16 model dropped and its weights cast leaf by "
-        f"leaf): kernel against plain within {e32:.3g} of max|logits| <= "
-        f"{SERVE_F32_RTOL}: PASS")
+        f"{which}, {n32} {f32_route} launches; the bf16 model dropped and "
+        f"its weights cast leaf by leaf): kernel against plain within "
+        f"{e32:.3g} of max|logits| <= {SERVE_F32_RTOL}: PASS")
     del model32
     torch.cuda.empty_cache()
-    return dict(counts=counts, routes=got_routes, prefill_tps=prefill_tps,
-                decode_tps=decode_tps, errs=errs, e32=e32, tol=tol,
-                f32_layers=layers32)
+    out = dict(counts=counts, routes=got_routes, prefill_tps=prefill_tps,
+               decode_tps=decode_tps, errs=errs, e32=e32, tol=tol,
+               f32_layers=layers32, f32_launches=n32,
+               prefill_s=run["prefill_s"], decode_s=run["decode_s"])
+    if arch in HYBRID_ARCHS:
+        out["prefill_profile"] = {k: v for k, v in prof.items()
+                                  if k != "top"}
+        out["card_vs_cpu"] = card_cpu_phase(arch, seed, dev, ph)
+    return out
 
 
 # ------------------------------------------------------------- phases 4-6 --
@@ -5663,6 +5973,14 @@ def main() -> None:
         dense[arch] = serve_phase(dev, args.seed, card, arch)
         torch.cuda.empty_cache()
     mark(t_smoke, "26-28")
+    # phases 29-30: zamba2-7b and llama-3.2-vision-11b at full width
+    hybrid = {}
+    for arch in HYBRID_ARCHS:
+        t_arch = time.perf_counter()
+        hybrid[arch] = serve_phase(dev, args.seed, card, arch)
+        hybrid[arch]["seconds"] = time.perf_counter() - t_arch
+        torch.cuda.empty_cache()
+    mark(t_smoke, "29-30")
 
     # phase 20: the learn-while-serve AMTLServer at the engine cells' width
     amtl_serve = amtl_serve_phase(dev, args.seed, card)
@@ -5786,8 +6104,12 @@ def main() -> None:
     flash["library_ms"] = flash["routes"]["sm90"]["library_ms"]
     flash["train_launches"] = train["launches"]["flash_attention"]
     flash["dense_serve_launches"] = {
-        a: dict(r["routes"], float32_prefill_simt=r["f32_layers"])
+        a: dict(r["routes"], float32_prefill_simt=r["f32_launches"])
         for a, r in dense.items()}
+    flash["hybrid_serve_launches"] = {
+        a: dict(r["routes"], float32_prefill_simt=r["f32_launches"])
+        for a, r in hybrid.items()}
+    flash["hybrid_shapes"] = flash_hybrid_times(dev)
     kernels.append(flash_bwd_times(
         info["flash_attention_bwd"], train["launches"]["bwd_routes"], dev))
     del info["flash_attention_bwd"]
@@ -5817,6 +6139,10 @@ def main() -> None:
     log("dense serves " + json.dumps({a: {k: r[k] for k in (
         "prefill_tps", "decode_tps", "errs", "e32", "tol", "f32_layers")}
         for a, r in dense.items()}))
+    log("hybrid serves " + json.dumps({a: {k: r[k] for k in (
+        "prefill_tps", "decode_tps", "prefill_s", "decode_s", "errs", "e32",
+        "tol", "f32_layers", "f32_launches", "routes", "prefill_profile",
+        "card_vs_cpu", "seconds")} for a, r in hybrid.items()}))
     log(f"smoke: {time.perf_counter() - t_smoke:.1f} s from phase 1 "
         f"[{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)

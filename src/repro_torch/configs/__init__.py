@@ -17,6 +17,8 @@ _MODULES = {
     "granite-8b": "repro_torch.configs.granite_8b",
     "nemotron-4-15b": "repro_torch.configs.nemotron_4_15b",
     "gemma3-12b": "repro_torch.configs.gemma3_12b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama_3_2_vision_11b",
 }
 
 # Archs of the reference that the port does not serve yet, with the item of
@@ -24,8 +26,6 @@ _MODULES = {
 _PENDING = {
     "deepseek-v3-671b": "MLA attention and the MoE FFN",
     "dbrx-132b": "the MoE FFN",
-    "zamba2-7b": "the Mamba-2 SSD block and shared attention",
-    "llama-3.2-vision-11b": "gated cross-attention",
     "hubert-xlarge": "the audio encoder",
 }
 

@@ -11,11 +11,14 @@ Everything crosses as numpy arrays, so the port never sees a JAX array:
 An LM's parameters and serving cache cross as flat dicts keyed by the
 '.'-joined pytree path of the reference's tree (for example
 "group0.b1.attn.wq", "group0.b0.k" or, for an RWKV cache,
-"group0.b0.x_prev_att" and "group0.b0.wkv"), which are the port's
+"group0.b0.x_prev_att" and "group0.b0.wkv", for an SSM cache
+"group0.b0.conv" and "group0.b0.ssm", for a cross layer
+"group0.b4.self.k" and "group0.b4.cross.k"), which are the port's
 state_dict keys and cache paths too:
 
     lm_params_from_numpy(cfg, flat, device) -> models.LM
-    kv_cache_to_numpy(cache) -> flat           # KVCache and RWKVState
+    kv_cache_to_numpy(cache) -> flat    # KVCache, RWKVState, SSMState,
+                                        # CrossKV
     kv_cache_from_numpy(cfg, flat, device) -> cache
 
 A bfloat16 array may come with ml_dtypes' `bfloat16` dtype (what
@@ -72,6 +75,8 @@ from repro_torch.core.mtl_head import MTLHeadState
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import KVCache
 from repro_torch.models.rwkv import RWKVState
+from repro_torch.models.serving import CrossKV
+from repro_torch.models.ssm import SSMState
 from repro_torch.models.transformer import LM, param_dtypes, param_shapes
 
 LEAVES = ("v", "delta_ring", "task_ring", "ptr", "event", "p_cache",
@@ -191,10 +196,11 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
 def lm_params_from_numpy(cfg: ArchConfig, flat: dict,
                          device: torch.device | str | None = None) -> LM:
     """The port's model from the reference's parameter leaves, keyed by
-    path; each leaf takes the reference's dtype for it (`param_dtypes`:
-    cfg.dtype, but float32 for the rwkv w0 and u) on `device` (the card
-    unless the caller passes "cpu").  The keys must be exactly the
-    port's."""
+    path (the top-level "shared_attn.*" of a Zamba2 model among them);
+    each leaf takes the reference's dtype for it (`param_dtypes`:
+    cfg.dtype, but float32 for the rwkv w0 and u and the mamba A_log, D
+    and dt_bias) on `device` (the card unless the caller passes "cpu").
+    The keys must be exactly the port's."""
     dev = resolve_device(device)
     dtypes = param_dtypes(cfg)
     want = param_shapes(cfg)
@@ -208,13 +214,17 @@ def lm_params_from_numpy(cfg: ArchConfig, flat: dict,
                           for k, a in flat.items()}))
 
 
-_CACHES = {frozenset(t._fields): t for t in (KVCache, RWKVState)}
+# a cache node by its fields; a cross layer's {k, v} under "cross" is a
+# CrossKV, elsewhere a KVCache
+_CACHES = {frozenset(t._fields): t for t in (KVCache, RWKVState, SSMState)}
+_FLOAT32_CACHE_LEAVES = (".wkv", ".ssm")
 
 
 def kv_cache_to_numpy(cache: dict) -> dict:
-    """The cache's leaves (KVCache k, v; RWKVState x_prev_att, x_prev_ffn,
-    wkv) as float32 host arrays (an exact upcast of bfloat16), keyed by
-    path ("group0.b0.k", "group0.b0.wkv", ...)."""
+    """The cache's leaves (KVCache and CrossKV k, v; RWKVState x_prev_att,
+    x_prev_ffn, wkv; SSMState conv, ssm) as float32 host arrays (an exact
+    upcast of bfloat16), keyed by path ("group0.b0.k", "group0.b0.wkv",
+    "group0.b0.ssm", "group0.b4.cross.k", ...)."""
     flat = {}
     for path, c in _flatten(cache).items():
         for field, leaf in c._asdict().items():
@@ -225,18 +235,20 @@ def kv_cache_to_numpy(cache: dict) -> dict:
 def kv_cache_from_numpy(cfg: ArchConfig, flat: dict,
                         device: torch.device | str | None = None) -> dict:
     """A cache from leaves keyed as `kv_cache_to_numpy` gives them, or as
-    the reference's KVCache and RWKVState paths, on `device`: cast to
-    cfg.dtype, except the WKV state, which stays float32."""
+    the reference's KVCache, RWKVState, SSMState and CrossKV paths, on
+    `device`: cast to cfg.dtype, except the WKV and SSM states, which stay
+    float32."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
-    tree = _nest({k: _tensor(a, torch.float32 if k.endswith(".wkv")
-                             else dtype, dev) for k, a in flat.items()})
+    tree = _nest({k: _tensor(a, torch.float32
+                             if k.endswith(_FLOAT32_CACHE_LEAVES) else dtype,
+                             dev) for k, a in flat.items()})
 
-    def build(node: dict):
+    def build(node: dict, name: str = ""):
         cls = _CACHES.get(frozenset(node))
         if cls is not None:
-            return cls(**node)
-        return {k: build(v) for k, v in node.items()}
+            return (CrossKV if name == "cross" else cls)(**node)
+        return {k: build(v, k) for k, v in node.items()}
 
     return build(tree)
 

@@ -4,6 +4,8 @@
         --reduced --device cpu                       # plain versions, CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --batch 2 --prompt-len 5000 --gen 32         # full width, the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --reduced --device cpu                       # hybrid Mamba-2, CPU
 
 Port of `repro/launch/serve.py` on one device (sharded serving waits for
 ROADMAP.md Queue 1 item 11(i)).  Prompts come from numpy seeded by --seed, the
@@ -12,7 +14,10 @@ device.  On the card every attention call of prefill and decode runs the
 flash-attention CUDA kernels, and every WKV recurrence of rwkv6-3b one of
 the rwkv6_scan kernels: the chunked tensor-core route in a bf16 prefill,
 the recurrent one in decode (its O(1) state ignores the prompt and
-generation lengths).  Without --device cpu and without a CUDA device it raises.
+generation lengths).  A vlm (llama-3.2-vision-11b) is served with stub
+vision embeddings, 0.05 N(0, 1) of shape (B, vision_seq, d_model) from
+numpy seeded by --seed, as the reference's driver makes them.  Without
+--device cpu and without a CUDA device it raises.
 """
 from __future__ import annotations
 
@@ -49,6 +54,18 @@ def make_prompts(cfg: ArchConfig, batch: int, prompt_len: int,
                         dtype=np.int64)
 
 
+def make_vision_embeds(cfg: ArchConfig, batch: int,
+                       seed: int) -> np.ndarray | None:
+    """(batch, vision_seq, d_model) float32 stub patch embeddings,
+    0.05 N(0, 1) from numpy seeded by `seed` (a stream apart from the
+    prompts'), for a vlm config; None for any other."""
+    if cfg.family != "vlm":
+        return None
+    rng = np.random.default_rng([seed, 2])
+    return 0.05 * rng.standard_normal((batch, cfg.vision_seq, cfg.d_model),
+                                      dtype=np.float32)
+
+
 def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -56,11 +73,13 @@ def sync(device: torch.device) -> None:
 
 def generate(model: LM, prompts: torch.Tensor, gen: int,
              temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None) -> dict:
-    """Prefill the prompts (B, P) and decode `gen` tokens, greedily unless
-    `temperature` > 0 (then sampled with `generator`).  Returns the tokens
-    (B, gen) and the host seconds of prefill and of the gen - 1 decode
-    steps, each ended by a device synchronize."""
+             generator: Optional[torch.Generator] = None,
+             vision_embeds: Optional[torch.Tensor] = None) -> dict:
+    """Prefill the prompts (B, P) (with the vision embeddings of a vlm)
+    and decode `gen` tokens, greedily unless `temperature` > 0 (then
+    sampled with `generator`).  Returns the tokens (B, gen) and the host
+    seconds of prefill and of the gen - 1 decode steps, each ended by a
+    device synchronize."""
     cfg = model.cfg
     dev = model.device
     b, p = prompts.shape
@@ -75,7 +94,7 @@ def generate(model: LM, prompts: torch.Tensor, gen: int,
 
     sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill_fn(model, prompts)
+    logits, cache = prefill_fn(model, prompts, vision_embeds)
     tok = sample(logits)[:, None]
     sync(dev)
     prefill_s = time.perf_counter() - t0
@@ -114,8 +133,13 @@ def main(argv: Optional[list[str]] = None) -> dict:
           f"device={dev}")
     prompts = torch.as_tensor(make_prompts(cfg, args.batch, args.prompt_len,
                                            args.seed), device=dev)
+    vision = make_vision_embeds(cfg, args.batch, args.seed)
+    if vision is not None:
+        vision = torch.as_tensor(vision, device=dev).to(
+            getattr(torch, cfg.dtype))
     generator = torch.Generator(device=dev).manual_seed(args.seed + 3)
-    r = generate(model, prompts, args.gen, args.temperature, generator)
+    r = generate(model, prompts, args.gen, args.temperature, generator,
+                 vision)
     print(f"prefill: {r['prefill_s']:.2f}s "
           f"({args.batch * args.prompt_len} tokens)")
     print(f"decoded {args.gen} x {args.batch} tokens in {r['decode_s']:.2f}s "

@@ -123,9 +123,13 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
 
 
 def make_prefill_step(cfg: ArchConfig, s_max: Optional[int] = None):
-    def prefill_step(model: LM, tokens: torch.Tensor):
+    """prefill_step(model, tokens, vision_embeds=None): the vision
+    embeddings (B, vision_seq, D) go with the tokens of a vlm."""
+    def prefill_step(model: LM, tokens: torch.Tensor,
+                     vision_embeds: Optional[torch.Tensor] = None):
         with torch.inference_mode():
-            return serving.prefill(model.tree(), tokens, cfg, s_max=s_max)
+            return serving.prefill(model.tree(), tokens, cfg, s_max=s_max,
+                                   vision_embeds=vision_embeds)
     return prefill_step
 
 

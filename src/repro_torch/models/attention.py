@@ -1,9 +1,10 @@
-"""GQA attention (full, sliding-window, softcap) for prefill and decode.
+"""GQA attention (full, sliding-window, softcap) for prefill and decode, and
+gated cross-attention (Llama-3.2-Vision style).
 
-Port of the GQA part of `repro/models/attention.py`.  Every attention call
-goes through `ops.mha`: the flash-attention CUDA kernel for CUDA tensors,
-the plain chunked online softmax (`ref.mha_ref`) for CPU tensors.  MLA,
-gated cross-attention, the int8 KV cache and the sharded decode are later
+Port of the GQA and cross-attention parts of `repro/models/attention.py`.
+Every attention call goes through `ops.mha`: the flash-attention CUDA
+kernel for CUDA tensors, the plain chunked online softmax (`ref.mha_ref`)
+for CPU tensors.  MLA, the int8 KV cache and the sharded decode are later
 slices of the port; `transformer.init_params` and
 `interop.lm_params_from_numpy` refuse configs that need them.
 
@@ -138,3 +139,50 @@ def attn_decode(p: dict, x: Tensor, cache: KVCache, pos: int,
               kv_valid_len=valid, kv_chunk=4096)
     out = out.reshape(b, 1, -1) @ p["wo"].to(x.dtype)
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# gated cross-attention (Llama-3.2-Vision style)
+# ---------------------------------------------------------------------------
+
+def init_cross_attn(cfg: ArchConfig, dtype: torch.dtype,
+                    gen: torch.Generator, lead: tuple[int, ...] = ()) -> dict:
+    """wq, wk, wv, wo and the gate (1,), zero at init as in the reference
+    (tanh(0) = 0: a cross layer adds nothing until trained)."""
+    d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {"wq": dense_init(lead + (d, h * hd), dtype, gen),
+            "wk": dense_init(lead + (d, hkv * hd), dtype, gen),
+            "wv": dense_init(lead + (d, hkv * hd), dtype, gen),
+            "wo": dense_init(lead + (h * hd, d), dtype, gen),
+            "gate": torch.zeros(lead + (1,), dtype=dtype,
+                                device=gen.device)}
+
+
+def cross_kv(p: dict, kv_src: Tensor, cfg: ArchConfig,
+             dtype: torch.dtype) -> tuple[Tensor, Tensor]:
+    """k, v (B, Sv, Hkv, hd) in `dtype` of the vision embeddings kv_src
+    (B, Sv, D): what a cross layer attends to, in prefill and decode."""
+    b, sv, _ = kv_src.shape
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    src = kv_src.to(dtype)
+    k = (src @ p["wk"].to(dtype)).reshape(b, sv, hkv, hd)
+    v = (src @ p["wv"].to(dtype)).reshape(b, sv, hkv, hd)
+    return k, v
+
+
+def cross_attn(p: dict, x: Tensor, k: Tensor, v: Tensor,
+               cfg: ArchConfig) -> Tensor:
+    """tanh(gate) * wo(mha(wq x, k, v)), non-causal over all Sv keys.
+    x: (B, S, D) queries (S 1 in decode); k, v from `cross_kv`."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    out = mha(q, k.to(x.dtype), v.to(x.dtype), causal=False)
+    out = out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+    return torch.tanh(p["gate"].float()).to(x.dtype) * out
+
+
+def cross_attn_forward(p: dict, x: Tensor, kv_src: Tensor,
+                       cfg: ArchConfig) -> Tensor:
+    """x: (B, S, D) queries; kv_src: (B, Sv, D) vision embeddings."""
+    k, v = cross_kv(p, kv_src, cfg, x.dtype)
+    return cross_attn(p, x, k, v, cfg)

@@ -1,38 +1,54 @@
-"""Prefill and single-token decode for the dense attention and RWKV
-families.
+"""Prefill and single-token decode for the attention, RWKV, Mamba-2 hybrid
+and vision-language families.
 
-Port of the attention and RWKV parts of `repro/models/serving.py`.  The
-cache mirrors the scan groups: for each group, a cache per period position
-whose leaves are stacked over the group's repeat count,
+Port of `repro/models/serving.py` for every block kind but MoE.  The cache
+mirrors the scan groups: for each group, a cache per period position whose
+leaves are stacked over the group's repeat count,
 
     attn / global : KVCache (n, B, S_max, Hkv, hd)
     local         : KVCache ring (n, B, min(window, S_max), Hkv, hd)
+    shared_attn   : KVCache (n, B, S_max, Hkv, hd), one per invocation
+    cross         : {"self": KVCache, "cross": CrossKV (n, B, Sv, Hkv, hd)}
+                    -- the vision embeddings' keys and values, made once at
+                    prefill and read by every decode step
     rwkv          : RWKVState x_prev_att, x_prev_ffn (n, B, D) and wkv
                     (n, B, H, hs, hs) float32 -- O(1) in S_max
+    mamba         : SSMState conv (n, B, conv_width - 1, conv_dim) and ssm
+                    (n, B, H, P, N) float32 -- O(1) in S_max
 
 and layer l of a group reads and writes the views [l].  `pos` is a host
 int: batched serving with aligned positions, as in the reference.  Prefill
 and decode write every layer's cache in place (the new KV slot; the RWKV
-shift vectors, and the WKV state, which the rwkv6_scan kernel overwrites
-itself).
+shift vectors and the SSM state; the WKV state, which the rwkv6_scan
+kernel overwrites itself).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, BlockKind
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.rwkv import RWKVState
 from repro_torch.models.layers import apply_ffn, apply_norm
-from repro_torch.models.transformer import (_window, embed_tokens,
+from repro_torch.models.ssm import SSMState
+from repro_torch.models.transformer import (Extras, _window, embed_tokens,
                                             lm_logits, require_ported,
-                                            scan_groups, unstack)
+                                            require_vision, scan_groups,
+                                            shared_attn_params, unstack)
 
 Tensor = torch.Tensor
+
+
+class CrossKV(NamedTuple):
+    """A cross layer's keys and values of the vision embeddings:
+    (B, Sv, Hkv, hd) each."""
+    k: Tensor
+    v: Tensor
 
 
 def _cache_len(kind: BlockKind, cfg: ArchConfig, s_max: int) -> int:
@@ -57,24 +73,53 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int,
 
 def _init_block_cache(kind: BlockKind, cfg: ArchConfig, b: int, s_max: int,
                       n: int, dtype: torch.dtype, device):
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((n, b) + shape, dtype=dt, device=device)
+
     if kind == "rwkv":
         hs = cfg.rwkv.head_size
-        return RWKVState(
-            x_prev_att=torch.zeros((n, b, cfg.d_model), dtype=dtype,
-                                   device=device),
-            x_prev_ffn=torch.zeros((n, b, cfg.d_model), dtype=dtype,
-                                   device=device),
-            wkv=torch.zeros((n, b, cfg.d_model // hs, hs, hs),
-                            dtype=torch.float32, device=device))
-    shape = (n, b, _cache_len(kind, cfg, s_max), cfg.num_kv_heads,
-             cfg.head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+        return RWKVState(x_prev_att=zeros(cfg.d_model),
+                         x_prev_ffn=zeros(cfg.d_model),
+                         wkv=zeros(cfg.d_model // hs, hs, hs,
+                                   dt=torch.float32))
+    if kind == "mamba":
+        s = cfg.ssm
+        _, n_heads, conv_dim = ssm_lib._dims(cfg)
+        return SSMState(conv=zeros(s.conv_width - 1, conv_dim),
+                        ssm=zeros(n_heads, s.head_dim, s.state_dim,
+                                  dt=torch.float32))
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    cl = _cache_len(kind, cfg, s_max)
+    kv = KVCache(k=zeros(cl, hkv, hd), v=zeros(cl, hkv, hd))
+    if kind == "cross":
+        return {"self": kv, "cross": CrossKV(k=zeros(cfg.vision_seq, hkv, hd),
+                                             v=zeros(cfg.vision_seq, hkv, hd))}
+    return kv
 
 
 def _layer_cache(c, li: int):
     """Layer li's views of a stacked block cache."""
+    if isinstance(c, dict):
+        return {k: _layer_cache(v, li) for k, v in c.items()}
     return type(c)(*(leaf[li] for leaf in c))
+
+
+def _write(dst, src) -> None:
+    """Copy the leaves of cache `src` into the views `dst`."""
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
+
+def _cross_kv(p: dict, kv_src: Tensor, cfg: ArchConfig,
+              dtype: torch.dtype) -> CrossKV:
+    return CrossKV(*attn_lib.cross_kv(p, kv_src, cfg, dtype))
+
+
+def _cross_decode(p: dict, x: Tensor, xkv: CrossKV,
+                  cfg: ArchConfig) -> Tensor:
+    """The gated cross-attention of one query row over the Sv cached keys,
+    non-causal."""
+    return attn_lib.cross_attn(p, x, xkv.k, xkv.v, cfg)
 
 
 def _rwkv_block(p: dict, x: Tensor, cfg: ArchConfig, state: RWKVState,
@@ -99,48 +144,89 @@ def _rwkv_block(p: dict, x: Tensor, cfg: ArchConfig, state: RWKVState,
 
 
 def _prefill_block(kind: BlockKind, p: dict, x: Tensor, cfg: ArchConfig,
-                   s_max: int, slot, li: int) -> Tensor:
-    """The block's full-sequence forward; writes its cache into layer li of
-    the stacked `slot`."""
+                   s_max: int, cache, extras: Extras) -> Tensor:
+    """The block's full-sequence forward; writes its cache into `cache`
+    (the layer's views of the stacked cache)."""
     if kind == "rwkv":
-        return _rwkv_block(p, x, cfg, _layer_cache(slot, li), decode=False)
+        return _rwkv_block(p, x, cfg, cache, decode=False)
     h = apply_norm(cfg.norm, p["norm1"], x)
-    out, cache = attn_lib.attn_forward(
-        p["attn"], h, cfg, window=_window(cfg, kind), return_cache=True,
-        cache_len=_cache_len(kind, cfg, s_max))
-    slot.k[li].copy_(cache.k)
-    slot.v[li].copy_(cache.v)
+    if kind == "mamba":
+        out, state = ssm_lib.mamba_forward(p["mamba"], h, cfg,
+                                           return_state=True)
+        _write(cache, state)
+        return x + out
+    cl = _cache_len(kind, cfg, s_max)
+    if kind == "shared_attn":
+        out, kv = attn_lib.attn_forward(
+            shared_attn_params(p, extras.shared_attn), h, cfg,
+            return_cache=True, cache_len=cl)
+        _write(cache, kv)
+        x = x + out
+        h = apply_norm(cfg.norm, p["norm2"], x)
+        return x + apply_ffn(extras.shared_attn["ffn"], h, cfg.activation)
+    out, kv = attn_lib.attn_forward(p["attn"], h, cfg,
+                                    window=_window(cfg, kind),
+                                    return_cache=True, cache_len=cl)
+    _write(cache["self"] if kind == "cross" else cache, kv)
     x = x + out
+    if kind == "cross":
+        h = apply_norm(cfg.norm, p["norm_x"], x)
+        xkv = _cross_kv(p["xattn"], require_vision(extras, cfg), cfg, x.dtype)
+        _write(cache["cross"], xkv)
+        x = x + attn_lib.cross_attn(p["xattn"], h, xkv.k, xkv.v, cfg)
     h = apply_norm(cfg.norm, p["norm2"], x)
     return x + apply_ffn(p["ffn"], h, cfg.activation)
 
 
 def prefill(params: dict, tokens: Tensor, cfg: ArchConfig,
-            s_max: Optional[int] = None) -> tuple[Tensor, dict]:
-    """Run the prompt tokens (B, S); returns (last-position logits
+            s_max: Optional[int] = None,
+            vision_embeds: Optional[Tensor] = None) -> tuple[Tensor, dict]:
+    """Run the prompt tokens (B, S), with the vision embeddings
+    (B, vision_seq, D) for a vlm; returns (last-position logits
     (B, 1, V) float32, cache)."""
     require_ported(cfg)
     b, s = tokens.shape
     s_max = s if s_max is None else s_max
+    if vision_embeds is not None and tuple(vision_embeds.shape) != (
+            b, cfg.vision_seq, cfg.d_model):
+        raise ValueError(f"{cfg.name}: vision embeddings of shape "
+                         f"{tuple(vision_embeds.shape)}, want "
+                         f"{(b, cfg.vision_seq, cfg.d_model)}")
+    extras = Extras(vision_embeds=vision_embeds,
+                    shared_attn=params.get("shared_attn"))
     x = embed_tokens(params, tokens, cfg)
     cache = init_cache(cfg, b, s_max, x.dtype, device=x.device)
     for gi, group in enumerate(scan_groups(cfg)):
-        stacked = params[f"group{gi}"]
-        for li, lp in enumerate(unstack(stacked, group.n)):
+        gcache = cache[f"group{gi}"]
+        for li, lp in enumerate(unstack(params[f"group{gi}"], group.n)):
             for i, kind in enumerate(group.period):
                 x = _prefill_block(kind, lp[f"b{i}"], x, cfg, s_max,
-                                   cache[f"group{gi}"][f"b{i}"], li)
+                                   _layer_cache(gcache[f"b{i}"], li), extras)
     return lm_logits(params, x[:, -1:], cfg), cache
 
 
 def _decode_block(kind: BlockKind, p: dict, x: Tensor, cache, pos: int,
-                  cfg: ArchConfig) -> Tensor:
+                  cfg: ArchConfig, extras: Extras) -> Tensor:
     if kind == "rwkv":
         return _rwkv_block(p, x, cfg, cache, decode=True)
     h = apply_norm(cfg.norm, p["norm1"], x)
-    out, _ = attn_lib.attn_decode(p["attn"], h, cache, pos, cfg,
-                                  window=_window(cfg, kind))
+    if kind == "mamba":
+        out, state = ssm_lib.mamba_decode(p["mamba"], h, cache, cfg)
+        _write(cache, state)
+        return x + out
+    if kind == "shared_attn":
+        out, _ = attn_lib.attn_decode(
+            shared_attn_params(p, extras.shared_attn), h, cache, pos, cfg)
+        x = x + out
+        h = apply_norm(cfg.norm, p["norm2"], x)
+        return x + apply_ffn(extras.shared_attn["ffn"], h, cfg.activation)
+    out, _ = attn_lib.attn_decode(
+        p["attn"], h, cache["self"] if kind == "cross" else cache, pos, cfg,
+        window=_window(cfg, kind))
     x = x + out
+    if kind == "cross":
+        h = apply_norm(cfg.norm, p["norm_x"], x)
+        x = x + _cross_decode(p["xattn"], h, cache["cross"], cfg)
     h = apply_norm(cfg.norm, p["norm2"], x)
     return x + apply_ffn(p["ffn"], h, cfg.activation)
 
@@ -150,13 +236,13 @@ def decode_step(params: dict, cache: dict, token: Tensor, pos: int,
     """One decode step.  token: (B, 1) integer; pos: host int.  Returns
     (logits (B, 1, V) float32, cache), the cache updated in place."""
     require_ported(cfg)
+    extras = Extras(shared_attn=params.get("shared_attn"))
     x = embed_tokens(params, token, cfg)
     for gi, group in enumerate(scan_groups(cfg)):
-        stacked = params[f"group{gi}"]
         gcache = cache[f"group{gi}"]
-        for li, lp in enumerate(unstack(stacked, group.n)):
+        for li, lp in enumerate(unstack(params[f"group{gi}"], group.n)):
             for i, kind in enumerate(group.period):
                 x = _decode_block(kind, lp[f"b{i}"], x,
                                   _layer_cache(gcache[f"b{i}"], li),
-                                  int(pos), cfg)
+                                  int(pos), cfg, extras)
     return lm_logits(params, x, cfg), cache

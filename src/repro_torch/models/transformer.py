@@ -19,13 +19,16 @@ probes), with the reference's remat at its scan body's granularity (a
 period of blocks) through `torch.utils.checkpoint`.  Training runs the
 attention blocks (the flash kernels forward, `flash_attention_bwd`
 backward) and the rwkv blocks (the WKV kernels forward, `rwkv6_bwd`
-backward).  MoE, SSM, shared and cross attention are later slices and
-raise.
+backward).  The mamba (Mamba-2 SSD), shared_attn (Zamba2's weight-tied
+attention with per-invocation LoRA) and cross (gated cross-attention over
+the vision embeddings) blocks run in `forward` and in serving but do not
+train yet: they wait for their backward kernels (ROADMAP.md, Queue 1 item
+11).  MoE, MLA and the audio encoder are later slices and raise.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -35,14 +38,18 @@ from repro_torch.configs.base import ArchConfig, BlockKind
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_ffn, apply_norm, dense_init,
                                        embed_init, init_ffn, init_norm,
                                        is_gated, softcap)
 
 Tensor = torch.Tensor
 
-PORTED_KINDS = ("attn", "local", "global", "rwkv")
+PORTED_KINDS = ("attn", "local", "global", "rwkv", "mamba", "shared_attn",
+                "cross")
 TRAINED_KINDS = ("attn", "local", "global", "rwkv")
+
+LORA_RANK = 64   # Zamba2 shared-attention per-invocation LoRA rank
 
 
 class ScanGroup(NamedTuple):
@@ -70,9 +77,9 @@ def scan_groups(cfg: ArchConfig) -> list[ScanGroup]:
 
 
 def require_ported(cfg: ArchConfig, training: bool = False) -> None:
-    """Raise for a config that needs a block kind (other than attn, local,
-    global and rwkv) or a feature the port does not have yet; with
-    `training`, also for a block kind that has no backward kernel yet."""
+    """Raise for a config that needs a block kind (MoE) or a feature the
+    port does not have yet; with `training`, also for a block kind that
+    has no backward kernel yet (mamba, shared_attn, cross)."""
     kinds = set(cfg.layer_kinds) - set(PORTED_KINDS)
     if kinds or cfg.moe or cfg.mla or cfg.feature_dim or cfg.mtp \
             or cfg.kv_cache_dtype != "model":
@@ -132,10 +139,28 @@ def _init_block(kind: BlockKind, cfg: ArchConfig, dtype: torch.dtype,
         return {"norm1": init_norm(cfg.norm, d, dtype, dev, lead),
                 "norm2": init_norm(cfg.norm, d, dtype, dev, lead),
                 "rwkv": rwkv_lib.init_rwkv(cfg, dtype, gen, lead)}
-    return {"norm1": init_norm(cfg.norm, d, dtype, dev, lead),
-            "attn": attn_lib.init_attn(cfg, dtype, gen, lead),
-            "norm2": init_norm(cfg.norm, d, dtype, dev, lead),
-            "ffn": init_ffn(d, cfg.d_ff, cfg.activation, dtype, gen, lead)}
+    if kind == "mamba":
+        return {"norm1": init_norm(cfg.norm, d, dtype, dev, lead),
+                "mamba": ssm_lib.init_mamba(cfg, dtype, gen, lead)}
+    if kind == "shared_attn":
+        # per-invocation params only: LoRA deltas on wq / wo and the norms
+        hq = cfg.num_heads * cfg.head_dim
+        return {"norm1": init_norm(cfg.norm, d, dtype, dev, lead),
+                "norm2": init_norm(cfg.norm, d, dtype, dev, lead),
+                "lora_q_a": dense_init(lead + (d, LORA_RANK), dtype, gen),
+                "lora_q_b": dense_init(lead + (LORA_RANK, hq), dtype, gen,
+                                       scale=0.0),
+                "lora_o_a": dense_init(lead + (hq, LORA_RANK), dtype, gen),
+                "lora_o_b": dense_init(lead + (LORA_RANK, d), dtype, gen,
+                                       scale=0.0)}
+    p = {"norm1": init_norm(cfg.norm, d, dtype, dev, lead),
+         "attn": attn_lib.init_attn(cfg, dtype, gen, lead),
+         "norm2": init_norm(cfg.norm, d, dtype, dev, lead),
+         "ffn": init_ffn(d, cfg.d_ff, cfg.activation, dtype, gen, lead)}
+    if kind == "cross":
+        p["norm_x"] = init_norm(cfg.norm, d, dtype, dev, lead)
+        p["xattn"] = attn_lib.init_cross_attn(cfg, dtype, gen, lead)
+    return p
 
 
 class LM(ParamTree):
@@ -168,6 +193,11 @@ def init_params(cfg: ArchConfig, seed: int = 0,
         tree["unembed"] = dense_init((cfg.d_model, cfg.vocab_size), dtype,
                                      gen)
     tree["final_norm"] = init_norm(cfg.norm, cfg.d_model, dtype, dev)
+    if "shared_attn" in cfg.layer_kinds:
+        tree["shared_attn"] = {
+            "attn": attn_lib.init_attn(cfg, dtype, gen),
+            "ffn": init_ffn(cfg.d_model, cfg.d_ff, cfg.activation, dtype,
+                            gen)}
     for gi, group in enumerate(scan_groups(cfg)):
         tree[f"group{gi}"] = {
             f"b{i}": _init_block(kind, cfg, dtype, gen, group.n)
@@ -175,46 +205,76 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     return LM(cfg, tree)
 
 
+def _norm_shapes(cfg: ArchConfig, name: str, dim: int) -> dict:
+    out = {f"{name}.scale": (dim,)}
+    if cfg.norm == "layernorm":
+        out[f"{name}.bias"] = (dim,)
+    return out
+
+
+def _attn_ffn_shapes(cfg: ArchConfig) -> dict:
+    """Leaves of an attention block's attn and ffn."""
+    d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    out = {"attn.wq": (d, h * hd), "attn.wk": (d, hkv * hd),
+           "attn.wv": (d, hkv * hd), "attn.wo": (h * hd, d),
+           "ffn.w_in": (d, cfg.d_ff), "ffn.w_out": (cfg.d_ff, d)}
+    if is_gated(cfg.activation):
+        out["ffn.w_gate"] = (d, cfg.d_ff)
+    if cfg.qk_norm:
+        out["attn.q_norm.scale"] = out["attn.k_norm.scale"] = (hd,)
+    return out
+
+
+def _block_shapes(kind: BlockKind, cfg: ArchConfig) -> dict:
+    d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    norms = ("norm1",) if kind == "mamba" else ("norm1", "norm2")
+    if kind == "rwkv":
+        block = {f"rwkv.{k}": v
+                 for k, v in rwkv_lib.param_shapes(cfg).items()}
+    elif kind == "mamba":
+        block = {f"mamba.{k}": v
+                 for k, v in ssm_lib.param_shapes(cfg).items()}
+    elif kind == "shared_attn":
+        block = {"lora_q_a": (d, LORA_RANK), "lora_q_b": (LORA_RANK, h * hd),
+                 "lora_o_a": (h * hd, LORA_RANK), "lora_o_b": (LORA_RANK, d)}
+    else:
+        block = _attn_ffn_shapes(cfg)
+        if kind == "cross":
+            norms += ("norm_x",)
+            block.update({"xattn.wq": (d, h * hd), "xattn.wk": (d, hkv * hd),
+                          "xattn.wv": (d, hkv * hd),
+                          "xattn.wo": (h * hd, d), "xattn.gate": (1,)})
+    for nm in norms:
+        block.update(_norm_shapes(cfg, nm, d))
+    return block
+
+
 def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
     """The path and shape of every parameter `init_params` makes."""
     require_ported(cfg)
-    d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    d = cfg.d_model
     shapes = {"embed": (cfg.vocab_size, d)}
     if not cfg.tie_embeddings:
         shapes["unembed"] = (d, cfg.vocab_size)
-    shapes["final_norm.scale"] = (d,)
-    if cfg.norm == "layernorm":
-        shapes["final_norm.bias"] = (d,)
+    shapes.update(_norm_shapes(cfg, "final_norm", d))
+    if "shared_attn" in cfg.layer_kinds:
+        shapes.update({f"shared_attn.{k}": v
+                       for k, v in _attn_ffn_shapes(cfg).items()})
     for gi, group in enumerate(scan_groups(cfg)):
-        n = group.n
         for i, kind in enumerate(group.period):
             pre = f"group{gi}.b{i}."
-            if kind == "rwkv":
-                block = {f"rwkv.{k}": v
-                         for k, v in rwkv_lib.param_shapes(cfg).items()}
-            else:
-                block = {"attn.wq": (d, h * hd), "attn.wk": (d, hkv * hd),
-                         "attn.wv": (d, hkv * hd), "attn.wo": (h * hd, d),
-                         "ffn.w_in": (d, cfg.d_ff),
-                         "ffn.w_out": (cfg.d_ff, d)}
-                if is_gated(cfg.activation):
-                    block["ffn.w_gate"] = (d, cfg.d_ff)
-                if cfg.qk_norm:
-                    block["attn.q_norm.scale"] = \
-                        block["attn.k_norm.scale"] = (hd,)
-            for nm in ("norm1", "norm2"):
-                block[f"{nm}.scale"] = (d,)
-                if cfg.norm == "layernorm":
-                    block[f"{nm}.bias"] = (d,)
-            shapes.update({pre + k: (n,) + v for k, v in block.items()})
+            shapes.update({pre + k: (group.n,) + v
+                           for k, v in _block_shapes(kind, cfg).items()})
     return shapes
 
 
 def param_dtypes(cfg: ArchConfig) -> dict[str, torch.dtype]:
     """The dtype of every parameter `init_params` makes: cfg.dtype, except
-    the rwkv leaves the reference keeps in float32 (w0, u)."""
+    the leaves the reference keeps in float32 (rwkv w0 and u; mamba A_log,
+    D and dt_bias)."""
     dtype = getattr(torch, cfg.dtype)
-    f32 = tuple(f".rwkv.{name}" for name in rwkv_lib.FLOAT32_LEAVES)
+    f32 = tuple(f".rwkv.{name}" for name in rwkv_lib.FLOAT32_LEAVES) \
+        + tuple(f".mamba.{name}" for name in ssm_lib.FLOAT32_LEAVES)
     return {path: torch.float32 if path.endswith(f32) else dtype
             for path in param_shapes(cfg)}
 
@@ -223,30 +283,70 @@ def _window(cfg: ArchConfig, kind: BlockKind):
     return cfg.sliding_window if kind == "local" else None
 
 
-def apply_block(kind: BlockKind, p: dict, x: Tensor,
-                cfg: ArchConfig) -> Tensor:
-    """One pre-norm block: x + attn(norm1 x), then + ffn(norm2 x); for
-    rwkv, the time mix and the channel mix in their places."""
+class Extras(NamedTuple):
+    """What a block reads besides its own params: the vision embeddings
+    (B, vision_seq, D) of a cross block, the top-level shared_attn params
+    of a shared_attn block."""
+    vision_embeds: Optional[Tensor] = None
+    shared_attn: Optional[dict] = None
+
+
+def shared_attn_params(p: dict, shared: dict) -> dict:
+    """The weight-tied attention's params with this invocation's LoRA
+    deltas merged into wq and wo, rounded as the reference rounds them:
+    w + (a @ b) in w's dtype."""
+    sp = dict(shared["attn"])
+    sp["wq"] = sp["wq"] + (p["lora_q_a"] @ p["lora_q_b"]).to(sp["wq"].dtype)
+    sp["wo"] = sp["wo"] + (p["lora_o_a"] @ p["lora_o_b"]).to(sp["wo"].dtype)
+    return sp
+
+
+def require_vision(extras: Extras, cfg: ArchConfig) -> Tensor:
+    if extras.vision_embeds is None:
+        raise ValueError(f"{cfg.name}: a cross block needs the vision "
+                         "embeddings (B, vision_seq, d_model)")
+    return extras.vision_embeds
+
+
+def apply_block(kind: BlockKind, p: dict, x: Tensor, cfg: ArchConfig,
+                extras: Extras = Extras()) -> Tensor:
+    """One pre-norm block: x + attn(norm1 x) (+ the gated cross-attention
+    of norm_x x on a cross block), then + ffn(norm2 x); for rwkv, the time
+    mix and the channel mix in their places; for mamba, x + mixer(norm1
+    x); for shared_attn, the shared attention and FFN with this
+    invocation's LoRA and norms."""
     h = apply_norm(cfg.norm, p["norm1"], x)
     if kind == "rwkv":
         x = x + rwkv_lib.rwkv_time_mix(p["rwkv"], h, cfg)
         h = apply_norm(cfg.norm, p["norm2"], x)
         return x + rwkv_lib.rwkv_channel_mix(p["rwkv"], h)
+    if kind == "mamba":
+        return x + ssm_lib.mamba_forward(p["mamba"], h, cfg)
+    if kind == "shared_attn":
+        x = x + attn_lib.attn_forward(
+            shared_attn_params(p, extras.shared_attn), h, cfg)
+        h = apply_norm(cfg.norm, p["norm2"], x)
+        return x + apply_ffn(extras.shared_attn["ffn"], h, cfg.activation)
     x = x + attn_lib.attn_forward(p["attn"], h, cfg,
                                   window=_window(cfg, kind))
+    if kind == "cross":
+        h = apply_norm(cfg.norm, p["norm_x"], x)
+        x = x + attn_lib.cross_attn_forward(p["xattn"], h,
+                                            require_vision(extras, cfg), cfg)
     h = apply_norm(cfg.norm, p["norm2"], x)
     return x + apply_ffn(p["ffn"], h, cfg.activation)
 
 
 def _apply_period(period: tuple[BlockKind, ...], lp: dict, x: Tensor,
-                  cfg: ArchConfig) -> Tensor:
+                  cfg: ArchConfig, extras: Extras) -> Tensor:
     for i, kind in enumerate(period):
-        x = apply_block(kind, lp[f"b{i}"], x, cfg)
+        x = apply_block(kind, lp[f"b{i}"], x, cfg, extras)
     return x
 
 
 def backbone_forward(params: dict, x: Tensor, cfg: ArchConfig,
-                     remat: bool = False) -> Tensor:
+                     remat: bool = False, extras: Extras = Extras()
+                     ) -> Tensor:
     """Run all scan groups over x (B, S, D), period by period.  With
     `remat` and grad on, each period is a `torch.utils.checkpoint` region
     (non-reentrant): only its input is kept, and the backward recomputes
@@ -256,9 +356,9 @@ def backbone_forward(params: dict, x: Tensor, cfg: ArchConfig,
         for lp in unstack(params[f"group{gi}"], group.n):
             if remat and torch.is_grad_enabled():
                 x = checkpoint(_apply_period, group.period, lp, x, cfg,
-                               use_reentrant=False)
+                               extras, use_reentrant=False)
             else:
-                x = _apply_period(group.period, lp, x, cfg)
+                x = _apply_period(group.period, lp, x, cfg, extras)
     return x
 
 
@@ -297,14 +397,17 @@ def cross_entropy(logits: Tensor, targets: Tensor,
 def forward(params, batch: dict, cfg: ArchConfig, remat: bool = True
             ) -> tuple[Tensor, dict]:
     """Training forward of `params` (an `LM` or its tree) on a batch of
-    "tokens" and "targets" (B, S).  Returns (loss, metrics) with the
-    reference's "lm_loss", "aux_loss" (0: no MoE) and "pooled", the
-    float32 mean over the sequence of the backbone's last hidden state
-    (B, D), which the MTL probes read."""
-    require_ported(cfg, training=True)
+    "tokens" and "targets" (B, S), and "vision_embeds" for a vlm.  Returns
+    (loss, metrics) with the reference's "lm_loss", "aux_loss" (0: no MoE)
+    and "pooled", the float32 mean over the sequence of the backbone's
+    last hidden state (B, D), which the MTL probes read.  With grad off it
+    runs every ported block kind; with grad on only those that train."""
+    require_ported(cfg, training=torch.is_grad_enabled())
     tree = params.tree() if isinstance(params, ParamTree) else params
+    extras = Extras(vision_embeds=batch.get("vision_embeds"),
+                    shared_attn=tree.get("shared_attn"))
     x = embed_tokens(tree, batch["tokens"], cfg)
-    h = backbone_forward(tree, x, cfg, remat=remat)
+    h = backbone_forward(tree, x, cfg, remat=remat, extras=extras)
     loss = cross_entropy(lm_logits(tree, h, cfg), batch["targets"])
     metrics = {"lm_loss": loss,
                "aux_loss": torch.zeros((), dtype=torch.float32,

@@ -109,8 +109,7 @@ def test_registry_serves_the_three_archs():
             ref_config(arch))
         transformer.require_ported(cfg, training=True)
     assert sorted(_PENDING) == sorted(
-        ["deepseek-v3-671b", "dbrx-132b", "zamba2-7b",
-         "llama-3.2-vision-11b", "hubert-xlarge"])
+        ["deepseek-v3-671b", "dbrx-132b", "hubert-xlarge"])
     assert sorted(ARCH_NAMES) == sorted(REF_ARCH_NAMES)
 
 

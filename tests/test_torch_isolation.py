@@ -177,7 +177,7 @@ def test_lockstep_session_without_device_needs_cuda():
 
 def test_unported_archs_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("zamba2-7b")
+        get_config("hubert-xlarge")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
