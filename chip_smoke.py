@@ -14,7 +14,8 @@ decode through `repro_torch.launch.serve`, every bf16 prefill attention
 call in the tensor-core flash kernel and every decode call in the split-KV
 kernel; granite-8b, nemotron-4-15b and gemma3-12b the same way, phases
 26-28; zamba2-7b, its Mamba-2 SSD in plain PyTorch and its shared
-attention at hd 112 on the CUDA-core prefill kernel, and
+attention at hd 112 in the tensor-core kernel zero-filled to 128 columns,
+and
 llama-3.2-vision-11b, its gated cross-attention over stub vision
 embeddings, phases 29-30, each also in its reduced config against the
 CPU) and rwkv6-3b serving (every bf16 prefill WKV in the chunked
@@ -1213,13 +1214,69 @@ def flash_controls(label: str, args_, plain, keep, limit: float) -> str:
     return f"{label}: true masks {sound:.3g}, {what} {wrong:.3g}"
 
 
+SM90_SENTINEL = -1024.0    # exact in bf16, far from any attention output
+
+
+def sm90_canary(label: str, args_, got) -> None:
+    """The sm90 launcher writing into the head of a sentinel-filled
+    buffer 4096 elements longer than the output: the tail must still hold
+    the sentinel (a store past hd at the last row and head would reach it)
+    and the head must be the wrapper's output, bit for bit."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as k_flash
+    q, k, v, kw = args_
+    b, sq, skv, h, hkv, hd, window, cap, kv_len = k_flash.check_call(
+        "sm90 canary", q, k, v, kw["window"], kw["softcap"], kw["kv_len"])
+    n = q.numel()
+    buf = torch.full((n + 4096,), SM90_SENTINEL, dtype=q.dtype,
+                     device=q.device)
+    fn = _build.function("flash_attention_sm90_launch",
+                         k_flash._SM90_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), b,
+             sq, skv, h, hkv, hd, int(kw["causal"]), window, cap,
+             int(kw["q_offset"]), kv_len, k_flash.softmax_scale(hd),
+             _build.stream(q.device))
+    _build.check(err, "sm90 canary")
+    if not bool((buf[n:] == SM90_SENTINEL).all()):
+        fail(f"flash_attention {label}: the sm90 kernel wrote past the end "
+             f"of its output (hd {hd}, padded to {k_flash.sm90_width(hd)})")
+    if not torch.equal(buf[:n].view_as(got), got):
+        fail(f"flash_attention {label}: the sm90 launch into a buffer "
+             "differs from the wrapper's output")
+
+
+def sm90_scale_control(label: str, args_, got, rows, limit: float) -> str:
+    """The sm90 output at an hd below its padded width HP against the
+    plain version on q, k, v zero-padded to HP, whose softmax scale is
+    1/sqrt(HP): the row gate must see that scale."""
+    import torch
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.kernels import ref
+    q, k, v, kw = args_
+    hd = q.shape[3]
+    hp = k_flash.sm90_width(hd)
+    pad = [torch.nn.functional.pad(t, (0, hp - hd)) for t in (q, k, v)]
+    wrong = ref.mha_ref(*pad, causal=kw["causal"], window=kw["window"],
+                        softcap=kw["softcap"], q_offset=kw["q_offset"],
+                        kv_valid_len=kw["kv_len"], kv_chunk=SM90_CHUNK,
+                        p_dtype=torch.bfloat16)[..., :hd]
+    err = row_err(got, wrong, rows)
+    if not err > limit:
+        fail(f"flash control {label} (scale 1/sqrt({hp}), not 1/sqrt({hd})):"
+             f" {err:.3g} <= {limit}: the row gate does not see it")
+    return f"{label} {err:.3g}"
+
+
 def check_flash_kernel(dev, gen) -> dict:
     """The flash-attention kernels against their plain versions on the
     card, in float32 and bfloat16: at the served shapes (prefill of a global
     and of a local layer, decode on the ring and on the global cache), and
     at edge cases, each route that takes a case forced in turn, by FLASH_TOL
-    and by FLASH_ROW_TOL (with its controls at the served shapes); the
-    (S, H, hd) entry point.  Returns the bfloat16 served cases (on the
+    and by FLASH_ROW_TOL (with its controls at the served shapes, and at
+    every hd that sm90 pads, the plain version scaled by 1/sqrt(HP)); every
+    sm90 run also launched into a sentinel-filled buffer (`sm90_canary`);
+    the (S, H, hd) entry point.  Returns the bfloat16 served cases (on the
     routes the wrapper picks) for the timing phase."""
     import torch
     from repro_torch.kernels import ops, ref
@@ -1262,8 +1319,8 @@ def check_flash_kernel(dev, gen) -> dict:
         # 64 rows a kv head; rows 23-31 keep no key
         ("Sq 32, rows with no kept key", 2, 32, 256, 8, 4, 256, True, 64,
          50.0, 140, 100),
-        # zamba2-7b's hd 112 (no sm90 head dim): the prefill on simt with
-        # H = Hkv, the decode on split
+        # zamba2-7b's hd 112: the prefill (sm90 at 128 columns, the 16
+        # past hd zero-filled) with H = Hkv, the decode on split
         ("hd 112, H = Hkv 32", 1, 300, 300, 32, 32, 112, True, None, None, 0,
          None),
         ("hd 112 decode, H = Hkv 32", 2, 1, 1000, 32, 32, 112, False, None,
@@ -1275,8 +1332,24 @@ def check_flash_kernel(dev, gen) -> dict:
          False, None, None, 0, None),
         ("cross decode over 1601 keys, GQA 4", 2, 1, 1601, 32, 8, 128, False,
          None, None, 0, None),
+        # head dims off the 64-column boxes: sm90 zero-fills each row to
+        # the next 64 columns (hubert's hd 80, zamba2's 112 with partial key
+        # tiles, a window and a softcap, MLA's qk hd 192) and, below 64, a
+        # box wider than the row (hd 8 and 48)
+        ("hd 80, non-causal, H 16", 2, 200, 200, 16, 16, 80, False, None,
+         None, 0, None),
+        ("hd 112, S 300, GQA 2", 1, 300, 300, 32, 16, 112, True, None, None,
+         0, None),
+        ("hd 112, S 1000, window 256, softcap 50, GQA 2", 2, 1000, 1000, 32,
+         16, 112, True, 256, 50.0, 0, None),
+        ("hd 192, GQA 4, q_offset 256, kv_len 450", 1, 200, 500, 16, 4, 192,
+         True, None, 30.0, 256, 450),
+        ("hd 8, GQA 2", 2, 100, 100, 4, 2, 8, True, None, None, 0, None),
+        ("hd 48, window 16, softcap 30", 1, 130, 130, 4, 2, 48, True, 16,
+         30.0, 0, None),
     ]
     served, worst, row_worst, split_worst, runs = {}, {}, {}, {}, 0
+    scale_controls, canaries = [], 0
     controls, empty = [], 0
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
@@ -1296,6 +1369,9 @@ def check_flash_kernel(dev, gen) -> dict:
                 if not k_flash.accepts(route, dt, sq, h, hkv, hd):
                     continue
                 got = k_flash.flash_attention(q, k, v, route=route, **kw)
+                if route == "sm90":
+                    sm90_canary(label, (q, k, v, kw), got)
+                    canaries += 1
                 err = row_err(got, want, rows, relative=False)
                 if got.dtype != dt or not err <= FLASH_TOL[dt_name]:
                     fail(f"flash_attention {label} {dt_name} route {route}: "
@@ -1318,6 +1394,10 @@ def check_flash_kernel(dev, gen) -> dict:
                         fail(f"flash_attention {label} {dt_name} route "
                              f"{route}: a row with no kept key is not 0")
                     empty += 1
+                if route == "sm90" and k_flash.sm90_width(hd) != hd:
+                    scale_controls.append(sm90_scale_control(
+                        label, (q, k, v, kw), got, rows,
+                        FLASH_ROW_TOL[dt_name]))
                 key = (route, dt_name)
                 worst[key] = max(worst.get(key, 0.0), err)
                 row_worst[key] = max(row_worst.get(key, 0.0), rerr)
@@ -1372,6 +1452,11 @@ def check_flash_kernel(dev, gen) -> dict:
         + "; split against mha_split_ref with the kernel's plan: "
         + ", ".join(f"{d} {e:.3g}" for d, e in sorted(split_worst.items()))
         + f"; rows with no kept key exactly 0 in {empty} runs of every route"
+        + f"; {canaries} sm90 launches into a sentinel-filled buffer: tail "
+        "intact, output bitwise the wrapper's"
+        + "; sm90 at hd off the 64-column boxes against the plain version "
+        "scaled by 1/sqrt(HP) (must exceed the row gate): "
+        + "; ".join(scale_controls)
         + "; row-gate controls (bf16, dense plain version against the "
         "route's): " + "; ".join(controls)
         + "; at the served shapes (B 2, S 5000, H 8, Hkv 4, hd 256: prefill "
@@ -1379,7 +1464,9 @@ def check_flash_kernel(dev, gen) -> dict:
         "and a 5032-slot cache) and edge cases (S 37, 129; Hkv 1, GQA 8:1; hd "
         "64/72/128; window >= S, window emptying splits; q_offset; kv_len 1, "
         "64, 100; splits past the causal edge; Sq 3 decode; rows with no "
-        "kept key), zamba2-7b's hd 112 (H = Hkv 32, prefill and decode) and "
+        "kept key), zamba2-7b's hd 112 (H = Hkv 32, prefill and decode; GQA "
+        "2 at S 300 and at S 1000 with window 256 and softcap 50), hd 8, 48, "
+        "80 (non-causal, H 16) and 192 (GQA 4, q_offset, kv_len), "
         "llama-3.2-vision-11b's cross-attention (Sq 300 and 1 over 1601 "
         "keys, GQA 4, non-causal); ops.flash_attention against the O(S^2) "
         "oracle")
@@ -1475,7 +1562,7 @@ def check_flash_bwd(dev, gen) -> dict:
             pkw = dict(causal=causal, window=window, softcap=cap,
                        q_offset=qo, kv_valid_len=kvl)
             want_route = "sm90" if dt == torch.bfloat16 \
-                and hd in k_flash.SM90_HEAD_DIMS else "simt"
+                and hd in k_bwd.SM90_HEAD_DIMS else "simt"
             if k_bwd.route(dt, b, sq, skv, h, hkv, hd,
                            skv if kvl is None else kvl) != want_route:
                 fail(f"flash_attention_bwd {label} {dt_name}: the default "
@@ -2418,30 +2505,35 @@ def flash_times(served: dict, dev) -> dict:
 
 def flash_hybrid_times(dev) -> dict:
     """Phase 12 at the hybrid archs' flash shapes, bf16, on the route the
-    wrapper picks: L2-warm (one input, again and again) and L2-cold (the
-    call walks 3 distinct inputs in turn, 5 at a decode shape, as a pass
-    meets its layers' caches), each with its bound, and flex_attention
-    under torch.compile at the two prefill shapes.  Returns each shape's
-    figures for the kernels line."""
+    wrapper picks (and, at zamba2-7b's prefill, on `simt` forced beside
+    it, the route it took before sm90 took hd 112): L2-warm (one input,
+    again and again) and L2-cold (the call walks 3 distinct inputs in turn,
+    5 at a decode shape, as a pass meets its layers' caches), each with its
+    bound (at the real hd, whatever the kernel pads to), and flex_attention
+    under torch.compile (its composite where flex does not compile).
+    Returns each shape's figures for the kernels line."""
     import itertools
     import torch
     from repro_torch.kernels import flash_attention as k_flash
-    # (label, B, Sq, Skv, H, Hkv, hd, causal, kv_len, flex yardstick):
-    # zamba2-7b's prefill (hd 112: simt) and decode over the 5008-slot
-    # cache (split); llama-3.2-vision-11b's cross-attention prefill over
-    # the 1601 vision keys (sm90) and its decode (split)
+    # (label, B, Sq, Skv, H, Hkv, hd, causal, kv_len, forced route):
+    # zamba2-7b's prefill (hd 112: sm90 at 128 columns; simt forced for
+    # the record) and decode over the 5008-slot cache (split);
+    # llama-3.2-vision-11b's cross-attention prefill over the 1601 vision
+    # keys (sm90) and its decode (split)
     shapes = (
         ("zamba2-7b prefill", 2, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 112,
-         True, None, True),
+         True, None, None),
+        ("zamba2-7b prefill, simt forced", 2, SERVE_PROMPT, SERVE_PROMPT, 32,
+         32, 112, True, None, "simt"),
         ("llama cross prefill", 2, SERVE_PROMPT, 1601, 32, 8, 128, False,
-         None, True),
+         None, None),
         ("zamba2-7b decode", 2, 1, SERVE_PROMPT + DENSE_GEN, 32, 32, 112,
-         False, SERVE_PROMPT + 1, False),
-        ("llama cross decode", 2, 1, 1601, 32, 8, 128, False, None, False))
+         False, SERVE_PROMPT + 1, None),
+        ("llama cross decode", 2, 1, 1601, 32, 8, 128, False, None, None))
     saved = k_flash.launches, k_flash.route_counts()
     g = torch.Generator(device=dev).manual_seed(11)
-    out = {}
-    for label, b, sq, skv, h, hkv, hd, causal, kvl, flex in shapes:
+    out, libs = {}, {}
+    for label, b, sq, skv, h, hkv, hd, causal, kvl, forced in shapes:
         cold = 3 if sq > 1 else 5
 
         def make():
@@ -2457,31 +2549,43 @@ def flash_hybrid_times(dev) -> dict:
         q, k, v = inputs[0]
         spec = kernel_spec("flash_attention", (q, k, v, kw), dev)
         bnd, by = bound_ms(spec["nbytes"], spec["flops"], spec["rate"])
-        route = k_flash.route(q.dtype, b, sq, skv, h, hkv, hd,
-                              skv if kvl is None else kvl)
+        route = forced or k_flash.route(q.dtype, b, sq, skv, h, hkv, hd,
+                                        skv if kvl is None else kvl)
         reps, inner = (3, 3) if sq > 1 else (21, 10)
-        warm = cuda_ms(spec["kfn"], reps=reps, inner=inner)
+        warm = cuda_ms(lambda: k_flash.flash_attention(q, k, v, route=route,
+                                                       **kw),
+                       reps=reps, inner=inner)
         ring = itertools.cycle(inputs)
-        cold_ms = cuda_ms(lambda: k_flash.flash_attention(*next(ring), **kw),
-                          reps=reps, inner=inner)
-        l_ms, what = None, "not timed at a decode shape"
-        if flex:
+        cold_ms = cuda_ms(lambda: k_flash.flash_attention(
+            *next(ring), route=route, **kw), reps=reps, inner=inner)
+        # the library call once a shape, not again for a forced route
+        key = (b, sq, skv, h, hkv, hd, causal, kvl)
+        if key not in libs:
+            l_ms = None
             prep, call, what = flex_library((q, k, v, kw), dev)
             if prep is not None:
                 args_ = prep(q, k, v)
                 l_ms = cuda_ms(lambda: call(*args_), reps=reps, inner=inner)
+            libs[key] = l_ms, what
+        l_ms, what = libs[key]
         out[label] = dict(route=route, source=FLASH_SOURCES[route],
                           shape=[b, sq, skv, h, hkv, hd], causal=causal,
                           ms=cold_ms, l2_warm_ms=warm, bound_ms=bnd,
                           bound_by=by, library_ms=l_ms)
+        if route == "sm90":
+            out[label]["padded_hd"] = k_flash.sm90_width(hd)
         mask = "causal" if causal else "non-causal"
+        pad = (f", computed at {k_flash.sm90_width(hd)} columns"
+               if route == "sm90" and k_flash.sm90_width(hd) != hd else "")
         log(f"phase 12 flash_attention {label} (B {b}, Sq {sq}, Skv {skv}, "
-            f"H {h}, Hkv {hkv}, hd {hd}, {mask}, bf16; {route}): {cold_ms * 1e3:.2f} us L2-cold over {cold} "
+            f"H {h}, Hkv {hkv}, hd {hd}, {mask}, bf16; {route}{pad}): "
+            f"{cold_ms * 1e3:.2f} us L2-cold over {cold} "
             f"inputs, {warm * 1e3:.2f} us L2-warm, bound {bnd * 1e3:.2f} us "
-            f"by {by} ({spec['flops'] / 1e9:.2f} GFLOP, "
+            f"by {by} at the real hd ({spec['flops'] / 1e9:.2f} GFLOP, "
             f"{spec['nbytes'] / 1e6:.2f} MB; {100 * bnd / cold_ms:.1f}% of "
             "the bound); library "
-            + ("null" if l_ms is None else f"{l_ms * 1e3:.2f} us")
+            + ("null" if l_ms is None else f"{l_ms * 1e3:.2f} us, "
+               f"{l_ms / cold_ms:.3g}x the route's L2-cold time")
             + f" ({what})")
         del inputs, q, k, v
     k_flash.launches = saved[0]
@@ -2724,14 +2828,13 @@ PROFILE_RANGES = {"zamba2-7b": {"mamba mixer": "mamba_forward",
 # The routes a served bf16 run must take, in launches a pass (a prefill
 # or a decode step) of each attention call (or WKV): gemma2-2b every
 # prefill call on sm90, every decode call on split; rwkv6-3b every prefill
-# WKV on chunked, every decode call on recurrent; zamba2-7b's hd 112 is no
-# sm90 head dim, so its prefill calls run on simt.  Each arch's float32
-# prefill takes the last route named.
+# WKV on chunked, every decode call on recurrent; zamba2-7b's hd 112 runs
+# on sm90 at 128 columns (the 16 past hd zero-filled), so no bf16 call of
+# any attention arch takes simt.  Each arch's float32 prefill takes the
+# last route named.
 SERVE_ROUTES = {a: {"sm90": 1, "split": SERVE_GENS[a] - 1, "simt": 0}
-                for a in ("gemma2-2b", "llama-3.2-vision-11b")
-                + DENSE_ARCHS}
+                for a in ("gemma2-2b",) + DENSE_ARCHS + HYBRID_ARCHS}
 SERVE_ROUTES["rwkv6-3b"] = {"chunked": 1, "recurrent": SERVE_GEN - 1}
-SERVE_ROUTES["zamba2-7b"] = {"simt": 1, "split": DENSE_GEN - 1, "sm90": 0}
 SERVE_F32_ROUTE = {"gemma2-2b": "simt", "rwkv6-3b": "recurrent",
                    **{a: "simt" for a in DENSE_ARCHS + HYBRID_ARCHS}}
 # The kernel launches of a served pass, by block kind: one a WKV, one an

@@ -10,7 +10,10 @@
 //   j is kept iff j < kv_len, (not causal or j <= i) and (window == 0 or
 //   j > i - window); logits q.k * scale, with softcap > 0 cap * tanh(x /
 //   cap), masked logits -1e30; online softmax with float32 (m, l, acc);
-//   o = acc / max(l, 1e-30) in bfloat16.  hd is 64, 128 or 256.
+//   o = acc / max(l, 1e-30) in bfloat16.  hd is any multiple of 8 up to
+//   256 (TMA's 16-byte row stride); the block computes at HP, hd rounded up
+//   to 64, 128, 192 or 256 (`launch`'s switch), and the real hd stays a
+//   run-time argument.
 //
 // Bound on the H100: operations.  A gemma2-2b global prefill layer (B 2, S
 //   5000, H 8, hd 256) does 4 hd operations a kept (query, key) pair, 205
@@ -21,21 +24,29 @@
 // a software pipeline that ran tile t's softmax while the tensor cores did
 // P V of tile t - 1 measured slower on the H100 at the global prefill, and
 // was taken out):
-//   - a block of 384 threads takes 128 query rows of one (head, batch): one
-//     producer warpgroup, whose first thread issues every TMA load, and two
-//     consumer warpgroups of 64 rows each; setmaxnreg moves registers from
-//     the producer (24 a thread) to the consumers (240 a thread), which hold
-//     a 64 x hd float32 O accumulator (hd / 2 registers a thread) and the
-//     64 x 64 S tile;
+//   - a block takes 64 query rows of one (head, batch) a consumer
+//     warpgroup, beside one producer warpgroup whose first thread starts
+//     every TMA load; setmaxnreg moves registers from the producer (24 a
+//     thread) to the consumers, which hold a 64 x HP float32 O accumulator
+//     (HP / 2 registers a thread) and the 64 x 64 S tile.  At HP 192 and
+//     256 two consumers (384 threads, 240 registers a consumer thread); at
+//     HP 64 and 128 three (512 threads, 160 registers), so that two
+//     warpgroups' products can run while the third does its softmax: at
+//     zamba2-7b's prefill (hd 112) three took 1116.49 us a call against
+//     two's 1330.21, and 770.12 against 908.83 at llama's cross prefill
+//     (hd 128) (chip_smoke.py phase 12, H100 80GB HBM3, 700 W); a third
+//     stage of the ring, P V's wait deferred past the next tile's Q K^T,
+//     tiles of 128 keys and Q K^T k-steps past hd skipped were each
+//     slower there;
 //   - TMA copies Q once and K and V tiles of 64 keys into a ring of two
-//     stages (a full barrier each for K and for V, an empty barrier that all
-//     256 consumer threads arrive on), as 64-column boxes with 128-byte
+//     stages (a full barrier each for K and for V, an empty barrier that
+//     every consumer thread arrives on), as 64-column boxes with 128-byte
 //     swizzle; keys past Skv arrive as zeros and are masked by kv_len;
-//   - S = Q K^T is hd / 16 wgmma.m64n64k16 from shared memory, both
-//     operands K-major; O += P V is 4 wgmma.m64n{hd}k16 that take P from
+//   - S = Q K^T is HP / 16 wgmma.m64n64k16 from shared memory, both
+//     operands K-major; O += P V is 4 wgmma.m64n{HP}k16 that take P from
 //     registers (the S accumulator converted to bf16 in place, whose layout
 //     is the A operand's) and V from shared memory with the transpose bit
-//     (V's tile is MN-major; its hd / 64 boxes are the descriptor's leading
+//     (V's tile is MN-major; its HP / 64 boxes are the descriptor's leading
 //     dimension);
 //   - the online softmax runs on the accumulator fragments in the
 //     reference's order: m_new = max(m, rowmax), p = exp(s - m_new),
@@ -48,7 +59,16 @@
 //     masked entry is multiplied by exp(-1e30 - m) = 0 once a kept key has
 //     arrived), and only tiles on a mask edge evaluate the mask per element;
 //   - query tiles are issued last first, since under the causal mask the
-//     last tiles do the most work.
+//     last tiles do the most work;
+//   - at an hd below HP (80, 112, 192 ...) the tensor maps are built at the
+//     real hd, so the row strides are the tensor's; the last 64-column box
+//     runs past the row and TMA fills its columns with zeros (a box's bytes
+//     still all count toward the barrier's transaction).  Zero columns of Q
+//     and K add nothing to Q K^T, zero columns of V give O columns that the
+//     epilogue never stores: it writes the hd / 8 real 8-column chunks of a
+//     row.  The scale is the caller's, 1 / sqrt(hd), never 1 / sqrt(HP).
+//     The padded work is HP / hd of the function's (128 / 112 at zamba2's
+//     hd 112).
 //   A row with no kept key at all ends with m = -1e30 (a kept logit is
 //   larger) and is written as 0, as csrc/flash_decode.cu gives it; in the
 //   loop its masked keys weigh 1, as in the reference until a kept key
@@ -61,19 +81,22 @@
 namespace {
 
 constexpr int BM = 64;                  // query rows of a consumer warpgroup
-constexpr int CONSUMERS = 2;
-constexpr int BQ = BM * CONSUMERS;      // query rows of a block
 constexpr int BK = 64;                  // keys of a tile
 constexpr int STAGES = 2;
-constexpr int THREADS = 128 * (CONSUMERS + 1);
 constexpr int BOX_Q = BM * 128;         // bytes of a 64-column box of Q rows
 constexpr int BOX_KV = BK * 128;        // bytes of a 64-column box of keys
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int HD>
+template <int HP>
 struct Layout {
-  static constexpr int CH = HD / 64;                 // boxes a row
+  // three consumer warpgroups where their accumulators fit in 160
+  // registers a thread (HP <= 128), else two with 240
+  static constexpr int CONSUMERS = HP <= 128 ? 3 : 2;
+  static constexpr int BQ = BM * CONSUMERS;          // query rows of a block
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);
+  static constexpr int REGS = CONSUMERS == 3 ? 160 : 240;  // a consumer thread
+  static constexpr int CH = HP / 64;                 // boxes a row
   static constexpr int Q_BYTES = CONSUMERS * CH * BOX_Q;
   static constexpr int KV_BYTES = CH * BOX_KV;       // one K or V tile
   static constexpr int K_OFF = Q_BYTES;
@@ -83,16 +106,16 @@ struct Layout {
   static constexpr int ALLOC = BAR_OFF + 8 * BARS + 1024;  // + alignment
 };
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int HP>
+__global__ void __launch_bounds__(Layout<HP>::THREADS, 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
                   __nv_bfloat16* __restrict__ o, int sq, int h, int hkv,
-                  int causal, int window, float softcap, int q_offset,
-                  int kv_len, float scale) {
-  using L = Layout<HD>;
-  constexpr int CH = L::CH;
+                  int hd, int causal, int window, float softcap,
+                  int q_offset, int kv_len, float scale) {
+  using L = Layout<HP>;
+  constexpr int CH = L::CH, CONSUMERS = L::CONSUMERS, BQ = L::BQ;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base, k_s = base + L::K_OFF, v_s = base + L::V_OFF;
@@ -156,7 +179,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   // ------------------------------------------------------------ consumers
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::REGS));
   const int c = wg - 1;
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int row0 = q0 + c * BM + warp * 16 + lane / 4;   // and row0 + 8
@@ -170,10 +193,10 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
   float m[2] = {NEG_INF, NEG_INF};   // running max, in log2 units
   float l[2] = {0.0f, 0.0f};         // this thread's share of the row sums
-  // O: 8-column chunk j of the 64 x hd tile in acc[4 j .. 4 j + 3]
-  float acc[HD / 2];
+  // O: 8-column chunk j of the 64 x HP tile in acc[4 j .. 4 j + 3]
+  float acc[HP / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < HP / 2; ++i) acc[i] = 0.0f;
 
   mbar_wait(q_full, 0);
   const uint64_t q_desc = sw128_desc(q_s + c * CH * BOX_Q, 16, 1024);
@@ -196,7 +219,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       fence_acc(sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
+      for (int kk = 0; kk < HP / 16; ++kk)
         wgmma_ss(sc, desc_at(q_desc, (kk / 4) * BOX_Q + (kk % 4) * 32),
                  desc_at(k_desc, (kk / 4) * BOX_KV + (kk % 4) * 32), kk > 0);
       wgmma_commit();
@@ -251,7 +274,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         l[i] = l[i] * corr[i] + sum;
       }
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < HP / 8; ++j) {
         acc[j * 4 + 0] *= corr[0];
         acc[j * 4 + 1] *= corr[0];
         acc[j * 4 + 2] *= corr[1];
@@ -282,7 +305,8 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   // reciprocal a row, not a division an element: IEEE division has a slow
   // path that the compiler calls as a subroutine, and the accumulator
   // would be saved to local memory around each call); 0 for a row with no
-  // kept key
+  // kept key.  Only the real hd columns are stored: the chunks past hd
+  // hold the zero columns of V (and would land in the next head's row).
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -293,42 +317,46 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row >= sq) continue;
-    __nv_bfloat16* dst = o + (((int64_t)b * sq + row) * h + head) * HD;
+    __nv_bfloat16* dst = o + (((int64_t)b * sq + row) * h + head) * hd;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + j * 8 + 2 * (lane % 4)) =
-          __floats2bfloat162_rn(acc[j * 4 + 2 * i] * l[i],
-                                acc[j * 4 + 2 * i + 1] * l[i]);
+    for (int j = 0; j < HP / 8; ++j)
+      if (j * 8 < hd)
+        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8 + 2 * (lane % 4)) =
+            __floats2bfloat162_rn(acc[j * 4 + 2 * i] * l[i],
+                                  acc[j * 4 + 2 * i + 1] * l[i]);
   }
 }
 
-template <int HD>
+template <int HP>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int skv, int h, int hkv, int causal, int window,
+           int sq, int skv, int h, int hkv, int hd, int causal, int window,
            float softcap, int q_offset, int kv_len, float scale,
            cudaStream_t stream) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
+  // the maps at the real hd: the boxes past it read as zeros
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, enc, q, b, sq, h, HD, BM) ||
-      !make_map(&tk, enc, k, b, skv, hkv, HD, BK) ||
-      !make_map(&tv, enc, v, b, skv, hkv, HD, BK))
+  if (!make_map(&tq, enc, q, b, sq, h, hd, BM) ||
+      !make_map(&tk, enc, k, b, skv, hkv, hd, BK) ||
+      !make_map(&tv, enc, v, b, skv, hkv, hd, BK))
     return (int)cudaErrorInvalidValue;
-  auto kern = flash_sm90_kernel<HD>;
+  auto kern = flash_sm90_kernel<HP>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<HD>::ALLOC);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<HP>::ALLOC);
   if (err != cudaSuccess) return (int)err;
+  constexpr int BQ = Layout<HP>::BQ;
   dim3 grid(h, (sq + BQ - 1) / BQ, b);
-  kern<<<grid, THREADS, Layout<HD>::ALLOC, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, sq, h, hkv, causal, window, softcap,
+  kern<<<grid, Layout<HP>::THREADS, Layout<HP>::ALLOC, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, sq, h, hkv, hd, causal, window, softcap,
       q_offset, kv_len, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// bfloat16 q, k, v, o; hd 64, 128 or 256.  window 0 means none; softcap 0
-// means none.
+// bfloat16 q, k, v, o; hd a multiple of 8 up to 256, computed at the next
+// multiple of 64.  window 0 means none; softcap 0 means none; scale is
+// 1 / sqrt(hd).
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            const void* v, void* o, int b,
                                            int sq, int skv, int h, int hkv,
@@ -338,20 +366,21 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            void* stream) {
   if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || h % hkv != 0 ||
       kv_len < 0 || kv_len > skv || window < 0 || h > 65535 || b > 65535 ||
-      (sq + BQ - 1) / BQ > 65535)
+      (sq + 127) / 128 > 65535 || hd <= 0 || hd > 256 || hd % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (hd) {
-    case 64:
-      return launch<64>(q, k, v, o, b, sq, skv, h, hkv, causal, window,
+  switch ((hd + 63) / 64) {
+    case 1:
+      return launch<64>(q, k, v, o, b, sq, skv, h, hkv, hd, causal, window,
                         softcap, q_offset, kv_len, scale, s);
-    case 128:
-      return launch<128>(q, k, v, o, b, sq, skv, h, hkv, causal, window,
+    case 2:
+      return launch<128>(q, k, v, o, b, sq, skv, h, hkv, hd, causal, window,
                          softcap, q_offset, kv_len, scale, s);
-    case 256:
-      return launch<256>(q, k, v, o, b, sq, skv, h, hkv, causal, window,
+    case 3:
+      return launch<192>(q, k, v, o, b, sq, skv, h, hkv, hd, causal, window,
                          softcap, q_offset, kv_len, scale, s);
     default:
-      return (int)cudaErrorInvalidValue;
+      return launch<256>(q, k, v, o, b, sq, skv, h, hkv, hd, causal, window,
+                         softcap, q_offset, kv_len, scale, s);
   }
 }

@@ -8,12 +8,16 @@ accumulates in float32.  Three kernels compute that whole function; the
 choice between them (`route`) is about speed only:
 
 - `sm90` (`csrc/flash_attention_sm90.cu`): tensor cores (wgmma) fed by TMA,
-  for bfloat16 with hd 64, 128 or 256 (the served prefill);
+  for bfloat16 with hd a multiple of 8 up to 256 (the served prefill),
+  computed at hd rounded up to 64, 128, 192 or 256 (`sm90_width`) with the
+  columns past hd zero-filled by TMA and never stored, and the softmax
+  scale taken at the real hd; a 64-column box over a row narrower than 64
+  (hd 8 to 56) is zero-filled the same way;
 - `split` (`csrc/flash_decode.cu`): split-KV on the CUDA cores, for calls
   with at most 64 query rows a kv head (Sq * H / Hkv), float32 or bfloat16,
   hd a multiple of 8 (the served decode);
 - `simt` (`csrc/flash_attention.cu`): float32 on the CUDA cores, for
-  everything else (float32 prefill, hd not a multiple of 64).
+  everything else (float32 prefill, bfloat16 at hd not a multiple of 8).
 
 Each route counts its own launches (`launches_sm90`, `launches_split`,
 `launches_simt`); `launches` is their total.  A route that cannot take a
@@ -34,7 +38,6 @@ launches_split = 0
 launches_simt = 0
 MAX_HEAD_DIM = 256         # the accumulator and the tiles are sized for it
 ROUTES = ("sm90", "split", "simt")
-SM90_HEAD_DIMS = (64, 128, 256)
 SPLIT_MAX_ROWS = 64        # query rows a kv head that `split` takes
 SPLIT_ROWS_PER_BLOCK = 8   # csrc/flash_decode.cu's MAX_ROWS
 SPLIT_RUNS = 4             # csrc/flash_decode.cu's C_GROUPS (merge order)
@@ -57,11 +60,18 @@ def softmax_scale(hd: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
 
 
+def sm90_width(hd: int) -> int:
+    """The width the sm90 kernel computes a head at: hd rounded up to a
+    multiple of 64 (csrc/flash_attention_sm90.cu's HP)."""
+    return -(-hd // 64) * 64
+
+
 def accepts(name: str, dtype: torch.dtype, sq: int, h: int, hkv: int,
             hd: int) -> bool:
     """Whether route `name` takes a call of this dtype and these shapes."""
     if name == "sm90":
-        return dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS
+        return dtype == torch.bfloat16 and hd % 8 == 0 \
+            and 0 < hd <= MAX_HEAD_DIM
     if name == "split":
         return sq * (h // hkv) <= SPLIT_MAX_ROWS and hd % 8 == 0
     if name == "simt":
@@ -73,9 +83,10 @@ def accepts(name: str, dtype: torch.dtype, sq: int, h: int, hkv: int,
 def route(dtype: torch.dtype, b: int, sq: int, skv: int, h: int, hkv: int,
           hd: int, kv_len: int) -> str:
     """The fastest route that takes the call: `split` for few query rows a
-    kv head (decode), else `sm90` for bfloat16 at hd 64/128/256 (prefill),
-    else `simt`.  A pure function of host values; B, Skv and kv_len do not
-    change the choice today (every route takes any of them)."""
+    kv head (decode), else `sm90` for bfloat16 at hd a multiple of 8
+    (prefill), else `simt`.  A pure function of host values; B, Skv and
+    kv_len do not change the choice today (every route takes any of
+    them)."""
     for name in ("split", "sm90"):
         if accepts(name, dtype, sq, h, hkv, hd):
             return name

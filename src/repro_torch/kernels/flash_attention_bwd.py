@@ -8,8 +8,9 @@ same bits run to run.  Two routes compute that function; the choice
 between them (`route`) is about speed only:
 
 - `sm90` (`csrc/flash_attention_bwd_sm90.cu`): tensor cores (wgmma) fed by
-  TMA, for bfloat16 with hd 64, 128 or 256 (the calls the forward's sm90
-  route takes: the training path).  Three kernels: each row's log-sum-exp
+  TMA, for bfloat16 with hd 64, 128 or 256 (SM90_HEAD_DIMS: the training
+  path; the forward's sm90 route also takes the other multiples of 8, whose
+  gradients stay on simt).  Three kernels: each row's log-sum-exp
   and D = rowsum(dO * O), then dq a query tile, then dk and dv a key tile.
   P and dS are rounded to bf16 where they feed a product; its plain
   version is `ref.mha_bwd_ref(..., p_dtype=torch.bfloat16)`;
@@ -35,13 +36,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import (_DTYPES, SM90_HEAD_DIMS,
-                                                 check_call, softmax_scale)
+from repro_torch.kernels.flash_attention import (_DTYPES, check_call,
+                                                 softmax_scale)
 
 launches = 0
 launches_sm90 = 0
 launches_simt = 0
 ROUTES = ("sm90", "simt")
+SM90_HEAD_DIMS = (64, 128, 256)    # csrc/flash_attention_bwd_sm90.cu's HD
 SM90_ROWS = 128            # csrc/flash_attention_bwd_sm90.cu's ROWS
 
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float] \

@@ -5,8 +5,11 @@ tensor reaches) are held against the reference's Pallas kernel in
 interpret mode, its O(S^2) oracle and its model `mha`, on the same
 numpy-seeded inputs.  Tolerances: float32 2e-5 absolute (einsum sums in
 another order than XLA's), bfloat16 2e-2 (one bf16 rounding of the output,
-as in tests/test_kernels.py).  The CUDA kernel is held against these plain
-versions on the card by chip_smoke.py.
+as in tests/test_kernels.py).  At hd 72, 80, 112 and 192 the reference
+pads hd to a lane multiple and scales by its `true_hd`; the port's sm90
+route pads to the next 64 columns on the card, and its plain version, held
+here, never pads.  The CUDA kernel is held against these plain versions on
+the card by chip_smoke.py.
 """
 import numpy as np
 import pytest
@@ -41,7 +44,9 @@ def _close(got, want, tol):
 
 
 @pytest.mark.parametrize("s,h,hkv,hd", [(64, 4, 4, 64), (200, 4, 2, 72),
-                                        (256, 8, 1, 128), (100, 2, 2, 32)])
+                                        (256, 8, 1, 128), (100, 2, 2, 32),
+                                        (96, 4, 4, 80), (150, 4, 4, 112),
+                                        (70, 4, 1, 192)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_pallas_interpret_and_oracle(s, h, hkv, hd,
                                                              dtype):

@@ -48,7 +48,13 @@ def _inputs(seed, b, sq, skv, h, hkv, hd, dtype):
     (torch.bfloat16, 2, 1, 4096, 8, 4, 256, 4096, "split"),     # ring
     (torch.bfloat16, 2, 1, 5032, 8, 4, 256, 5011, "split"),     # global
     (torch.float32, 2, 1, 5032, 8, 4, 256, 5011, "split"),
-    (torch.bfloat16, 1, 130, 130, 2, 2, 72, 130, "simt"),       # hd 72
+    (torch.bfloat16, 1, 130, 130, 2, 2, 72, 130, "sm90"),       # hd 72
+    (torch.bfloat16, 2, 500, 500, 16, 16, 80, 500, "sm90"),     # hubert
+    (torch.bfloat16, 2, 5000, 5000, 32, 32, 112, 5000, "sm90"),  # zamba2
+    (torch.bfloat16, 1, 300, 300, 16, 4, 192, 300, "sm90"),     # MLA qk
+    (torch.bfloat16, 2, 100, 100, 4, 4, 8, 100, "sm90"),        # one box
+    (torch.float32, 2, 5000, 5000, 32, 32, 112, 5000, "simt"),
+    (torch.bfloat16, 2, 1, 5008, 32, 32, 112, 5001, "split"),   # decode
     (torch.bfloat16, 2, 300, 300, 8, 4, 128, 300, "sm90"),
     (torch.bfloat16, 1, 37, 37, 4, 1, 64, 37, "sm90"),
     (torch.bfloat16, 1, 8, 100, 8, 1, 256, 100, "split"),       # 64 rows
@@ -63,12 +69,34 @@ def test_route_picks_by_dtype_rows_and_head_dim(dtype, b, sq, skv, h, hkv,
 
 def test_routes_refuse_what_they_do_not_take():
     assert not k_flash.accepts("sm90", torch.float32, 5000, 8, 4, 256)
-    assert not k_flash.accepts("sm90", torch.bfloat16, 500, 8, 4, 72)
+    assert not k_flash.accepts("sm90", torch.bfloat16, 500, 8, 4, 36)
+    assert not k_flash.accepts("sm90", torch.bfloat16, 500, 8, 4, 260)
+    assert not k_flash.accepts("sm90", torch.float32, 500, 8, 4, 112)
     assert not k_flash.accepts("split", torch.bfloat16, 33, 8, 4, 256)
     assert not k_flash.accepts("split", torch.bfloat16, 1, 8, 4, 36)
     assert k_flash.accepts("simt", torch.float32, 5000, 8, 4, 72)
     with pytest.raises(ValueError, match="unknown route"):
         k_flash.accepts("fast", torch.bfloat16, 1, 8, 4, 256)
+
+
+@pytest.mark.parametrize("hd,width", [(8, 64), (64, 64), (72, 128),
+                                      (80, 128), (112, 128), (128, 128),
+                                      (136, 192), (192, 192), (200, 256),
+                                      (256, 256)])
+def test_sm90_width_is_hd_rounded_up_to_an_instantiation(hd, width):
+    assert k_flash.sm90_width(hd) == width
+    assert k_flash.accepts("sm90", torch.bfloat16, 300, 8, 4, hd)
+
+
+def test_sm90_takes_every_bf16_multiple_of_8_up_to_256():
+    for hd in range(1, 265):
+        want = hd % 8 == 0 and hd <= 256
+        assert k_flash.accepts("sm90", torch.bfloat16, 300, 8, 4,
+                               hd) == want, hd
+        assert not k_flash.accepts("sm90", torch.float32, 300, 8, 4, hd)
+        if hd <= 256:
+            assert k_flash.route(torch.bfloat16, 2, 300, 300, 8, 4, hd,
+                                 300) == ("sm90" if want else "simt"), hd
 
 
 # -------------------------------------------------------- split_plan ---
@@ -248,6 +276,21 @@ def test_backward_route_picks_by_dtype_and_head_dim(dtype, sq, h, hkv, hd,
     assert k_bwd.route(dtype, 2, sq, sq, h, hkv, hd, sq) == want
     assert k_bwd.accepts(want, dtype, sq, h, hkv, hd)
     assert k_bwd.accepts("simt", dtype, sq, h, hkv, hd)
+
+
+@pytest.mark.parametrize("hd", [8, 72, 80, 112, 136, 192, 248])
+def test_backward_head_dims_are_apart_from_the_forward(hd):
+    """The forward's sm90 route pads hd to the next 64 columns; the
+    backward's sm90 kernels take 64, 128 and 256 only, so a bf16 gradient
+    at any other hd stays on simt while its forward runs on sm90."""
+    assert k_bwd.SM90_HEAD_DIMS == (64, 128, 256)
+    assert k_flash.route(torch.bfloat16, 2, 500, 500, 8, 8, hd,
+                         500) == "sm90"
+    assert k_bwd.route(torch.bfloat16, 2, 500, 500, 8, 8, hd, 500) == "simt"
+    assert not k_bwd.accepts("sm90", torch.bfloat16, 500, 8, 8, hd)
+    for full in k_bwd.SM90_HEAD_DIMS:
+        assert k_bwd.route(torch.bfloat16, 2, 500, 500, 8, 8, full,
+                           500) == "sm90"
 
 
 def test_backward_routes_refuse_what_they_do_not_take():
