@@ -33,7 +33,12 @@ width, every attention forward in the flash kernel and every backward in
 the tensor-core flash backward kernel, step 0 against the plain attention,
 the head's rounds against a CPU replay) and rwkv6-3b training (phase 25:
 every WKV forward in the chunked kernel, every backward in the WKV
-backward kernel, step 0 against the plain WKV under autograd) — holds
+backward kernel, step 0 against the plain WKV under autograd), and
+hubert-xlarge, the audio encoder, at its published width (phase 31: its
+forward over B 8 x 781 frames, every attention call in the tensor-core
+flash kernel at hd 80 zero-filled to 128 columns; phase 32: training with
+the AMTL head, every backward in the tensor-core flash backward kernel at
+the same padded width) — holds
 the card's runs against the port's own CPU runs, replays or plain-kernel
 runs of the same states, and times
 each kernel (the prox's two kernels and the engines' state updates
@@ -1508,19 +1513,87 @@ def bwd_plain(route: str, q, k, v, o, do, pkw):
         None if p_dtype is None else getattr(torch, p_dtype)))
 
 
+def bwd_canary(label: str, args_, got) -> None:
+    """The sm90 backward's launcher writing dq, dk and dv into the heads of
+    sentinel-filled buffers 4096 elements longer than each gradient: every
+    tail must still hold the sentinel (a store past hd at the last row and
+    head would reach it) and every head must be the wrapper's gradient,
+    bit for bit (a store past hd in another row lands in the next head's
+    columns)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.kernels import flash_attention_bwd as k_bwd
+    q, k, v, o, do, kw = args_
+    b, sq, skv, h, hkv, hd, window, cap, kv_len = k_flash.check_call(
+        "sm90 bwd canary", q, k, v, kw["window"], kw["softcap"],
+        kw["kv_len"], o=o, do=do)
+    bufs = [torch.full((t.numel() + 4096,), SM90_SENTINEL, dtype=t.dtype,
+                       device=t.device) for t in (q, k, v)]
+    rows = -(-sq // k_bwd.SM90_ROWS) * k_bwd.SM90_ROWS
+    stats = torch.empty((2, b, h, rows), dtype=torch.float32,
+                        device=q.device)
+    fn = _build.function("flash_attention_bwd_sm90_launch",
+                         k_bwd._SM90_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), *(x.data_ptr() for x in bufs),
+             stats[0].data_ptr(), stats[1].data_ptr(), b, sq, skv, h, hkv,
+             hd, int(kw["causal"]), window, cap, int(kw["q_offset"]), kv_len,
+             k_flash.softmax_scale(hd), _build.stream(q.device))
+    _build.check(err, "sm90 bwd canary")
+    for name, buf, g in zip(("dq", "dk", "dv"), bufs, got):
+        n = g.numel()
+        if not bool((buf[n:] == SM90_SENTINEL).all()):
+            fail(f"flash_attention_bwd {label}: the sm90 kernels wrote past "
+                 f"the end of {name} (hd {hd}, padded to "
+                 f"{k_flash.sm90_width(hd)})")
+        if not torch.equal(buf[:n].view_as(g), g):
+            fail(f"flash_attention_bwd {label}: the sm90 launch into a "
+                 f"buffer gives another {name} than the wrapper's")
+
+
+def bwd_scale_control(label: str, args_, got, limit: float) -> str:
+    """The sm90 gradients at an hd below the padded width HP against the
+    plain version on q, k, v, o and dO zero-padded to HP, whose softmax
+    scale is 1/sqrt(HP): the gate must see that scale."""
+    import torch
+    from repro_torch.kernels import flash_attention as k_flash
+    q, k, v, o, do, kw = args_
+    hd = q.shape[3]
+    hp = k_flash.sm90_width(hd)
+    pad = [torch.nn.functional.pad(t, (0, hp - hd)) for t in (q, k, v, o, do)]
+    pkw = dict(causal=kw["causal"], window=kw["window"],
+               softcap=kw["softcap"], q_offset=kw["q_offset"],
+               kv_valid_len=kw["kv_len"])
+    wrong = [g[..., :hd] for g in bwd_plain("sm90", *pad, pkw)]
+    err = max(grad_errs(got, wrong))
+    if not err > limit:
+        fail(f"flash_attention_bwd control {label} (scale 1/sqrt({hp}), not "
+             f"1/sqrt({hd})): {err:.3g} <= {limit}: the gate does not see "
+             "it")
+    return f"{label} {err:.3g}"
+
+
 def check_flash_bwd(dev, gen) -> dict:
     """The flash-attention backward routes against their plain versions on
     the card: at the training shapes (gemma2-2b, B 2, S 2048, H 8, Hkv 4,
     hd 256, softcap 50: a global layer and a local one, window 4096) and at
     edge cases (a window smaller than S, S not a multiple of the tiles, hd
     64, 72 and 128, float32 and bf16, non-causal, GQA groups 1, 2, 4 and 8,
-    rows with no kept key, a query offset and a key count), every route
-    that takes a case (`sm90` bf16 at hd 64/128/256, `simt` all), by
-    FLASH_BWD_TOL; two launches bitwise; the default route `sm90` for every
-    bf16 case at those head dims; the autograd path of `ops.mha` launching
-    the sm90 route once; and controls at the training shape, for each
-    route, that must exceed the limit (its plain version with the causal
-    edge a tile later, and with the window a tile wide).  Returns the bf16
+    rows with no kept key, a query offset and a key count), and at the
+    head dims the sm90 kernels compute padded to `sm90_width` (hubert's hd
+    80 non-causal at S 781; zamba2's hd 112 causal with GQA 2, a window
+    and a softcap; hd 8 and 48, a 64-column box wider than the row; hd 72;
+    hd 136 and 192 at the 192-column width; Sq != Skv with a key count and
+    a query offset), every route that takes a case (`sm90` bf16 at hd a
+    multiple of 8, `simt` all), by FLASH_BWD_TOL; two launches bitwise;
+    the default route `sm90` for every bf16 case; at every padded hd the
+    sm90 gradients written into sentinel-filled buffers (`bwd_canary`) and
+    a control with the scale at 1/sqrt(HP) that must fail the gate
+    (`bwd_scale_control`); the autograd path of `ops.mha` launching the
+    sm90 route once; and controls at the training shape, for each route,
+    that must exceed the limit (its plain version with the causal edge a
+    tile later, and with the window a tile wide).  Returns the bf16
     training case with each route's error for the timing phase."""
     import torch
     from repro_torch.kernels import ops
@@ -1546,8 +1619,21 @@ def check_flash_bwd(dev, gen) -> dict:
         ("rows with no kept key", 1, 256, 256, 8, 4, 256, True, 64, 50.0, 0,
          100),
         ("GQA 8:1", 1, 300, 300, 8, 1, 128, True, None, None, 0, None),
+        ("hubert hd 80, S 781, non-causal", 2, 781, 781, 16, 16, 80, False,
+         None, None, 0, None),
+        ("hd 112, GQA 2, window 200, softcap 50", 1, 600, 600, 8, 4, 112,
+         True, 200, 50.0, 0, None),
+        ("hd 8, box wider than the row", 1, 200, 200, 4, 2, 8, True, None,
+         None, 0, None),
+        ("hd 48, non-causal, softcap 30", 2, 100, 100, 4, 4, 48, False, None,
+         30.0, 0, None),
+        ("hd 80, Sq 100 != Skv 300, q_offset 150, kv_len 250", 1, 100, 300,
+         4, 2, 80, True, None, None, 150, 250),
+        ("hd 136 at 192 columns", 1, 300, 300, 8, 2, 136, True, None, None,
+         0, None),
+        ("hd 192", 1, 300, 300, 16, 4, 192, True, None, None, 0, None),
     ]
-    worst, runs, train = {}, {}, {}
+    worst, runs, train, padded = {}, {}, {}, []
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
         for label, b, sq, skv, h, hkv, hd, causal, window, cap, qo, kvl \
@@ -1561,8 +1647,8 @@ def check_flash_bwd(dev, gen) -> dict:
             do = torch.randn(b, sq, h, hd, generator=gen, device=dev).to(dt)
             pkw = dict(causal=causal, window=window, softcap=cap,
                        q_offset=qo, kv_valid_len=kvl)
-            want_route = "sm90" if dt == torch.bfloat16 \
-                and hd in k_bwd.SM90_HEAD_DIMS else "simt"
+            want_route = "sm90" if k_flash.accepts("sm90", dt, sq, h, hkv,
+                                                   hd) else "simt"
             if k_bwd.route(dt, b, sq, skv, h, hkv, hd,
                            skv if kvl is None else kvl) != want_route:
                 fail(f"flash_attention_bwd {label} {dt_name}: the default "
@@ -1587,6 +1673,11 @@ def check_flash_bwd(dev, gen) -> dict:
                 if not all(torch.equal(x, y) for x, y in zip(got, again)):
                     fail(f"flash_attention_bwd ({r}) {label} {dt_name}: two "
                          "launches differ")
+                if r == "sm90" and k_flash.sm90_width(hd) != hd:
+                    args_ = (q, k, v, o, do, kw)
+                    bwd_canary(label, args_, got)
+                    padded.append(bwd_scale_control(
+                        label, args_, got, FLASH_BWD_TOL[dt_name]))
                 key = f"{r} {dt_name}"
                 worst[key] = max(worst.get(key, 0.0), max(errs))
                 runs[r] = runs.get(r, 0) + 1
@@ -1633,14 +1724,19 @@ def check_flash_bwd(dev, gen) -> dict:
         f"{FLASH_BWD_TOL} of each gradient's max |value| of the route's "
         "plain version (ref.mha_bwd_ref; p_dtype bf16 for sm90); worst "
         + ", ".join(f"{d} {e:.3g}" for d, e in sorted(worst.items()))
-        + "; two launches bitwise; default route sm90 for bf16 at hd "
-        "64/128/256, simt otherwise; ops.mha's autograd backward is the "
+        + "; two launches bitwise; default route sm90 for bf16 at every hd "
+        "(a multiple of 8), simt for float32; at each padded hd the sm90 "
+        "gradients in sentinel-filled buffers: tails intact, heads the "
+        "wrapper's bits; scale 1/sqrt(HP) controls (must exceed "
+        f"{limit:.3g}): " + "; ".join(padded)
+        + "; ops.mha's autograd backward is the "
         "sm90 route's call; controls (bf16 training shape, must exceed "
         f"{limit:.3g}): " + "; ".join(controls)
         + "; cases: training shapes (B 2, S 2048, H 8, Hkv 4, hd 256, "
         "softcap 50, global and window 4096) and edges (window 300 < S, S "
-        "37/257/1000/130/65/16/300 off the tiles, hd 64/72/128, "
-        "non-causal, GQA 1/2/4/8, q_offset, kv_len, rows with no kept key)")
+        "37/257/1000/130/65/16/300/781/600/200/100 off the tiles, hd "
+        "8/48/64/72/80/112/128/136/192, non-causal, GQA 1/2/4/8, q_offset, "
+        "kv_len, Sq != Skv, rows with no kept key)")
     return {"flash_attention_bwd": train}
 
 
@@ -1658,10 +1754,23 @@ def flash_bwd_cost(args_) -> tuple[float, float]:
     return nbytes, 10.0 * hd * pairs * b * h
 
 
+def compiled_flex(flex_attention):
+    """flex_attention under a fresh torch.compile, dynamo's caches reset
+    first.  Each yardstick compiles flex_attention at a shape of its own,
+    and dynamo's cache of the one function fills: past it a new shape ran
+    unfused, 6-30x slower than its own compile on an H100 in the whole
+    smoke (phase 12's flex figures at hubert-xlarge's and zamba2-7b's
+    shapes, against the same functions driven alone)."""
+    import torch
+    torch._dynamo.reset()
+    return torch.compile(flex_attention)
+
+
 def flex_bwd_library(args_, dev):
     """The yardstick for the backward, never called by the port:
-    flex_attention's backward under torch.compile (softcap as score_mod,
-    the causal mask as a block mask) on the same q, k, v and do.  Returns
+    flex_attention's backward under torch.compile (the softcap, where there
+    is one, as score_mod, the causal mask as a block mask) on the same q,
+    k, v and do.  Returns
     (call, what); call is None where it does not compile."""
     import torch
     q, k, v, o, do, kw = args_
@@ -1671,14 +1780,16 @@ def flex_bwd_library(args_, dev):
         from torch.nn.attention.flex_attention import (create_block_mask,
                                                        flex_attention)
 
-        def score_mod(score, b_, h_, q_idx, kv_idx):
+        def capped(score, b_, h_, q_idx, kv_idx):
             return cap * torch.tanh(score / cap)
 
         def mask_mod(b_, h_, q_idx, kv_idx):
             return kv_idx <= q_idx
 
-        mask = create_block_mask(mask_mod, None, None, sq, skv, device=dev)
-        fa = torch.compile(flex_attention)
+        score_mod = capped if cap else None
+        mask = create_block_mask(mask_mod, None, None, sq, skv, device=dev) \
+            if kw["causal"] else None
+        fa = compiled_flex(flex_attention)
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
         # the compiled backward frees ("donates") its saved buffers unless
@@ -1781,6 +1892,108 @@ def flash_bwd_times(info: dict, launches: dict, dev) -> dict:
                 max_abs_err=sm["max_abs_err"], ms=sm["ms"],
                 plain_ms=sm["plain_ms"], bound_ms=bnd, bound_by=by,
                 library_ms=l_ms, l2_cold_ms=sm["l2_cold_ms"], routes=routes)
+
+
+# The backward's shapes beside gemma2-2b's training shape (bf16, no window,
+# no softcap): hubert-xlarge's training call (phase 32; hd 80 at 128
+# columns) and zamba2-7b's shared attention at training length (hd 112 at
+# 128 columns, causal: ROADMAP item 11(k) trains it).
+# (label, B, S, H, Hkv, hd, causal)
+BWD_SHAPES = (("hubert-xlarge training", 8, 781, 16, 16, 80, False),
+              ("zamba2-7b training", 2, 2048, 32, 32, 112, True))
+
+
+def flash_bwd_shape_times(dev, launches: dict) -> dict:
+    """Phase 12: the backward at BWD_SHAPES, sm90 L2-warm and L2-cold (3
+    inputs in turn), simt forced, the plain version (p_dtype bf16) and
+    flex_attention's compiled backward, beside the bound at the real hd
+    and the bound of the work the sm90 kernels do at `sm90_width(hd)`;
+    and the 192-column kernels at hd 192 against the same call zero-padded
+    to 256 columns.  `launches` holds hubert-xlarge's training run's
+    backward routes."""
+    import itertools
+    import torch
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.kernels import flash_attention_bwd as k_bwd
+    saved = k_bwd.launches, k_bwd.route_counts()
+    g = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    for label, b, s, h, hkv, hd, causal in BWD_SHAPES:
+        kw = dict(causal=causal, window=None, softcap=None, q_offset=0,
+                  kv_len=None)
+
+        def make():
+            q, k, v, do = (torch.randn(b, s, n, hd, generator=g, device=dev,
+                                       dtype=torch.bfloat16)
+                           for n in (h, hkv, hkv, h))
+            return q, k, v, k_flash.flash_attention(q, k, v, **kw), do
+        sets = [make() for _ in range(3)]
+        args_ = (*sets[0], kw)
+        nbytes, flops = flash_bwd_cost(args_)
+        hp = k_flash.sm90_width(hd)
+        bnd, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+        padded, _ = bound_ms(nbytes, flops * hp / hd, BF16_FLOP_PER_S)
+        warm = cuda_ms(lambda: k_bwd.flash_attention_bwd(*sets[0], **kw),
+                       reps=11, inner=5)
+        ring = itertools.cycle(sets)
+        cold = cuda_ms(lambda: k_bwd.flash_attention_bwd(*next(ring), **kw),
+                       reps=11, inner=5)
+        simt = cuda_ms(lambda: k_bwd.flash_attention_bwd(
+            *sets[0], route="simt", **kw), reps=3, inner=2, warmup=1)
+        pkw = dict(causal=causal, window=None, softcap=None, q_offset=0,
+                   kv_valid_len=None)
+        p_ms = cuda_ms(lambda: bwd_plain("sm90", *sets[0], pkw), reps=3,
+                       inner=1, warmup=1, backlog=False)
+        call, what = flex_bwd_library(args_, dev)
+        l_ms = cuda_ms(call, reps=5, inner=3) if call is not None else None
+        out[label] = dict(
+            route="sm90", shape=[b, s, s, h, hkv, hd], causal=causal,
+            padded_hd=hp, ms=cold, l2_warm_ms=warm, simt_ms=simt,
+            plain_ms=p_ms, bound_ms=bnd, bound_by=by,
+            padded_bound_ms=padded, library_ms=l_ms,
+            tflops=flops / (cold * 1e-3) / 1e12)
+        if label.startswith("hubert"):
+            out[label]["launches"] = launches
+        log(f"phase 12 flash_attention_bwd {label} (B {b}, S {s}, H {h}, "
+            f"Hkv {hkv}, hd {hd}, {'causal' if causal else 'non-causal'}, "
+            f"bf16; sm90 at {hp} columns): {cold * 1e3:.2f} us L2-cold (3 "
+            f"inputs in turn), {warm * 1e3:.2f} us L2-warm; bound "
+            f"{bnd * 1e3:.2f} us by {by} at the real hd ({flops / 1e9:.2f} "
+            f"GFLOP, {nbytes / 1e6:.2f} MB; {100 * bnd / cold:.1f}% of the "
+            f"bound), {padded * 1e3:.2f} us for the padded work at {hp} "
+            f"columns; simt forced {simt * 1e3:.2f} us ({simt / cold:.1f}x "
+            f"sm90); plain {p_ms * 1e3:.1f} us (p_dtype bfloat16); library "
+            + ("null" if l_ms is None else
+               f"{l_ms * 1e3:.2f} us ({l_ms / cold:.2f}x sm90)")
+            + f" ({what})"
+            + (f"; {launches} launches on the training run"
+               if label.startswith("hubert") else ""))
+        del sets, args_
+    # the 192-column instantiation against padding hd 192 to 256: the same
+    # inputs zero-padded to 256 columns, the work a 256-column kernel does
+    # at hd 192 (its zero columns read from memory besides)
+    b, s, h, hd = 2, 2048, 16, 192
+    kw = dict(causal=True, window=None, softcap=None, q_offset=0,
+              kv_len=None)
+    q, k, v, do = (torch.randn(b, s, h, hd, generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    args_ = (q, k, v, k_flash.flash_attention(q, k, v, **kw), do)
+    padded = [torch.nn.functional.pad(t, (0, 256 - hd)) for t in args_]
+    at192 = cuda_ms(lambda: k_bwd.flash_attention_bwd(*args_, **kw),
+                    reps=11, inner=5)
+    at256 = cuda_ms(lambda: k_bwd.flash_attention_bwd(*padded, **kw),
+                    reps=11, inner=5)
+    out["hd 192 at 192 or 256 columns"] = dict(
+        shape=[b, s, s, h, h, hd], causal=True, ms=at192, padded_256_ms=at256)
+    log(f"phase 12 flash_attention_bwd hd 192 (B {b}, S {s}, H = Hkv {h}, "
+        f"causal, bf16): {at192 * 1e3:.2f} us at 192 columns, "
+        f"{at256 * 1e3:.2f} us on the inputs zero-padded to 256 "
+        f"({at256 / at192:.3f}x)")
+    del q, k, v, do, args_, padded
+    k_bwd.launches = saved[0]       # timing launches are not the path's
+    k_bwd.launches_sm90 = saved[1]["sm90"]
+    k_bwd.launches_simt = saved[1]["simt"]
+    return out
 
 
 def wkv_inputs(gen, dev, b, ell, h, d, dtype, log_w0, state_scale):
@@ -2504,7 +2717,8 @@ def flash_times(served: dict, dev) -> dict:
 
 
 def flash_hybrid_times(dev) -> dict:
-    """Phase 12 at the hybrid archs' flash shapes, bf16, on the route the
+    """Phase 12 at the hybrid and audio archs' flash shapes (hubert-xlarge's
+    encoder at hd 80 among them), bf16, on the route the
     wrapper picks (and, at zamba2-7b's prefill, on `simt` forced beside
     it, the route it took before sm90 took hd 112): L2-warm (one input,
     again and again) and L2-cold (the call walks 3 distinct inputs in turn,
@@ -2529,7 +2743,9 @@ def flash_hybrid_times(dev) -> dict:
          None, None),
         ("zamba2-7b decode", 2, 1, SERVE_PROMPT + DENSE_GEN, 32, 32, 112,
          False, SERVE_PROMPT + 1, None),
-        ("llama cross decode", 2, 1, 1601, 32, 8, 128, False, None, None))
+        ("llama cross decode", 2, 1, 1601, 32, 8, 128, False, None, None),
+        ("hubert-xlarge encoder", ENCODER_BATCH, ENCODER_SEQ, ENCODER_SEQ,
+         16, 16, 80, False, None, None))
     saved = k_flash.launches, k_flash.route_counts()
     g = torch.Generator(device=dev).manual_seed(11)
     out, libs = {}, {}
@@ -2573,9 +2789,14 @@ def flash_hybrid_times(dev) -> dict:
                           ms=cold_ms, l2_warm_ms=warm, bound_ms=bnd,
                           bound_by=by, library_ms=l_ms)
         if route == "sm90":
-            out[label]["padded_hd"] = k_flash.sm90_width(hd)
+            hp = k_flash.sm90_width(hd)
+            out[label]["padded_hd"] = hp
+            out[label]["padded_bound_ms"] = bound_ms(
+                spec["nbytes"], spec["flops"] * hp / hd, spec["rate"])[0]
         mask = "causal" if causal else "non-causal"
-        pad = (f", computed at {k_flash.sm90_width(hd)} columns"
+        pad = (f", computed at {k_flash.sm90_width(hd)} columns: the "
+               "padded work's bound "
+               f"{out[label]['padded_bound_ms'] * 1e3:.2f} us"
                if route == "sm90" and k_flash.sm90_width(hd) != hd else "")
         log(f"phase 12 flash_attention {label} (B {b}, Sq {sq}, Skv {skv}, "
             f"H {h}, Hkv {hkv}, hd {hd}, {mask}, bf16; {route}{pad}): "
@@ -2659,7 +2880,7 @@ def flex_library(args_, dev):
             return keep
 
         mask = create_block_mask(mask_mod, None, None, sq, skv, device=dev)
-        fa = torch.compile(flex_attention)
+        fa = compiled_flex(flex_attention)
 
         def prep(q_, k_, v_):
             return tuple(t.transpose(1, 2).contiguous() for t in (q_, k_, v_))
@@ -2913,15 +3134,16 @@ def pass_launches(cfg) -> int:
 INERT_DRAWS = {"gate": ("uniform", 0.5, 1.5), "lora_q_b": ("normal", 0.02),
                "lora_o_b": ("normal", 0.02), "A_log": ("uniform", -1.0, 1.0),
                "dt_bias": ("uniform", -2.0, 0.0), "D": ("uniform", 0.5, 1.5),
-               "conv_b": ("normal", 0.1)}
+               "conv_b": ("normal", 0.1), "mask_emb": ("normal", 0.5)}
 
 
 def wake_inert_leaves(model, seed: int) -> list:
     """Draw the leaves that the reference's init leaves inert (the cross
     gates 0, the LoRA b matrices 0, the SSD's A_log 0, D 1, dt_bias 0 and
-    conv bias 0) from a generator seeded by `seed`, in place: gate U(0.5,
-    1.5), LoRA b 0.02 N, A_log U(-1, 1), dt_bias U(-2, 0), D U(0.5, 1.5),
-    conv_b 0.1 N.  Returns the paths drawn."""
+    conv bias 0, an audio model's mask_emb 0) from a generator seeded by
+    `seed`, in place: gate U(0.5, 1.5), LoRA b 0.02 N, A_log U(-1, 1),
+    dt_bias U(-2, 0), D U(0.5, 1.5), conv_b 0.1 N, mask_emb 0.5 N.
+    Returns the paths drawn."""
     import torch
     gen = torch.Generator(device=model.device).manual_seed(seed + 5)
     drawn = []
@@ -5039,8 +5261,17 @@ def sharded_phase(dev, seed: int, card: str, problem, v0, offs, key,
 # 2560, 40 heads of 64, d_ff 8960, vocab 65536, bf16, 3073.5M parameters):
 # random weights from --seed, batch 2 x seq 2048 from synthetic_lm_batches,
 # remat on, TRAIN_STEPS steps of AdamW (an fp32 master, mu and nu) with the
-# head's AMTL round (T 16, tau 4, nuclear) inside each.
+# head's AMTL round (T 16, tau 4, nuclear) inside each.  hubert-xlarge
+# (phase 32; configs/hubert_xlarge.py: 48 attn layers, d_model 1280, 16
+# heads, kv 16, hd 80, d_ff 5120, GeLU, LayerNorm, non-causal, 504 cluster
+# targets, frame features of 1280, 946.9M parameters) trains the same way
+# at ENCODER_BATCH x ENCODER_SEQ frames: 250k samples of 16 kHz audio
+# through the 320-sample stride of its (stubbed) frontend, wav2vec 2.0's
+# pretraining crop; 781 is a multiple of neither 64 nor 128, so the kernels'
+# row and key tails run at full width.  The batches are `batches_for`'s:
+# frame features, 30 % of the frames masked, the loss over those.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
+ENCODER_BATCH, ENCODER_SEQ = 8, 781
 # Step 0's loss and every parameter leaf's gradient through the kernels
 # against the same step with the arch's kernel op replaced by its plain
 # version under autograd on the card, by ||diff|| / ||plain grad|| a leaf:
@@ -5132,6 +5363,23 @@ def wkv_ref_backward(r, k, v, w, u, do, chunk: int):
     return ref.wkv_bwd_ref(r, k, v, w, u, do, chunk)
 
 
+# hubert-xlarge's control: the plain attention with every key more than
+# HUBERT_CONTROL_WINDOW frames left of its query dropped.  (A causal mask
+# does not serve: a masked first frame, zero with the zero mask_emb, then
+# sees only itself and stays zero through every layer, and each
+# LayerNorm's backward over that zero-variance row multiplies the gradient
+# by 1/sqrt(eps): the gradients overflow on the kernels' path and the
+# plain ones alike, on an H100 at full width.)
+HUBERT_CONTROL_WINDOW = 64
+
+
+def mha_ref_windowed(q, k, v, *, window=None, **kw):
+    """`ref.mha_ref` with the window at HUBERT_CONTROL_WINDOW: phase 32's
+    control."""
+    from repro_torch.kernels import ref
+    return ref.mha_ref(q, k, v, window=HUBERT_CONTROL_WINDOW, **kw)
+
+
 # The run that holds rwkv6-3b's backward kernel (the kernels' forward, the
 # plain backward) and its control (the same with the state's gradient
 # dropped at the middle).
@@ -5176,7 +5424,17 @@ TRAINED = {
         fwd_routes={"chunked": 2, "recurrent": 0},
         bwd_routes={"chunked": 1, "recurrent": 0},
         nonzero=("wr", "wk", "wv", "w0", "w_lora_a", "w_lora_b", "u"),
-        parts=RWKV_TRAIN_PARTS)}
+        parts=RWKV_TRAIN_PARTS),
+    "hubert-xlarge": dict(
+        phase=32, fwd="flash_attention", bwd="flash_attention_bwd", op="mha",
+        plain="mha_ref", held=None, control=(mha_ref_windowed, {}),
+        control_label="plain run, keys more than "
+                      f"{HUBERT_CONTROL_WINDOW} frames back dropped",
+        plain_calls=("mha_ref", "mha_bwd_ref"),
+        fwd_routes={"sm90": 2, "split": 0, "simt": 0},
+        bwd_routes={"sm90": 1, "simt": 0}, nonzero=("feat_proj", "mask_emb"),
+        parts=TRAIN_PARTS, shape=(ENCODER_BATCH, ENCODER_SEQ),
+        unit="frames")}
 
 
 def train_grads(model, batch, cfg, p) -> tuple:
@@ -5217,7 +5475,7 @@ def leaf_errs(got: dict, want: dict) -> dict:
 
 
 def train_phase(dev, seed: int, card: str, arch: str) -> dict:
-    """Phases 24-25: `repro_torch.launch.train`'s path (init_train_state,
+    """Phases 24, 25 and 32: `repro_torch.launch.train`'s path (init_train_state,
     ShardedBatcher over batches_for, make_train_step) at `arch`'s full
     width.  Fails unless step 0's loss and gradients through the kernels
     match the plain version's under autograd (and the control does not),
@@ -5249,6 +5507,8 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
     cfg = train_mod.train_config(arch, reduced=False)
     mcfg = cfg.mtl
     n_layers = cfg.num_layers
+    t_batch, t_seq = spec.get("shape", (TRAIN_BATCH, TRAIN_SEQ))
+    unit = spec.get("unit", "tokens")
     torch.cuda.reset_peak_memory_stats(dev)
     model = init_params(cfg, seed=seed, device=dev)
     model.requires_grad_(True)
@@ -5257,7 +5517,7 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
         f"parameters ({n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}"
         f"), {free0 / 1e9:.1f} GB free of {total_mem / 1e9:.1f} GB before "
         "the phase")
-    data = ShardedBatcher(train_mod.batches_for(cfg, TRAIN_SEQ, TRAIN_BATCH),
+    data = ShardedBatcher(train_mod.batches_for(cfg, t_seq, t_batch),
                           device=dev)
     batches = [next(data) for _ in range(TRAIN_STEPS)]
     want_step = {spec["fwd"]: 2 * n_layers, spec["bwd"]: n_layers}
@@ -5317,9 +5577,11 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
              f"{loss_err:.3g} > {TRAIN_LOSS_RTOL} or a leaf's gradient "
              f"{sound:.3g} > {TRAIN_GRAD_RTOL} of its norm, or no gradient "
              f"in {zero}")
-    if not control > TRAIN_GRAD_RTOL:
+    if not control > TRAIN_GRAD_RTOL or not all(
+            math.isfinite(x) for e in cerrs.values() for x in e):
         fail(f"phase {ph} control ({spec['control_label']}): worst leaf "
-             f"{control:.3g} <= {TRAIN_GRAD_RTOL}: the gate does not see it")
+             f"{control:.3g} <= {TRAIN_GRAD_RTOL}, or a leaf's reading is "
+             "not finite: the gate does not see it")
     log(f"phase {ph} step 0: against {gate_run} worst leaf {sound:.3g} <= "
         f"{TRAIN_GRAD_RTOL} < control {control:.3g}, loss {loss_err:.3g} "
         f"<= {TRAIN_LOSS_RTOL}"
@@ -5413,12 +5675,13 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
              f"{HEAD_RTOL}) or its pointer differs")
     peak = torch.cuda.max_memory_allocated(dev)
     steady = statistics.median(step_ms[1:])
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    log(f"phase {ph} {TRAIN_STEPS} steps: losses "
-        + ", ".join(f"{r['loss']:.4f}" for r in rows)
+    tokens = t_batch * t_seq
+    log(f"phase {ph} {TRAIN_STEPS} steps (B {t_batch}, S {t_seq}): losses "
+        + ", ".join(f"{r['loss']:.6g} (lm {r['lm_loss']:.6g}, probe "
+                    f"{r['probe_loss']:.6g})" for r in rows)
         + f" (finite); step ms " + ", ".join(f"{ms:.1f}" for ms in step_ms)
         + f" (the first warms up, the last profiled); steady "
-        f"{steady:.1f} ms, {tokens / (steady * 1e-3):.1f} tokens/s; "
+        f"{steady:.1f} ms, {tokens / (steady * 1e-3):.1f} {unit}/s; "
         f"launches a step exactly {spec['fwd']} {2 * n_layers} ({n_layers} "
         f"+ {n_layers} under remat, routes {want_fwd}) and {spec['bwd']} "
         f"{n_layers}" + ("" if want_bwd is None else f" (routes {want_bwd})")
@@ -5437,12 +5700,207 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
         launches["bwd_routes"] = {r: n * TRAIN_STEPS
                                   for r, n in want_bwd.items()}
     return dict(rows=rows, step_ms=step_ms, steady_ms=steady,
-                tokens_per_s=tokens / (steady * 1e-3), peak_bytes=peak,
+                tokens_per_s=tokens / (steady * 1e-3), unit=unit,
+                peak_bytes=peak,
                 loss_err=loss_err, grad_err=sound,
                 plain_grad_err=max(e[1] for e in errs.values()),
                 control=control,
                 head_err=head_err, parts=parts, launches=launches,
                 seconds=seconds)
+
+
+# ---------------------------------------------------------------- phase 31 --
+
+ENCODER_ARCH = "hubert-xlarge"
+# The encoder's kernels in a profile: the flash routes and cuBLAS.
+ENCODER_PARTS = {**FLASH_PARTS, **CUBLAS_PARTS}
+ENCODER_REPS = 5
+
+
+def encoder_card_cpu(seed: int, dev, ph: int) -> dict:
+    """The reduced hubert-xlarge (float32) with the same weights, mask_emb
+    drawn, on the card and on the CPU: `encode`'s logits at every position
+    and `prefill`'s last-position logits and cache over B 2 x 200 frames
+    with a 30 % mask, each by max |diff| over max |value| <=
+    CARD_CPU_RTOL."""
+    import torch
+    from repro_torch.interop import kv_cache_to_numpy
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import make_encode_step, make_prefill_step
+    from repro_torch.models import LM, init_params
+    cfg = train_mod.train_config(ENCODER_ARCH, reduced=True)
+    cpu_model = init_params(cfg, seed=seed, device="cpu")
+    wake_inert_leaves(cpu_model, seed)
+    card_model = LM(cfg, _to_device(cpu_model.tree(), dev))
+    batch = next(train_mod.batches_for(cfg, CARD_CPU_PROMPT, 2, seed=seed))
+    runs = {}
+    for name, model, d in (("cpu", cpu_model, torch.device("cpu")),
+                           ("card", card_model, dev)):
+        feats = torch.as_tensor(batch["features"], device=d)
+        mask = torch.as_tensor(batch["mask"], device=d)
+        logits = make_encode_step(cfg)(model, feats, mask).cpu()
+        last, cache = make_prefill_step(cfg)(model, feats)
+        runs[name] = (logits, last.cpu(), kv_cache_to_numpy(cache))
+    (lc, pc, cc), (lk, pk, ck) = runs["cpu"], runs["card"]
+    errs = [rel_err(lk, lc), rel_err(pk, pc)]
+    leaf_errs = {k: float(np.abs(ck[k] - cc[k]).max()
+                          / max(np.abs(cc[k]).max(), 1e-30)) for k in cc}
+    worst_leaf = max(leaf_errs, key=leaf_errs.get)
+    if set(ck) != set(cc) or not max(errs) <= CARD_CPU_RTOL \
+            or not leaf_errs[worst_leaf] <= CARD_CPU_RTOL:
+        fail(f"{ENCODER_ARCH} reduced card vs CPU: encode {errs[0]:.3g}, "
+             f"prefill {errs[1]:.3g}, worst cache leaf {worst_leaf} "
+             f"{leaf_errs[worst_leaf]:.3g} > {CARD_CPU_RTOL}")
+    log(f"phase {ph} {ENCODER_ARCH} reduced ({cfg.num_layers} layer, "
+        f"d_model {cfg.d_model}, float32, TF32 off) card vs the port's CPU "
+        f"run of the same weights, B 2 x {CARD_CPU_PROMPT} frames: encode "
+        f"logits {errs[0]:.3g}, prefill's last position {errs[1]:.3g}, "
+        f"{len(cc)} cache leaves, worst {worst_leaf} "
+        f"{leaf_errs[worst_leaf]:.3g}, all <= {CARD_CPU_RTOL} of max "
+        "|value|: PASS")
+    return dict(encode=errs[0], prefill=errs[1],
+                worst_leaf=leaf_errs[worst_leaf])
+
+
+def encoder_phase(dev, seed: int, card: str) -> dict:
+    """Phase 31: hubert-xlarge's encoder forward at its published width,
+    bf16, through `launch.steps.make_encode_step` (every position's
+    logits) over ENCODER_BATCH x ENCODER_SEQ frames of `batches_for`'s
+    features and mask (mask_emb drawn from the seed): launches and routes
+    (one sm90 call a layer, no other kernel), frames/s, device time by
+    kernel; the logits against the plain run (ops.mha patched to
+    ref.mha_ref) at max(SERVE_RTOL, NOISE_FACTOR x a second plain
+    attention's distance); `make_prefill_step`'s last position against
+    the encoder's unmasked run; a float32 run at SERVE_F32_RTOL; and the
+    reduced config on the card against the CPU."""
+    from unittest import mock
+    import torch
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import make_encode_step, make_prefill_step
+    from repro_torch.models import init_params
+    ph = 31
+    t_phase = time.perf_counter()
+    cfg = train_mod.train_config(ENCODER_ARCH, reduced=False)
+    b, s = ENCODER_BATCH, ENCODER_SEQ
+    model = init_params(cfg, seed=seed, device=dev)
+    woken = wake_inert_leaves(model, seed)
+    batch = next(train_mod.batches_for(cfg, s, b, seed=seed + 1))
+    feats = torch.as_tensor(batch["features"], device=dev)
+    mask = torch.as_tensor(batch["mask"], device=dev)
+    sync(dev)
+    log(f"phase {ph} {ENCODER_ARCH}: {model.num_params() / 1e6:.1f}M "
+        f"parameters ({cfg.num_layers} layers, d_model {cfg.d_model}, hd "
+        f"{cfg.head_dim}, {cfg.dtype}); {', '.join(woken)} drawn from the "
+        f"seed; B {b} x {s} frames, {int(mask.sum())} masked")
+    encode = make_encode_step(cfg)
+    encode(model, feats[:, :128], mask[:, :128])          # warm up
+    ops.reset_launch_counts()
+    logits = encode(model, feats, mask)
+    sync(dev)
+    counts, routes = ops.launch_counts(), k_flash.route_counts()
+    n = cfg.num_layers
+    want_r = {"sm90": n, "split": 0, "simt": 0}
+    if counts["flash_attention"] != n or routes != want_r \
+            or any(c for k, c in counts.items() if k != "flash_attention"):
+        fail(f"phase {ph} {ENCODER_ARCH}: launches {counts}, routes "
+             f"{routes}; want flash_attention {n}, routes {want_r}")
+    if tuple(logits.shape) != (b, s, cfg.vocab_size) \
+            or logits.dtype != torch.float32 \
+            or not bool(torch.isfinite(logits).all()):
+        fail(f"phase {ph} {ENCODER_ARCH}: logits of shape "
+             f"{tuple(logits.shape)} and dtype {logits.dtype}, or not "
+             "finite")
+    secs = []
+    for _ in range(ENCODER_REPS):
+        sync(dev)
+        t0 = time.perf_counter()
+        encode(model, feats, mask)
+        sync(dev)
+        secs.append(time.perf_counter() - t0)
+    steady = statistics.median(secs)
+    frames_s = b * s / steady
+    prof = serve_profile(lambda: (encode(model, feats, mask), sync(dev)),
+                         f"encoder (B {b}, S {s})", ENCODER_PARTS, ph)
+    log(f"phase {ph} encoder forward: {steady * 1e3:.2f} ms a call (median "
+        f"of {ENCODER_REPS}, host clock), {frames_s:.1f} frames/s; launches "
+        f"a call flash_attention {n}, routes {routes} (hd {cfg.head_dim} "
+        f"at {k_flash.sm90_width(cfg.head_dim)} columns); card {card}")
+    # prefill: the last position and the cache, no frame masked
+    ops.reset_launch_counts()
+    last, cache = make_prefill_step(cfg)(model, feats)
+    unmasked = encode(model, feats)
+    sync(dev)
+    leaves = [t for c in cache.values() for kv in c.values() for t in kv]
+    e_prefill = rel_err(last, unmasked[:, -1:])
+    if k_flash.route_counts()["sm90"] != 2 * n \
+            or tuple(last.shape) != (b, 1, cfg.vocab_size) \
+            or any(tuple(t.shape) != (n, b, s, cfg.num_kv_heads,
+                                      cfg.head_dim) for t in leaves) \
+            or not e_prefill <= SERVE_RTOL:
+        fail(f"phase {ph} prefill: routes {k_flash.route_counts()}, last "
+             f"logits {tuple(last.shape)}, cache "
+             f"{[tuple(t.shape) for t in leaves]}, against the encoder's "
+             f"last position {e_prefill:.3g} > {SERVE_RTOL}")
+    del cache, leaves, unmasked
+    # the plain run, and a second plain attention for the bf16 noise
+    ops.reset_launch_counts()
+    with mock.patch.object(ops, "mha", ref.mha_ref):
+        plain = encode(model, feats, mask)
+    with mock.patch.object(ops, "mha", mha_dense_plain):
+        second = encode(model, feats, mask)
+    if ops.launch_counts()["flash_attention"]:
+        fail(f"phase {ph}: the plain runs launched the kernel")
+    noise = rel_err(second, plain)
+    tol = max(SERVE_RTOL, NOISE_FACTOR * noise)
+    err = rel_err(logits, plain)
+    if not err <= tol or not bool(torch.isfinite(plain).all()):
+        fail(f"phase {ph} {ENCODER_ARCH}: kernel against plain logits "
+             f"{err:.3g} > {tol:.3g} of max|logits| (the second plain "
+             f"attention {noise:.3g} from the first)")
+    gate = "SERVE_RTOL" if tol == SERVE_RTOL else \
+        f"{NOISE_FACTOR} x the two plain runs' distance"
+    log(f"phase {ph} {ENCODER_ARCH}: every position's logits against the "
+        f"plain mha run on the same weights, max |diff| / max|logits| "
+        f"(max|logits| {float(plain.abs().max()):.3g}): {err:.3g} <= "
+        f"{tol:.3g} ({gate}; the second plain attention, "
+        f"mha_dense_plain, {noise:.3g} from mha_ref); prefill's last "
+        f"position against the unmasked encoder's {e_prefill:.3g}: PASS")
+    del plain, second, logits
+    # float32, every layer
+    tree = model.tree()
+    del model
+    torch.cuda.empty_cache()
+    model32, cfg32, keep, _ = float32_model(tree, cfg)
+    del tree
+    encode32 = make_encode_step(cfg32)
+    ops.reset_launch_counts()
+    lk = encode32(model32, feats, mask)
+    if k_flash.route_counts() != {"sm90": 0, "split": 0,
+                                  "simt": cfg32.num_layers}:
+        fail(f"phase {ph} float32: routes {k_flash.route_counts()}, want "
+             f"simt {cfg32.num_layers}")
+    with mock.patch.object(ops, "mha", ref.mha_ref):
+        lp = encode32(model32, feats, mask)
+    e32 = rel_err(lk, lp)
+    if not e32 <= SERVE_F32_RTOL or not bool(torch.isfinite(lk).all()):
+        fail(f"phase {ph} float32: kernel against plain logits {e32:.3g} > "
+             f"{SERVE_F32_RTOL} of max|logits|")
+    log(f"phase {ph} {ENCODER_ARCH} float32 encoder (B {b}, S {s}, TF32 "
+        f"off, {cfg32.num_layers} layers, {cfg32.num_layers} simt "
+        f"launches): kernel against plain within {e32:.3g} of max|logits| "
+        f"<= {SERVE_F32_RTOL}: PASS")
+    del model32, lk, lp
+    torch.cuda.empty_cache()
+    card_cpu = encoder_card_cpu(seed, dev, ph)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase {ph}: {seconds:.1f} s")
+    return dict(counts=counts, routes=routes, steady_ms=steady * 1e3,
+                frames_per_s=frames_s, err=err, tol=tol, noise=noise,
+                prefill_err=e_prefill, e32=e32,
+                profile={k: v for k, v in prof.items() if k != "top"},
+                card_vs_cpu=card_cpu, seconds=seconds)
 
 
 # ------------------------------------------------------------- resources --
@@ -6111,6 +6569,13 @@ def main() -> None:
     mark(t_smoke, "24")
     rwkv_train = train_phase(dev, args.seed, card, "rwkv6-3b")
     mark(t_smoke, "25")
+    # phase 31: hubert-xlarge's encoder forward at full width; 32: its
+    # training
+    encoder = encoder_phase(dev, args.seed, card)
+    torch.cuda.empty_cache()
+    mark(t_smoke, "31")
+    hubert_train = train_phase(dev, args.seed, card, ENCODER_ARCH)
+    mark(t_smoke, "32")
 
     kernels = []
     info["lstsq_grad"]["args"] = grad_inputs(dev, args.seed)
@@ -6213,9 +6678,14 @@ def main() -> None:
         a: dict(r["routes"], float32_prefill_simt=r["f32_launches"])
         for a, r in hybrid.items()}
     flash["hybrid_shapes"] = flash_hybrid_times(dev)
+    flash["hubert_launches"] = {
+        "encoder": encoder["routes"],
+        "train": hubert_train["launches"]["fwd_routes"]}
     kernels.append(flash_bwd_times(
         info["flash_attention_bwd"], train["launches"]["bwd_routes"], dev))
     del info["flash_attention_bwd"]
+    kernels[-1]["shapes"] = flash_bwd_shape_times(
+        dev, hubert_train["launches"]["bwd_routes"])
     wkv = kernels[[k["name"] for k in kernels].index("rwkv6_scan")]
     wkv["routes"] = rwkv_times(info["rwkv6_scan"], rw["routes"])
     wkv["train_launches"] = rwkv_train["launches"]["fwd_routes"]
@@ -6239,6 +6709,9 @@ def main() -> None:
                                   if k != "rows"}))
     log("training rwkv6-3b " + json.dumps({k: v for k, v in rwkv_train.items()
                                            if k != "rows"}))
+    log("encoder hubert-xlarge " + json.dumps(encoder))
+    log("training hubert-xlarge " + json.dumps(
+        {k: v for k, v in hubert_train.items() if k != "rows"}))
     log("dense serves " + json.dumps({a: {k: r[k] for k in (
         "prefill_tps", "decode_tps", "errs", "e32", "tol", "f32_layers")}
         for a, r in dense.items()}))

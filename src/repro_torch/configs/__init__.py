@@ -19,6 +19,7 @@ _MODULES = {
     "gemma3-12b": "repro_torch.configs.gemma3_12b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "llama-3.2-vision-11b": "repro_torch.configs.llama_3_2_vision_11b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
 }
 
 # Archs of the reference that the port does not serve yet, with the item of
@@ -26,7 +27,6 @@ _MODULES = {
 _PENDING = {
     "deepseek-v3-671b": "MLA attention and the MoE FFN",
     "dbrx-132b": "the MoE FFN",
-    "hubert-xlarge": "the audio encoder",
 }
 
 ARCH_NAMES = tuple(_MODULES) + tuple(_PENDING)

@@ -6,9 +6,10 @@
 // online-softmax `mha` (src/repro/models/attention.py:52), which
 // jax.value_and_grad differentiates, and has no Pallas backward.  This is
 // the port's own gradient of the flash-attention kernel's function
-// (src/repro/kernels/flash_attention.py:96), for the bf16 calls at hd 64,
-// 128 and 256 that the forward's sm90 route takes; csrc/flash_attention_
-// bwd.cu (CUDA cores) takes float32 and the other head dims.
+// (src/repro/kernels/flash_attention.py:96), for the bf16 calls at every hd
+// that is a multiple of 8 up to 256, the calls the forward's sm90 route
+// takes; csrc/flash_attention_bwd.cu (CUDA cores) takes float32 and bf16 at
+// an hd that is not a multiple of 8.
 //
 // It computes what csrc/flash_attention_bwd.cu computes (see its header):
 // q (B, Sq, H, hd); k, v (B, Skv, Hkv, hd); o, dO (B, Sq, H, hd); query
@@ -74,14 +75,28 @@
 // tiles first under the causal mask (the last query tiles for lse and dQ,
 // the first key tiles for dK/dV).
 //
+// Every kernel computes at HP, hd rounded up to 64, 128, 192 or 256
+// (`launch`'s switch; kernels/flash_attention.py :: sm90_width, the
+// forward's widths), as csrc/flash_attention_sm90.cu does: the tensor maps
+// are built at the real hd, so the row strides are the tensors' own and the
+// 64-column boxes past hd arrive as zeros (their bytes still count toward
+// the barriers' transactions; a box wider than the row, hd 8 to 56, too).
+// Zero columns of Q, K, V and dO add nothing to S, dP or D, and give zero
+// columns of dQ, dK and dV, which the epilogues never store: they write the
+// hd / 8 real 8-column chunks of a row at the tensors' strides.  D sums
+// over the real hd only.  The scale is the caller's, 1 / sqrt(hd), never
+// 1 / sqrt(HP).  The padded work is HP / hd of the function's (128 / 80 at
+// hubert-xlarge's hd 80, 128 / 112 at zamba2-7b's hd 112).
+//
 // Registers and shared memory a block at hd 256 (ptxas: 168 registers a
 // thread at launch in each kernel, no spills; setmaxnreg then gives each
 // consumer thread 240): lse holds 32 + 4 accumulator registers a consumer
 // thread and 132136 bytes of dynamic shared memory; dq 128 (dQ) + 2 x 16
 // (S, dP), 197688 bytes; dkdv 128 (dV or dK) + 32 (S^T or dP^T) + 16 (bf16
-// fragments), 215080 bytes of the 232448 a block may have.  At the
-// training shape each kernel has 256 blocks on 132 SMs: two waves, the
-// second one short of work under the causal mask.
+// fragments), 215080 bytes of the 232448 a block may have (at HP 192: 99368,
+// 148536 and 165928 bytes, 96-register accumulators).  At the training shape
+// each kernel has 256 blocks on 132 SMs: two waves, the second one short of
+// work under the causal mask.
 #include <math.h>
 
 #include "sm90_wgmma.cuh"
@@ -111,7 +126,7 @@ struct Params {
   __nv_bfloat16* dv;
   float* lse;     // (B, H, sq_pad): each row's log-sum-exp, log2 units
   float* dsum;    // (B, H, sq_pad): each row's D
-  int b, sq, skv, h, hkv, causal, window, q_offset, kv_len, sq_pad;
+  int b, sq, skv, h, hkv, hd, causal, window, q_offset, kv_len, sq_pad;
   float cap, scale;
 };
 
@@ -189,12 +204,15 @@ __device__ __forceinline__ bool interior(const Params& p, int k0, int bk,
          (p.window == 0 || k0 > last - p.window);
 }
 
-// Writes a 64 x HD float32 accumulator (rows row0 and row0 + 8 of this
-// thread, `rows` valid) times `mul` as bf16 rows of `out` + row * stride.
-template <int HD>
-__device__ __forceinline__ void store_rows(const float (&acc)[HD / 2],
+// Writes the first hd columns of a 64 x HP float32 accumulator (rows row0
+// and row0 + 8 of this thread, `rows` valid) times `mul` as bf16 rows of
+// `out` + row * stride.  The 8-column chunks at or past hd hold the zero
+// columns of the padded operand and would land in the next head's row; hd
+// is a multiple of 8, so no chunk straddles it.
+template <int HP>
+__device__ __forceinline__ void store_rows(const float (&acc)[HP / 2],
                                            __nv_bfloat16* out, int row0,
-                                           int rows, size_t stride,
+                                           int rows, size_t stride, int hd,
                                            float mul, int lane) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -202,18 +220,19 @@ __device__ __forceinline__ void store_rows(const float (&acc)[HD / 2],
     if (row >= rows) continue;
     __nv_bfloat16* dst = out + (size_t)row * stride;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + j * 8 + 2 * (lane % 4)) =
-          __floats2bfloat162_rn(acc[j * 4 + 2 * i] * mul,
-                                acc[j * 4 + 2 * i + 1] * mul);
+    for (int j = 0; j < HP / 8; ++j)
+      if (j * 8 < hd)
+        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8 + 2 * (lane % 4)) =
+            __floats2bfloat162_rn(acc[j * 4 + 2 * i] * mul,
+                                  acc[j * 4 + 2 * i + 1] * mul);
   }
 }
 
 // ------------------------------------------------------------- 1. lse, D
 
-template <int HD>
+template <int HP>
 struct LseLayout {
-  static constexpr int CH = HD / 64;                 // boxes a row
+  static constexpr int CH = HP / 64;                 // boxes a row
   static constexpr int Q_BYTES = 2 * CH * BOX64;
   static constexpr int K_BYTES = CH * BOX64;         // one K tile
   static constexpr int K_OFF = Q_BYTES;
@@ -221,11 +240,11 @@ struct LseLayout {
   static constexpr int ALLOC = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
 };
 
-template <int HD>
+template <int HP>
 __global__ void __launch_bounds__(THREADS, 1)
 fa_bwd_sm90_lse(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk, Params p) {
-  using L = LseLayout<HD>;
+  using L = LseLayout<HP>;
   constexpr int CH = L::CH;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -288,17 +307,17 @@ fa_bwd_sm90_lse(const __grid_constant__ CUtensorMap tq,
   const float inv_cap = p.cap > 0.0f ? 1.0f / p.cap : 0.0f;
   const size_t stat0 = ((size_t)b * p.h + head) * p.sq_pad;
 
-  // D = rowsum(dO * O): two threads a row, half of hd each, then the pair
+  // D = rowsum(dO * O) over the real hd columns: two threads a row, the
+  // even and the odd 8-column chunks, then the pair
   {
     const int r = q0 + c * BM + tid / 2, half = tid % 2;
     float d = 0.0f;
     if (r < p.sq) {
-      const size_t off =
-          (((size_t)b * p.sq + r) * p.h + head) * HD + half * (HD / 2);
+      const size_t off = (((size_t)b * p.sq + r) * p.h + head) * p.hd;
       const uint4* a = reinterpret_cast<const uint4*>(p.dout + off);
       const uint4* o = reinterpret_cast<const uint4*>(p.o + off);
 #pragma unroll 4
-      for (int i = 0; i < HD / 16; ++i) {
+      for (int i = half; i < p.hd / 8; i += 2) {
         const uint4 x = a[i], y = o[i];
         const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
         const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&y);
@@ -331,7 +350,7 @@ fa_bwd_sm90_lse(const __grid_constant__ CUtensorMap tq,
       fence_acc(sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
+      for (int kk = 0; kk < HP / 16; ++kk)
         wgmma_ss(sc, desc_at(q_desc, (kk / 4) * BOX64 + (kk % 4) * 32),
                  desc_at(k_desc, (kk / 4) * BOX64 + (kk % 4) * 32), kk > 0);
       wgmma_commit();
@@ -387,9 +406,9 @@ fa_bwd_sm90_lse(const __grid_constant__ CUtensorMap tq,
 
 // ------------------------------------------------------------------ 2. dQ
 
-template <int HD>
+template <int HP>
 struct DqLayout {
-  static constexpr int CH = HD / 64;
+  static constexpr int CH = HP / 64;
   static constexpr int Q_BYTES = 2 * CH * BOX64;     // Q (or dO) of a block
   static constexpr int KV_BYTES = CH * BOX32;        // one K or V tile
   static constexpr int DO_OFF = Q_BYTES;
@@ -399,13 +418,13 @@ struct DqLayout {
   static constexpr int ALLOC = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
 };
 
-template <int HD>
+template <int HP>
 __global__ void __launch_bounds__(THREADS, 1)
 fa_bwd_sm90_dq(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                const __grid_constant__ CUtensorMap tdo, Params p) {
-  using L = DqLayout<HD>;
+  using L = DqLayout<HP>;
   constexpr int CH = L::CH;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -481,9 +500,9 @@ fa_bwd_sm90_dq(const __grid_constant__ CUtensorMap tq,
   const float dd[2] = {p.dsum[stat0 + row0], p.dsum[stat0 + row0 + 8]};
 
   // dQ: 8-column chunk j of the 64 x hd tile in acc[4 j .. 4 j + 3]
-  float acc[HD / 2];
+  float acc[HP / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < HP / 2; ++i) acc[i] = 0.0f;
 
   mbar_wait(q_full, 0);
   const uint64_t q_desc = sw128_desc(q_s + c * CH * BOX64, 16, 1024);
@@ -505,11 +524,11 @@ fa_bwd_sm90_dq(const __grid_constant__ CUtensorMap tq,
       fence_acc(dp);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
+      for (int kk = 0; kk < HP / 16; ++kk)
         wgmma_ss(sc, desc_at(q_desc, (kk / 4) * BOX64 + (kk % 4) * 32),
                  desc_at(k_desc, (kk / 4) * BOX32 + (kk % 4) * 32), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
+      for (int kk = 0; kk < HP / 16; ++kk)
         wgmma_ss(dp, desc_at(do_desc, (kk / 4) * BOX64 + (kk % 4) * 32),
                  desc_at(v_desc, (kk / 4) * BOX32 + (kk % 4) * 32), kk > 0);
       wgmma_commit();
@@ -551,15 +570,16 @@ fa_bwd_sm90_dq(const __grid_constant__ CUtensorMap tq,
     }
     mbar_arrive(empty + 8 * s);
   }
-  store_rows<HD>(acc, p.dq + (size_t)b * p.sq * p.h * HD + (size_t)head * HD,
-                 row0, p.sq, (size_t)p.h * HD, p.scale, lane);
+  store_rows<HP>(acc,
+                 p.dq + (size_t)b * p.sq * p.h * p.hd + (size_t)head * p.hd,
+                 row0, p.sq, (size_t)p.h * p.hd, p.hd, p.scale, lane);
 }
 
 // -------------------------------------------------------------- 3. dK, dV
 
-template <int HD>
+template <int HP>
 struct KvLayout {
-  static constexpr int CH = HD / 64;
+  static constexpr int CH = HP / 64;
   static constexpr int TILE = CH * BOX64;            // 64 rows of K, V, Q, dO
   static constexpr int K_OFF = 0;
   static constexpr int V_OFF = TILE;
@@ -570,13 +590,13 @@ struct KvLayout {
   static constexpr int ALLOC = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
 };
 
-template <int HD>
+template <int HP>
 __global__ void __launch_bounds__(THREADS, 1)
 fa_bwd_sm90_dkdv(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  const __grid_constant__ CUtensorMap tdo, Params p) {
-  using L = KvLayout<HD>;
+  using L = KvLayout<HP>;
   constexpr int CH = L::CH;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -652,9 +672,9 @@ fa_bwd_sm90_dkdv(const __grid_constant__ CUtensorMap tq,
   float* const xbuf = reinterpret_cast<float*>(gbase + L::X_OFF);
 
   // dV (warpgroup 0) or dK (1): chunk j of the 64 x hd tile in acc[4 j ..]
-  float acc[HD / 2];
+  float acc[HP / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < HP / 2; ++i) acc[i] = 0.0f;
 
   if (items > 0) {
     mbar_wait(kv_full, 0);
@@ -678,7 +698,7 @@ fa_bwd_sm90_dkdv(const __grid_constant__ CUtensorMap tq,
       fence_acc(sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
+      for (int kk = 0; kk < HP / 16; ++kk)
         wgmma_ss(sc, desc_at(a_desc, (kk / 4) * BOX64 + (kk % 4) * 32),
                  desc_at(b_desc, (kk / 4) * BOX64 + (kk % 4) * 32), kk > 0);
       wgmma_commit();
@@ -748,57 +768,58 @@ fa_bwd_sm90_dkdv(const __grid_constant__ CUtensorMap tq,
     }
     if (c == 0) bar_sync(BAR_EMPTY, 256);   // the last hand-over's release
   }
-  store_rows<HD>(acc,
-                 (c == 0 ? p.dv : p.dk) + (size_t)b * p.skv * p.hkv * HD +
-                     (size_t)kh * HD,
-                 key0, p.skv, (size_t)p.hkv * HD, c == 0 ? 1.0f : p.scale,
-                 lane);
+  store_rows<HP>(acc,
+                 (c == 0 ? p.dv : p.dk) + (size_t)b * p.skv * p.hkv * p.hd +
+                     (size_t)kh * p.hd,
+                 key0, p.skv, (size_t)p.hkv * p.hd, p.hd,
+                 c == 0 ? 1.0f : p.scale, lane);
 }
 
-template <int HD>
+template <int HP>
 int launch(const void* q, const void* k, const void* v, const Params& p,
            cudaStream_t stream) {
   // runtime calls first: they bind the device's context to this thread
   // (autograd runs the backward on a thread of its own), which the
   // driver's tensor-map encoder then finds
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(fa_bwd_sm90_lse<HD>,
+  if ((err = cudaFuncSetAttribute(fa_bwd_sm90_lse<HP>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  LseLayout<HD>::ALLOC)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(fa_bwd_sm90_dq<HD>,
+                                  LseLayout<HP>::ALLOC)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(fa_bwd_sm90_dq<HP>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  DqLayout<HD>::ALLOC)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(fa_bwd_sm90_dkdv<HD>,
+                                  DqLayout<HP>::ALLOC)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(fa_bwd_sm90_dkdv<HP>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  KvLayout<HD>::ALLOC)) != cudaSuccess)
+                                  KvLayout<HP>::ALLOC)) != cudaSuccess)
     return (int)err;
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
+  // the maps at the real hd: the boxes past it read as zeros
   CUtensorMap tq, tdo, tk64, tv64, tk32, tv32;
-  if (!make_map(&tq, enc, q, p.b, p.sq, p.h, HD, BM) ||
-      !make_map(&tdo, enc, p.dout, p.b, p.sq, p.h, HD, BM) ||
-      !make_map(&tk64, enc, k, p.b, p.skv, p.hkv, HD, 64) ||
-      !make_map(&tv64, enc, v, p.b, p.skv, p.hkv, HD, 64) ||
-      !make_map(&tk32, enc, k, p.b, p.skv, p.hkv, HD, DQ_BK) ||
-      !make_map(&tv32, enc, v, p.b, p.skv, p.hkv, HD, DQ_BK))
+  if (!make_map(&tq, enc, q, p.b, p.sq, p.h, p.hd, BM) ||
+      !make_map(&tdo, enc, p.dout, p.b, p.sq, p.h, p.hd, BM) ||
+      !make_map(&tk64, enc, k, p.b, p.skv, p.hkv, p.hd, 64) ||
+      !make_map(&tv64, enc, v, p.b, p.skv, p.hkv, p.hd, 64) ||
+      !make_map(&tk32, enc, k, p.b, p.skv, p.hkv, p.hd, DQ_BK) ||
+      !make_map(&tv32, enc, v, p.b, p.skv, p.hkv, p.hd, DQ_BK))
     return (int)cudaErrorInvalidValue;
   const dim3 gq(p.b * p.h, p.sq_pad / ROWS);
   const dim3 gk(p.b * p.hkv, (p.skv + KV_BK - 1) / KV_BK);
-  fa_bwd_sm90_lse<HD><<<gq, THREADS, LseLayout<HD>::ALLOC, stream>>>(tq, tk64,
+  fa_bwd_sm90_lse<HP><<<gq, THREADS, LseLayout<HP>::ALLOC, stream>>>(tq, tk64,
                                                                      p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  fa_bwd_sm90_dq<HD><<<gq, THREADS, DqLayout<HD>::ALLOC, stream>>>(
+  fa_bwd_sm90_dq<HP><<<gq, THREADS, DqLayout<HP>::ALLOC, stream>>>(
       tq, tk32, tv32, tdo, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  fa_bwd_sm90_dkdv<HD><<<gk, THREADS, KvLayout<HD>::ALLOC, stream>>>(
+  fa_bwd_sm90_dkdv<HP><<<gk, THREADS, KvLayout<HP>::ALLOC, stream>>>(
       tq, tk64, tv64, tdo, p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// bfloat16 q, k, v, o, dout, dq, dk, dv (16-byte aligned), hd 64, 128 or
-// 256.  lse and dsum are (B, H, sq_pad) float32 scratch that the wrapper
+// bfloat16 q, k, v, o, dout, dq, dk, dv (16-byte aligned), hd a multiple of
+// 8 up to 256, computed at the next multiple of 64.  lse and dsum are (B, H, sq_pad) float32 scratch that the wrapper
 // allocates, sq_pad = Sq rounded up to a multiple of 128 (each is written
 // whole by the first kernel).  window 0 and cap 0 mean none.  Returns
 // cudaGetLastError() after the launches (a refused launch is never silent).
@@ -810,21 +831,22 @@ extern "C" int flash_attention_bwd_sm90_launch(
   const int sq_pad = (sq + ROWS - 1) / ROWS * ROWS;
   if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || h % hkv != 0 ||
       kv_len < 0 || kv_len > skv || window < 0 || q_offset < 0 ||
-      sq_pad / ROWS > 65535 || (skv + KV_BK - 1) / KV_BK > 65535)
+      sq_pad / ROWS > 65535 || (skv + KV_BK - 1) / KV_BK > 65535 ||
+      hd <= 0 || hd > 256 || hd % 8 != 0)
     return (int)cudaErrorInvalidValue;
   Params p{(const __nv_bfloat16*)o, (const __nv_bfloat16*)dout,
            (__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
-           lse, dsum, b, sq, skv, h, hkv, causal, window, q_offset, kv_len,
-           sq_pad, cap, scale};
+           lse, dsum, b, sq, skv, h, hkv, hd, causal, window, q_offset,
+           kv_len, sq_pad, cap, scale};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (hd) {
-    case 64:
+  switch ((hd + 63) / 64) {
+    case 1:
       return launch<64>(q, k, v, p, s);
-    case 128:
+    case 2:
       return launch<128>(q, k, v, p, s);
-    case 256:
-      return launch<256>(q, k, v, p, s);
+    case 3:
+      return launch<192>(q, k, v, p, s);
     default:
-      return (int)cudaErrorInvalidValue;
+      return launch<256>(q, k, v, p, s);
   }
 }

@@ -61,8 +61,9 @@ def softmax_scale(hd: int) -> float:
 
 
 def sm90_width(hd: int) -> int:
-    """The width the sm90 kernel computes a head at: hd rounded up to a
-    multiple of 64 (csrc/flash_attention_sm90.cu's HP)."""
+    """The width the sm90 kernels compute a head at: hd rounded up to a
+    multiple of 64 (the HP of csrc/flash_attention_sm90.cu and of
+    csrc/flash_attention_bwd_sm90.cu, forward and backward alike)."""
     return -(-hd // 64) * 64
 
 

@@ -8,15 +8,18 @@ same bits run to run.  Two routes compute that function; the choice
 between them (`route`) is about speed only:
 
 - `sm90` (`csrc/flash_attention_bwd_sm90.cu`): tensor cores (wgmma) fed by
-  TMA, for bfloat16 with hd 64, 128 or 256 (SM90_HEAD_DIMS: the training
-  path; the forward's sm90 route also takes the other multiples of 8, whose
-  gradients stay on simt).  Three kernels: each row's log-sum-exp
-  and D = rowsum(dO * O), then dq a query tile, then dk and dv a key tile.
+  TMA, for bfloat16 with hd a multiple of 8 up to 256 (the training path):
+  the calls the forward's sm90 route takes (`flash_attention.accepts`),
+  computed at the forward's width `flash_attention.sm90_width(hd)` (64,
+  128, 192 or 256) with the columns past hd zero-filled by TMA and never
+  stored, and the scale taken at the real hd.  Three kernels: each row's
+  log-sum-exp and D = rowsum(dO * O), then dq a query tile, then dk and dv
+  a key tile.
   P and dS are rounded to bf16 where they feed a product; its plain
   version is `ref.mha_bwd_ref(..., p_dtype=torch.bfloat16)`;
 - `simt` (`csrc/flash_attention_bwd.cu`): the CUDA cores in float32, for
-  everything else (float32, other head dims); its plain version is
-  `ref.mha_bwd_ref`.
+  everything else (float32, bf16 at an hd that is not a multiple of 8);
+  its plain version is `ref.mha_bwd_ref`.
 
 Neither replaces a TPU kernel (the reference differentiates its jnp `mha`
 and has no Pallas backward).  The inputs are the forward's: q (B, Sq, H,
@@ -36,6 +39,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as _forward
 from repro_torch.kernels.flash_attention import (_DTYPES, check_call,
                                                  softmax_scale)
 
@@ -43,7 +47,6 @@ launches = 0
 launches_sm90 = 0
 launches_simt = 0
 ROUTES = ("sm90", "simt")
-SM90_HEAD_DIMS = (64, 128, 256)    # csrc/flash_attention_bwd_sm90.cu's HD
 SM90_ROWS = 128            # csrc/flash_attention_bwd_sm90.cu's ROWS
 
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float] \
@@ -57,8 +60,8 @@ def accepts(name: str, dtype: torch.dtype, sq: int, h: int, hkv: int,
             hd: int) -> bool:
     """Whether route `name` takes a backward of this dtype and these
     shapes."""
-    if name == "sm90":
-        return dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS
+    if name == "sm90":       # the forward's sm90 calls, at its widths
+        return _forward.accepts("sm90", dtype, sq, h, hkv, hd)
     if name == "simt":
         return True
     raise ValueError(f"flash_attention_bwd: unknown route {name!r}; the "
@@ -67,9 +70,9 @@ def accepts(name: str, dtype: torch.dtype, sq: int, h: int, hkv: int,
 
 def route(dtype: torch.dtype, b: int, sq: int, skv: int, h: int, hkv: int,
           hd: int, kv_len: int) -> str:
-    """`sm90` for bfloat16 at hd 64/128/256, else `simt`.  A pure function
-    of host values; B, Sq, Skv, H, Hkv and kv_len do not change the choice
-    today (both routes take any of them)."""
+    """`sm90` for bfloat16 at hd a multiple of 8 up to 256, else `simt`.
+    A pure function of host values; B, Sq, Skv, H, Hkv and kv_len do not
+    change the choice today (both routes take any of them)."""
     return "sm90" if accepts("sm90", dtype, sq, h, hkv, hd) else "simt"
 
 

@@ -42,7 +42,9 @@ def serve_config(arch: str, reduced: bool = False) -> ArchConfig:
         cfg = cfg.reduced()
         cfg = dataclasses.replace(cfg, name=cfg.name + "-reduced")
     if not cfg.has_decode:
-        raise SystemExit(f"{cfg.name} is encoder-only: no decode loop")
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode loop (run "
+                         "it prefill-only via repro_torch.launch.steps."
+                         "make_prefill_step or make_encode_step)")
     return cfg
 
 

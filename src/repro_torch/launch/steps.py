@@ -1,5 +1,5 @@
 """Step builders: train_step / prefill_step / decode_step (port of
-`repro/launch/steps.py`).
+`repro/launch/steps.py`), and encode_step for the audio encoder.
 
 train_step = backbone forward + backward + the smooth optimizer's update
 + one AMTL round on the multi-task head (the paper's technique as a
@@ -77,11 +77,14 @@ def train_keys(step: int):
 def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
                     remat: bool = True):
     """train_step(state, batch) -> (state, metrics).  `batch` holds
-    "tokens", "targets", "task_ids" and "mtl_targets" on the model's
-    device.  The metrics are the reference's ("loss", "lm_loss",
-    "probe_loss", "aux_loss", "mtl_active_frac", "mtl_mean_staleness",
-    "mtl_v_norm"; tensors or host floats) and the round's draws and
-    input: "mtl_nu", "mtl_mask" (host arrays) and "pooled" (B, D)."""
+    "tokens" (for the audio family "features" and "mask" in their place),
+    "targets", "task_ids" and "mtl_targets" on the model's device.  A leaf
+    the loss does not reach (an audio model's `embed`) takes a zero
+    gradient, as the reference's `value_and_grad` gives it.  The metrics
+    are the reference's ("loss", "lm_loss", "probe_loss", "aux_loss",
+    "mtl_active_frac", "mtl_mean_staleness", "mtl_v_norm"; tensors or host
+    floats) and the round's draws and input: "mtl_nu", "mtl_mask" (host
+    arrays) and "pooled" (B, D)."""
     require_ported(cfg, training=True)
     mtl_cfg = cfg.mtl
     reg = get_regularizer(mtl_cfg.reg_name)
@@ -102,7 +105,8 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
             pl = probe_loss(p, metrics["pooled"], task_ids, targets)
             total = loss + mtl_cfg.probe_weight * pl
             total.backward()
-        grads = tree_build((path, leaf.grad)
+        grads = tree_build((path, torch.zeros_like(leaf) if leaf.grad is None
+                            else leaf.grad)
                            for path, leaf in tree_items(params))
         optimizer.update(grads, state.opt_state, params, state.step)
         del grads
@@ -123,14 +127,27 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
 
 
 def make_prefill_step(cfg: ArchConfig, s_max: Optional[int] = None):
-    """prefill_step(model, tokens, vision_embeds=None): the vision
-    embeddings (B, vision_seq, D) go with the tokens of a vlm."""
-    def prefill_step(model: LM, tokens: torch.Tensor,
-                     vision_embeds: Optional[torch.Tensor] = None):
+    """prefill_step(model, inputs, vision_embeds=None, mask=None): token
+    ids (B, S), with the vision embeddings (B, vision_seq, D) of a vlm; for
+    the audio family the frame features (B, S, feature_dim) and the bool
+    mask (B, S) (None: no frame masked)."""
+    def prefill_step(model: LM, inputs: torch.Tensor,
+                     vision_embeds: Optional[torch.Tensor] = None,
+                     mask: Optional[torch.Tensor] = None):
         with torch.inference_mode():
-            return serving.prefill(model.tree(), tokens, cfg, s_max=s_max,
-                                   vision_embeds=vision_embeds)
+            return serving.prefill(model.tree(), inputs, cfg, s_max=s_max,
+                                   vision_embeds=vision_embeds, mask=mask)
     return prefill_step
+
+
+def make_encode_step(cfg: ArchConfig):
+    """encode_step(model, features, mask=None): the audio encoder's
+    logits at every position (B, S, V) float32 (`serving.encode`)."""
+    def encode_step(model: LM, features: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None):
+        with torch.inference_mode():
+            return serving.encode(model.tree(), features, cfg, mask=mask)
+    return encode_step
 
 
 def make_decode_step(cfg: ArchConfig):

@@ -6,16 +6,21 @@
         --steps 4 --batch 2 --seq 2048               # full width, the card
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
         --reduced --device cpu --steps 3 --seq 32 --batch 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \
+        --reduced --device cpu --steps 3 --seq 32 --batch 2
 
 Each step is `launch.steps.make_train_step`'s: the backbone's forward
 and backward (on the card every attention call in the flash kernels, its
 gradient in `flash_attention_bwd`; every WKV in the `rwkv6_scan` kernels,
 its gradient in `rwkv6_bwd`), the smooth optimizer's update (AdamW, or
-Adafactor for deepseek), and one AMTL round of the multi-task head.  Any
-arch of `configs.SERVED` trains: gemma2-2b and rwkv6-3b at full width on
-one card; granite-8b, nemotron-4-15b and gemma3-12b reduced (at full
-width their AdamW state alone, 12 bytes a parameter, passes one card's 80
-GB: the sharded LM is ROADMAP item 11(i)).
+Adafactor for deepseek), and one AMTL round of the multi-task head.  The
+archs whose block kinds all have a backward kernel train (every one of
+`configs.SERVED` but zamba2-7b and llama-3.2-vision-11b): gemma2-2b,
+rwkv6-3b and hubert-xlarge (the audio encoder on frame features, its loss
+over the masked frames) at full width on one card; granite-8b,
+nemotron-4-15b and gemma3-12b reduced (at full width their AdamW state
+alone, 12 bytes a parameter, passes one card's 80 GB: the sharded LM is
+ROADMAP item 11(i)).
 The batches are `synthetic_lm_batches`' stream (the reference's bytes
 for the same seed), placed one ahead by `data.ShardedBatcher`.  It prints
 the reference's log line; `main` returns the per-step numbers.
@@ -33,6 +38,7 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import latest_step, restore, save
@@ -44,9 +50,24 @@ from repro_torch.optim.optimizers import tree_get, tree_items
 
 
 def batches_for(cfg, seq: int, batch: int, seed: int = 1):
-    """The reference's synthetic LM stream for the arch (text archs)."""
-    return synthetic_lm_batches(cfg.vocab_size, seq, batch,
-                                cfg.mtl.num_tasks, seed=seed)
+    """The reference's synthetic LM stream matching the arch's input
+    modality: the vision embeddings of a vlm; for the audio family frame
+    features, a mask of the frames to predict (30 %, from numpy seeded
+    with seed + 1) and the targets taken mod the vocabulary."""
+    base = synthetic_lm_batches(
+        cfg.vocab_size, seq, batch, cfg.mtl.num_tasks, seed=seed,
+        vision_seq=cfg.vision_seq if cfg.family == "vlm" else 0,
+        d_model=cfg.d_model, audio_dim=cfg.feature_dim)
+    if cfg.family != "audio":
+        return base
+
+    def with_mask():
+        rng = np.random.default_rng(seed + 1)
+        for b in base:
+            b["mask"] = rng.random((batch, seq)) < 0.3
+            b["targets"] = b["targets"] % cfg.vocab_size
+            yield b
+    return with_mask()
 
 
 def train_config(arch: str, reduced: bool):

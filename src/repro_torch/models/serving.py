@@ -1,5 +1,5 @@
 """Prefill and single-token decode for the attention, RWKV, Mamba-2 hybrid
-and vision-language families.
+and vision-language families, and the audio encoder's forward.
 
 Port of `repro/models/serving.py` for every block kind but MoE.  The cache
 mirrors the scan groups: for each group, a cache per period position whose
@@ -21,6 +21,11 @@ int: batched serving with aligned positions, as in the reference.  Prefill
 and decode write every layer's cache in place (the new KV slot; the RWKV
 shift vectors and the SSM state; the WKV state, which the rwkv6_scan
 kernel overwrites itself).
+
+The audio family (hubert-xlarge) is encoder-only: `prefill` takes its
+frame features and returns what the reference's does (the last position's
+logits and the cache), and `encode` returns every position's logits, what
+a user of an encoder reads.  It has no decode.
 """
 from __future__ import annotations
 
@@ -36,7 +41,8 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.rwkv import RWKVState
 from repro_torch.models.layers import apply_ffn, apply_norm
 from repro_torch.models.ssm import SSMState
-from repro_torch.models.transformer import (Extras, _window, embed_tokens,
+from repro_torch.models.transformer import (Extras, _window, backbone_forward,
+                                            embed_inputs, embed_tokens,
                                             lm_logits, require_ported,
                                             require_vision, scan_groups,
                                             shared_attn_params, unstack)
@@ -178,14 +184,17 @@ def _prefill_block(kind: BlockKind, p: dict, x: Tensor, cfg: ArchConfig,
     return x + apply_ffn(p["ffn"], h, cfg.activation)
 
 
-def prefill(params: dict, tokens: Tensor, cfg: ArchConfig,
+def prefill(params: dict, inputs: Tensor, cfg: ArchConfig,
             s_max: Optional[int] = None,
-            vision_embeds: Optional[Tensor] = None) -> tuple[Tensor, dict]:
+            vision_embeds: Optional[Tensor] = None,
+            mask: Optional[Tensor] = None) -> tuple[Tensor, dict]:
     """Run the prompt tokens (B, S), with the vision embeddings
-    (B, vision_seq, D) for a vlm; returns (last-position logits
+    (B, vision_seq, D) for a vlm; for the audio family `inputs` are frame
+    features (B, S, feature_dim) and `mask` the bool (B, S) masked-frame
+    input (None: no frame masked).  Returns (last-position logits
     (B, 1, V) float32, cache)."""
     require_ported(cfg)
-    b, s = tokens.shape
+    b, s = inputs.shape[:2]
     s_max = s if s_max is None else s_max
     if vision_embeds is not None and tuple(vision_embeds.shape) != (
             b, cfg.vision_seq, cfg.d_model):
@@ -194,7 +203,7 @@ def prefill(params: dict, tokens: Tensor, cfg: ArchConfig,
                          f"{(b, cfg.vision_seq, cfg.d_model)}")
     extras = Extras(vision_embeds=vision_embeds,
                     shared_attn=params.get("shared_attn"))
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_inputs(params, inputs, cfg, mask)
     cache = init_cache(cfg, b, s_max, x.dtype, device=x.device)
     for gi, group in enumerate(scan_groups(cfg)):
         gcache = cache[f"group{gi}"]
@@ -203,6 +212,20 @@ def prefill(params: dict, tokens: Tensor, cfg: ArchConfig,
                 x = _prefill_block(kind, lp[f"b{i}"], x, cfg, s_max,
                                    _layer_cache(gcache[f"b{i}"], li), extras)
     return lm_logits(params, x[:, -1:], cfg), cache
+
+
+def encode(params: dict, features: Tensor, cfg: ArchConfig,
+           mask: Optional[Tensor] = None) -> Tensor:
+    """The audio encoder's forward: frame features (B, S, feature_dim),
+    with the bool `mask` (B, S) (None: no frame masked), to every
+    position's logits (B, S, V) float32.  No cache is kept."""
+    require_ported(cfg)
+    if cfg.family != "audio":
+        raise ValueError(f"{cfg.name}: encode is the audio encoder's entry "
+                         "point; a decoder runs prefill and decode_step")
+    h = backbone_forward(params, embed_inputs(params, features, cfg, mask),
+                         cfg)
+    return lm_logits(params, h, cfg)
 
 
 def _decode_block(kind: BlockKind, p: dict, x: Tensor, cache, pos: int,

@@ -1,7 +1,10 @@
 """Transformer assembly: scan groups of blocks, embedding and LM head.
 
 Port of `repro/models/transformer.py` for the block kinds attn, local,
-global (dense attention) and rwkv.  The model is a `torch.nn.Module` whose
+global (dense attention), rwkv, mamba, shared_attn and cross, and for the
+audio encoder (hubert-xlarge: `embed_audio` takes precomputed frame
+features (B, S, feature_dim), the reference's stub of the conv frontend,
+in place of the token embedding).  The model is a `torch.nn.Module` whose
 parameter tree mirrors the reference's pytree: a scan group's leaves are
 stacked over its repeat count, as `jax.vmap(init_period)` stacks them, so
 
@@ -23,7 +26,7 @@ backward).  The mamba (Mamba-2 SSD), shared_attn (Zamba2's weight-tied
 attention with per-invocation LoRA) and cross (gated cross-attention over
 the vision embeddings) blocks run in `forward` and in serving but do not
 train yet: they wait for their backward kernels (ROADMAP.md, Queue 1 item
-11).  MoE, MLA and the audio encoder are later slices and raise.
+11).  MoE and MLA are later slices and raise.
 """
 from __future__ import annotations
 
@@ -81,12 +84,12 @@ def require_ported(cfg: ArchConfig, training: bool = False) -> None:
     port does not have yet; with `training`, also for a block kind that
     has no backward kernel yet (mamba, shared_attn, cross)."""
     kinds = set(cfg.layer_kinds) - set(PORTED_KINDS)
-    if kinds or cfg.moe or cfg.mla or cfg.feature_dim or cfg.mtp \
+    if kinds or cfg.moe or cfg.mla or cfg.mtp \
             or cfg.kv_cache_dtype != "model":
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(kinds)} (or MoE, MLA, audio, "
-            "MTP, the int8 KV cache) are not ported yet (ROADMAP.md, "
-            "Queue 1 item 11)")
+            f"{cfg.name}: block kinds {sorted(kinds)} (or MoE, MLA, MTP, "
+            "the int8 KV cache) are not ported yet (ROADMAP.md, Queue 1 "
+            "item 11)")
     untrained = set(cfg.layer_kinds) - set(TRAINED_KINDS)
     if training and untrained:
         raise NotImplementedError(
@@ -182,13 +185,21 @@ def init_params(cfg: ArchConfig, seed: int = 0,
                 device: torch.device | str | None = None) -> LM:
     """Random weights from a seeded torch.Generator on `device` (the card
     unless the caller passes "cpu"), with the reference's distributions:
-    truncated-normal fan-in matrices, N(0, 1/D) embeddings, unit norms."""
+    truncated-normal fan-in matrices, N(0, 1/D) embeddings, unit norms.
+    An audio model also gets the frame projection `feat_proj` and a zero
+    `mask_emb`, and keeps the `embed` its forward never reads, as the
+    reference's tree does."""
     require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = getattr(torch, cfg.dtype)
-    tree: dict = {"embed": embed_init(cfg.vocab_size, cfg.d_model, dtype,
-                                      gen)}
+    tree: dict = {}
+    if cfg.feature_dim:
+        tree["feat_proj"] = dense_init((cfg.feature_dim, cfg.d_model), dtype,
+                                       gen)
+        tree["mask_emb"] = torch.zeros((cfg.d_model,), dtype=dtype,
+                                       device=dev)
+    tree["embed"] = embed_init(cfg.vocab_size, cfg.d_model, dtype, gen)
     if not cfg.tie_embeddings:
         tree["unembed"] = dense_init((cfg.d_model, cfg.vocab_size), dtype,
                                      gen)
@@ -253,7 +264,10 @@ def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
     """The path and shape of every parameter `init_params` makes."""
     require_ported(cfg)
     d = cfg.d_model
-    shapes = {"embed": (cfg.vocab_size, d)}
+    shapes = {}
+    if cfg.feature_dim:
+        shapes.update(feat_proj=(cfg.feature_dim, d), mask_emb=(d,))
+    shapes["embed"] = (cfg.vocab_size, d)
     if not cfg.tie_embeddings:
         shapes["unembed"] = (d, cfg.vocab_size)
     shapes.update(_norm_shapes(cfg, "final_norm", d))
@@ -370,6 +384,37 @@ def embed_tokens(params: dict, tokens: Tensor, cfg: ArchConfig) -> Tensor:
     return x
 
 
+def embed_audio(params: dict, features: Tensor, mask: Tensor,
+                cfg: ArchConfig) -> Tensor:
+    """The audio encoder's input: frame features (B, S, feature_dim) times
+    `feat_proj`, with `mask_emb` at the positions where the bool mask
+    (B, S) is set (the masked-prediction input)."""
+    w = params["feat_proj"]
+    x = features.to(w.dtype) @ w
+    return torch.where(mask[..., None], params["mask_emb"].to(x.dtype), x)
+
+
+def embed_inputs(params: dict, inputs: Tensor, cfg: ArchConfig,
+                 mask: Optional[Tensor] = None) -> Tensor:
+    """The backbone's input: token ids (B, S) through `embed_tokens`; for
+    the audio family frame features (B, S, feature_dim) through
+    `embed_audio`, with the bool `mask` (B, S), all False (the encoder's
+    inference input) when None."""
+    if cfg.family != "audio":
+        if mask is not None:
+            raise ValueError(f"{cfg.name}: a mask is the audio family's "
+                             "input")
+        return embed_tokens(params, inputs, cfg)
+    if inputs.dim() != 3 or inputs.shape[2] != cfg.feature_dim:
+        raise ValueError(f"{cfg.name}: frame features of shape "
+                         f"{tuple(inputs.shape)}, want (B, S, "
+                         f"{cfg.feature_dim})")
+    if mask is None:
+        mask = torch.zeros(inputs.shape[:2], dtype=torch.bool,
+                           device=inputs.device)
+    return embed_audio(params, inputs, mask, cfg)
+
+
 def lm_logits(params: dict, h: Tensor, cfg: ArchConfig) -> Tensor:
     """Final norm, the (tied) unembedding, and the logit softcap in
     float32."""
@@ -397,18 +442,24 @@ def cross_entropy(logits: Tensor, targets: Tensor,
 def forward(params, batch: dict, cfg: ArchConfig, remat: bool = True
             ) -> tuple[Tensor, dict]:
     """Training forward of `params` (an `LM` or its tree) on a batch of
-    "tokens" and "targets" (B, S), and "vision_embeds" for a vlm.  Returns
-    (loss, metrics) with the reference's "lm_loss", "aux_loss" (0: no MoE)
-    and "pooled", the float32 mean over the sequence of the backbone's
-    last hidden state (B, D), which the MTL probes read.  With grad off it
-    runs every ported block kind; with grad on only those that train."""
+    "tokens" and "targets" (B, S), and "vision_embeds" for a vlm; for the
+    audio family "features" (B, S, feature_dim) and the bool "mask" (B, S)
+    in place of "tokens", the loss then the cross-entropy over the masked
+    positions only.  Returns (loss, metrics) with the reference's
+    "lm_loss", "aux_loss" (0: no MoE) and "pooled", the float32 mean over
+    the sequence of the backbone's last hidden state (B, D), which the MTL
+    probes read.  With grad off it runs every ported block kind; with grad
+    on only those that train."""
     require_ported(cfg, training=torch.is_grad_enabled())
     tree = params.tree() if isinstance(params, ParamTree) else params
     extras = Extras(vision_embeds=batch.get("vision_embeds"),
                     shared_attn=tree.get("shared_attn"))
-    x = embed_tokens(tree, batch["tokens"], cfg)
+    audio = cfg.family == "audio"
+    x = embed_inputs(tree, batch["features" if audio else "tokens"], cfg,
+                     batch["mask"] if audio else None)
     h = backbone_forward(tree, x, cfg, remat=remat, extras=extras)
-    loss = cross_entropy(lm_logits(tree, h, cfg), batch["targets"])
+    loss = cross_entropy(lm_logits(tree, h, cfg), batch["targets"],
+                         weights=batch["mask"] if audio else None)
     metrics = {"lm_loss": loss,
                "aux_loss": torch.zeros((), dtype=torch.float32,
                                        device=loss.device),

@@ -267,9 +267,9 @@ def test_reset_launch_counts_zeroes_each_route():
     (torch.bfloat16, 1, 8, 4, 256, "sm90"),        # any Sq
     (torch.float32, 2048, 8, 4, 256, "simt"),
     (torch.float32, 37, 4, 1, 64, "simt"),
-    (torch.bfloat16, 130, 2, 2, 72, "simt"),       # phase 3's hd 72
-    (torch.bfloat16, 500, 20, 20, 80, "simt"),     # hubert-xlarge
-    (torch.bfloat16, 500, 32, 32, 112, "simt"),    # zamba2-7b
+    (torch.bfloat16, 130, 2, 2, 72, "sm90"),       # phase 3's hd 72
+    (torch.bfloat16, 781, 16, 16, 80, "sm90"),     # hubert-xlarge
+    (torch.bfloat16, 500, 32, 32, 112, "sm90"),    # zamba2-7b
 ])
 def test_backward_route_picks_by_dtype_and_head_dim(dtype, sq, h, hkv, hd,
                                                     want):
@@ -280,28 +280,40 @@ def test_backward_route_picks_by_dtype_and_head_dim(dtype, sq, h, hkv, hd,
 
 @pytest.mark.parametrize("hd", [8, 72, 80, 112, 136, 192, 248])
 def test_backward_head_dims_are_apart_from_the_forward(hd):
-    """The forward's sm90 route pads hd to the next 64 columns; the
-    backward's sm90 kernels take 64, 128 and 256 only, so a bf16 gradient
-    at any other hd stays on simt while its forward runs on sm90."""
-    assert k_bwd.SM90_HEAD_DIMS == (64, 128, 256)
-    assert k_flash.route(torch.bfloat16, 2, 500, 500, 8, 8, hd,
-                         500) == "sm90"
-    assert k_bwd.route(torch.bfloat16, 2, 500, 500, 8, 8, hd, 500) == "simt"
-    assert not k_bwd.accepts("sm90", torch.bfloat16, 500, 8, 8, hd)
-    for full in k_bwd.SM90_HEAD_DIMS:
-        assert k_bwd.route(torch.bfloat16, 2, 500, 500, 8, 8, full,
-                           500) == "sm90"
+    """The forward and the backward pick the same route at every head dim:
+    both sm90 kernels compute at `sm90_width(hd)` with the columns past hd
+    zero-filled, so a bf16 gradient runs on sm90 wherever its forward
+    does, and both refuse float32 and an hd that is not a multiple of 8."""
+    for dtype, d in ((torch.bfloat16, hd), (torch.float32, hd),
+                     (torch.bfloat16, hd - 4)):
+        fwd = k_flash.route(dtype, 2, 500, 500, 8, 8, d, 500)
+        assert k_bwd.route(dtype, 2, 500, 500, 8, 8, d, 500) == fwd
+        assert k_bwd.accepts("sm90", dtype, 500, 8, 8, d) \
+            == k_flash.accepts("sm90", dtype, 500, 8, 8, d)
+    assert k_bwd.route(torch.bfloat16, 2, 500, 500, 8, 8, hd, 500) == "sm90"
+    assert k_flash.sm90_width(hd) in (64, 128, 192, 256)
+
+
+def test_backward_takes_sm90_at_every_bf16_multiple_of_8():
+    for hd in range(1, 257):
+        want = "sm90" if hd % 8 == 0 else "simt"
+        assert k_bwd.route(torch.bfloat16, 8, 781, 781, 16, 16, hd,
+                           781) == want
+        assert k_bwd.route(torch.bfloat16, 8, 781, 781, 16, 16, hd, 781) \
+            == k_flash.route(torch.bfloat16, 8, 781, 781, 16, 16, hd, 781)
 
 
 def test_backward_routes_refuse_what_they_do_not_take():
     assert not k_bwd.accepts("sm90", torch.float32, 2048, 8, 4, 256)
-    assert not k_bwd.accepts("sm90", torch.bfloat16, 130, 2, 2, 72)
+    assert not k_bwd.accepts("sm90", torch.float32, 781, 16, 16, 80)
+    assert not k_bwd.accepts("sm90", torch.bfloat16, 130, 2, 2, 36)
+    assert not k_bwd.accepts("sm90", torch.bfloat16, 130, 2, 2, 100)
     assert k_bwd.ROUTES == ("sm90", "simt")
     with pytest.raises(ValueError, match="unknown route"):
         k_bwd.accepts("split", torch.bfloat16, 1, 8, 4, 256)
 
 
-@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 72),
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 36),
                                       (torch.float32, 64),
                                       (torch.float32, 256)])
 def test_backward_wrapper_refuses_a_forced_route_that_does_not_take(dtype,

@@ -177,7 +177,7 @@ def test_lockstep_session_without_device_needs_cuda():
 
 def test_unported_archs_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("hubert-xlarge")
+        get_config("deepseek-v3-671b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
