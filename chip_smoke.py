@@ -38,7 +38,10 @@ hubert-xlarge, the audio encoder, at its published width (phase 31: its
 forward over B 8 x 781 frames, every attention call in the tensor-core
 flash kernel at hd 80 zero-filled to 128 columns; phase 32: training with
 the AMTL head, every backward in the tensor-core flash backward kernel at
-the same padded width) — holds
+the same padded width), and zamba2-7b and llama-3.2-vision-11b trained at
+their published widths with their depth cut (phases 33-34: the SSD under
+autograd, the tied shared attention with its LoRA, the gated
+cross-attention, every attention backward in the tensor-core kernel) — holds
 the card's runs against the port's own CPU runs, replays or plain-kernel
 runs of the same states, and times
 each kernel (the prox's two kernels and the engines' state updates
@@ -54,6 +57,7 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import hashlib
@@ -1632,8 +1636,9 @@ def check_flash_bwd(dev, gen) -> dict:
         ("hd 136 at 192 columns", 1, 300, 300, 8, 2, 136, True, None, None,
          0, None),
         ("hd 192", 1, 300, 300, 16, 4, 192, True, None, None, 0, None),
+        (CROSS_LABEL, 2, 2048, 1601, 32, 8, 128, False, None, None, 0, None),
     ]
-    worst, runs, train, padded = {}, {}, {}, []
+    worst, runs, train, padded, cross = {}, {}, {}, [], None
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
         for label, b, sq, skv, h, hkv, hd, causal, window, cap, qo, kvl \
@@ -1686,9 +1691,13 @@ def check_flash_bwd(dev, gen) -> dict:
                                   for g, w in zip(got, want))
                     train[r] = dict(err=abs_err, rel_err=max(errs),
                                     got=got)
+                if label == CROSS_LABEL and r == "sm90":
+                    cross = cross_bwd_checks((q, k, v, o, do, kw), got, errs)
                 del got, again, want
             if label == "train global" and dt_name == "bfloat16":
                 train["args"] = (q, k, v, o, do, kw)
+    if cross is None:
+        fail(f"flash_attention_bwd {CROSS_LABEL}: the sm90 route did not run")
     # the autograd path: ops.mha under grad launches the sm90 route once
     q, k, v, o, do, kw = train["args"]
     qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
@@ -1729,6 +1738,7 @@ def check_flash_bwd(dev, gen) -> dict:
         "gradients in sentinel-filled buffers: tails intact, heads the "
         "wrapper's bits; scale 1/sqrt(HP) controls (must exceed "
         f"{limit:.3g}): " + "; ".join(padded)
+        + f"; {CROSS_LABEL} (sm90, bf16): {cross}"
         + "; ops.mha's autograd backward is the "
         "sm90 route's call; controls (bf16 training shape, must exceed "
         f"{limit:.3g}): " + "; ".join(controls)
@@ -1736,8 +1746,37 @@ def check_flash_bwd(dev, gen) -> dict:
         "softcap 50, global and window 4096) and edges (window 300 < S, S "
         "37/257/1000/130/65/16/300/781/600/200/100 off the tiles, hd "
         "8/48/64/72/80/112/128/136/192, non-causal, GQA 1/2/4/8, q_offset, "
-        "kv_len, Sq != Skv, rows with no kept key)")
+        "kv_len, Sq != Skv, rows with no kept key, llama-3.2-vision-11b's "
+        "cross-attention)")
     return {"flash_attention_bwd": train}
+
+
+# llama-3.2-vision-11b's cross-attention training call (phase 34): 2048
+# queries over the 1601 vision embeddings, H 32, Hkv 8, hd 128,
+# non-causal.  1601 = 25 x 64 + 1: the last key tile holds one key.
+CROSS_LABEL = "llama cross-attention, Sq 2048 over Skv 1601, GQA 4, hd 128"
+
+
+def cross_bwd_checks(args_, got, errs) -> str:
+    """The sm90 gradients at the cross-attention shape written into
+    sentinel-filled buffers (`bwd_canary`), and a control that must fail
+    the gate: the plain version with the last key (alone in its tile)
+    dropped."""
+    q, k, v, o, do, kw = args_
+    bwd_canary(CROSS_LABEL, args_, got)
+    limit = FLASH_BWD_TOL["bfloat16"]
+    skv = k.shape[1]
+    pkw = dict(causal=kw["causal"], window=kw["window"],
+               softcap=kw["softcap"], q_offset=kw["q_offset"],
+               kv_valid_len=skv - 1)
+    e = max(grad_errs(got, bwd_plain("sm90", q, k, v, o, do, pkw)))
+    if not e > limit:
+        fail(f"flash_attention_bwd control {CROSS_LABEL} (the last of "
+             f"{skv} keys dropped): {e:.3g} <= {limit}: the gate does not "
+             "see it")
+    return (f"(dq, dk, dv) {', '.join(f'{x:.3g}' for x in errs)} <= "
+            f"{limit:.3g}, tails intact and heads the wrapper's bits, "
+            f"control (the last of {skv} keys dropped) {e:.3g}")
 
 
 def flash_bwd_cost(args_) -> tuple[float, float]:
@@ -1895,12 +1934,19 @@ def flash_bwd_times(info: dict, launches: dict, dev) -> dict:
 
 
 # The backward's shapes beside gemma2-2b's training shape (bf16, no window,
-# no softcap): hubert-xlarge's training call (phase 32; hd 80 at 128
-# columns) and zamba2-7b's shared attention at training length (hd 112 at
-# 128 columns, causal: ROADMAP item 11(k) trains it).
-# (label, B, S, H, Hkv, hd, causal)
-BWD_SHAPES = (("hubert-xlarge training", 8, 781, 16, 16, 80, False),
-              ("zamba2-7b training", 2, 2048, 32, 32, 112, True))
+# no softcap), each an arch's training call: hubert-xlarge's (phase 32; hd
+# 80 at 128 columns), zamba2-7b's shared attention (phase 33; hd 112 at
+# 128 columns, causal), and llama-3.2-vision-11b's self-attention and its
+# cross-attention over the 1601 vision embeddings (phase 34).
+# (label, arch, B, Sq, Skv, H, Hkv, hd, causal)
+BWD_SHAPES = (
+    ("hubert-xlarge training", "hubert-xlarge", 8, 781, 781, 16, 16, 80,
+     False),
+    ("zamba2-7b training", "zamba2-7b", 2, 2048, 2048, 32, 32, 112, True),
+    ("llama-3.2-vision-11b self-attention training", "llama-3.2-vision-11b",
+     2, 2048, 2048, 32, 8, 128, True),
+    ("llama-3.2-vision-11b cross-attention training",
+     "llama-3.2-vision-11b", 2, 2048, 1601, 32, 8, 128, False))
 
 
 def flash_bwd_shape_times(dev, launches: dict) -> dict:
@@ -1909,8 +1955,8 @@ def flash_bwd_shape_times(dev, launches: dict) -> dict:
     flex_attention's compiled backward, beside the bound at the real hd
     and the bound of the work the sm90 kernels do at `sm90_width(hd)`;
     and the 192-column kernels at hd 192 against the same call zero-padded
-    to 256 columns.  `launches` holds hubert-xlarge's training run's
-    backward routes."""
+    to 256 columns.  `launches` holds each arch's training run's backward
+    routes."""
     import itertools
     import torch
     from repro_torch.kernels import flash_attention as k_flash
@@ -1918,14 +1964,15 @@ def flash_bwd_shape_times(dev, launches: dict) -> dict:
     saved = k_bwd.launches, k_bwd.route_counts()
     g = torch.Generator(device=dev).manual_seed(13)
     out = {}
-    for label, b, s, h, hkv, hd, causal in BWD_SHAPES:
+    for label, arch, b, s, skv, h, hkv, hd, causal in BWD_SHAPES:
         kw = dict(causal=causal, window=None, softcap=None, q_offset=0,
                   kv_len=None)
 
         def make():
-            q, k, v, do = (torch.randn(b, s, n, hd, generator=g, device=dev,
-                                       dtype=torch.bfloat16)
-                           for n in (h, hkv, hkv, h))
+            q, k, v, do = (torch.randn(b, n_s, n, hd, generator=g,
+                                       device=dev, dtype=torch.bfloat16)
+                           for n_s, n in ((s, h), (skv, hkv), (skv, hkv),
+                                          (s, h)))
             return q, k, v, k_flash.flash_attention(q, k, v, **kw), do
         sets = [make() for _ in range(3)]
         args_ = (*sets[0], kw)
@@ -1947,14 +1994,14 @@ def flash_bwd_shape_times(dev, launches: dict) -> dict:
         call, what = flex_bwd_library(args_, dev)
         l_ms = cuda_ms(call, reps=5, inner=3) if call is not None else None
         out[label] = dict(
-            route="sm90", shape=[b, s, s, h, hkv, hd], causal=causal,
+            route="sm90", shape=[b, s, skv, h, hkv, hd], causal=causal,
             padded_hd=hp, ms=cold, l2_warm_ms=warm, simt_ms=simt,
             plain_ms=p_ms, bound_ms=bnd, bound_by=by,
             padded_bound_ms=padded, library_ms=l_ms,
-            tflops=flops / (cold * 1e-3) / 1e12)
-        if label.startswith("hubert"):
-            out[label]["launches"] = launches
-        log(f"phase 12 flash_attention_bwd {label} (B {b}, S {s}, H {h}, "
+            tflops=flops / (cold * 1e-3) / 1e12,
+            launches=launches.get(arch))
+        log(f"phase 12 flash_attention_bwd {label} (B {b}, Sq {s}, Skv "
+            f"{skv}, H {h}, "
             f"Hkv {hkv}, hd {hd}, {'causal' if causal else 'non-causal'}, "
             f"bf16; sm90 at {hp} columns): {cold * 1e3:.2f} us L2-cold (3 "
             f"inputs in turn), {warm * 1e3:.2f} us L2-warm; bound "
@@ -1965,9 +2012,8 @@ def flash_bwd_shape_times(dev, launches: dict) -> dict:
             f"sm90); plain {p_ms * 1e3:.1f} us (p_dtype bfloat16); library "
             + ("null" if l_ms is None else
                f"{l_ms * 1e3:.2f} us ({l_ms / cold:.2f}x sm90)")
-            + f" ({what})"
-            + (f"; {launches} launches on the training run"
-               if label.startswith("hubert") else ""))
+            + f" ({what}); {arch}'s training run launched "
+            f"{launches.get(arch)}")
         del sets, args_
     # the 192-column instantiation against padding hd 192 to 256: the same
     # inputs zero-padded to 256 columns, the work a 256-column kernel does
@@ -3129,6 +3175,22 @@ def pass_launches(cfg) -> int:
     """Launches of the served kernel in one pass (a prefill or a decode
     step) of `cfg`, by PASS_LAUNCHES."""
     return sum(PASS_LAUNCHES.get(k, 0) for k in cfg.layer_kinds)
+
+
+def train_launches(cfg) -> tuple[int, int]:
+    """(forwards, backwards) of the trained kernel in one train step of
+    `cfg` under remat: each call of a pass runs forward twice (the
+    recompute) and backward once."""
+    n = pass_launches(cfg)
+    return 2 * n, n
+
+
+def train_depth_cut(cfg, periods: int):
+    """`cfg` with `periods` repeats of its period, its head and tail blocks
+    and every width kept."""
+    return dataclasses.replace(
+        cfg, num_periods=periods, num_layers=len(cfg.head_blocks)
+        + len(cfg.period) * periods + len(cfg.tail_blocks))
 
 
 INERT_DRAWS = {"gate": ("uniform", 0.5, 1.5), "lora_q_b": ("normal", 0.02),
@@ -5293,6 +5355,29 @@ TRAIN_PARTS = {"flash_attention_bwd": ("fa_bwd_",),
                "bwd dkdv": ("fa_bwd_sm90_dkdv",),
                "flash sm90": ("flash_sm90_kernel",),
                "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet")}
+# zamba2-7b's and llama-3.2-vision-11b's also PyTorch's elementwise
+# kernels (the SSD's, the norms', the optimizer's), and for zamba2 (by the
+# profiler ranges of PROFILE_RANGES) the mamba mixers and their SSD, each
+# range over its forward and its recompute under remat (the backward runs
+# outside the range: `ssd_times` times it alone).
+HYBRID_TRAIN_PARTS = {**TRAIN_PARTS, "elementwise": ("elementwise",)}
+# zamba2-7b and llama-3.2-vision-11b (phases 33-34) train at their
+# published widths with their depth cut to TRAIN_PERIODS periods
+# (`train_depth_cut`), the most that keep the peak under ~70 GB: bf16
+# weights and gradients and AdamW's float32 master and moments, 16 bytes
+# a parameter, are 92.0 and 161.8 GB at the published 13 and 8 periods.
+# On an H100 zamba2 at 6 periods (48.2 GB of them, 39 layers, 3 of them
+# the tail's mamba) peaked at 58.73 GB driven alone; at 7 (54.5 GB) at
+# 72.52 GB in the whole smoke, ~7.5 GB of it held by earlier phases: so
+# 6.  llama at 2 periods (53.1 GB; 10 layers, 2 cross) peaked at 57.61
+# alone and 65.15 in the smoke; 3 would be 71.2 GB before the
+# activations.  zamba2 keeps 2 periods or more so the tied block's
+# gradient sums over its invocations, llama a cross layer.
+TRAIN_PERIODS = {"zamba2-7b": 6, "llama-3.2-vision-11b": 2}
+# llama-3.2-vision-11b's control: the cross-attention's keys cut to the
+# first CROSS_CONTROL_KEYS of the 1601 in the plain run (or, holding the
+# backward alone, in the plain backward).
+CROSS_CONTROL_KEYS = 1024
 RWKV_TRAIN_PARTS = {"rwkv6_bwd": ("rwkv6_bwd_",),
                     "bwd states": ("rwkv6_bwd_states_kernel",),
                     "bwd chunk": ("rwkv6_bwd_chunk_kernel",),
@@ -5387,14 +5472,83 @@ wkv_plain_backward = wkv_kernels_forward(wkv_ref_backward)
 wkv_plain_backward_cut = wkv_kernels_forward(wkv_bwd_ref_cut)
 
 
+def mha_kernels_forward(backward):
+    """`ops.mha`'s training call with the kernels' forward and `backward`
+    (q, k, v, o, do, mask -> dq, dk, dv) as its gradient: the runs that
+    hold the attention's backward kernel alone, on the same forward
+    activations bit for bit."""
+    import torch
+    from repro_torch.kernels import ops
+
+    class KernelForward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, mask, kv_chunk):
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            o = ops._mha_forward(q, k, v, mask, kv_chunk)
+            ctx.save_for_backward(q, k, v, o)
+            ctx.mask = mask
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o = ctx.saved_tensors
+            return (*backward(q, k, v, o, do.contiguous(), ctx.mask), None,
+                    None)
+
+    def call(q, k, v, *, causal: bool, window=None, softcap=None,
+             q_offset: int = 0, kv_valid_len=None, kv_chunk: int = 1024):
+        return KernelForward.apply(q, k, v, dict(
+            causal=causal, window=window, softcap=softcap,
+            q_offset=q_offset, kv_valid_len=kv_valid_len), kv_chunk)
+    return call
+
+
+def control_mask(mask: dict, window=None, cross_keys=None) -> dict:
+    """An attention call's mask with the causal calls' window at `window`
+    or the non-causal calls' keys cut to the first `cross_keys`: the
+    hybrid archs' training controls."""
+    mask = dict(mask)
+    if window is not None and mask["causal"]:
+        mask["window"] = window
+    if cross_keys is not None and not mask["causal"]:
+        mask["kv_valid_len"] = cross_keys
+    return mask
+
+
+def mha_ref_control(window=None, cross_keys=None):
+    """`ref.mha_ref` at `control_mask`'s mask: a plain run's control."""
+    def call(q, k, v, *, kv_chunk: int = 1024, **mask):
+        from repro_torch.kernels import ref
+        return ref.mha_ref(q, k, v, kv_chunk=kv_chunk, **control_mask(
+            mask, window, cross_keys))
+    return call
+
+
+def mha_bwd_plain(window=None, cross_keys=None):
+    """The sm90 backward's plain version (`ref.mha_bwd_ref`, P and dS
+    rounded to bf16) as a `mha_kernels_forward` backward; a control's with
+    the causal calls' window at `window` or the non-causal calls' keys cut
+    to the first `cross_keys`."""
+    def backward(q, k, v, o, do, mask):
+        return bwd_plain("sm90", q, k, v, o, do, control_mask(
+            mask, window, cross_keys))
+    return backward
+
+
 # Each trained arch: its phase, the kernel module of its forward and of
 # its backward, the `ops` function that reaches them, that function's
-# plain version under autograd, the run step 0's gradients are held
-# against (None: the plain version), the control (a function and a config
-# change; its run must fail the gate), the `ref` functions that must not
-# run on the kernels' path, the forward's routes a layer (twice under
-# remat) and the backward's, the leaves whose gradient must be non-zero,
-# and the profile's parts.
+# plain version under autograd, the run that holds the backward alone
+# (the kernels' forward with the plain backward; None: none), a second
+# plain version (`noise`, optional), the controls (a function and a
+# config change; the run must fail the gate) of the plain gate
+# (`control`) and of the held one (`held_control`), the `ref` functions
+# that must not run on the kernels' path, the forward's routes a call
+# (twice under remat) and the backward's, the leaves whose gradient must
+# be non-zero (a name or a dotted suffix of the path), and the profile's
+# parts (and profiler ranges); `wake` draws the inert leaves.  Step 0 is
+# gated on the whole plain run, unless the spec holds the backward alone
+# and has no second plain version, or the two plain versions differ by
+# more than TRAIN_GRAD_RTOL: then on the held run.
 #
 # rwkv6-3b's random-weight bf16 model amplifies any difference in its
 # WKV's float32 sums through 32 layers: on an H100 two plain versions
@@ -5416,9 +5570,9 @@ TRAINED = {
     "rwkv6-3b": dict(
         phase=25, fwd="rwkv6_scan", bwd="rwkv6_bwd", op="wkv",
         plain=wkv_plain_grad, held=wkv_plain_backward,
-        control=(wkv_plain_backward_cut, {}),
-        control_label="the kernels' forward, the plain backward with the "
-                      "state's gradient dropped at the middle",
+        held_control=(wkv_plain_backward_cut, {}),
+        held_control_label="the kernels' forward, the plain backward with "
+                           "the state's gradient dropped at the middle",
         plain_calls=("wkv_chunked_ref", "wkv_inplace_ref", "wkv_bwd_ref",
                      "wkv_bwd_exact_ref"),
         fwd_routes={"chunked": 2, "recurrent": 0},
@@ -5434,7 +5588,92 @@ TRAINED = {
         fwd_routes={"sm90": 2, "split": 0, "simt": 0},
         bwd_routes={"sm90": 1, "simt": 0}, nonzero=("feat_proj", "mask_emb"),
         parts=TRAIN_PARTS, shape=(ENCODER_BATCH, ENCODER_SEQ),
-        unit="frames")}
+        unit="frames"),
+    "zamba2-7b": dict(
+        phase=33, fwd="flash_attention", bwd="flash_attention_bwd", op="mha",
+        plain="mha_ref", held=mha_kernels_forward(mha_bwd_plain()),
+        noise=mha_dense_plain,
+        control=(mha_ref_control(window=TRAIN_CONTROL_WINDOW), {}),
+        control_label="plain run, the shared attention's window at "
+                      f"{TRAIN_CONTROL_WINDOW}",
+        held_control=(mha_kernels_forward(mha_bwd_plain(
+            window=TRAIN_CONTROL_WINDOW)), {}),
+        held_control_label="the kernels' forward, the plain backward with "
+                           "the shared attention's window at "
+                           f"{TRAIN_CONTROL_WINDOW}",
+        plain_calls=("mha_ref", "mha_bwd_ref"),
+        fwd_routes={"sm90": 2, "split": 0, "simt": 0},
+        bwd_routes={"sm90": 1, "simt": 0},
+        nonzero=("lora_q_a", "lora_q_b", "lora_o_a", "lora_o_b", "A_log",
+                 "D", "dt_bias", "shared_attn.attn.wq",
+                 "shared_attn.attn.wk", "shared_attn.attn.wv",
+                 "shared_attn.attn.wo"),
+        parts=HYBRID_TRAIN_PARTS, ranges=PROFILE_RANGES["zamba2-7b"],
+        wake=True),
+    "llama-3.2-vision-11b": dict(
+        phase=34, fwd="flash_attention", bwd="flash_attention_bwd", op="mha",
+        plain="mha_ref", held=mha_kernels_forward(mha_bwd_plain()),
+        noise=mha_dense_plain,
+        control=(mha_ref_control(cross_keys=CROSS_CONTROL_KEYS), {}),
+        control_label="plain run, the cross-attention's keys cut to the "
+                      f"first {CROSS_CONTROL_KEYS}",
+        held_control=(mha_kernels_forward(mha_bwd_plain(
+            cross_keys=CROSS_CONTROL_KEYS)), {}),
+        held_control_label="the kernels' forward, the plain backward with "
+                           "the cross-attention's keys cut to the first "
+                           f"{CROSS_CONTROL_KEYS}",
+        plain_calls=("mha_ref", "mha_bwd_ref"),
+        fwd_routes={"sm90": 2, "split": 0, "simt": 0},
+        bwd_routes={"sm90": 1, "simt": 0},
+        nonzero=("xattn.wq", "xattn.wk", "xattn.wv", "xattn.wo",
+                 "xattn.gate"),
+        parts=HYBRID_TRAIN_PARTS, wake=True)}
+
+
+def ssd_times(cfg, dev, seed: int) -> dict:
+    """One mamba mixer's chunked SSD (`ssm._ssd_chunked`, plain PyTorch) at
+    the training shape (B TRAIN_BATCH, L TRAIN_SEQ, the config's heads,
+    head dim, state and chunk; x, B and C in the model's dtype, dt
+    float32), alone with CUDA events: its forward, and its forward and
+    backward under autograd (every input's gradient).  A train step runs
+    the forward twice (once more under remat) and the backward once a
+    mixer."""
+    import torch
+    from repro_torch.models import ssm
+    s = cfg.ssm
+    h = s.expand * cfg.d_model // s.head_dim
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    mdt = getattr(torch, cfg.dtype)
+    b, ell = TRAIN_BATCH, TRAIN_SEQ
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+    x = randn(b, ell, h, s.head_dim).to(mdt)
+    bm, cm = (randn(b, ell, s.n_groups, s.state_dim).to(mdt)
+              for _ in range(2))
+    dt = torch.nn.functional.softplus(randn(b, ell, h) - 1.0)
+    a_log = torch.rand(h, generator=g, device=dev) * 2 - 1
+    d = torch.rand(h, generator=g, device=dev) + 0.5
+    dy = randn(b, ell, h, s.head_dim).to(mdt)
+    inputs = [x, dt, a_log, bm, cm, d]
+    leaves = [t.detach().requires_grad_() for t in inputs]
+
+    def fwd():
+        with torch.no_grad():
+            return ssm._ssd_chunked(*inputs, s.chunk)
+
+    def fwd_bwd():
+        y, _ = ssm._ssd_chunked(*leaves, s.chunk)
+        return torch.autograd.grad(y, leaves, dy)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    fb = cuda_ms(fwd_bwd, reps=5, inner=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    f = cuda_ms(fwd, reps=5, inner=3, warmup=1)
+    mixers = sum(k == "mamba" for k in cfg.layer_kinds)
+    return dict(shape=[b, ell, h, s.head_dim, s.state_dim, s.chunk],
+                fwd_ms=f, fwd_bwd_ms=fb, mixers=mixers,
+                step_ms=mixers * (f + fb), fwd_bwd_peak_bytes=peak)
 
 
 def train_grads(model, batch, cfg, p) -> tuple:
@@ -5475,15 +5714,18 @@ def leaf_errs(got: dict, want: dict) -> dict:
 
 
 def train_phase(dev, seed: int, card: str, arch: str) -> dict:
-    """Phases 24, 25 and 32: `repro_torch.launch.train`'s path (init_train_state,
-    ShardedBatcher over batches_for, make_train_step) at `arch`'s full
-    width.  Fails unless step 0's loss and gradients through the kernels
-    match the plain version's under autograd (and the control does not),
-    each step's staleness and mask are the host replay's bits, the head's
-    ring matches a CPU replay of its rounds, each step launches exactly
-    2 x layers forwards (layers and layers under remat) and layers
-    backwards on their routes, and no plain version, and every loss is
-    finite."""
+    """Phases 24, 25 and 32-34: `repro_torch.launch.train`'s path
+    (init_train_state, ShardedBatcher over batches_for, make_train_step) at
+    `arch`'s full width (zamba2-7b and llama-3.2-vision-11b at
+    TRAIN_PERIODS periods, their inert leaves drawn by
+    `wake_inert_leaves`).  Fails unless step 0's loss and gradients through
+    the kernels match the plain version's under autograd (or, where the
+    spec holds the backward alone, the kernels' forward with the plain
+    backward) and the control does not, each step's staleness and mask are
+    the host replay's bits, the head's ring matches a CPU replay of its
+    rounds, each step launches exactly `train_launches` forwards (each
+    call of a pass twice under remat) and backwards on their routes, and
+    no plain version, and every loss is finite."""
     from unittest import mock
     import torch
     from repro_torch.core import mtl_head, prng
@@ -5498,32 +5740,45 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
     spec = TRAINED[arch]
     ph, op = spec["phase"], spec["op"]
     fwd_mod, bwd_mod = ops.KERNELS[spec["fwd"]], ops.KERNELS[spec["bwd"]]
-    plain, (control_fn, control_cfg) = spec["plain"], spec["control"]
+    plain = spec["plain"]
     plain = getattr(ref, plain) if isinstance(plain, str) else plain
-    control_fn = getattr(ref, control_fn) if isinstance(control_fn, str) \
-        else control_fn
     t_phase = time.perf_counter()
     free0, total_mem = torch.cuda.mem_get_info(dev)
-    cfg = train_mod.train_config(arch, reduced=False)
+    cfg = published = train_mod.train_config(arch, reduced=False)
+    if arch in TRAIN_PERIODS:
+        cfg = train_depth_cut(published, TRAIN_PERIODS[arch])
     mcfg = cfg.mtl
     n_layers = cfg.num_layers
+    n_fwd, n_calls = train_launches(cfg)
     t_batch, t_seq = spec.get("shape", (TRAIN_BATCH, TRAIN_SEQ))
     unit = spec.get("unit", "tokens")
     torch.cuda.reset_peak_memory_stats(dev)
+    held0 = torch.cuda.memory_allocated(dev)      # earlier phases' tensors
+    if cfg is not published:
+        log(f"phase {ph} {arch} training depth: published "
+            f"{published.num_layers} layers ({published.num_periods} "
+            f"periods of {'+'.join(published.period)}, "
+            f"{len(published.tail_blocks)} tail), cut to {n_layers} layers "
+            f"({cfg.num_periods} periods), every width published")
     model = init_params(cfg, seed=seed, device=dev)
     model.requires_grad_(True)
+    drawn = wake_inert_leaves(model, seed) if spec.get("wake") else []
     sync(dev)
     log(f"phase {ph} {arch} training: {model.num_params() / 1e6:.1f}M "
         f"parameters ({n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}"
         f"), {free0 / 1e9:.1f} GB free of {total_mem / 1e9:.1f} GB before "
-        "the phase")
+        "the phase"
+        + (f"; the reference's inert leaves drawn by wake_inert_leaves: "
+           + ", ".join(f"{n} x{c}" for n, c in sorted(collections.Counter(
+               p.rsplit(".", 1)[-1] for p in drawn).items()))
+           if drawn else ""))
     data = ShardedBatcher(train_mod.batches_for(cfg, t_seq, t_batch),
                           device=dev)
     batches = [next(data) for _ in range(TRAIN_STEPS)]
-    want_step = {spec["fwd"]: 2 * n_layers, spec["bwd"]: n_layers}
-    want_fwd = {r: n * n_layers for r, n in spec["fwd_routes"].items()}
+    want_step = {spec["fwd"]: n_fwd, spec["bwd"]: n_calls}
+    want_fwd = {r: n * n_calls for r, n in spec["fwd_routes"].items()}
     want_bwd = None if spec["bwd_routes"] is None else {
-        r: n * n_layers for r, n in spec["bwd_routes"].items()}
+        r: n * n_calls for r, n in spec["bwd_routes"].items()}
 
     def bwd_routes():
         return None if want_bwd is None else bwd_mod.route_counts()
@@ -5538,13 +5793,33 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
     with mock.patch.object(ops, op, plain):
         loss_p, grads_p = train_grads(model, batches[0], cfg, p0)
         errs = leaf_errs(grads_k, grads_p)
+    noise = None
+    if spec.get("noise") is not None:    # a second plain version
+        with mock.patch.object(ops, op, spec["noise"]):
+            _, grads_n = train_grads(model, batches[0], cfg, p0)
+        noise = leaf_errs(grads_n, grads_p)
+        del grads_n
     del grads_p
-    held = errs
+    # the gate: the whole plain run; or the backward alone (the kernels'
+    # forward with the plain backward, on the same activations) where the
+    # spec has no second plain version (rwkv6-3b) or two plain versions
+    # already differ by more than the gate
+    plain_noise = None if noise is None else max(
+        e[1] for e in noise.values())
+    use_held = spec["held"] is not None and (
+        plain_noise is None or plain_noise > TRAIN_GRAD_RTOL)
+    held = None
     if spec["held"] is not None:
         with mock.patch.object(ops, op, spec["held"]):
             _, grads_h = train_grads(model, batches[0], cfg, p0)
         held = leaf_errs(grads_k, grads_h)
         del grads_h
+    gated = held if use_held else errs
+    kind = "held_control" if use_held else "control"
+    (control_fn, control_cfg), control_label = spec[kind], \
+        spec[f"{kind}_label"]
+    control_fn = getattr(ref, control_fn) if isinstance(control_fn, str) \
+        else control_fn
     # the control's run must fail the gate
     with mock.patch.object(ops, op, control_fn):
         _, grads_c = train_grads(model, batches[0],
@@ -5552,34 +5827,43 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
         cerrs = leaf_errs(grads_k, grads_c)
         del grads_c
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    sound = max(e[1] for e in held.values())
+    sound = max(e[1] for e in gated.values())
     control = max(e[1] for e in cerrs.values())
     zero = [k for k, g in grads_k.items()
-            if k.split(".")[-1] in spec["nonzero"] and not float(g.norm()) > 0]
+            if any(k == n or k.endswith("." + n) for n in spec["nonzero"])
+            and not float(g.norm()) > 0]
 
     def reading(e: dict) -> str:
         return (f"worst {sorted(e.items(), key=lambda kv: -kv[1][1])[:3]}, "
                 f"median {statistics.median(x[1] for x in e.values()):.3g}")
-    gate_run = f"the plain {op}" if spec["held"] is None else \
-        "the kernels' forward with the plain backward"
+    gate_run = "the kernels' forward with the plain backward" if use_held \
+        else f"the plain {op}"
     log(f"phase {ph} step 0 through the kernels against the plain {op} "
         f"on the card: loss {loss_k:.6f} vs {loss_p:.6f} ({loss_err:.3g}); "
         "gradients (max |diff| / max |grad|, ||diff|| / ||grad||) a leaf: "
-        + reading(errs)
-        + ("" if spec["held"] is None else
-           f" (a reading, not gated); against {gate_run}: " + reading(held))
-        + f"; control ({spec['control_label']}) " + reading(cerrs)
+        + reading(errs) + (" (a reading, not gated)" if use_held else "")
+        + ("" if noise is None else
+           "; a second plain version against the plain one (the bf16 "
+           f"noise between two plain runs, {plain_noise:.3g} "
+           + ("> " if use_held else "<= ") + f"{TRAIN_GRAD_RTOL}: the gate "
+           f"holds {gate_run}): " + reading(noise))
+        + ("" if held is None else
+           "; against the kernels' forward with the plain backward"
+           + ("" if use_held else " (a reading, not gated)") + ": "
+           + reading(held))
+        + f"; control ({control_label}) " + reading(cerrs)
         + f"; limits: loss {TRAIN_LOSS_RTOL}, ||diff|| / ||grad|| "
         f"{TRAIN_GRAD_RTOL} a leaf, the control above it")
     if not (math.isfinite(loss_k) and loss_err <= TRAIN_LOSS_RTOL
             and sound <= TRAIN_GRAD_RTOL) or zero:
         fail(f"phase {ph} step 0: kernels against {gate_run}: loss "
              f"{loss_err:.3g} > {TRAIN_LOSS_RTOL} or a leaf's gradient "
-             f"{sound:.3g} > {TRAIN_GRAD_RTOL} of its norm, or no gradient "
+             f"{sound:.3g} > {TRAIN_GRAD_RTOL} of its norm, or a zero or "
+             "non-finite gradient "
              f"in {zero}")
     if not control > TRAIN_GRAD_RTOL or not all(
             math.isfinite(x) for e in cerrs.values() for x in e):
-        fail(f"phase {ph} control ({spec['control_label']}): worst leaf "
+        fail(f"phase {ph} control ({control_label}): worst leaf "
              f"{control:.3g} <= {TRAIN_GRAD_RTOL}, or a leaf's reading is "
              "not finite: the gate does not see it")
     log(f"phase {ph} step 0: against {gate_run} worst leaf {sound:.3g} <= "
@@ -5619,9 +5903,12 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
             t0 = time.perf_counter()
             if i == TRAIN_STEPS - 1:
                 done = []
-                parts = serve_profile(
-                    lambda: (done.append(step_fn(state, batch)), sync(dev)),
-                    f"train step {i}", spec["parts"], ph)
+                with profile_ranges(arch):
+                    parts = serve_profile(
+                        lambda: (done.append(step_fn(state, batch)),
+                                 sync(dev)),
+                        f"train step {i}", spec["parts"], ph,
+                        ranges=spec.get("ranges"))
                 state, m = done[0] if done else step_fn(state, batch)
             else:
                 state, m = step_fn(state, batch)
@@ -5682,15 +5969,37 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
         + f" (finite); step ms " + ", ".join(f"{ms:.1f}" for ms in step_ms)
         + f" (the first warms up, the last profiled); steady "
         f"{steady:.1f} ms, {tokens / (steady * 1e-3):.1f} {unit}/s; "
-        f"launches a step exactly {spec['fwd']} {2 * n_layers} ({n_layers} "
-        f"+ {n_layers} under remat, routes {want_fwd}) and {spec['bwd']} "
-        f"{n_layers}" + ("" if want_bwd is None else f" (routes {want_bwd})")
+        f"launches a step exactly {spec['fwd']} {n_fwd} ({n_calls} "
+        f"+ {n_calls} under remat, routes {want_fwd}) and {spec['bwd']} "
+        f"{n_calls}" + ("" if want_bwd is None else f" (routes {want_bwd})")
         + f", no plain {op}; staleness "
         "and masks bitwise the host replay; head ring against the CPU "
         f"replay {head_err:.3g} of its scale <= {HEAD_RTOL}; peak device "
-        f"memory {peak / 1e9:.2f} GB; card {card}: PASS")
+        f"memory {peak / 1e9:.2f} GB, {(peak - held0) / 1e9:.2f} GB above "
+        f"the {held0 / 1e9:.2f} GB allocated when the phase began; card "
+        f"{card}: PASS")
     del state, model, batches, data, records
     torch.cuda.empty_cache()
+    ssd = None
+    dev_ms = parts.get("device_ms")
+    if not (isinstance(dev_ms, float) and dev_ms > 0):
+        dev_ms = None
+    if "mamba" in cfg.layer_kinds:
+        ssd = ssd_times(cfg, dev, seed)
+        log(f"phase {ph} {arch}'s SSD alone (B, L, H, P, N, chunk "
+            f"{ssd['shape']}, x bf16, plain PyTorch): forward "
+            f"{ssd['fwd_ms']:.2f} ms, forward and backward "
+            f"{ssd['fwd_bwd_ms']:.2f} ms ({ssd['fwd_bwd_peak_bytes'] / 1e9:.2f}"
+            f" GB above the inputs), so {ssd['mixers']} mixers x (forward + "
+            f"forward and backward) {ssd['step_ms']:.1f} ms a step"
+            + ("" if dev_ms is None else
+               f", {100 * ssd['step_ms'] / dev_ms:.1f}% of the profiled "
+               f"step's {dev_ms:.1f} device ms"))
+    if dev_ms is not None:
+        log(f"phase {ph} {arch} train step {TRAIN_STEPS - 1}: the backward "
+            f"kernels ({spec['bwd']}) {parts[spec['bwd']]['ms']:.1f} ms, "
+            f"{100 * parts[spec['bwd']]['share']:.1f}% of its "
+            f"{dev_ms:.1f} device ms")
     free1, _ = torch.cuda.mem_get_info(dev)
     seconds = time.perf_counter() - t_phase
     log(f"phase {ph}: {seconds:.1f} s; {free1 / 1e9:.1f} GB free after")
@@ -5699,14 +6008,24 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
     if want_bwd is not None:
         launches["bwd_routes"] = {r: n * TRAIN_STEPS
                                   for r, n in want_bwd.items()}
-    return dict(rows=rows, step_ms=step_ms, steady_ms=steady,
-                tokens_per_s=tokens / (steady * 1e-3), unit=unit,
-                peak_bytes=peak,
-                loss_err=loss_err, grad_err=sound,
-                plain_grad_err=max(e[1] for e in errs.values()),
-                control=control,
-                head_err=head_err, parts=parts, launches=launches,
-                seconds=seconds)
+    out = dict(rows=rows, step_ms=step_ms, steady_ms=steady,
+               tokens_per_s=tokens / (steady * 1e-3), unit=unit,
+               peak_bytes=peak, phase_peak_bytes=peak - held0,
+               loss_err=loss_err, grad_err=sound,
+               gate="held" if use_held else "plain",
+               plain_grad_err=max(e[1] for e in errs.values()),
+               control=control,
+               head_err=head_err, parts=parts, launches=launches,
+               seconds=seconds)
+    if cfg is not published:
+        out.update(layers=n_layers, periods=cfg.num_periods,
+                   published_layers=published.num_layers,
+                   published_periods=published.num_periods)
+    if noise is not None:
+        out["plain_noise"] = max(e[1] for e in noise.values())
+    if ssd is not None:
+        out["ssd"] = ssd
+    return out
 
 
 # ---------------------------------------------------------------- phase 31 --
@@ -6576,6 +6895,12 @@ def main() -> None:
     mark(t_smoke, "31")
     hubert_train = train_phase(dev, args.seed, card, ENCODER_ARCH)
     mark(t_smoke, "32")
+    # phases 33-34: zamba2-7b and llama-3.2-vision-11b training at their
+    # published widths, TRAIN_PERIODS periods
+    hybrid_train = {}
+    for arch in HYBRID_ARCHS:
+        hybrid_train[arch] = train_phase(dev, args.seed, card, arch)
+        mark(t_smoke, str(TRAINED[arch]["phase"]))
 
     kernels = []
     info["lstsq_grad"]["args"] = grad_inputs(dev, args.seed)
@@ -6681,11 +7006,14 @@ def main() -> None:
     flash["hubert_launches"] = {
         "encoder": encoder["routes"],
         "train": hubert_train["launches"]["fwd_routes"]}
+    flash["hybrid_train_launches"] = {
+        a: r["launches"]["fwd_routes"] for a, r in hybrid_train.items()}
     kernels.append(flash_bwd_times(
         info["flash_attention_bwd"], train["launches"]["bwd_routes"], dev))
     del info["flash_attention_bwd"]
-    kernels[-1]["shapes"] = flash_bwd_shape_times(
-        dev, hubert_train["launches"]["bwd_routes"])
+    kernels[-1]["shapes"] = flash_bwd_shape_times(dev, {
+        a: r["launches"]["bwd_routes"] for a, r in
+        (("hubert-xlarge", hubert_train), *hybrid_train.items())})
     wkv = kernels[[k["name"] for k in kernels].index("rwkv6_scan")]
     wkv["routes"] = rwkv_times(info["rwkv6_scan"], rw["routes"])
     wkv["train_launches"] = rwkv_train["launches"]["fwd_routes"]
@@ -6712,6 +7040,9 @@ def main() -> None:
     log("encoder hubert-xlarge " + json.dumps(encoder))
     log("training hubert-xlarge " + json.dumps(
         {k: v for k, v in hubert_train.items() if k != "rows"}))
+    for arch, r in hybrid_train.items():
+        log(f"training {arch} " + json.dumps(
+            {k: v for k, v in r.items() if k != "rows"}))
     log("dense serves " + json.dumps({a: {k: r[k] for k in (
         "prefill_tps", "decode_tps", "errs", "e32", "tol", "f32_layers")}
         for a, r in dense.items()}))

@@ -78,7 +78,9 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
                     remat: bool = True):
     """train_step(state, batch) -> (state, metrics).  `batch` holds
     "tokens" (for the audio family "features" and "mask" in their place),
-    "targets", "task_ids" and "mtl_targets" on the model's device.  A leaf
+    "targets", "task_ids" and "mtl_targets" on the model's device, and for
+    a vlm "vision_embeds" (B, vision_seq, D), which reach `forward` in the
+    model's dtype (a leaf with no gradient).  A leaf
     the loss does not reach (an audio model's `embed`) takes a zero
     gradient, as the reference's `value_and_grad` gives it.  The metrics
     are the reference's ("loss", "lm_loss", "probe_loss", "aux_loss",
@@ -98,6 +100,9 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
 
         model = state.params
         params = model.tree()
+        if "vision_embeds" in batch:
+            batch = {**batch, "vision_embeds": batch["vision_embeds"].to(
+                getattr(torch, cfg.dtype))}
         task_ids = batch["task_ids"]
         targets = batch["mtl_targets"].float()
         with torch.enable_grad():

@@ -6,6 +6,10 @@ chunked SSD's within-chunk interactions are masked batched matmuls, and the
 state across chunks is a loop over L / chunk steps carrying h (B, H, P, N)
 in float32.  Decode is the O(1) recurrent step on (conv state, SSM state).
 
+Under autograd the within-chunk decay is masked before its exp, where the
+reference masks after it: the same values, and a finite gradient where the
+decays above the diagonal overflow (the reference's is nan there).
+
 The reference's three-operand einsums are written as pairwise steps (the
 scores times the decay, then one batched matmul over t), so no
 (B, nc, Q, Q, H, P) tensor is formed: at zamba2-7b's prefill (B 2, 40
@@ -134,10 +138,15 @@ def _ssd_chunked(x: Tensor, dt: Tensor, a_log: Tensor, b_mat: Tensor,
     bc = b_mat.reshape(bsz, nc, q, g, n).transpose(2, 3).to(f32)
     cc = c_mat.reshape(bsz, nc, q, g, n).transpose(2, 3).to(f32)
 
-    # within a chunk: y_s = sum_{t <= s} exp(la_s - la_t) (C_s . B_t) x_t
+    # within a chunk: y_s = sum_{t <= s} exp(la_s - la_t) (C_s . B_t) x_t.
+    # Above the diagonal seg = -(the decays between) > 0, and its exp
+    # overflows to inf once they pass ~88: masked before the exp, so the
+    # gradient there is 0 * exp(-inf) = 0, not 0 * inf = nan (the
+    # reference's jnp.where after the exp gives nan at that point).  The
+    # values are the same bits either way.
     seg = la[..., :, None] - la[..., None, :]              # (B, nc, H, Q, Q)
     causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(causal, torch.exp(seg), 0.0)
+    decay = torch.exp(torch.where(causal, seg, float("-inf")))
     del seg
     y = _times_group(decay, cc @ bc.transpose(-1, -2)) @ xc  # (B,nc,H,Q,P)
     del decay

@@ -19,14 +19,23 @@ gathers the layers' gradients into the stacked leaf's in one step.
 
 `forward` is the training forward (loss and the pooled state for the MTL
 probes), with the reference's remat at its scan body's granularity (a
-period of blocks) through `torch.utils.checkpoint`.  Training runs the
-attention blocks (the flash kernels forward, `flash_attention_bwd`
-backward) and the rwkv blocks (the WKV kernels forward, `rwkv6_bwd`
-backward).  The mamba (Mamba-2 SSD), shared_attn (Zamba2's weight-tied
-attention with per-invocation LoRA) and cross (gated cross-attention over
-the vision embeddings) blocks run in `forward` and in serving but do not
-train yet: they wait for their backward kernels (ROADMAP.md, Queue 1 item
-11).  MoE and MLA are later slices and raise.
+period of blocks) through `torch.utils.checkpoint`.  Every ported block
+kind trains:
+
+- attn, local, global: the flash kernels forward, `flash_attention_bwd`
+  backward, through `ops.mha`'s autograd Function;
+- rwkv: the WKV kernels forward, `rwkv6_bwd` backward, through `ops.wkv`;
+- mamba: the Mamba-2 SSD in plain PyTorch (as the reference's is plain
+  jnp, with no Pallas kernel), differentiated by autograd;
+- shared_attn: Zamba2's weight-tied attention and FFN (the top-level
+  `shared_attn` params, read through `Extras` in each remat region) with
+  this invocation's LoRA merged into wq and wo at every call
+  (`shared_attn_params`), so the tied leaves' gradient is summed over the
+  invocations by autograd and the LoRA a and b leaves get theirs;
+- cross: the self-attention, then the gated cross-attention over the
+  vision embeddings (a leaf with no gradient), both through `ops.mha`.
+
+MoE, MLA, MTP and the int8 KV cache are later slices and raise.
 """
 from __future__ import annotations
 
@@ -50,7 +59,8 @@ Tensor = torch.Tensor
 
 PORTED_KINDS = ("attn", "local", "global", "rwkv", "mamba", "shared_attn",
                 "cross")
-TRAINED_KINDS = ("attn", "local", "global", "rwkv")
+TRAINED_KINDS = ("attn", "local", "global", "rwkv", "mamba", "shared_attn",
+                 "cross")
 
 LORA_RANK = 64   # Zamba2 shared-attention per-invocation LoRA rank
 
@@ -80,9 +90,10 @@ def scan_groups(cfg: ArchConfig) -> list[ScanGroup]:
 
 
 def require_ported(cfg: ArchConfig, training: bool = False) -> None:
-    """Raise for a config that needs a block kind (MoE) or a feature the
-    port does not have yet; with `training`, also for a block kind that
-    has no backward kernel yet (mamba, shared_attn, cross)."""
+    """Raise for a config that needs a block kind (MoE) or a feature (MLA,
+    MTP, the int8 KV cache) the port does not have yet; with `training`,
+    also for a block kind outside TRAINED_KINDS (none today: every ported
+    kind trains)."""
     kinds = set(cfg.layer_kinds) - set(PORTED_KINDS)
     if kinds or cfg.moe or cfg.mla or cfg.mtp \
             or cfg.kv_cache_dtype != "model":
@@ -93,9 +104,8 @@ def require_ported(cfg: ArchConfig, training: bool = False) -> None:
     untrained = set(cfg.layer_kinds) - set(TRAINED_KINDS)
     if training and untrained:
         raise NotImplementedError(
-            f"{cfg.name}: training block kinds {sorted(untrained)} needs a "
-            "backward kernel the port does not have yet (ROADMAP.md, "
-            "Queue 1 item 11)")
+            f"{cfg.name}: block kinds {sorted(untrained)} do not train in "
+            "the port yet (ROADMAP.md, Queue 1 item 11)")
 
 
 class ParamTree(nn.Module):
@@ -448,8 +458,7 @@ def forward(params, batch: dict, cfg: ArchConfig, remat: bool = True
     positions only.  Returns (loss, metrics) with the reference's
     "lm_loss", "aux_loss" (0: no MoE) and "pooled", the float32 mean over
     the sequence of the backbone's last hidden state (B, D), which the MTL
-    probes read.  With grad off it runs every ported block kind; with grad
-    on only those that train."""
+    probes read.  With grad on or off it runs every ported block kind."""
     require_ported(cfg, training=torch.is_grad_enabled())
     tree = params.tree() if isinstance(params, ParamTree) else params
     extras = Extras(vision_embeds=batch.get("vision_embeds"),

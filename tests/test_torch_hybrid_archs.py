@@ -19,8 +19,8 @@ tokens and the vision embeddings come from numpy and the reference runs
 jitted.  Prefill logits, every cache leaf (KVCache, SSMState, CrossKV)
 and 8 teacher-forced decode steps are held to 1e-5 of their scale at
 prompts 2, 40 and 64 (the matmuls sum in another order than XLA's), and
-`forward`'s loss (no gradient: these block kinds do not train yet) to
-1e-6 relative.
+`forward`'s loss with grad off to 1e-6 relative (its gradients and train
+steps: tests/test_torch_hybrid_train.py).
 """
 import dataclasses
 
@@ -254,17 +254,20 @@ def test_forward_loss_matches_without_grad(arch):
         loss, m = transformer.forward(model, tb, cfg, remat=False)
     assert abs(loss.item() - float(jl)) <= 1e-6 * abs(float(jl))
     assert rel(m["pooled"], jm["pooled"]) <= RTOL
-    with pytest.raises(NotImplementedError, match="item 11"):
-        transformer.forward(model, tb, cfg, remat=False)     # grad on
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_training_raises_naming_its_roadmap_item(arch):
-    """The mamba, shared_attn and cross blocks have no backward kernel
-    yet: make_train_step refuses both archs."""
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        steps.make_train_step(cfg, steps.default_optimizer(cfg))
+def test_make_train_step_takes_both_archs(arch):
+    """The mamba, shared_attn and cross blocks train (ROADMAP item 11(k)):
+    `require_ported` lets both archs train and `make_train_step` builds
+    their step (tests/test_torch_hybrid_train.py holds it against the
+    reference's)."""
+    cfg = get_config(arch)
+    transformer.require_ported(cfg, training=True)
+    assert {"mamba", "shared_attn", "cross"} <= set(
+        transformer.TRAINED_KINDS)
+    assert callable(steps.make_train_step(cfg.reduced(),
+                                          steps.default_optimizer(cfg)))
 
 
 def test_vlm_prefill_needs_its_vision_embeddings():
