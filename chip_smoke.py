@@ -41,7 +41,11 @@ the AMTL head, every backward in the tensor-core flash backward kernel at
 the same padded width), and zamba2-7b and llama-3.2-vision-11b trained at
 their published widths with their depth cut (phases 33-34: the SSD under
 autograd, the tied shared attention with its LoRA, the gated
-cross-attention, every attention backward in the tensor-core kernel) — holds
+cross-attention, every attention backward in the tensor-core kernel), and
+dbrx-132b and deepseek-v3-671b served at their published widths with
+their depth cut (phases 35-36: the routed MoE FFN, deepseek's MLA prefill
+in the tensor-core kernel at qk hd 192 and its absorbed decode in plain
+PyTorch, each also in its reduced config against the CPU) — holds
 the card's runs against the port's own CPU runs, replays or plain-kernel
 runs of the same states, and times
 each kernel (the prox's two kernels and the engines' state updates
@@ -1171,22 +1175,23 @@ def row_err(got, want, rows, relative: bool = True) -> float:
     return d[:, rows].max().item() if bool(rows.any()) else 0.0
 
 
-def masked_attention(q, k, v, keep, softcap):
+def masked_attention(q, k, v, keep, softcap, rows: int = 1024):
     """Dense softmax attention with an explicit (Sq, Skv) keep mask, in
-    float32, out in q's dtype; a row with no kept key gives 0.  The flash
-    gate's controls: the served masks with a tile changed."""
+    float32 over blocks of `rows` query rows, out in q's dtype; a row with
+    no kept key gives 0.  The flash gate's controls: the served masks with
+    a tile changed."""
     import torch
     b, sq, h, hd = q.shape
     hkv = k.shape[2]
     scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
     kf, vf = k.float(), v.float()
     outs = []
-    for r0 in range(0, sq, 1024):
-        qg = q[:, r0:r0 + 1024].float().reshape(b, -1, hkv, h // hkv, hd)
+    for r0 in range(0, sq, rows):
+        qg = q[:, r0:r0 + rows].float().reshape(b, -1, hkv, h // hkv, hd)
         x = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
         if softcap is not None:
             x = softcap * torch.tanh(x / softcap)
-        x = x.masked_fill(~keep[r0:r0 + 1024], float("-inf"))
+        x = x.masked_fill(~keep[r0:r0 + rows], float("-inf"))
         p = torch.softmax(x, dim=-1).nan_to_num(0.0)
         o = torch.einsum("bhgqk,bkhd->bhgqd", p, vf)
         outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, -1, h, hd))
@@ -1277,6 +1282,11 @@ def sm90_scale_control(label: str, args_, got, rows, limit: float) -> str:
     return f"{label} {err:.3g}"
 
 
+# MLA's v columns (v_head_dim) in the qk width of 192 at deepseek-v3-671b's
+# prefill: the rest of v is the zero padding of `_mha_mixed_dims`.
+MLA_V_COLS = 128
+
+
 def check_flash_kernel(dev, gen) -> dict:
     """The flash-attention kernels against their plain versions on the
     card, in float32 and bfloat16: at the served shapes (prefill of a global
@@ -1356,9 +1366,18 @@ def check_flash_kernel(dev, gen) -> dict:
         ("hd 8, GQA 2", 2, 100, 100, 4, 2, 8, True, None, None, 0, None),
         ("hd 48, window 16, softcap 30", 1, 130, 130, 4, 2, 48, True, 16,
          30.0, 0, None),
+        # deepseek-v3-671b's MLA prefill: q and k at nope 128 + rope 64 =
+        # 192 columns, H = Hkv 128, v zero-padded from 128 (MLA_V_COLS),
+        # so the output's last 64 columns must be exactly 0
+        ("MLA prefill: hd 192, H = Hkv 128, v zero past 128", 1, 200, 200,
+         128, 128, 192, True, None, None, 0, None),
+        # dbrx-132b's decode: 6 query rows a kv head (H 48, Hkv 8) over the
+        # 5008-slot cache
+        ("dbrx decode: H 48, Hkv 8, hd 128", 2, 1, SERVE_PROMPT + DENSE_GEN,
+         48, 8, 128, False, None, None, SERVE_PROMPT + 5, SERVE_PROMPT + 6),
     ]
     served, worst, row_worst, split_worst, runs = {}, {}, {}, {}, 0
-    scale_controls, canaries = [], 0
+    scale_controls, canaries, mla_zero = [], 0, 0
     controls, empty = [], 0
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
@@ -1367,6 +1386,9 @@ def check_flash_kernel(dev, gen) -> dict:
             q = torch.randn(b, sq, h, hd, generator=gen, device=dev).to(dt)
             k = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dt)
             v = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dt)
+            mla = label.startswith("MLA")
+            if mla:
+                v[..., MLA_V_COLS:] = 0
             kw = dict(causal=causal, window=window, softcap=cap, q_offset=qo,
                       kv_len=kvl)
             keep = keep_mask(sq, skv, causal, window, qo, kvl, dev)
@@ -1381,6 +1403,11 @@ def check_flash_kernel(dev, gen) -> dict:
                 if route == "sm90":
                     sm90_canary(label, (q, k, v, kw), got)
                     canaries += 1
+                if mla and bool(got[..., MLA_V_COLS:].any()):
+                    fail(f"flash_attention {label} {dt_name} route {route}: "
+                         f"the output past column {MLA_V_COLS}, where v is "
+                         "zero, is not exactly 0")
+                mla_zero += mla
                 err = row_err(got, want, rows, relative=False)
                 if got.dtype != dt or not err <= FLASH_TOL[dt_name]:
                     fail(f"flash_attention {label} {dt_name} route {route}: "
@@ -1461,6 +1488,8 @@ def check_flash_kernel(dev, gen) -> dict:
         + "; split against mha_split_ref with the kernel's plan: "
         + ", ".join(f"{d} {e:.3g}" for d, e in sorted(split_worst.items()))
         + f"; rows with no kept key exactly 0 in {empty} runs of every route"
+        + f"; MLA's output past column {MLA_V_COLS} (v zero there) exactly 0 "
+        f"in {mla_zero} runs"
         + f"; {canaries} sm90 launches into a sentinel-filled buffer: tail "
         "intact, output bitwise the wrapper's"
         + "; sm90 at hd off the 64-column boxes against the plain version "
@@ -1477,7 +1506,9 @@ def check_flash_kernel(dev, gen) -> dict:
         "2 at S 300 and at S 1000 with window 256 and softcap 50), hd 8, 48, "
         "80 (non-causal, H 16) and 192 (GQA 4, q_offset, kv_len), "
         "llama-3.2-vision-11b's cross-attention (Sq 300 and 1 over 1601 "
-        "keys, GQA 4, non-causal); ops.flash_attention against the O(S^2) "
+        "keys, GQA 4, non-causal), deepseek-v3-671b's MLA prefill (hd 192, "
+        "H = Hkv 128, v zero past 128), dbrx-132b's decode (6 rows a kv "
+        "head over 5008 slots); ops.flash_attention against the O(S^2) "
         "oracle")
     return {"flash_attention": dict(served["prefill global"], served=served)}
 
@@ -2763,8 +2794,9 @@ def flash_times(served: dict, dev) -> dict:
 
 
 def flash_hybrid_times(dev) -> dict:
-    """Phase 12 at the hybrid and audio archs' flash shapes (hubert-xlarge's
-    encoder at hd 80 among them), bf16, on the route the
+    """Phase 12 at the hybrid, audio and MoE archs' flash shapes
+    (hubert-xlarge's encoder at hd 80, deepseek-v3-671b's MLA prefill at
+    192 among them), bf16, on the route the
     wrapper picks (and, at zamba2-7b's prefill, on `simt` forced beside
     it, the route it took before sm90 took hd 112): L2-warm (one input,
     again and again) and L2-cold (the call walks 3 distinct inputs in turn,
@@ -2779,7 +2811,11 @@ def flash_hybrid_times(dev) -> dict:
     # zamba2-7b's prefill (hd 112: sm90 at 128 columns; simt forced for
     # the record) and decode over the 5008-slot cache (split);
     # llama-3.2-vision-11b's cross-attention prefill over the 1601 vision
-    # keys (sm90) and its decode (split)
+    # keys (sm90) and its decode (split); hubert-xlarge's encoder (sm90 at
+    # 128 columns); dbrx-132b's prefill (sm90, GQA 6) and decode (split, 6
+    # rows a kv head); deepseek-v3-671b's MLA prefill (sm90 at 192 columns:
+    # nope 128 + rope 64; v zero-padded from 128 in the model, random here,
+    # the time the same)
     shapes = (
         ("zamba2-7b prefill", 2, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 112,
          True, None, None),
@@ -2791,7 +2827,13 @@ def flash_hybrid_times(dev) -> dict:
          False, SERVE_PROMPT + 1, None),
         ("llama cross decode", 2, 1, 1601, 32, 8, 128, False, None, None),
         ("hubert-xlarge encoder", ENCODER_BATCH, ENCODER_SEQ, ENCODER_SEQ,
-         16, 16, 80, False, None, None))
+         16, 16, 80, False, None, None),
+        ("dbrx-132b prefill", 2, SERVE_PROMPT, SERVE_PROMPT, 48, 8, 128,
+         True, None, None),
+        ("dbrx-132b decode", 2, 1, SERVE_PROMPT + DENSE_GEN, 48, 8, 128,
+         False, SERVE_PROMPT + 1, None),
+        ("deepseek-v3-671b MLA prefill", 2, SERVE_PROMPT, SERVE_PROMPT, 128,
+         128, 192, True, None, None))
     saved = k_flash.launches, k_flash.route_counts()
     g = torch.Generator(device=dev).manual_seed(11)
     out, libs = {}, {}
@@ -2970,9 +3012,10 @@ def serve_profile(fn, label: str, parts: dict, phase: int,
                   ranges: dict | None = None) -> dict:
     """Device time by kernel of fn() from torch.profiler's CUDA activity,
     and the share of each part: `parts` maps a label to the substrings of
-    the CUDA kernel names that make it up, `ranges` a label to the name of
-    a profiler range that fn() opens (`profile_ranges`), whose kernels'
-    device time it counts.  Returns {"device_ms": total, part: {"ms",
+    the CUDA kernel names that make it up, `ranges` a label to the
+    (module, name) of a port function that fn() runs in a profiler range
+    of its name (`profile_ranges`), whose kernels' device time it
+    counts.  Returns {"device_ms": total, part: {"ms",
     "share"}, "top": [[kernel, ms, count], ...]}, or {"device_ms": "not
     measured"} where the profiler cannot trace."""
     from torch.autograd import DeviceType
@@ -2990,14 +3033,14 @@ def serve_profile(fn, label: str, parts: dict, phase: int,
     # a range may also show as a device-side annotation: not a kernel
     rows = [(e.key, e.self_device_time_total, e.count) for e in events
             if e.device_type == DeviceType.CUDA
-            and e.key not in ranges.values()]
+            and e.key not in {n for _, n in ranges.values()}]
     rows.sort(key=lambda r: -r[1])
     total = sum(t for _, t, _ in rows)
     out = {"device_ms": total / 1e3}
     for part, names in parts.items():
         t = sum(t for k, t, _ in rows if any(n in k for n in names))
         out[part] = {"ms": t / 1e3, "share": t / max(total, 1e-9)}
-    for part, name in ranges.items():
+    for part, (_, name) in ranges.items():
         t = sum(e.device_time_total for e in events
                 if e.key == name and e.device_type == DeviceType.CPU)
         out[part] = {"ms": t / 1e3, "share": t / max(total, 1e-9)}
@@ -3021,19 +3064,47 @@ def wkv_sequential_inplace(r, k, v, w, u, state, *, chunk: int):
     return out.to(r.dtype)
 
 
+# The plain attentions' float32 scores a block stay under this many bytes:
+# deepseek-v3-671b's 128 heads at S 5000 would otherwise take 5.2 GB a
+# block, several at a time, beside 54.6 GB of weights (at 2e9 its phase
+# peaked at 68.70 GB on an H100 80GB HBM3).
+PLAIN_BLOCK_BYTES = 1e9
+
+
+def plain_rows(b: int, h: int, skv: int, rows: int = 1024) -> int:
+    """The query rows (or keys) a block of a plain attention takes: at
+    most `rows`, fewer where a block's (B, H, rows, Skv) float32 scores
+    would pass PLAIN_BLOCK_BYTES (781 at a 32-head prefill of 5000, 195 at
+    deepseek-v3-671b's 128 heads; a row's result does not depend on its
+    block)."""
+    return max(1, min(rows, int(PLAIN_BLOCK_BYTES // (4 * b * h * skv))))
+
+
 def mha_dense_plain(q, k, v, *, causal: bool, window=None, softcap=None,
                     q_offset: int = 0, kv_valid_len=None, kv_chunk=1024):
     """`ops.mha`'s contract through the dense softmax with an explicit
     keep mask (`masked_attention`): a second plain version of the
-    attention, for the bf16 noise yardstick of the hybrid serves."""
+    attention, for the bf16 noise yardstick of the hybrid and MoE
+    serves."""
     keep = keep_mask(q.shape[1], k.shape[1], causal, window, q_offset,
                      kv_valid_len, q.device)
-    return masked_attention(q, k, v, keep, softcap)
+    return masked_attention(q, k, v, keep, softcap, rows=plain_rows(
+        q.shape[0], q.shape[2], k.shape[1]))
+
+
+def mha_ref_lean(q, k, v, *, kv_chunk: int = 1024, **kw):
+    """`ref.mha_ref` with its key chunk cut by `plain_rows` (195 at
+    deepseek-v3-671b's prefill): the same online softmax, its chunks'
+    float32 scores under PLAIN_BLOCK_BYTES."""
+    from repro_torch.kernels import ref
+    return ref.mha_ref(q, k, v, kv_chunk=plain_rows(
+        q.shape[0], q.shape[2], q.shape[1], kv_chunk), **kw)
 
 
 # Each served arch: its kernel, the `ops` function that reaches it, that
-# function's plain version, a second plain version (the bf16 noise
-# yardstick, or None), and the phases of its bf16 and float32 runs.
+# function's plain version (a name in `ref`, or a function here), a second
+# plain version (the bf16 noise yardstick, or None), and the phases of its
+# bf16 and float32 runs.
 SERVED = {"gemma2-2b": ("flash_attention", "mha", "mha_ref", None,
                         (10, 11)),
           "rwkv6-3b": ("rwkv6_scan", "wkv", "wkv_inplace_ref",
@@ -3047,7 +3118,11 @@ SERVED = {"gemma2-2b": ("flash_attention", "mha", "mha_ref", None,
           "zamba2-7b": ("flash_attention", "mha", "mha_ref", mha_dense_plain,
                         (29, 29)),
           "llama-3.2-vision-11b": ("flash_attention", "mha", "mha_ref",
-                                   mha_dense_plain, (30, 30))}
+                                   mha_dense_plain, (30, 30)),
+          "dbrx-132b": ("flash_attention", "mha", "mha_ref", mha_dense_plain,
+                        (35, 35)),
+          "deepseek-v3-671b": ("flash_attention", "mha", mha_ref_lean,
+                               mha_dense_plain, (36, 36))}
 # The dense archs served at their published widths beside gemma2-2b
 # (configs/granite_8b.py: 36 layers, d_model 4096, 32 heads, GQA kv 8, hd
 # 128, SwiGLU, RMSNorm, untied, 8254.7M parameters; nemotron_4_15b.py: 32
@@ -3069,16 +3144,33 @@ DENSE_ARCHS = ("granite-8b", "nemotron-4-15b", "gemma3-12b")
 # SSD's constants (A_log 0, D 1, dt_bias 0) would leave whole paths inert,
 # so both phases draw them from --seed first (`wake_inert_leaves`).
 HYBRID_ARCHS = ("zamba2-7b", "llama-3.2-vision-11b")
+# The MoE archs, served at every published width with their depth cut to
+# SERVE_PERIODS repeats of the period (the serve driver's --periods), the
+# most under ~70 GB of peak with the plain run
+# (configs/dbrx_132b.py: 40 moe layers, d_model 6144, 48 heads, kv 8, hd
+# 128, 16 experts top-4 of d_expert 10752, SwiGLU, vocab 100352, rope
+# theta 5e5, 131596.5M parameters, 6.52 GB a layer in bf16: 8 layers and
+# the untied embeddings are 54.6 GB; deepseek_v3_671b.py: 3 dense MLA
+# layers (d_ff 18432) and 58 moe ones, d_model 7168, 128 heads, MLA q_lora
+# 1536, kv_lora 512, nope 128 + rope 64 (qk hd 192), v 128, 256 routed
+# experts top-8 of 2048 and one shared, vocab 129280, the MTP leaves,
+# 671712.7M parameters: the 3 dense layers and 2 of the 58 moe ones are
+# 54.6 GB).
+MOE_ARCHS = ("dbrx-132b", "deepseek-v3-671b")
+SERVE_PERIODS = {"dbrx-132b": 8, "deepseek-v3-671b": 2}
 # Their greedy decode steps: 8, not 32, to keep the whole smoke near 900 s
 # (with 32 it took 880.8 s from phase 1 on an H100 80GB HBM3 at 700 W);
 # 8 still decodes past every local layer's 1024-slot ring.
 DENSE_GEN = 8
 SERVE_GENS = {"gemma2-2b": SERVE_GEN, "rwkv6-3b": SERVE_GEN,
-              **{a: DENSE_GEN for a in DENSE_ARCHS + HYBRID_ARCHS}}
+              **{a: DENSE_GEN for a in DENSE_ARCHS + HYBRID_ARCHS
+                 + MOE_ARCHS}}
 # The CUDA kernels of each arch's kernel module, by the substrings of
 # their names in a profile: flash attention's three routes, the WKV's two;
-# for the hybrid archs also cuBLAS's matmuls, and (by a profiler range
-# around each call) the mamba mixers and their chunked SSD.
+# for the hybrid and MoE archs also cuBLAS's matmuls, and (by a profiler
+# range around each call of a port function, by module and name) the
+# mamba mixers and their chunked SSD, the MoE FFN and the absorbed MLA
+# decode.
 FLASH_PARTS = {"flash sm90": ("flash_sm90_kernel",),
                "flash split": ("flash_decode_kernel",
                                "flash_decode_combine"),
@@ -3089,31 +3181,33 @@ PROFILE_PARTS = {
     "rwkv6-3b": {"wkv chunked": ("rwkv6_chunked_kernel",),
                  "wkv recurrent": ("rwkv6_scan_kernel",)},
     **{a: FLASH_PARTS for a in DENSE_ARCHS},
-    **{a: {**FLASH_PARTS, **CUBLAS_PARTS} for a in HYBRID_ARCHS}}
-PROFILE_RANGES = {"zamba2-7b": {"mamba mixer": "mamba_forward",
-                                "SSD": "_ssd_chunked"}}
-# The routes a served bf16 run must take, in launches a pass (a prefill
-# or a decode step) of each attention call (or WKV): gemma2-2b every
-# prefill call on sm90, every decode call on split; rwkv6-3b every prefill
-# WKV on chunked, every decode call on recurrent; zamba2-7b's hd 112 runs
-# on sm90 at 128 columns (the 16 past hd zero-filled), so no bf16 call of
-# any attention arch takes simt.  Each arch's float32 prefill takes the
-# last route named.
-SERVE_ROUTES = {a: {"sm90": 1, "split": SERVE_GENS[a] - 1, "simt": 0}
-                for a in ("gemma2-2b",) + DENSE_ARCHS + HYBRID_ARCHS}
-SERVE_ROUTES["rwkv6-3b"] = {"chunked": 1, "recurrent": SERVE_GEN - 1}
+    **{a: {**FLASH_PARTS, **CUBLAS_PARTS} for a in HYBRID_ARCHS + MOE_ARCHS}}
+PROFILE_RANGES = {"zamba2-7b": {"mamba mixer": ("ssm", "mamba_forward"),
+                                "SSD": ("ssm", "_ssd_chunked")},
+                  "dbrx-132b": {"MoE": ("moe", "moe_apply")},
+                  "deepseek-v3-671b": {"MoE": ("moe", "moe_apply"),
+                                       "MLA decode": ("attention",
+                                                      "mla_decode")}}
+# The routes a served bf16 run must take, (every prefill call's, every
+# decode call's), each route's launches `pass_launches` of a prefill and
+# of a decode step, every other route none: gemma2-2b sm90 and split;
+# rwkv6-3b's WKV chunked and recurrent; zamba2-7b's hd 112 runs on sm90 at
+# 128 columns (the 16 past hd zero-filled) and deepseek-v3-671b's MLA
+# prefill at 192 (qk hd 192, v zero-padded from 128; no decode call), so
+# no bf16 call of any attention arch takes simt.  Each arch's float32
+# prefill takes SERVE_F32_ROUTE.
+SERVE_ROUTES = {a: ("sm90", "split") for a in ("gemma2-2b",) + DENSE_ARCHS
+                + HYBRID_ARCHS + MOE_ARCHS}
+SERVE_ROUTES["rwkv6-3b"] = ("chunked", "recurrent")
 SERVE_F32_ROUTE = {"gemma2-2b": "simt", "rwkv6-3b": "recurrent",
-                   **{a: "simt" for a in DENSE_ARCHS + HYBRID_ARCHS}}
-# The kernel launches of a served pass, by block kind: one a WKV, one an
-# attention call (a shared_attn invocation among them), two a cross layer
-# (its self-attention and its cross-attention); a mamba block runs none.
-PASS_LAUNCHES = {"rwkv": 1, "attn": 1, "local": 1, "global": 1,
-                 "shared_attn": 1, "cross": 2}
-# The reduced config of a hybrid arch (float32, the SSD in plain PyTorch)
-# on the card against the port's CPU run of the same weights: prefill
-# logits, every cache leaf and DENSE_GEN teacher-forced decode steps, by
-# max |diff| over max |value| (no kernel covers the SSD, so this is its
-# card gate).
+                   **{a: "simt" for a in DENSE_ARCHS + HYBRID_ARCHS
+                      + MOE_ARCHS}}
+# The reduced config of a hybrid or MoE arch (float32; the SSD, the routed
+# MoE and the absorbed MLA decode in plain PyTorch) on the card against the
+# port's CPU run of the same weights: prefill logits, every cache leaf and
+# DENSE_GEN teacher-forced decode steps, by max |diff| over max |value| (no
+# kernel covers the SSD, the MoE or the MLA decode, so this is their card
+# gate).
 CARD_CPU_PROMPT = 200
 CARD_CPU_RTOL = 1e-4
 # The float32 prefill copies the served weights to float32 leaf by leaf
@@ -3126,10 +3220,13 @@ F32_WEIGHTS_BYTES = 48e9
 def float32_model(tree: dict, cfg):
     """The weights of `tree` (the only reference to them: the caller has
     dropped its model) in float32, each leaf cast as its bf16 one is
-    released; where the float32 weights of all would pass
-    F32_WEIGHTS_BYTES, cut to the first periods of the model's one scan
-    group that fit.  Returns (LM, its config, kept periods of the first
-    group, the float32 bytes of all)."""
+    released.  Where the float32 weights of all would pass
+    F32_WEIGHTS_BYTES, it keeps the model's scan groups in order while
+    they fit, cuts the last group it keeps to the periods of it that fit
+    (none where not one fits), and drops the groups after it (their bf16
+    leaves released first); every leaf outside the groups is kept.
+    Returns (LM, its config, the periods kept of each group by name, the
+    float32 bytes of all)."""
     import torch
     from repro_torch.models import LM
     from repro_torch.models.transformer import scan_groups
@@ -3143,37 +3240,69 @@ def float32_model(tree: dict, cfg):
                 yield pre + k, v
 
     sizes = {k: v.numel() for k, v in leaves(tree)}
-    in_group = sum(n for k, n in sizes.items() if k.startswith("group0."))
     full = 4 * sum(sizes.values())
-    rest = full - 4 * in_group
-    keep = groups[0].n
-    if full > F32_WEIGHTS_BYTES:
-        if len(groups) != 1:
-            fail(f"{cfg.name}: float32 weights of {full / 1e9:.1f} GB over "
-                 f"{F32_WEIGHTS_BYTES / 1e9:.0f} and {len(groups)} scan "
-                 "groups: no cut to the first periods")
-        keep = max(1, int((F32_WEIGHTS_BYTES - rest)
-                          // (4 * in_group / keep)))
+    group_bytes = [4 * sum(n for k, n in sizes.items()
+                           if k.startswith(f"group{gi}."))
+                   for gi in range(len(groups))]
+    room = F32_WEIGHTS_BYTES - (full - sum(group_bytes))
+    keep = {}
+    for gi, g in enumerate(groups):
+        fits = g.n if full <= F32_WEIGHTS_BYTES else max(
+            0, min(g.n, int(room // (group_bytes[gi] / g.n))))
+        keep[f"group{gi}"] = fits
+        room -= fits * group_bytes[gi] / g.n
+        if fits < g.n:           # the groups after a cut one are dropped
+            room = 0
+    for name, n in keep.items():
+        if n == 0:
+            del tree[name]       # releases its bf16 leaves before any cast
 
     def cast(node, cut):
         for k in list(node):
             if isinstance(node[k], dict):
-                cast(node[k], cut or k == "group0")
+                cast(node[k], keep.get(k) if cut is None else cut)
             else:      # replacing the entry releases the bf16 leaf
                 leaf = node[k].detach()
-                node[k] = (leaf[:keep] if cut else leaf).to(torch.float32)
+                node[k] = (leaf if cut is None else leaf[:cut]).to(
+                    torch.float32)
 
-    cast(tree, False)
+    cast(tree, None)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    if keep < groups[0].n:
-        cfg32 = dataclasses.replace(cfg32, num_periods=keep,
-                                    num_layers=keep * len(groups[0].period))
+    if any(keep[f"group{gi}"] < g.n for gi, g in enumerate(groups)):
+        # the groups in order: the head blocks, the period, the tail
+        # blocks (a run of one kind is one group of its length, a mixed
+        # run one group of one)
+        order = iter(range(len(groups)))
+
+        def kept(blocks):
+            if not blocks:
+                return ()
+            gi = next(order)
+            return blocks[:len(blocks) * keep[f"group{gi}"] // groups[gi].n]
+
+        head = kept(cfg.head_blocks)
+        periods = keep[f"group{next(order)}"] if cfg.num_periods else 0
+        tail = kept(cfg.tail_blocks)
+        cfg32 = dataclasses.replace(
+            cfg32, head_blocks=head, num_periods=periods, tail_blocks=tail,
+            num_layers=len(head) + len(cfg.period) * periods + len(tail))
     return LM(cfg32, tree), cfg32, keep, full
 
 
-def pass_launches(cfg) -> int:
-    """Launches of the served kernel in one pass (a prefill or a decode
-    step) of `cfg`, by PASS_LAUNCHES."""
+# The flash launches of a served pass, by block kind: one an attention
+# call (a shared_attn invocation among them), two a cross layer (its
+# self-attention and its cross-attention), one a moe block's attention; an
+# rwkv block one WKV; a mamba block none.  With MLA an attention block
+# launches in prefill only: the absorbed decode is plain PyTorch.
+PASS_LAUNCHES = {"rwkv": 1, "attn": 1, "local": 1, "global": 1,
+                 "shared_attn": 1, "cross": 2, "moe": 1}
+
+
+def pass_launches(cfg, decode: bool = False) -> int:
+    """Launches of the served kernel in a prefill of `cfg`, or with
+    `decode` in a decode step, by PASS_LAUNCHES."""
+    if decode and cfg.mla is not None:
+        return 0
     return sum(PASS_LAUNCHES.get(k, 0) for k in cfg.layer_kinds)
 
 
@@ -3187,10 +3316,9 @@ def train_launches(cfg) -> tuple[int, int]:
 
 def train_depth_cut(cfg, periods: int):
     """`cfg` with `periods` repeats of its period, its head and tail blocks
-    and every width kept."""
-    return dataclasses.replace(
-        cfg, num_periods=periods, num_layers=len(cfg.head_blocks)
-        + len(cfg.period) * periods + len(cfg.tail_blocks))
+    and every width kept (the serve driver's `--periods`)."""
+    from repro_torch.launch.serve import depth_cut
+    return depth_cut(cfg, periods)
 
 
 INERT_DRAWS = {"gate": ("uniform", 0.5, 1.5), "lora_q_b": ("normal", 0.02),
@@ -3238,7 +3366,8 @@ def vision_input(cfg, b: int, seed: int, dev):
 def card_cpu_phase(arch: str, seed: int, dev, ph: int) -> dict:
     """The reduced config of `arch` (float32) with the same weights on the
     card and on the CPU, woken as the full-width run's: prefill logits at
-    CARD_CPU_PROMPT tokens, every cache leaf (KVCache, SSMState, CrossKV),
+    CARD_CPU_PROMPT tokens, every cache leaf (KVCache, SSMState, CrossKV,
+    MLACache),
     and DENSE_GEN decode steps teacher-forced by the CPU run's tokens,
     each by max |diff| over max |value| <= CARD_CPU_RTOL."""
     import torch
@@ -3295,30 +3424,31 @@ def _to_device(tree: dict, dev) -> dict:
 
 @contextlib.contextmanager
 def profile_ranges(arch: str):
-    """Wrap the functions named by PROFILE_RANGES[arch] (module
-    functions of repro_torch.models.ssm) in profiler ranges of their
-    names, for `serve_profile`'s `ranges`."""
+    """Wrap the functions named by PROFILE_RANGES[arch] (module, function
+    of repro_torch.models) in profiler ranges of their names, for
+    `serve_profile`'s `ranges`."""
+    import importlib
     from unittest import mock
     import torch
-    from repro_torch.models import ssm
-    names = list(PROFILE_RANGES.get(arch, {}).values())
     with contextlib.ExitStack() as stack:
-        for name in names:
-            fn = getattr(ssm, name)
+        for mod_name, name in PROFILE_RANGES.get(arch, {}).values():
+            mod = importlib.import_module(f"repro_torch.models.{mod_name}")
+            fn = getattr(mod, name)
 
             def ranged(*a, _fn=fn, _name=name, **kw):
                 with torch.profiler.record_function(_name):
                     return _fn(*a, **kw)
-            stack.enter_context(mock.patch.object(ssm, name, ranged))
+            stack.enter_context(mock.patch.object(mod, name, ranged))
         yield
 
 
 def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
-    """`arch` at full width through the port's serve driver, then the same
+    """`arch` at full width (a MoE arch at every published width, its depth
+    cut to SERVE_PERIODS) through the port's serve driver, then the same
     weights with the kernel's `ops` function replaced by its plain version:
     the kernel's prefill and teacher-forced decode logits against the plain
-    run's, and a float32 prefill of batch 1 held tighter.  A hybrid arch
-    also runs its reduced config on the card against the CPU."""
+    run's, and a float32 prefill of batch 1 held tighter.  A hybrid or MoE
+    arch also runs its reduced config on the card against the CPU."""
     from unittest import mock
     import torch
     from repro_torch.kernels import ops, ref
@@ -3326,17 +3456,25 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import init_params
 
-    kname, op, plain_name, second, (ph, ph32) = SERVED[arch]
-    plain = getattr(ref, plain_name)
-    cfg = serve.serve_config(arch)
+    kname, op, plain, second, (ph, ph32) = SERVED[arch]
+    if isinstance(plain, str):
+        plain = getattr(ref, plain)
+    cfg = serve.serve_config(arch, periods=SERVE_PERIODS.get(arch))
+    torch.cuda.reset_peak_memory_stats(dev)
+    start_bytes = torch.cuda.memory_allocated(dev)
     b, p, g = SERVE_BATCH, SERVE_PROMPT, SERVE_GENS[arch]
     t0 = time.perf_counter()
     model = init_params(cfg, seed=seed, device=dev)
     woken = wake_inert_leaves(model, seed)
     sync(dev)
-    log(f"phase {ph} {arch}: {model.num_params() / 1e6:.1f}M parameters "
-        f"({cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.dtype}) "
-        f"initialized on the card in {time.perf_counter() - t0:.2f} s"
+    n_params = model.num_params()
+    cut = (f", the first {SERVE_PERIODS[arch]} of "
+           f"{serve.serve_config(arch).num_periods} periods"
+           if arch in SERVE_PERIODS else "")
+    log(f"phase {ph} {arch}: {n_params / 1e6:.1f}M parameters "
+        f"({cfg.num_layers} layers{cut}, d_model {cfg.d_model}, "
+        f"{cfg.dtype}) initialized on the card in "
+        f"{time.perf_counter() - t0:.2f} s"
         + (f"; {len(woken)} inert leaves drawn from the seed "
            f"({', '.join(sorted({w.rsplit('.', 1)[-1] for w in woken}))})"
            if woken else ""))
@@ -3348,22 +3486,27 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
     ops.reset_launch_counts()
     run = serve.generate(model, prompts, g, vision_embeds=vis)
     counts = ops.launch_counts()
-    n_pass = pass_launches(cfg)
-    want = n_pass * g
+    n_pre, n_dec = pass_launches(cfg), pass_launches(cfg, decode=True)
+    passes = f"{n_pre} + {n_dec} x {g - 1}"
+    want = n_pre + n_dec * (g - 1)
     if counts[kname] != want or \
             any(n for k, n in counts.items() if k != kname):
-        fail(f"serve {arch}: launches {counts}, want {kname} = "
-             f"{n_pass} + {n_pass} x {g - 1} = {want}")
+        fail(f"serve {arch}: launches {counts}, want {kname} = {passes} = "
+             f"{want}")
     kmod = ops.KERNELS[kname]
     got_routes = kmod.route_counts()
-    want_r = {r: n_pass * n for r, n in SERVE_ROUTES[arch].items()}
-    on_prefill, on_decode = list(SERVE_ROUTES[arch])[:2]
+    on_prefill, on_decode = SERVE_ROUTES[arch]
+    want_r = dict.fromkeys(got_routes, 0)
+    want_r[on_prefill] += n_pre
+    want_r[on_decode] += n_dec * (g - 1)
+    on_decode_text = (on_decode if n_dec else "none: the absorbed MLA "
+                      "decode is plain PyTorch")
     if got_routes != want_r:
         fail(f"serve {arch}: {kname} routes {got_routes}, want {want_r} "
-             f"(every prefill call on {on_prefill}, every decode call on "
-             f"{on_decode})")
-    routes = (f" (routes {got_routes}: prefill on {on_prefill}, decode on "
-              f"{on_decode})")
+             f"(every prefill call on {on_prefill}, decode "
+             f"{on_decode_text})")
+    routes = (f" (routes {got_routes}: prefill on {on_prefill}, decode "
+              f"{on_decode_text})")
     toks = run["tokens"]
     if tuple(toks.shape) != (b, g) or int(toks.min()) < 0 \
             or int(toks.max()) >= cfg.vocab_size:
@@ -3375,8 +3518,8 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
         f"{run['prefill_s']:.3f} s ({prefill_tps:.1f} tokens/s), decode "
         f"{g - 1} steps in {run['decode_s']:.3f} s ({decode_tps:.1f} "
         f"tokens/s, {1e3 * run['decode_s'] / (g - 1):.2f} ms a step), "
-        f"{kname} launches {counts[kname]} = "
-        f"{n_pass} + {n_pass} x {g - 1}{routes}; card {card}")
+        f"{kname} launches {counts[kname]} = {passes}{routes}; peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; card {card}")
     if arch == "gemma2-2b":
         ht = host_time.measure(model, prompts, reps=10)
         log(f"phase {ph} {arch} decode step: {ht['step_host_ms']:.2f} ms of "
@@ -3439,10 +3582,16 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
                                       sync(dev)),
                              f"prefill (B {b}, S {p})", PROFILE_PARTS[arch],
                              ph, ranges)
-        serve_profile(lambda: ([decode(model, cache, plain_toks[i], p + i)
-                                for i in range(g - 4, g - 1)], sync(dev)),
-                      "3 decode steps", PROFILE_PARTS[arch], ph, ranges)
+        prof_dec = serve_profile(
+            lambda: ([decode(model, cache, plain_toks[i], p + i)
+                      for i in range(g - 4, g - 1)], sync(dev)),
+            "3 decode steps", PROFILE_PARTS[arch], ph, ranges)
     del cache
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"phase {ph} {arch}: peak device memory {peak / 1e9:.2f} GB "
+        f"(torch.cuda.max_memory_allocated over the bf16 runs, the plain "
+        f"ones among them; {start_bytes / 1e9:.2f} GB held before the "
+        f"phase); card {card}")
 
     tree = model.tree()
     del model
@@ -3456,6 +3605,9 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
              f"{F32_WEIGHTS_BYTES / 1e9:.0f}")
     n32 = pass_launches(cfg32)
     vis32 = None if vis is None else vis[:1].float()
+    if n32 == 0:
+        fail(f"serve {arch} float32: no attention layer fits "
+             f"{F32_WEIGHTS_BYTES / 1e9:.0f} GB in float32")
     prefill32 = make_prefill_step(cfg32, s_max=p)
     ops.reset_launch_counts()
     lk, _ = prefill32(model32, prompts[:1], vis32)
@@ -3483,10 +3635,15 @@ def serve_phase(dev, seed: int, card: str, arch: str) -> dict:
                decode_tps=decode_tps, errs=errs, e32=e32, tol=tol,
                f32_layers=layers32, f32_launches=n32,
                prefill_s=run["prefill_s"], decode_s=run["decode_s"])
-    if arch in HYBRID_ARCHS:
+    if arch in HYBRID_ARCHS + MOE_ARCHS:
         out["prefill_profile"] = {k: v for k, v in prof.items()
                                   if k != "top"}
         out["card_vs_cpu"] = card_cpu_phase(arch, seed, dev, ph)
+    if arch in MOE_ARCHS:
+        out.update(decode_profile={k: v for k, v in prof_dec.items()
+                                   if k != "top"},
+                   peak_bytes=peak, layers=cfg.num_layers,
+                   params_m=n_params / 1e6)
     return out
 
 
@@ -6861,6 +7018,15 @@ def main() -> None:
         hybrid[arch]["seconds"] = time.perf_counter() - t_arch
         torch.cuda.empty_cache()
     mark(t_smoke, "29-30")
+    # phases 35-36: dbrx-132b and deepseek-v3-671b at their published
+    # widths, SERVE_PERIODS periods
+    moe_served = {}
+    for arch in MOE_ARCHS:
+        t_arch = time.perf_counter()
+        moe_served[arch] = serve_phase(dev, args.seed, card, arch)
+        moe_served[arch]["seconds"] = time.perf_counter() - t_arch
+        torch.cuda.empty_cache()
+    mark(t_smoke, "35-36")
 
     # phase 20: the learn-while-serve AMTLServer at the engine cells' width
     amtl_serve = amtl_serve_phase(dev, args.seed, card)
@@ -7002,6 +7168,9 @@ def main() -> None:
     flash["hybrid_serve_launches"] = {
         a: dict(r["routes"], float32_prefill_simt=r["f32_launches"])
         for a, r in hybrid.items()}
+    flash["moe_serve_launches"] = {
+        a: dict(r["routes"], float32_prefill_simt=r["f32_launches"],
+                layers=r["layers"]) for a, r in moe_served.items()}
     flash["hybrid_shapes"] = flash_hybrid_times(dev)
     flash["hubert_launches"] = {
         "encoder": encoder["routes"],
@@ -7050,6 +7219,11 @@ def main() -> None:
         "prefill_tps", "decode_tps", "prefill_s", "decode_s", "errs", "e32",
         "tol", "f32_layers", "f32_launches", "routes", "prefill_profile",
         "card_vs_cpu", "seconds")} for a, r in hybrid.items()}))
+    log("moe serves " + json.dumps({a: {k: r[k] for k in (
+        "layers", "params_m", "prefill_tps", "decode_tps", "prefill_s",
+        "decode_s", "errs", "e32", "tol", "f32_layers", "f32_launches",
+        "routes", "prefill_profile", "decode_profile", "peak_bytes",
+        "card_vs_cpu", "seconds")} for a, r in moe_served.items()}))
     log(f"smoke: {time.perf_counter() - t_smoke:.1f} s from phase 1 "
         f"[{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)

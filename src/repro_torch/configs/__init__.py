@@ -1,8 +1,10 @@
 """Architecture registry of the port.
 
-`ARCH_NAMES` lists the reference's ten architectures; `get_config` returns
-the ones the port can serve so far and raises NotImplementedError, naming
-the ROADMAP item that brings it, for the others.
+`ARCH_NAMES` lists the reference's ten architectures, and `get_config`
+returns each; `_PENDING` would name an arch the port cannot serve yet
+(get_config raises NotImplementedError for it, naming the ROADMAP item
+that brings it), and holds none since dbrx-132b and deepseek-v3-671b came
+(item 11(e)).
 """
 from __future__ import annotations
 
@@ -20,14 +22,13 @@ _MODULES = {
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "llama-3.2-vision-11b": "repro_torch.configs.llama_3_2_vision_11b",
     "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
 }
 
 # Archs of the reference that the port does not serve yet, with the item of
 # ROADMAP.md (Queue 1, item 11) that brings each.
-_PENDING = {
-    "deepseek-v3-671b": "MLA attention and the MoE FFN",
-    "dbrx-132b": "the MoE FFN",
-}
+_PENDING: dict[str, str] = {}
 
 ARCH_NAMES = tuple(_MODULES) + tuple(_PENDING)
 SERVED = tuple(_MODULES)

@@ -13,12 +13,14 @@ An LM's parameters and serving cache cross as flat dicts keyed by the
 "group0.b1.attn.wq", "group0.b0.k" or, for an RWKV cache,
 "group0.b0.x_prev_att" and "group0.b0.wkv", for an SSM cache
 "group0.b0.conv" and "group0.b0.ssm", for a cross layer
-"group0.b4.self.k" and "group0.b4.cross.k"), which are the port's
-state_dict keys and cache paths too:
+"group0.b4.self.k" and "group0.b4.cross.k", for an MLA cache
+"group0.b0.c_kv" and "group0.b0.k_rope"; a MoE layer's
+"group1.b0.moe.router", an MTP model's "mtp.block.attn.wq_a"), which are
+the port's state_dict keys and cache paths too:
 
     lm_params_from_numpy(cfg, flat, device) -> models.LM
     kv_cache_to_numpy(cache) -> flat    # KVCache, RWKVState, SSMState,
-                                        # CrossKV
+                                        # CrossKV, MLACache
     kv_cache_from_numpy(cfg, flat, device) -> cache
 
 A bfloat16 array may come with ml_dtypes' `bfloat16` dtype (what
@@ -73,7 +75,7 @@ from repro_torch.core.dynamic_step import DelayHistory
 from repro_torch.core.losses import MTLProblem
 from repro_torch.core.mtl_head import MTLHeadState
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, MLACache
 from repro_torch.models.rwkv import RWKVState
 from repro_torch.models.serving import CrossKV
 from repro_torch.models.ssm import SSMState
@@ -198,9 +200,9 @@ def lm_params_from_numpy(cfg: ArchConfig, flat: dict,
     """The port's model from the reference's parameter leaves, keyed by
     path (the top-level "shared_attn.*" of a Zamba2 model among them);
     each leaf takes the reference's dtype for it (`param_dtypes`:
-    cfg.dtype, but float32 for the rwkv w0 and u and the mamba A_log, D
-    and dt_bias) on `device` (the card unless the caller passes "cpu").
-    The keys must be exactly the port's."""
+    cfg.dtype, but float32 for the rwkv w0 and u, the mamba A_log, D and
+    dt_bias, and the MoE router) on `device` (the card unless the caller
+    passes "cpu").  The keys must be exactly the port's."""
     dev = resolve_device(device)
     dtypes = param_dtypes(cfg)
     want = param_shapes(cfg)
@@ -216,13 +218,15 @@ def lm_params_from_numpy(cfg: ArchConfig, flat: dict,
 
 # a cache node by its fields; a cross layer's {k, v} under "cross" is a
 # CrossKV, elsewhere a KVCache
-_CACHES = {frozenset(t._fields): t for t in (KVCache, RWKVState, SSMState)}
+_CACHES = {frozenset(t._fields): t
+           for t in (KVCache, RWKVState, SSMState, MLACache)}
 _FLOAT32_CACHE_LEAVES = (".wkv", ".ssm")
 
 
 def kv_cache_to_numpy(cache: dict) -> dict:
     """The cache's leaves (KVCache and CrossKV k, v; RWKVState x_prev_att,
-    x_prev_ffn, wkv; SSMState conv, ssm) as float32 host arrays (an exact
+    x_prev_ffn, wkv; SSMState conv, ssm; MLACache c_kv, k_rope) as float32
+    host arrays (an exact
     upcast of bfloat16), keyed by path ("group0.b0.k", "group0.b0.wkv",
     "group0.b0.ssm", "group0.b4.cross.k", ...)."""
     flat = {}
@@ -235,7 +239,8 @@ def kv_cache_to_numpy(cache: dict) -> dict:
 def kv_cache_from_numpy(cfg: ArchConfig, flat: dict,
                         device: torch.device | str | None = None) -> dict:
     """A cache from leaves keyed as `kv_cache_to_numpy` gives them, or as
-    the reference's KVCache, RWKVState, SSMState and CrossKV paths, on
+    the reference's KVCache, RWKVState, SSMState, CrossKV and MLACache
+    paths, on
     `device`: cast to cfg.dtype, except the WKV and SSM states, which stay
     float32."""
     dev = resolve_device(device)

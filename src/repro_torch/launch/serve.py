@@ -6,6 +6,8 @@
         --batch 2 --prompt-len 5000 --gen 32         # full width, the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --reduced --device cpu                       # hybrid Mamba-2, CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
+        --periods 8 --batch 2 --prompt-len 5000 --gen 8   # 8 of 40 layers
 
 Port of `repro/launch/serve.py` on one device (sharded serving waits for
 ROADMAP.md Queue 1 item 11(i)).  Prompts come from numpy seeded by --seed, the
@@ -16,8 +18,13 @@ the rwkv6_scan kernels: the chunked tensor-core route in a bf16 prefill,
 the recurrent one in decode (its O(1) state ignores the prompt and
 generation lengths).  A vlm (llama-3.2-vision-11b) is served with stub
 vision embeddings, 0.05 N(0, 1) of shape (B, vision_seq, d_model) from
-numpy seeded by --seed, as the reference's driver makes them.  Without
---device cpu and without a CUDA device it raises.
+numpy seeded by --seed, as the reference's driver makes them.  The MoE
+archs (dbrx-132b, deepseek-v3-671b) run the routed MoE FFN, deepseek's
+attention MLA (its prefill on the flash kernels at qk hd 192, its decode
+the absorbed form in plain PyTorch); their bf16 weights (263 GB, 1.34 TB)
+pass one card, so --periods keeps the first N repeats of the period (a
+depth cut: every width, the head and tail blocks kept).  Without --device
+cpu and without a CUDA device it raises.
 """
 from __future__ import annotations
 
@@ -36,11 +43,24 @@ from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import LM, init_params
 
 
-def serve_config(arch: str, reduced: bool = False) -> ArchConfig:
+def depth_cut(cfg: ArchConfig, periods: int) -> ArchConfig:
+    """`cfg` with `periods` repeats of its period, its head and tail
+    blocks and every width kept."""
+    return dataclasses.replace(
+        cfg, num_periods=periods, num_layers=len(cfg.head_blocks)
+        + len(cfg.period) * periods + len(cfg.tail_blocks))
+
+
+def serve_config(arch: str, reduced: bool = False,
+                 periods: Optional[int] = None) -> ArchConfig:
+    """The arch's config, reduced or not, with its depth cut to `periods`
+    repeats of its period where given."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
         cfg = dataclasses.replace(cfg, name=cfg.name + "-reduced")
+    if periods is not None:
+        cfg = depth_cut(cfg, periods)
     if not cfg.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode loop (run "
                          "it prefill-only via repro_torch.launch.steps."
@@ -119,6 +139,9 @@ def main(argv: Optional[list[str]] = None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--periods", type=int, default=None,
+                    help="keep the first N repeats of the period (default: "
+                         "all)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy")
     ap.add_argument("--device", default=None,
@@ -127,10 +150,11 @@ def main(argv: Optional[list[str]] = None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    cfg = serve_config(args.arch, args.reduced)
+    cfg = serve_config(args.arch, args.reduced, args.periods)
     dev = resolve_device(args.device)
     model = init_params(cfg, seed=args.seed, device=dev)
-    print(f"{cfg.name}: {model.num_params() / 1e6:.1f}M params, "
+    print(f"{cfg.name}: {model.num_params() / 1e6:.1f}M params "
+          f"({cfg.num_layers} layers), "
           f"batch={args.batch}, prompt={args.prompt_len}, gen={args.gen}, "
           f"device={dev}")
     prompts = torch.as_tensor(make_prompts(cfg, args.batch, args.prompt_len,

@@ -1,12 +1,14 @@
-"""GQA attention (full, sliding-window, softcap) for prefill and decode, and
-gated cross-attention (Llama-3.2-Vision style).
+"""GQA attention (full, sliding-window, softcap) for prefill and decode,
+gated cross-attention (Llama-3.2-Vision style), and DeepSeek's MLA.
 
-Port of the GQA and cross-attention parts of `repro/models/attention.py`.
-Every attention call goes through `ops.mha`: the flash-attention CUDA
-kernel for CUDA tensors, the plain chunked online softmax (`ref.mha_ref`)
-for CPU tensors.  MLA, the int8 KV cache and the sharded decode are later
-slices of the port; `transformer.init_params` and
-`interop.lm_params_from_numpy` refuse configs that need them.
+Port of the GQA, cross-attention and MLA parts of
+`repro/models/attention.py`.  Every prefill attention call goes through
+`ops.mha`: the flash-attention CUDA kernel for CUDA tensors, the plain
+chunked online softmax (`ref.mha_ref`) for CPU tensors.  MLA's decode is
+the reference's absorbed form in plain PyTorch (float32 products over the
+latent cache; the reference's is plain jnp too).  The int8 KV cache
+(ROADMAP item 11(f)) and the sharded decodes (11(i)) are not ported;
+`transformer.require_ported` refuses configs that need them.
 
 One deliberate difference from the reference: the KV cache of a
 sliding-window layer is a ring in which position p always sits at slot
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
                                        init_norm)
 
@@ -186,3 +189,149 @@ def cross_attn_forward(p: dict, x: Tensor, kv_src: Tensor,
     """x: (B, S, D) queries; kv_src: (B, Sv, D) vision embeddings."""
     k, v = cross_kv(p, kv_src, cfg, x.dtype)
     return cross_attn(p, x, k, v, cfg)
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek MLA (multi-head latent attention) + absorbed decode
+# ---------------------------------------------------------------------------
+
+class MLACache(NamedTuple):
+    """Compressed cache: c_kv (B, S_max, kv_lora), k_rope (B, S_max,
+    rope_dim)."""
+    c_kv: Tensor
+    k_rope: Tensor
+
+
+def mla_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
+    """The leaves `init_mla` makes, by path."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {"wq_a": (d, m.q_lora_rank), "q_norm.scale": (m.q_lora_rank,),
+            "wq_b": (m.q_lora_rank, h * qk),
+            "wkv_a": (d, m.kv_lora_rank + m.qk_rope_head_dim),
+            "kv_norm.scale": (m.kv_lora_rank,),
+            "wk_b": (m.kv_lora_rank, h * m.qk_nope_head_dim),
+            "wv_b": (m.kv_lora_rank, h * m.v_head_dim),
+            "wo": (h * m.v_head_dim, d)}
+
+
+def init_mla(cfg: ArchConfig, dtype: torch.dtype, gen: torch.Generator,
+             lead: tuple[int, ...] = ()) -> dict:
+    p: dict = {}
+    for path, shape in mla_shapes(cfg).items():
+        if path.endswith(".scale"):
+            p[path.split(".")[0]] = init_norm("rmsnorm", shape[0], dtype,
+                                              gen.device, lead)
+        else:
+            p[path] = dense_init(lead + shape, dtype, gen)
+    return p
+
+
+def _mla_q(p: dict, x: Tensor, cfg: ArchConfig, positions: Tensor):
+    m = cfg.mla
+    b, s, _ = x.shape
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    q_lat = apply_norm("rmsnorm", p["q_norm"], x @ p["wq_a"].to(x.dtype))
+    q = (q_lat @ p["wq_b"].to(x.dtype)).reshape(b, s, cfg.num_heads, qk)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
+                                 dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_kv_latent(p: dict, x: Tensor, cfg: ArchConfig, positions: Tensor):
+    m = cfg.mla
+    kv = x @ p["wkv_a"].to(x.dtype)
+    c_kv, k_rope = torch.split(kv, [m.kv_lora_rank, m.qk_rope_head_dim],
+                               dim=-1)
+    c_kv = apply_norm("rmsnorm", p["kv_norm"], c_kv)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]           # shared head
+    return c_kv, k_rope
+
+
+def mla_forward(p: dict, x: Tensor, cfg: ArchConfig, *,
+                return_cache: bool = False, cache_len: Optional[int] = None):
+    """Prefill MLA: decompress K and V and run standard attention, q and k
+    at nope + rope columns (192 at deepseek-v3's width), v zero-padded to
+    them (`_mha_mixed_dims`)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    positions = torch.arange(s, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_kv_latent(p, x, cfg, positions)
+    k_nope = (c_kv @ p["wk_b"].to(x.dtype)).reshape(b, s, h,
+                                                    m.qk_nope_head_dim)
+    v = (c_kv @ p["wv_b"].to(x.dtype)).reshape(b, s, h, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, m.qk_rope_head_dim)], dim=-1)
+    out = _mha_mixed_dims(q, k, v, causal=cfg.causal)
+    out = out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+    if not return_cache:
+        return out
+    cl = cache_len if cache_len is not None else s
+    return out, MLACache(c_kv=_fit2(c_kv, cl), k_rope=_fit2(k_rope, cl))
+
+
+def _fit2(a: Tensor, cl: int) -> Tensor:
+    """The last cl positions of a (B, S, d), zero-padded at the end when
+    S < cl: position p at slot p, as `mla_decode` writes them."""
+    s = a.shape[1]
+    if s >= cl:
+        return a[:, s - cl:]
+    return torch.nn.functional.pad(a, (0, 0, 0, cl - s))
+
+
+def _mha_mixed_dims(q: Tensor, k: Tensor, v: Tensor, *,
+                    causal: bool) -> Tensor:
+    """`mha` where v's head dim is below q's and k's (MLA): v zero-padded
+    to theirs, the output's padded columns dropped."""
+    dq, dv = q.shape[-1], v.shape[-1]
+    if dv == dq:
+        return mha(q, k, v, causal=causal)
+    v_p = torch.nn.functional.pad(v, (0, dq - dv))
+    return mha(q, k, v_p, causal=causal)[..., :dv]
+
+
+def mla_decode(p: dict, x: Tensor, cache: MLACache, pos: int,
+               cfg: ArchConfig):
+    """Absorbed MLA decode: attend in the compressed latent space.
+
+    score_t = q_nope^T (wk_b c_t) + q_rope^T kr_t
+            = (wk_b^T q_nope)^T c_t + q_rope^T kr_t
+    so K is never decompressed; the output is combined in latent space and
+    decompressed once through wv_b.  x: (B, 1, D); pos: host int.  The new
+    latent and rope key are written into `cache` IN PLACE at slot
+    min(pos, S_max - 1), and the scores, softmax and latent sum run in
+    float32 over the whole cache, masked past pos, as the reference's."""
+    m = cfg.mla
+    b = x.shape[0]
+    h = cfg.num_heads
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)          # (B, 1, H, *)
+    c_new, kr_new = _mla_kv_latent(p, x, cfg, positions)   # (B, 1, *)
+    s_max = cache.c_kv.shape[1]
+    slot = min(pos, s_max - 1)
+    cache.c_kv[:, slot] = c_new[:, 0].to(cache.c_kv.dtype)
+    cache.k_rope[:, slot] = kr_new[:, 0].to(cache.k_rope.dtype)
+    c, kr = cache.c_kv.float(), cache.k_rope.float()
+
+    wk_b = p["wk_b"].to(x.dtype).reshape(m.kv_lora_rank, h,
+                                         m.qk_nope_head_dim)
+    q_lat = torch.einsum("bqhn,lhn->bqhl", q_nope, wk_b)   # (B, 1, H, lora)
+    scale = 1.0 / torch.sqrt(torch.tensor(
+        m.qk_nope_head_dim + m.qk_rope_head_dim, dtype=torch.float32,
+        device=x.device))
+    logits = (torch.einsum("bqhl,bsl->bhqs", q_lat.float(), c)
+              + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), kr)) * scale
+    mask = torch.arange(s_max, device=x.device) <= pos
+    logits = torch.where(mask, logits, torch.tensor(NEG_INF,
+                                                    device=x.device))
+    probs = torch.softmax(logits, dim=-1)
+    out_lat = torch.einsum("bhqs,bsl->bqhl", probs, c)      # (B, 1, H, lora)
+    wv_b = p["wv_b"].to(x.dtype).reshape(m.kv_lora_rank, h, m.v_head_dim)
+    out = torch.einsum("bqhl,lhv->bqhv", out_lat.to(x.dtype), wv_b)
+    out = out.reshape(b, 1, -1) @ p["wo"].to(x.dtype)
+    return out, cache

@@ -1,11 +1,16 @@
-"""Prefill and single-token decode for the attention, RWKV, Mamba-2 hybrid
-and vision-language families, and the audio encoder's forward.
+"""Prefill and single-token decode for the attention, MoE, RWKV, Mamba-2
+hybrid and vision-language families, and the audio encoder's forward.
 
-Port of `repro/models/serving.py` for every block kind but MoE.  The cache
-mirrors the scan groups: for each group, a cache per period position whose
-leaves are stacked over the group's repeat count,
+Port of `repro/models/serving.py` on one device (the sharded decodes are
+ROADMAP item 11(i), the int8 cache 11(f)).  The cache mirrors the scan
+groups: for each group, a cache per period position whose leaves are
+stacked over the group's repeat count,
 
-    attn / global : KVCache (n, B, S_max, Hkv, hd)
+    attn / global / moe : KVCache (n, B, S_max, Hkv, hd)
+    any attention block of an MLA config (deepseek-v3-671b)
+                  : MLACache c_kv (n, B, S_max, kv_lora) and k_rope
+                    (n, B, S_max, rope_dim) -- the compressed latent and
+                    the shared rope key, which the absorbed decode reads
     local         : KVCache ring (n, B, min(window, S_max), Hkv, hd)
     shared_attn   : KVCache (n, B, S_max, Hkv, hd), one per invocation
     cross         : {"self": KVCache, "cross": CrossKV (n, B, Sv, Hkv, hd)}
@@ -16,7 +21,9 @@ leaves are stacked over the group's repeat count,
     mamba         : SSMState conv (n, B, conv_width - 1, conv_dim) and ssm
                     (n, B, H, P, N) float32 -- O(1) in S_max
 
-and layer l of a group reads and writes the views [l].  `pos` is a host
+and layer l of a group reads and writes the views [l].  A MoE block runs
+the routed MoE FFN (`moe.moe_apply`) in prefill and decode; its aux loss
+is not read, and neither are an MTP model's `mtp` leaves.  `pos` is a host
 int: batched serving with aligned positions, as in the reference.  Prefill
 and decode write every layer's cache in place (the new KV slot; the RWKV
 shift vectors and the SSM state; the WKV state, which the rwkv6_scan
@@ -35,17 +42,19 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, BlockKind
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, MLACache
 from repro_torch.models.rwkv import RWKVState
 from repro_torch.models.layers import apply_ffn, apply_norm
 from repro_torch.models.ssm import SSMState
-from repro_torch.models.transformer import (Extras, _window, backbone_forward,
-                                            embed_inputs, embed_tokens,
-                                            lm_logits, require_ported,
-                                            require_vision, scan_groups,
-                                            shared_attn_params, unstack)
+from repro_torch.models.transformer import (Extras, _window, attn_flavor,
+                                            backbone_forward, embed_inputs,
+                                            embed_tokens, lm_logits,
+                                            require_ported, require_vision,
+                                            scan_groups, shared_attn_params,
+                                            unstack)
 
 Tensor = torch.Tensor
 
@@ -96,7 +105,11 @@ def _init_block_cache(kind: BlockKind, cfg: ArchConfig, b: int, s_max: int,
                                   dt=torch.float32))
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     cl = _cache_len(kind, cfg, s_max)
-    kv = KVCache(k=zeros(cl, hkv, hd), v=zeros(cl, hkv, hd))
+    if cfg.mla is not None:
+        kv = MLACache(c_kv=zeros(cl, cfg.mla.kv_lora_rank),
+                      k_rope=zeros(cl, cfg.mla.qk_rope_head_dim))
+    else:
+        kv = KVCache(k=zeros(cl, hkv, hd), v=zeros(cl, hkv, hd))
     if kind == "cross":
         return {"self": kv, "cross": CrossKV(k=zeros(cfg.vision_seq, hkv, hd),
                                              v=zeros(cfg.vision_seq, hkv, hd))}
@@ -126,6 +139,14 @@ def _cross_decode(p: dict, x: Tensor, xkv: CrossKV,
     """The gated cross-attention of one query row over the Sv cached keys,
     non-causal."""
     return attn_lib.cross_attn(p, x, xkv.k, xkv.v, cfg)
+
+
+def _ffn(kind: BlockKind, p: dict, h: Tensor, cfg: ArchConfig) -> Tensor:
+    """A block's FFN: the MoE FFN on a moe block (its aux loss dropped),
+    else the dense one."""
+    if kind == "moe":
+        return moe_lib.moe_apply(p["moe"], h, cfg)[0]
+    return apply_ffn(p["ffn"], h, cfg.activation)
 
 
 def _rwkv_block(p: dict, x: Tensor, cfg: ArchConfig, state: RWKVState,
@@ -170,9 +191,8 @@ def _prefill_block(kind: BlockKind, p: dict, x: Tensor, cfg: ArchConfig,
         x = x + out
         h = apply_norm(cfg.norm, p["norm2"], x)
         return x + apply_ffn(extras.shared_attn["ffn"], h, cfg.activation)
-    out, kv = attn_lib.attn_forward(p["attn"], h, cfg,
-                                    window=_window(cfg, kind),
-                                    return_cache=True, cache_len=cl)
+    out, kv = attn_flavor(p["attn"], h, cfg, kind, return_cache=True,
+                          cache_len=cl)
     _write(cache["self"] if kind == "cross" else cache, kv)
     x = x + out
     if kind == "cross":
@@ -181,7 +201,7 @@ def _prefill_block(kind: BlockKind, p: dict, x: Tensor, cfg: ArchConfig,
         _write(cache["cross"], xkv)
         x = x + attn_lib.cross_attn(p["xattn"], h, xkv.k, xkv.v, cfg)
     h = apply_norm(cfg.norm, p["norm2"], x)
-    return x + apply_ffn(p["ffn"], h, cfg.activation)
+    return x + _ffn(kind, p, h, cfg)
 
 
 def prefill(params: dict, inputs: Tensor, cfg: ArchConfig,
@@ -223,8 +243,8 @@ def encode(params: dict, features: Tensor, cfg: ArchConfig,
     if cfg.family != "audio":
         raise ValueError(f"{cfg.name}: encode is the audio encoder's entry "
                          "point; a decoder runs prefill and decode_step")
-    h = backbone_forward(params, embed_inputs(params, features, cfg, mask),
-                         cfg)
+    h, _ = backbone_forward(params, embed_inputs(params, features, cfg,
+                                                 mask), cfg)
     return lm_logits(params, h, cfg)
 
 
@@ -243,15 +263,18 @@ def _decode_block(kind: BlockKind, p: dict, x: Tensor, cache, pos: int,
         x = x + out
         h = apply_norm(cfg.norm, p["norm2"], x)
         return x + apply_ffn(extras.shared_attn["ffn"], h, cfg.activation)
-    out, _ = attn_lib.attn_decode(
-        p["attn"], h, cache["self"] if kind == "cross" else cache, pos, cfg,
-        window=_window(cfg, kind))
+    self_cache = cache["self"] if kind == "cross" else cache
+    if cfg.mla is not None:
+        out, _ = attn_lib.mla_decode(p["attn"], h, self_cache, pos, cfg)
+    else:
+        out, _ = attn_lib.attn_decode(p["attn"], h, self_cache, pos, cfg,
+                                      window=_window(cfg, kind))
     x = x + out
     if kind == "cross":
         h = apply_norm(cfg.norm, p["norm_x"], x)
         x = x + _cross_decode(p["xattn"], h, cache["cross"], cfg)
     h = apply_norm(cfg.norm, p["norm2"], x)
-    return x + apply_ffn(p["ffn"], h, cfg.activation)
+    return x + _ffn(kind, p, h, cfg)
 
 
 def decode_step(params: dict, cache: dict, token: Tensor, pos: int,

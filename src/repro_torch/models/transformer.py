@@ -1,8 +1,9 @@
 """Transformer assembly: scan groups of blocks, embedding and LM head.
 
 Port of `repro/models/transformer.py` for the block kinds attn, local,
-global (dense attention), rwkv, mamba, shared_attn and cross, and for the
-audio encoder (hubert-xlarge: `embed_audio` takes precomputed frame
+global (dense attention), rwkv, mamba, shared_attn, cross and moe (MLA
+attention in every attention block of an MLA config), and for the audio
+encoder (hubert-xlarge: `embed_audio` takes precomputed frame
 features (B, S, feature_dim), the reference's stub of the conv frontend,
 in place of the token embedding).  The model is a `torch.nn.Module` whose
 parameter tree mirrors the reference's pytree: a scan group's leaves are
@@ -13,14 +14,17 @@ stacked over its repeat count, as `jax.vmap(init_period)` stacks them, so
     group{gi}.b{i}.ffn.w_in (n, D, F), ...
 
 are both the state_dict keys here and the '.'-joined pytree paths there
-(`interop.lm_params_from_numpy` maps one to the other).  Layer l of a group
-reads the views leaf.unbind(0)[l] (`unstack`); under autograd the unbind
-gathers the layers' gradients into the stacked leaf's in one step.
+(`interop.lm_params_from_numpy` maps one to the other); an MTP config
+(deepseek-v3-671b) also has the reference's `mtp` leaves (proj, an
+attention block without the stacking, norm), which serving never reads.
+Layer l of a group reads the views leaf.unbind(0)[l] (`unstack`); under
+autograd the unbind gathers the layers' gradients into the stacked leaf's
+in one step.
 
 `forward` is the training forward (loss and the pooled state for the MTL
 probes), with the reference's remat at its scan body's granularity (a
 period of blocks) through `torch.utils.checkpoint`.  Every ported block
-kind trains:
+kind but moe trains:
 
 - attn, local, global: the flash kernels forward, `flash_attention_bwd`
   backward, through `ops.mha`'s autograd Function;
@@ -35,7 +39,13 @@ kind trains:
 - cross: the self-attention, then the gated cross-attention over the
   vision embeddings (a leaf with no gradient), both through `ops.mha`.
 
-MoE, MLA, MTP and the int8 KV cache are later slices and raise.
+- moe (dbrx-132b, deepseek-v3-671b): serving only.  The MoE FFN
+  (`models/moe.py`, routed, with the Switch aux loss that
+  `backbone_forward` sums) and MLA (`attention.mla_forward`,
+  `mla_decode`) serve; training with MoE, MLA or MTP (the aux loss in the
+  step, `_mtp_loss`, the routed MoE's backward) is ROADMAP item 11(l),
+  the expert-parallel MoE and the sharded LM 11(i), the int8 KV cache
+  11(f), and they raise.
 """
 from __future__ import annotations
 
@@ -49,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig, BlockKind
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_ffn, apply_norm, dense_init,
@@ -58,7 +69,7 @@ from repro_torch.models.layers import (apply_ffn, apply_norm, dense_init,
 Tensor = torch.Tensor
 
 PORTED_KINDS = ("attn", "local", "global", "rwkv", "mamba", "shared_attn",
-                "cross")
+                "cross", "moe")
 TRAINED_KINDS = ("attn", "local", "global", "rwkv", "mamba", "shared_attn",
                  "cross")
 
@@ -90,22 +101,26 @@ def scan_groups(cfg: ArchConfig) -> list[ScanGroup]:
 
 
 def require_ported(cfg: ArchConfig, training: bool = False) -> None:
-    """Raise for a config that needs a block kind (MoE) or a feature (MLA,
-    MTP, the int8 KV cache) the port does not have yet; with `training`,
-    also for a block kind outside TRAINED_KINDS (none today: every ported
-    kind trains)."""
+    """Raise for a config that needs a block kind or a feature the port
+    does not have yet: a kind outside PORTED_KINDS, a moe block without
+    its MoE config, or the int8 KV cache (ROADMAP item 11(f)); with
+    `training`, also for a kind outside TRAINED_KINDS (moe) and for MoE,
+    MLA or MTP, which serve but do not train yet (item 11(l))."""
     kinds = set(cfg.layer_kinds) - set(PORTED_KINDS)
-    if kinds or cfg.moe or cfg.mla or cfg.mtp \
-            or cfg.kv_cache_dtype != "model":
+    if kinds or ("moe" in cfg.layer_kinds and cfg.moe is None):
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(kinds)} (or MoE, MLA, MTP, "
-            "the int8 KV cache) are not ported yet (ROADMAP.md, Queue 1 "
-            "item 11)")
+            f"{cfg.name}: block kinds {sorted(kinds)} (or a moe block "
+            "without cfg.moe) are not ported (ROADMAP.md, Queue 1 item 11)")
+    if cfg.kv_cache_dtype != "model":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.kv_cache_dtype} KV cache is not ported "
+            "yet (ROADMAP.md, Queue 1 item 11(f))")
     untrained = set(cfg.layer_kinds) - set(TRAINED_KINDS)
-    if training and untrained:
+    if training and (untrained or cfg.moe or cfg.mla or cfg.mtp):
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(untrained)} do not train in "
-            "the port yet (ROADMAP.md, Queue 1 item 11)")
+            f"{cfg.name}: block kinds {sorted(untrained)} (or MoE, MLA, "
+            "MTP) serve but do not train in the port yet (ROADMAP.md, "
+            "Queue 1 item 11(l))")
 
 
 class ParamTree(nn.Module):
@@ -146,8 +161,8 @@ def unstack(tree: dict, n: int) -> list[dict]:
 
 
 def _init_block(kind: BlockKind, cfg: ArchConfig, dtype: torch.dtype,
-                gen: torch.Generator, n: int) -> dict:
-    d, dev, lead = cfg.d_model, gen.device, (n,)
+                gen: torch.Generator, lead: tuple[int, ...]) -> dict:
+    d, dev = cfg.d_model, gen.device
     if kind == "rwkv":
         return {"norm1": init_norm(cfg.norm, d, dtype, dev, lead),
                 "norm2": init_norm(cfg.norm, d, dtype, dev, lead),
@@ -167,9 +182,13 @@ def _init_block(kind: BlockKind, cfg: ArchConfig, dtype: torch.dtype,
                 "lora_o_b": dense_init(lead + (LORA_RANK, d), dtype, gen,
                                        scale=0.0)}
     p = {"norm1": init_norm(cfg.norm, d, dtype, dev, lead),
-         "attn": attn_lib.init_attn(cfg, dtype, gen, lead),
-         "norm2": init_norm(cfg.norm, d, dtype, dev, lead),
-         "ffn": init_ffn(d, cfg.d_ff, cfg.activation, dtype, gen, lead)}
+         "attn": (attn_lib.init_mla if cfg.mla else attn_lib.init_attn)(
+             cfg, dtype, gen, lead),
+         "norm2": init_norm(cfg.norm, d, dtype, dev, lead)}
+    if kind == "moe":
+        p["moe"] = moe_lib.init_moe(cfg, dtype, gen, lead)
+    else:
+        p["ffn"] = init_ffn(d, cfg.d_ff, cfg.activation, dtype, gen, lead)
     if kind == "cross":
         p["norm_x"] = init_norm(cfg.norm, d, dtype, dev, lead)
         p["xattn"] = attn_lib.init_cross_attn(cfg, dtype, gen, lead)
@@ -197,8 +216,8 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     unless the caller passes "cpu"), with the reference's distributions:
     truncated-normal fan-in matrices, N(0, 1/D) embeddings, unit norms.
     An audio model also gets the frame projection `feat_proj` and a zero
-    `mask_emb`, and keeps the `embed` its forward never reads, as the
-    reference's tree does."""
+    `mask_emb`, and keeps the `embed` its forward never reads, and an MTP
+    model its `mtp` leaves, as the reference's tree does."""
     require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -221,8 +240,13 @@ def init_params(cfg: ArchConfig, seed: int = 0,
                             gen)}
     for gi, group in enumerate(scan_groups(cfg)):
         tree[f"group{gi}"] = {
-            f"b{i}": _init_block(kind, cfg, dtype, gen, group.n)
+            f"b{i}": _init_block(kind, cfg, dtype, gen, (group.n,))
             for i, kind in enumerate(group.period)}
+    if cfg.mtp:
+        tree["mtp"] = {
+            "proj": dense_init((2 * cfg.d_model, cfg.d_model), dtype, gen),
+            "block": _init_block("attn", cfg, dtype, gen, ()),
+            "norm": init_norm(cfg.norm, cfg.d_model, dtype, dev)}
     return LM(cfg, tree)
 
 
@@ -233,16 +257,24 @@ def _norm_shapes(cfg: ArchConfig, name: str, dim: int) -> dict:
     return out
 
 
-def _attn_ffn_shapes(cfg: ArchConfig) -> dict:
-    """Leaves of an attention block's attn and ffn."""
+def _attn_ffn_shapes(cfg: ArchConfig, kind: BlockKind = "attn") -> dict:
+    """Leaves of an attention block's attn (MLA's where cfg.mla) and ffn
+    (a moe block's moe)."""
     d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    out = {"attn.wq": (d, h * hd), "attn.wk": (d, hkv * hd),
-           "attn.wv": (d, hkv * hd), "attn.wo": (h * hd, d),
-           "ffn.w_in": (d, cfg.d_ff), "ffn.w_out": (cfg.d_ff, d)}
+    if cfg.mla:
+        out = {f"attn.{k}": v for k, v in attn_lib.mla_shapes(cfg).items()}
+    else:
+        out = {"attn.wq": (d, h * hd), "attn.wk": (d, hkv * hd),
+               "attn.wv": (d, hkv * hd), "attn.wo": (h * hd, d)}
+        if cfg.qk_norm:
+            out["attn.q_norm.scale"] = out["attn.k_norm.scale"] = (hd,)
+    if kind == "moe":
+        out.update({f"moe.{k}": v
+                    for k, v in moe_lib.param_shapes(cfg).items()})
+        return out
+    out.update({"ffn.w_in": (d, cfg.d_ff), "ffn.w_out": (cfg.d_ff, d)})
     if is_gated(cfg.activation):
         out["ffn.w_gate"] = (d, cfg.d_ff)
-    if cfg.qk_norm:
-        out["attn.q_norm.scale"] = out["attn.k_norm.scale"] = (hd,)
     return out
 
 
@@ -259,7 +291,7 @@ def _block_shapes(kind: BlockKind, cfg: ArchConfig) -> dict:
         block = {"lora_q_a": (d, LORA_RANK), "lora_q_b": (LORA_RANK, h * hd),
                  "lora_o_a": (h * hd, LORA_RANK), "lora_o_b": (LORA_RANK, d)}
     else:
-        block = _attn_ffn_shapes(cfg)
+        block = _attn_ffn_shapes(cfg, kind)
         if kind == "cross":
             norms += ("norm_x",)
             block.update({"xattn.wq": (d, h * hd), "xattn.wk": (d, hkv * hd),
@@ -289,16 +321,22 @@ def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
             pre = f"group{gi}.b{i}."
             shapes.update({pre + k: (group.n,) + v
                            for k, v in _block_shapes(kind, cfg).items()})
+    if cfg.mtp:
+        shapes["mtp.proj"] = (2 * d, d)
+        shapes.update({f"mtp.block.{k}": v
+                       for k, v in _block_shapes("attn", cfg).items()})
+        shapes.update(_norm_shapes(cfg, "mtp.norm", d))
     return shapes
 
 
 def param_dtypes(cfg: ArchConfig) -> dict[str, torch.dtype]:
     """The dtype of every parameter `init_params` makes: cfg.dtype, except
     the leaves the reference keeps in float32 (rwkv w0 and u; mamba A_log,
-    D and dt_bias)."""
+    D and dt_bias; the MoE router)."""
     dtype = getattr(torch, cfg.dtype)
     f32 = tuple(f".rwkv.{name}" for name in rwkv_lib.FLOAT32_LEAVES) \
-        + tuple(f".mamba.{name}" for name in ssm_lib.FLOAT32_LEAVES)
+        + tuple(f".mamba.{name}" for name in ssm_lib.FLOAT32_LEAVES) \
+        + tuple(f".moe.{name}" for name in moe_lib.FLOAT32_LEAVES)
     return {path: torch.float32 if path.endswith(f32) else dtype
             for path in param_shapes(cfg)}
 
@@ -332,58 +370,82 @@ def require_vision(extras: Extras, cfg: ArchConfig) -> Tensor:
     return extras.vision_embeds
 
 
+def attn_flavor(p: dict, x: Tensor, cfg: ArchConfig, kind: BlockKind,
+                **cache) -> Tensor:
+    """The self-attention of an attention block: MLA where cfg.mla, else
+    GQA with the window of a local block; `cache` (return_cache,
+    cache_len) as the two take it."""
+    if cfg.mla is not None:
+        return attn_lib.mla_forward(p, x, cfg, **cache)
+    return attn_lib.attn_forward(p, x, cfg, window=_window(cfg, kind),
+                                 **cache)
+
+
+def _zero_aux(x: Tensor) -> Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def apply_block(kind: BlockKind, p: dict, x: Tensor, cfg: ArchConfig,
-                extras: Extras = Extras()) -> Tensor:
+                extras: Extras = Extras()) -> tuple[Tensor, Tensor]:
     """One pre-norm block: x + attn(norm1 x) (+ the gated cross-attention
-    of norm_x x on a cross block), then + ffn(norm2 x); for rwkv, the time
-    mix and the channel mix in their places; for mamba, x + mixer(norm1
-    x); for shared_attn, the shared attention and FFN with this
-    invocation's LoRA and norms."""
+    of norm_x x on a cross block), then + ffn(norm2 x) (the MoE FFN on a
+    moe block); for rwkv, the time mix and the channel mix in their
+    places; for mamba, x + mixer(norm1 x); for shared_attn, the shared
+    attention and FFN with this invocation's LoRA and norms.  Returns (x,
+    aux): the MoE's Switch aux loss, float32 0 on any other block."""
     h = apply_norm(cfg.norm, p["norm1"], x)
     if kind == "rwkv":
         x = x + rwkv_lib.rwkv_time_mix(p["rwkv"], h, cfg)
         h = apply_norm(cfg.norm, p["norm2"], x)
-        return x + rwkv_lib.rwkv_channel_mix(p["rwkv"], h)
+        return x + rwkv_lib.rwkv_channel_mix(p["rwkv"], h), _zero_aux(x)
     if kind == "mamba":
-        return x + ssm_lib.mamba_forward(p["mamba"], h, cfg)
+        return x + ssm_lib.mamba_forward(p["mamba"], h, cfg), _zero_aux(x)
     if kind == "shared_attn":
         x = x + attn_lib.attn_forward(
             shared_attn_params(p, extras.shared_attn), h, cfg)
         h = apply_norm(cfg.norm, p["norm2"], x)
-        return x + apply_ffn(extras.shared_attn["ffn"], h, cfg.activation)
-    x = x + attn_lib.attn_forward(p["attn"], h, cfg,
-                                  window=_window(cfg, kind))
+        return (x + apply_ffn(extras.shared_attn["ffn"], h, cfg.activation),
+                _zero_aux(x))
+    x = x + attn_flavor(p["attn"], h, cfg, kind)
     if kind == "cross":
         h = apply_norm(cfg.norm, p["norm_x"], x)
         x = x + attn_lib.cross_attn_forward(p["xattn"], h,
                                             require_vision(extras, cfg), cfg)
     h = apply_norm(cfg.norm, p["norm2"], x)
-    return x + apply_ffn(p["ffn"], h, cfg.activation)
+    if kind == "moe":
+        y, aux = moe_lib.moe_apply(p["moe"], h, cfg)
+        return x + y, aux
+    return x + apply_ffn(p["ffn"], h, cfg.activation), _zero_aux(x)
 
 
 def _apply_period(period: tuple[BlockKind, ...], lp: dict, x: Tensor,
-                  cfg: ArchConfig, extras: Extras) -> Tensor:
+                  cfg: ArchConfig, extras: Extras) -> tuple[Tensor, Tensor]:
+    aux = _zero_aux(x)
     for i, kind in enumerate(period):
-        x = apply_block(kind, lp[f"b{i}"], x, cfg, extras)
-    return x
+        x, a = apply_block(kind, lp[f"b{i}"], x, cfg, extras)
+        aux = aux + a
+    return x, aux
 
 
 def backbone_forward(params: dict, x: Tensor, cfg: ArchConfig,
                      remat: bool = False, extras: Extras = Extras()
-                     ) -> Tensor:
-    """Run all scan groups over x (B, S, D), period by period.  With
-    `remat` and grad on, each period is a `torch.utils.checkpoint` region
-    (non-reentrant): only its input is kept, and the backward recomputes
-    it, as the reference's `jax.checkpoint` of its scan body does."""
+                     ) -> tuple[Tensor, Tensor]:
+    """Run all scan groups over x (B, S, D), period by period; returns (x,
+    the blocks' aux losses summed in layer order).  With `remat` and grad
+    on, each period is a `torch.utils.checkpoint` region (non-reentrant):
+    only its input is kept, and the backward recomputes it, as the
+    reference's `jax.checkpoint` of its scan body does."""
     require_ported(cfg)
+    aux = _zero_aux(x)
     for gi, group in enumerate(scan_groups(cfg)):
         for lp in unstack(params[f"group{gi}"], group.n):
             if remat and torch.is_grad_enabled():
-                x = checkpoint(_apply_period, group.period, lp, x, cfg,
-                               extras, use_reentrant=False)
+                x, a = checkpoint(_apply_period, group.period, lp, x, cfg,
+                                  extras, use_reentrant=False)
             else:
-                x = _apply_period(group.period, lp, x, cfg, extras)
-    return x
+                x, a = _apply_period(group.period, lp, x, cfg, extras)
+            aux = aux + a
+    return x, aux
 
 
 def embed_tokens(params: dict, tokens: Tensor, cfg: ArchConfig) -> Tensor:
@@ -456,21 +518,28 @@ def forward(params, batch: dict, cfg: ArchConfig, remat: bool = True
     audio family "features" (B, S, feature_dim) and the bool "mask" (B, S)
     in place of "tokens", the loss then the cross-entropy over the masked
     positions only.  Returns (loss, metrics) with the reference's
-    "lm_loss", "aux_loss" (0: no MoE) and "pooled", the float32 mean over
-    the sequence of the backbone's last hidden state (B, D), which the MTL
-    probes read.  With grad on or off it runs every ported block kind."""
+    "lm_loss", "aux_loss" (the MoE's, summed over the layers; 0 without
+    MoE) and "pooled", the float32 mean over the sequence of the
+    backbone's last hidden state (B, D), which the MTL probes read; a MoE
+    model's loss adds aux_loss_weight x aux, as the reference's.  With
+    grad off it runs every ported block kind, with grad on every kind that
+    trains; an MTP model raises (its `_mtp_loss` is ROADMAP item 11(l))."""
     require_ported(cfg, training=torch.is_grad_enabled())
+    if cfg.mtp:
+        raise NotImplementedError(
+            f"{cfg.name}: the MTP loss (_mtp_loss) is not ported yet "
+            "(ROADMAP.md, Queue 1 item 11(l))")
     tree = params.tree() if isinstance(params, ParamTree) else params
     extras = Extras(vision_embeds=batch.get("vision_embeds"),
                     shared_attn=tree.get("shared_attn"))
     audio = cfg.family == "audio"
     x = embed_inputs(tree, batch["features" if audio else "tokens"], cfg,
                      batch["mask"] if audio else None)
-    h = backbone_forward(tree, x, cfg, remat=remat, extras=extras)
-    loss = cross_entropy(lm_logits(tree, h, cfg), batch["targets"],
-                         weights=batch["mask"] if audio else None)
-    metrics = {"lm_loss": loss,
-               "aux_loss": torch.zeros((), dtype=torch.float32,
-                                       device=loss.device),
+    h, aux = backbone_forward(tree, x, cfg, remat=remat, extras=extras)
+    lm_loss = cross_entropy(lm_logits(tree, h, cfg), batch["targets"],
+                            weights=batch["mask"] if audio else None)
+    loss = lm_loss if cfg.moe is None \
+        else lm_loss + cfg.moe.aux_loss_weight * aux
+    metrics = {"lm_loss": lm_loss, "aux_loss": aux,
                "pooled": torch.mean(h.float(), dim=1)}
     return loss, metrics

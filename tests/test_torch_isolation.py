@@ -35,7 +35,7 @@ from repro_torch.kernels import sample_mask as k_mask  # noqa: E402
 from repro_torch.kernels import svt_reconstruct as k_recon  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import init_params  # noqa: E402
+from repro_torch.models import init_params, transformer  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 CHIP_SMOKE = SRC.parent / "chip_smoke.py"
@@ -176,8 +176,13 @@ def test_lockstep_session_without_device_needs_cuda():
 
 
 def test_unported_archs_raise_naming_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("deepseek-v3-671b")
+    """Every arch of the reference loads (deepseek-v3-671b, the last, since
+    item 11(e)); its training still raises naming item 11(l), and an
+    unknown arch raises."""
+    cfg = get_config("deepseek-v3-671b")
+    assert cfg.mla is not None and cfg.moe is not None and cfg.mtp
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.*11\(l\)"):
+        transformer.require_ported(cfg, training=True)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

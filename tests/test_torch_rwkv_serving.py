@@ -149,7 +149,7 @@ def test_full_sequence_forward_matches_reference():
     want = ref_transformer.lm_logits(params, h, rcfg)
     tree = model.tree()
     with torch.inference_mode():
-        h = transformer.backbone_forward(
+        h, _ = transformer.backbone_forward(
             tree, transformer.embed_tokens(tree, torch.as_tensor(toks), cfg),
             cfg)
         got = transformer.lm_logits(tree, h, cfg)

@@ -182,12 +182,13 @@ def test_train_step_draws_are_the_key_chains():
 
 def test_rwkv_training_raises_naming_its_roadmap_item():
     """rwkv trains since its WKV backward kernel came (ROADMAP item 11(j),
-    done); a block kind still unported (the MoE FFN) raises naming item
-    11."""
+    done); a block kind that serves but does not train yet (the MoE FFN)
+    raises naming item 11(l)."""
     cfg = get_config("rwkv6-3b").reduced()
     steps.make_train_step(cfg, steps.default_optimizer(cfg))
-    moe = dataclasses.replace(cfg, period=("moe",))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    moe = dataclasses.replace(cfg, period=("moe",),
+                              moe=get_config("dbrx-132b").reduced().moe)
+    with pytest.raises(NotImplementedError, match=r"item 11\(l\)"):
         steps.make_train_step(moe, steps.default_optimizer(moe))
 
 
