@@ -27,7 +27,7 @@ l2,1 session, FISTA's reference optimum) and the learn-while-serve
 and a bitwise resume, threaded learning, chaos under a FaultPlan), and
 the task-sharded engine (one rank in process, then two ranks sharing
 the card in a gloo world: both proxes, a straggler shard, a checkpoint
-restored into a fresh world, SGD on the ragged store), and gemma2-2b
+restored in a second world, SGD on the ragged store), and gemma2-2b
 training with the AMTL head in every step (phase 24: AdamW steps at full
 width, every attention forward in the flash kernel and every backward in
 the tensor-core flash backward kernel, step 0 against the plain attention,
@@ -45,7 +45,12 @@ cross-attention, every attention backward in the tensor-core kernel), and
 dbrx-132b and deepseek-v3-671b served at their published widths with
 their depth cut (phases 35-36: the routed MoE FFN, deepseek's MLA prefill
 in the tensor-core kernel at qk hd 192 and its absorbed decode in plain
-PyTorch, each also in its reduced config against the CPU) — holds
+PyTorch, each also in its reduced config against the CPU), and both
+trained at their published widths with their depth cut under Adafactor
+(phases 37-38: dbrx on its first layer, the routed MoE's backward;
+deepseek on its 3 dense MLA layers and the MTP block, MLA's backward in
+the tensor-core flash backward at 192 columns; each reduced config's
+gradients also against the CPU) — holds
 the card's runs against the port's own CPU runs, replays or plain-kernel
 runs of the same states, and times
 each kernel (the prox's two kernels and the engines' state updates
@@ -102,23 +107,26 @@ LOGISTIC_EVENTS = 64
 
 # The learn-while-serve server (repro_torch.serve, phase 20) on the ragged
 # store above (make_store) and the uniform cell's batch engine (full
-# gradient, randomized SVT): 16 request batches, each 64 prediction rows and
-# 64 labelled feedback rows (task ids uniform), 1024 events in all; the
-# resume after batch 7 (the checkpoint at 512 events).  The chaos drive
-# serves the first SERVE_CHAOS_BATCHES batches.  The SLO controller decides
-# every SERVE_SLO_WINDOW predict latencies, so each of the phase's servers
-# (16, 8 and 16 predicts) closes at least one window.  Checkpoints go under
+# gradient, randomized SVT): 8 request batches, each 64 prediction rows and
+# 64 labelled feedback rows (task ids uniform), 512 events in all; the
+# resume after batch 4 (the one checkpoint, at 320 events; 16 batches and
+# two records, at 512 and 1024, took 203.5 s of the smoke on an H100
+# host, ~70 s of it the second record written, verified and resumed).
+# The chaos drive serves the first SERVE_CHAOS_BATCHES batches and writes
+# its two records by explicit calls.  The SLO controller decides every
+# SERVE_SLO_WINDOW predict latencies, so each of the phase's servers (8, 3
+# and 8 predicts) closes at least one window.  Checkpoints go under
 # build/serve_ckpt (a store record is 1.7-3.3 GB; the phase needs
 # SERVE_FREE_BYTES free under build/, checked with HOST_FREE_BYTES of the
 # host's memory before any phase runs, and deletes the directory at its
 # end).  HOST_FREE_BYTES: the parent's peak resident bytes (44.74 GB, its
 # ru_maxrss at phase 22 on an H100 host) and LOCK_RANKS ranks' own peaks
 # (8.49 GB each) are 61.72 GB, 57.5 GiB; 64 GiB leaves 6.5 GiB over them.
-SERVE_BATCHES, SERVE_ROWS, SERVE_RESUME_AT, SERVE_CHAOS_BATCHES = 16, 64, 8, 7
+SERVE_BATCHES, SERVE_ROWS, SERVE_RESUME_AT, SERVE_CHAOS_BATCHES = 8, 64, 5, 7
 SERVE_CFG = dict(chunk_events=128, task_chunk_quota=8, max_pending_per_task=64,
                  max_batch=256, slo_ms=250.0, slo_window=32, keep_last=2,
-                 checkpoint_every=512)
-SERVE_SLO_WINDOW = 8
+                 checkpoint_every=320)
+SERVE_SLO_WINDOW = 3
 SERVE_FREE_BYTES = 24e9
 HOST_FREE_BYTES = 64 * 2 ** 30
 SERVE_WAIT_S = 300.0
@@ -127,12 +135,15 @@ SERVE_WAIT_S = 300.0
 # (phase 22, `launch.serve_lockstep`) on this card (gloo), at the store and
 # the SERVE_CFG above on the sharded engine (the batch cell's config): the
 # first LOCK_BATCHES request batches, a save after LOCK_SAVE_AT of them
-# (resumed at LOCK_RANKS ranks in a fresh world and at one rank), the
+# (resumed at LOCK_RANKS ranks in another world and at one rank), the
 # threaded drain of LOCK_THREADED batches' feedback with a crash on rank 1,
 # and the distributed prox over LOCK_DIST_BATCHES batches, each against the
 # one-rank server (batch engine) in this process.  Records go under
-# build/serve_ckpt/lockstep.
-LOCK_RANKS, LOCK_BATCHES, LOCK_SAVE_AT = 2, 12, 8
+# build/serve_ckpt/lockstep.  (12 batches, the save after 8, took 171.7 s
+# of the smoke on an H100 host; 6 and 4, 118.3-139.0 s; 4 and 2, 150.1 s
+# on a slower host: the phase's time is its worlds and set-up, not its
+# batches.)
+LOCK_RANKS, LOCK_BATCHES, LOCK_SAVE_AT = 2, 6, 4
 LOCK_THREADED, LOCK_DIST_BATCHES, LOCK_PREDICTS = 3, 4, 64
 
 # The twins of examples/quickstart.py and hospitals_async.py (phase 23), on
@@ -1229,13 +1240,16 @@ def flash_controls(label: str, args_, plain, keep, limit: float) -> str:
 
 
 SM90_SENTINEL = -1024.0    # exact in bf16, far from any attention output
+SM90_REPEATS = 10          # further launches that must repeat the output
 
 
 def sm90_canary(label: str, args_, got) -> None:
     """The sm90 launcher writing into the head of a sentinel-filled
     buffer 4096 elements longer than the output: the tail must still hold
     the sentinel (a store past hd at the last row and head would reach it)
-    and the head must be the wrapper's output, bit for bit."""
+    and the head must be the wrapper's output, bit for bit; and
+    SM90_REPEATS more launches through the wrapper, each bit for bit
+    (`launch/sm90_repeat.py` counts them at windowed shapes)."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as k_flash
@@ -1255,9 +1269,20 @@ def sm90_canary(label: str, args_, got) -> None:
     if not bool((buf[n:] == SM90_SENTINEL).all()):
         fail(f"flash_attention {label}: the sm90 kernel wrote past the end "
              f"of its output (hd {hd}, padded to {k_flash.sm90_width(hd)})")
-    if not torch.equal(buf[:n].view_as(got), got):
+    head = buf[:n].view_as(got)
+    if not torch.equal(head, got):
+        bad = (head != got).nonzero()
         fail(f"flash_attention {label}: the sm90 launch into a buffer "
-             "differs from the wrapper's output")
+             f"differs from the wrapper's output at {len(bad)} of {n} "
+             f"elements (max |diff| "
+             f"{(head.float() - got.float()).abs().max().item():.3g}; "
+             f"(b, row, head, column) first {bad[0].tolist()}, last "
+             f"{bad[-1].tolist()})")
+    again = sum(not torch.equal(k_flash.flash_attention(
+        q, k, v, route="sm90", **kw), got) for _ in range(SM90_REPEATS))
+    if again:
+        fail(f"flash_attention {label}: {again} of {SM90_REPEATS} further "
+             "sm90 launches differ from the first")
 
 
 def sm90_scale_control(label: str, args_, got, rows, limit: float) -> str:
@@ -1491,7 +1516,8 @@ def check_flash_kernel(dev, gen) -> dict:
         + f"; MLA's output past column {MLA_V_COLS} (v zero there) exactly 0 "
         f"in {mla_zero} runs"
         + f"; {canaries} sm90 launches into a sentinel-filled buffer: tail "
-        "intact, output bitwise the wrapper's"
+        f"intact, output bitwise the wrapper's and {SM90_REPEATS} further "
+        "launches'"
         + "; sm90 at hd off the 64-column boxes against the plain version "
         "scaled by 1/sqrt(HP) (must exceed the row gate): "
         + "; ".join(scale_controls)
@@ -1631,7 +1657,7 @@ def check_flash_bwd(dev, gen) -> dict:
     tile later, and with the window a tile wide).  Returns the bf16
     training case with each route's error for the timing phase."""
     import torch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import flash_attention as k_flash
     from repro_torch.kernels import flash_attention_bwd as k_bwd
     s = 2048
@@ -1669,20 +1695,43 @@ def check_flash_bwd(dev, gen) -> dict:
         ("hd 192", 1, 300, 300, 16, 4, 192, True, None, None, 0, None),
         (CROSS_LABEL, 2, 2048, 1601, 32, 8, 128, False, None, None, 0, None),
     ]
+    # the MoE archs' bf16 training calls (phases 37-38): dbrx-132b's, and
+    # deepseek-v3-671b's MLA with v and the output's gradient zero past
+    # MLA_V_COLS, as the model pads them
+    moe_cases = [
+        ("dbrx-132b training, GQA 6", 2, s, s, 48, 8, 128, True, None,
+         None, 0, None),
+        (MLA_TRAIN_LABEL, 2, s, s, 128, 128, 192, True, None, None, 0,
+         None)]
+    moe_fwd = {c[0]: None for c in moe_cases}
     worst, runs, train, padded, cross = {}, {}, {}, [], None
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
         for label, b, sq, skv, h, hkv, hd, causal, window, cap, qo, kvl \
-                in cases:
+                in cases + (moe_cases if dt_name == "bfloat16" else []):
             q = torch.randn(b, sq, h, hd, generator=gen, device=dev).to(dt)
             k = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dt)
             v = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dt)
             kw = dict(causal=causal, window=window, softcap=cap, q_offset=qo,
                       kv_len=kvl)
-            o = k_flash.flash_attention(q, k, v, **kw)
             do = torch.randn(b, sq, h, hd, generator=gen, device=dev).to(dt)
+            if label == MLA_TRAIN_LABEL:
+                v[..., MLA_V_COLS:] = 0
+                do[..., MLA_V_COLS:] = 0
+            o = k_flash.flash_attention(q, k, v, **kw)
             pkw = dict(causal=causal, window=window, softcap=cap,
                        q_offset=qo, kv_valid_len=kvl)
+            if label in moe_fwd:      # the forward at this shape too
+                want_o = ref.mha_ref(q, k, v, kv_chunk=64,
+                                     p_dtype=torch.bfloat16, **pkw)
+                e = ((o.float() - want_o.float()).abs().max()
+                     / want_o.float().abs().max()).item()
+                if not e <= FLASH_TOL["bfloat16"]:
+                    fail(f"flash_attention (sm90) {label}: {e:.3g} of max "
+                         f"|o| from its plain version > "
+                         f"{FLASH_TOL['bfloat16']}")
+                moe_fwd[label] = e
+                del want_o
             want_route = "sm90" if k_flash.accepts("sm90", dt, sq, h, hkv,
                                                    hd) else "simt"
             if k_bwd.route(dt, b, sq, skv, h, hkv, hd,
@@ -1724,6 +1773,11 @@ def check_flash_bwd(dev, gen) -> dict:
                                     got=got)
                 if label == CROSS_LABEL and r == "sm90":
                     cross = cross_bwd_checks((q, k, v, o, do, kw), got, errs)
+                if label == MLA_TRAIN_LABEL and (
+                        got[2][..., MLA_V_COLS:].any()
+                        or o[..., MLA_V_COLS:].any()):
+                    fail(f"flash_attention_bwd ({r}) {label}: the output or "
+                         f"dv is not exactly 0 past column {MLA_V_COLS}")
                 del got, again, want
             if label == "train global" and dt_name == "bfloat16":
                 train["args"] = (q, k, v, o, do, kw)
@@ -1770,6 +1824,12 @@ def check_flash_bwd(dev, gen) -> dict:
         "wrapper's bits; scale 1/sqrt(HP) controls (must exceed "
         f"{limit:.3g}): " + "; ".join(padded)
         + f"; {CROSS_LABEL} (sm90, bf16): {cross}"
+        + f"; the MoE archs' training calls (bf16): dbrx-132b's (H 48, Hkv "
+        f"8, hd 128) and {MLA_TRAIN_LABEL} (o and dv exactly 0 past "
+        f"column {MLA_V_COLS}), the forward's o there within "
+        + ", ".join(f"{e:.3g}" for e in moe_fwd.values())
+        + f" <= {FLASH_TOL['bfloat16']} of max |o| of its plain version "
+        "(P in bf16, 64-key chunks)"
         + "; ops.mha's autograd backward is the "
         "sm90 route's call; controls (bf16 training shape, must exceed "
         f"{limit:.3g}): " + "; ".join(controls)
@@ -1781,6 +1841,10 @@ def check_flash_bwd(dev, gen) -> dict:
         "cross-attention)")
     return {"flash_attention_bwd": train}
 
+
+# deepseek-v3-671b's MLA training call (phase 38): B 2, S 2048, H = Hkv
+# 128, q and k at nope 128 + rope 64 = 192 columns, v zero past 128.
+MLA_TRAIN_LABEL = "deepseek-v3-671b MLA training, H = Hkv 128, hd 192"
 
 # llama-3.2-vision-11b's cross-attention training call (phase 34): 2048
 # queries over the 1601 vision embeddings, H 32, Hkv 8, hd 128,
@@ -1969,6 +2033,9 @@ def flash_bwd_times(info: dict, launches: dict, dev) -> dict:
 # 80 at 128 columns), zamba2-7b's shared attention (phase 33; hd 112 at
 # 128 columns, causal), and llama-3.2-vision-11b's self-attention and its
 # cross-attention over the 1601 vision embeddings (phase 34).
+# dbrx-132b's (phase 37: GQA 6, hd 128, causal) and deepseek-v3-671b's MLA
+# (phase 38: H = Hkv 128, q and k at 192 columns, v zero-padded from 128
+# in the model, random here: the time is the same).
 # (label, arch, B, Sq, Skv, H, Hkv, hd, causal)
 BWD_SHAPES = (
     ("hubert-xlarge training", "hubert-xlarge", 8, 781, 781, 16, 16, 80,
@@ -1977,7 +2044,50 @@ BWD_SHAPES = (
     ("llama-3.2-vision-11b self-attention training", "llama-3.2-vision-11b",
      2, 2048, 2048, 32, 8, 128, True),
     ("llama-3.2-vision-11b cross-attention training",
-     "llama-3.2-vision-11b", 2, 2048, 1601, 32, 8, 128, False))
+     "llama-3.2-vision-11b", 2, 2048, 1601, 32, 8, 128, False),
+    ("dbrx-132b training", "dbrx-132b", 2, 2048, 2048, 48, 8, 128, True),
+    ("deepseek-v3-671b MLA training", "deepseek-v3-671b", 2, 2048, 2048,
+     128, 128, 192, True))
+# deepseek-v3-671b's v head dim.  MLA's attention call zero-pads v from it
+# to q's and k's 192 columns, so o and dO are zero past it too: the work
+# the model asks of the call is QK^T (and dQ, dK) at 192 columns and PV
+# (dP, dV) at MLA_V_HD.  Phase 12 gives that work's bound beside the bound
+# at 192 columns (the kernels' inputs there are random at every column,
+# the time the same).
+MLA_V_HD = 128
+
+
+def mla_model_bound(nbytes: float, flops: float, hd: int,
+                    backward: bool) -> float:
+    """The bound of an MLA call's model work (v, o, dO and dV at MLA_V_HD
+    columns) from its (bytes, operations) at hd columns everywhere: half
+    the tensors (v and o; v, o, dO and dV) at MLA_V_HD, and PV of the
+    forward's two products, dP and dV of the backward's five."""
+    part = (hd + MLA_V_HD) / (2 * hd)
+    ops = (3 * hd + 2 * MLA_V_HD) / (5 * hd) if backward else part
+    return bound_ms(nbytes * part, flops * ops, BF16_FLOP_PER_S)[0]
+
+
+# The shapes of phase 12 whose flex_attention yardstick (forward or
+# backward) the smoke does not compile: each compile took 5-15 s of its
+# time limit (the float32 prefill's and the ring decode's together ~35 s
+# on an H100).  `launch/flex_times.py` times flex_attention and the
+# kernels at every one of them in a run of its own, and PERF.md section 6
+# records that run.  The smoke times the kernels at every shape, and
+# flex_attention at the served global prefill (the kernels line's library
+# time) and at the training shapes.
+FLEX_RECORDED = frozenset((
+    "prefill local", "decode ring", "decode global",
+    "float32 prefill global", "zamba2-7b prefill",
+    "zamba2-7b prefill, simt forced",
+    "llama cross prefill", "zamba2-7b decode", "llama cross decode",
+    "hubert-xlarge encoder", "dbrx-132b prefill", "dbrx-132b decode",
+    "deepseek-v3-671b MLA prefill", "hubert-xlarge training",
+    "zamba2-7b training", "llama-3.2-vision-11b self-attention training",
+    "llama-3.2-vision-11b cross-attention training"))
+FLEX_RECORDED_WHAT = ("flex_attention not compiled in this run: "
+                      "launch/flex_times.py times it at this shape, PERF.md "
+                      "section 6 keeps its time")
 
 
 def flash_bwd_shape_times(dev, launches: dict) -> dict:
@@ -2022,7 +2132,8 @@ def flash_bwd_shape_times(dev, launches: dict) -> dict:
                    kv_valid_len=None)
         p_ms = cuda_ms(lambda: bwd_plain("sm90", *sets[0], pkw), reps=3,
                        inner=1, warmup=1, backlog=False)
-        call, what = flex_bwd_library(args_, dev)
+        call, what = (None, FLEX_RECORDED_WHAT) if label in FLEX_RECORDED \
+            else flex_bwd_library(args_, dev)
         l_ms = cuda_ms(call, reps=5, inner=3) if call is not None else None
         out[label] = dict(
             route="sm90", shape=[b, s, skv, h, hkv, hd], causal=causal,
@@ -2031,6 +2142,13 @@ def flash_bwd_shape_times(dev, launches: dict) -> dict:
             padded_bound_ms=padded, library_ms=l_ms,
             tflops=flops / (cold * 1e-3) / 1e12,
             launches=launches.get(arch))
+        model = ""
+        if label.startswith("deepseek-v3-671b MLA"):
+            mb = mla_model_bound(nbytes, flops, hd, backward=True)
+            out[label]["model_bound_ms"] = mb
+            model = (f", {mb * 1e3:.2f} us for the model's work (v, o, dO "
+                     f"and dV at {MLA_V_HD} columns; "
+                     f"{100 * mb / cold:.1f}% of it)")
         log(f"phase 12 flash_attention_bwd {label} (B {b}, Sq {s}, Skv "
             f"{skv}, H {h}, "
             f"Hkv {hkv}, hd {hd}, {'causal' if causal else 'non-causal'}, "
@@ -2039,7 +2157,7 @@ def flash_bwd_shape_times(dev, launches: dict) -> dict:
             f"{bnd * 1e3:.2f} us by {by} at the real hd ({flops / 1e9:.2f} "
             f"GFLOP, {nbytes / 1e6:.2f} MB; {100 * bnd / cold:.1f}% of the "
             f"bound), {padded * 1e3:.2f} us for the padded work at {hp} "
-            f"columns; simt forced {simt * 1e3:.2f} us ({simt / cold:.1f}x "
+            f"columns{model}; simt forced {simt * 1e3:.2f} us ({simt / cold:.1f}x "
             f"sm90); plain {p_ms * 1e3:.1f} us (p_dtype bfloat16); library "
             + ("null" if l_ms is None else
                f"{l_ms * 1e3:.2f} us ({l_ms / cold:.2f}x sm90)")
@@ -2730,7 +2848,8 @@ def flash_times(served: dict, dev) -> dict:
         bnd, by = bound_ms(spec["nbytes"], spec["flops"], spec["rate"])
         route = k_flash.route(q.dtype, *q.shape[:2], k.shape[1], q.shape[2],
                               k.shape[2], q.shape[3], k.shape[1])
-        prep, call, what = flex_library((q, k, v, kw), dev)
+        prep, call, what = (None, None, FLEX_RECORDED_WHAT) \
+            if label in FLEX_RECORDED else flex_library((q, k, v, kw), dev)
         if route == "split":
             caches = [(k, v)] + [(torch.randn_like(k), torch.randn_like(v))
                                  for _ in range(4)]
@@ -2774,11 +2893,13 @@ def flash_times(served: dict, dev) -> dict:
     spec = kernel_spec("flash_attention", (q, k, v, kw), dev)
     bnd, by = bound_ms(spec["nbytes"], spec["flops"], spec["rate"])
     k_ms = cuda_ms(spec["kfn"], reps=3, inner=3)
-    prep, call, what = flex_library((q, k, v, kw), dev)
+    prep, call, what = (None, None, FLEX_RECORDED_WHAT) \
+        if "float32 prefill global" in FLEX_RECORDED \
+        else flex_library((q, k, v, kw), dev)
     l_ms = None
     if prep is not None:
         args_ = prep(q, k, v)
-        l_ms = cuda_ms(lambda: call(*args_), reps=3, inner=3)
+        l_ms = cuda_ms(lambda: call(*args_), reps=3, inner=1)
     log(f"phase 12 flash_attention float32 prefill global B 1 (simt): "
         f"{k_ms * 1e3:.2f} us on the device, bound {bnd * 1e3:.2f} us by {by}"
         "; library " + ("null" if l_ms is None else f"{l_ms * 1e3:.2f} us")
@@ -2815,7 +2936,8 @@ def flash_hybrid_times(dev) -> dict:
     # 128 columns); dbrx-132b's prefill (sm90, GQA 6) and decode (split, 6
     # rows a kv head); deepseek-v3-671b's MLA prefill (sm90 at 192 columns:
     # nope 128 + rope 64; v zero-padded from 128 in the model, random here,
-    # the time the same)
+    # the time the same); and the two archs' training calls (phases 37-38,
+    # B 2, S TRAIN_SEQ).  FLEX_RECORDED's shapes skip flex_attention.
     shapes = (
         ("zamba2-7b prefill", 2, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 112,
          True, None, None),
@@ -2833,7 +2955,11 @@ def flash_hybrid_times(dev) -> dict:
         ("dbrx-132b decode", 2, 1, SERVE_PROMPT + DENSE_GEN, 48, 8, 128,
          False, SERVE_PROMPT + 1, None),
         ("deepseek-v3-671b MLA prefill", 2, SERVE_PROMPT, SERVE_PROMPT, 128,
-         128, 192, True, None, None))
+         128, 192, True, None, None),
+        ("dbrx-132b training", 2, TRAIN_SEQ, TRAIN_SEQ, 48, 8, 128, True,
+         None, None),
+        ("deepseek-v3-671b MLA training", 2, TRAIN_SEQ, TRAIN_SEQ, 128, 128,
+         192, True, None, None))
     saved = k_flash.launches, k_flash.route_counts()
     g = torch.Generator(device=dev).manual_seed(11)
     out, libs = {}, {}
@@ -2864,6 +2990,8 @@ def flash_hybrid_times(dev) -> dict:
             *next(ring), route=route, **kw), reps=reps, inner=inner)
         # the library call once a shape, not again for a forced route
         key = (b, sq, skv, h, hkv, hd, causal, kvl)
+        if label in FLEX_RECORDED:
+            libs[key] = None, FLEX_RECORDED_WHAT
         if key not in libs:
             l_ms = None
             prep, call, what = flex_library((q, k, v, kw), dev)
@@ -2886,6 +3014,13 @@ def flash_hybrid_times(dev) -> dict:
                "padded work's bound "
                f"{out[label]['padded_bound_ms'] * 1e3:.2f} us"
                if route == "sm90" and k_flash.sm90_width(hd) != hd else "")
+        if label.startswith("deepseek-v3-671b MLA"):
+            mb = mla_model_bound(spec["nbytes"], spec["flops"], hd,
+                                 backward=False)
+            out[label]["model_bound_ms"] = mb
+            pad += (f"; the model's work (v and o at {MLA_V_HD} columns) "
+                    f"bound {mb * 1e3:.2f} us, {100 * mb / cold_ms:.1f}% of "
+                    "it")
         log(f"phase 12 flash_attention {label} (B {b}, Sq {sq}, Skv {skv}, "
             f"H {h}, Hkv {hkv}, hd {hd}, {mask}, bf16; {route}{pad}): "
             f"{cold_ms * 1e3:.2f} us L2-cold over {cold} "
@@ -3309,9 +3444,10 @@ def pass_launches(cfg, decode: bool = False) -> int:
 def train_launches(cfg) -> tuple[int, int]:
     """(forwards, backwards) of the trained kernel in one train step of
     `cfg` under remat: each call of a pass runs forward twice (the
-    recompute) and backward once."""
-    n = pass_launches(cfg)
-    return 2 * n, n
+    recompute) and backward once; an MTP model's MTP block, an attention
+    block outside remat, once each."""
+    n, mtp = pass_launches(cfg), int(bool(cfg.mtp))
+    return 2 * n + mtp, n + mtp
 
 
 def train_depth_cut(cfg, periods: int):
@@ -4864,7 +5000,8 @@ def amtl_serve_phase(dev, seed: int, card: str) -> dict:
     ops.reset_launch_counts()
     card_events = 0
 
-    # 1. cooperative serving, the checkpoint at 2048 events, a resume
+    # 1. cooperative serving, the checkpoint at SERVE_RESUME_AT batches, a
+    # resume
     a = AMTLServer(problem, cfg, v0, key, sc, device=dev)
     bounds_a = record_boundaries(a)
     folds = time_folds(a, dev)
@@ -4892,9 +5029,9 @@ def amtl_serve_phase(dev, seed: int, card: str) -> dict:
     ckpt_s = sum(c[0] for c in ckpts)
     learn_s = learn_wall - resume_s - ckpt_s
     at, total = SERVE_RESUME_AT * SERVE_ROWS, SERVE_BATCHES * SERVE_ROWS
-    if [c[2] for c in ckpts] != [at, total] or a.event_count != total:
+    if [c[2] for c in ckpts] != [at] or a.event_count != total:
         fail(f"serve: checkpoints at {[c[2] for c in ckpts]}, "
-             f"{a.event_count} events; want [{at}, {total}] and {total}")
+             f"{a.event_count} events; want [{at}] and {total}")
     if b.event_count != at or len(b.chunk_log) != 0:
         fail(f"serve: resume at event {b.event_count}, want {at}")
     bounds_b = record_boundaries(b)
@@ -5002,6 +5139,7 @@ def amtl_serve_phase(dev, seed: int, card: str) -> dict:
                      poison_iterate_on_chunks={3}, fail_checkpoint_calls={1})
     chaos = AMTLServer(problem, cfg, v0, key,
                        sc._replace(ckpt_dir=str(ckpt_dir / "chaos"),
+                                   checkpoint_every=None,
                                    restart_limit=2, restart_backoff_s=0.01),
                        device=dev, fault_plan=plan)
     bounds_chaos = record_boundaries(chaos)
@@ -5266,15 +5404,15 @@ def shard_kernel_times(dev, seed: int) -> dict:
 
 
 def sharded_phase(dev, seed: int, card: str, problem, v0, offs, key,
-                  batch: dict) -> dict:
+                  batch: dict, worlds: list) -> dict:
     """Phase 21: the task-sharded engine at the batch cell's width, one
     rank in this process (21a) and SHARD_RANKS ranks on this card
-    (21b-21f), against the batch engine's states."""
+    (21b-21f, in `worlds`: the save in the first, its restore in the
+    second), against the batch engine's states."""
     import torch
     from repro_torch.core import amtl
     from repro_torch.kernels import ops
     from repro_torch.launch import amtl_sharded
-    from repro_torch.launch.mesh import run_world
 
     batch_cfg, _ = configs(T)
     repl = batch_cfg._replace(engine="sharded")
@@ -5339,11 +5477,9 @@ def sharded_phase(dev, seed: int, card: str, problem, v0, offs, key,
                 "ragged": dict(store_seed=seed, d=D, t=T, lo=COHORT_LO,
                                hi=COHORT_HI, lam=LAM)}
     t0 = time.perf_counter()
-    out = run_world(amtl_sharded.session, SHARD_RANKS,
-                    dict(device=dev.type, problems=problems, runs=runs),
-                    device=dev.type, timeout=SHARD_WORLD_TIMEOUT_S,
-                    collective_timeout=SHARD_COLLECTIVE_TIMEOUT_S,
-                    workdir=str(ROOT / "build"))
+    out = worlds[0].run(amtl_sharded.session,
+                        dict(device=dev.type, problems=problems, runs=runs),
+                        timeout=SHARD_WORLD_TIMEOUT_S)
     world_s = time.perf_counter() - t0
     r0 = out[0]
     for i in range(len(runs)):
@@ -5425,18 +5561,17 @@ def sharded_phase(dev, seed: int, card: str, problem, v0, offs, key,
         f"{mean[:half].min():.3g}, the other's <= {mean[half:].max():.3g}, "
         f"{count[:half].sum()} and {count[half:].sum()} activations: PASS")
 
-    # 21e: save at the midpoint, restore into a fresh world, run on
+    # 21e: save at the midpoint, restore in the other world (ranks that
+    # never ran the session that saved), run on
     if not all(np.array_equal(a, b) for a, b in
                zip(r0[4]["leaves"], r0[0]["leaves"])):
         fail("21e checkpoint: the run that saved differs from 21b's")
     t1 = time.perf_counter()
-    again = run_world(amtl_sharded.session, SHARD_RANKS, dict(
+    again = worlds[1].run(amtl_sharded.session, dict(
         device=dev.type, problems=problems,
         runs=[dict(base, cfg=fields(repl),
                    restore=(str(ckpt), BATCH_EVENTS // 2))]),
-        device=dev.type, timeout=SHARD_WORLD_TIMEOUT_S,
-        collective_timeout=SHARD_COLLECTIVE_TIMEOUT_S,
-        workdir=str(ROOT / "build"))
+        timeout=SHARD_WORLD_TIMEOUT_S)
     world_s += time.perf_counter() - t1
     shutil.rmtree(ckpt, ignore_errors=True)
     if not all(np.array_equal(a, b) for a, b in
@@ -5444,7 +5579,7 @@ def sharded_phase(dev, seed: int, card: str, problem, v0, offs, key,
         fail("21e checkpoint: the restored world's run is not bitwise the "
              "uninterrupted run")
     log(f"phase 21e checkpoint: saved at event {BATCH_EVENTS // 2} by "
-        f"{SHARD_RANKS} ranks, restored into a fresh world and run to "
+        f"{SHARD_RANKS} ranks, restored in another world and run to "
         f"{BATCH_EVENTS}: bitwise the uninterrupted run: PASS")
 
     # 21f: SGD on the ragged store
@@ -5463,7 +5598,8 @@ def sharded_phase(dev, seed: int, card: str, problem, v0, offs, key,
     log(f"phase 21f {SHARD_RANKS} ranks, SGD (batch_size "
         f"{sgd_cfg.batch_size}) on the ragged store: bitwise the ragged SGD "
         f"batch session; each rank's launches {r0[5]['launches']}: PASS")
-    log(f"phase 21 worlds: {world_s:.1f} s with spawn and set-up")
+    log(f"phase 21 worlds: {world_s:.1f} s of calls with set-up (the "
+        "ranks up since phase 20)")
     kernels = shard_kernel_times(dev, seed) if dev.type == "cuda" else {}
     log("sharded " + json.dumps({"card": card, "times": times,
                                  "kernels": kernels}))
@@ -5530,11 +5666,66 @@ HYBRID_TRAIN_PARTS = {**TRAIN_PARTS, "elementwise": ("elementwise",)}
 # alone and 65.15 in the smoke; 3 would be 71.2 GB before the
 # activations.  zamba2 keeps 2 periods or more so the tied block's
 # gradient sums over its invocations, llama a cross layer.
-TRAIN_PERIODS = {"zamba2-7b": 6, "llama-3.2-vision-11b": 2}
+TRAIN_PERIODS = {"zamba2-7b": 6, "llama-3.2-vision-11b": 2,
+                 "dbrx-132b": 1, "deepseek-v3-671b": 0}
+# dbrx-132b and deepseek-v3-671b (phases 37-38) train under Adafactor, not
+# their default AdamW: AdamW's bf16 weight and gradient and float32
+# master, mu and nu are 16 bytes a parameter, 72 GB for one dbrx layer
+# (3.26G parameters) and the embeddings before any activation.
+# Adafactor's (its factored moments are small) are 8 bytes, and its update
+# makes ~4 float32 copies of a leaf at a time: 4.2 GB each for one dbrx
+# layer's stacked w_in.  So dbrx runs 1 of its 40 moe layers (4.49G
+# parameters, 36 GB of state); 2 would be 62 GB of state and 34 GB of
+# update copies.  deepseek runs its 3 dense MLA layers and the MTP block
+# (0 of its 58 moe layers: one is 11.5G parameters, 92 GB of state alone;
+# 4.29G parameters, 34 GB).
+TRAIN_OPTIMIZER = "adafactor"
+# The state bytes a parameter under each optimizer (bf16 weight and
+# gradient, the float32 master, and AdamW's float32 mu and nu), and the
+# float32 copies of one leaf that Adafactor's update holds at a time.
+STATE_BYTES = {"adamw": 16, "adafactor": 8}
+ADAFACTOR_COPIES = 4
+
+
+def train_sizing(published, periods: int, optimizer: str,
+                 card_bytes: int) -> str:
+    """Why a phase trains `published` at `periods` periods under
+    `optimizer`: the state of that cut under it and under the arch's
+    default optimizer, and the state of one period more (with the
+    update's float32 copies of its largest leaf) against the card."""
+    from repro_torch.launch.steps import default_optimizer
+    from repro_torch.models import transformer
+
+    def size(p):
+        shapes = transformer.param_shapes(train_depth_cut(published, p))
+        return (sum(math.prod(x) for x in shapes.values()),
+                max(math.prod(x) for x in shapes.values()))
+    (n, _), (n1, big1) = size(periods), size(periods + 1)
+    per = STATE_BYTES[optimizer]
+    default = default_optimizer(published).name
+    out = (f"{optimizer}: {per} B a parameter of state, {per * n / 1e9:.1f}"
+           f" GB at this cut ({n / 1e9:.2f}G parameters)")
+    if default != optimizer:
+        out += (f"; the arch's default {default} holds "
+                f"{STATE_BYTES[default]} B, {STATE_BYTES[default] * n / 1e9:.1f}"
+                f" GB")
+    more = per * n1 + ADAFACTOR_COPIES * 4 * big1
+    return out + (
+        f"; {periods + 1} period{'s' if periods else ''} (one more "
+        f"{'+'.join(published.period)} layer, {(n1 - n) / 1e9:.2f}G "
+        f"parameters, {per * (n1 - n) / 1e9:.1f} GB of state alone) would "
+        f"hold "
+        f"{per * n1 / 1e9:.1f} GB of state and {ADAFACTOR_COPIES} float32 "
+        f"copies of its largest leaf ({big1 / 1e9:.2f}G elements) in the "
+        f"update, {more / 1e9:.1f} GB, over the card's "
+        f"{card_bytes / 1e9:.1f} GB")
 # llama-3.2-vision-11b's control: the cross-attention's keys cut to the
 # first CROSS_CONTROL_KEYS of the 1601 in the plain run (or, holding the
 # backward alone, in the plain backward).
 CROSS_CONTROL_KEYS = 1024
+# dbrx-132b's and deepseek-v3-671b's also, by profiler range, the MoE
+# FFN (its forward and its recompute under remat: `moe.moe_apply`).
+MOE_TRAIN_RANGES = {"MoE": ("moe", "moe_apply")}
 RWKV_TRAIN_PARTS = {"rwkv6_bwd": ("rwkv6_bwd_",),
                     "bwd states": ("rwkv6_bwd_states_kernel",),
                     "bwd chunk": ("rwkv6_bwd_chunk_kernel",),
@@ -5692,6 +5883,19 @@ def mha_bwd_plain(window=None, cross_keys=None):
     return backward
 
 
+def mha_ref_bf16_p(q, k, v, **mask):
+    """`ref.mha_ref` with P rounded to bf16 in 64-key chunks, the sm90
+    forward's order and rounding in plain PyTorch (phase 3's yardstick of
+    that route): dbrx-132b's second plain version in training.  The
+    caller's `kv_chunk` (the float32-P plain version's order) is replaced
+    by the sm90 forward's 64-key tiles."""
+    import torch
+    from repro_torch.kernels import ref
+    mask.pop("kv_chunk")
+    return ref.mha_ref(q, k, v, kv_chunk=64, p_dtype=torch.bfloat16,
+                       **mask)
+
+
 # Each trained arch: its phase, the kernel module of its forward and of
 # its backward, the `ops` function that reaches them, that function's
 # plain version under autograd, the run that holds the backward alone
@@ -5699,13 +5903,25 @@ def mha_bwd_plain(window=None, cross_keys=None):
 # plain version (`noise`, optional), the controls (a function and a
 # config change; the run must fail the gate) of the plain gate
 # (`control`) and of the held one (`held_control`), the `ref` functions
-# that must not run on the kernels' path, the forward's routes a call
-# (twice under remat) and the backward's, the leaves whose gradient must
-# be non-zero (a name or a dotted suffix of the path), and the profile's
-# parts (and profiler ranges); `wake` draws the inert leaves.  Step 0 is
+# that must not run on the kernels' path, the routes that must take every
+# forward launch and every backward one (the module's other routes none),
+# the leaves whose gradient must be non-zero (a name or a dotted suffix of
+# the path), and the profile's parts (and profiler ranges); `wake` draws
+# the inert leaves.  Step 0 is
 # gated on the whole plain run, unless the spec holds the backward alone
 # and has no second plain version, or the two plain versions differ by
 # more than TRAIN_GRAD_RTOL: then on the held run.
+#
+# dbrx-132b's router amplifies the forward's rounding: a token whose k-th
+# and (k+1)-th experts are near a tie goes to another expert when the
+# attention's output moves by a bf16 ulp.  On an H100 (one layer, B 2 x
+# 2048) the kernels read 0.0519 from the float32-P plain run at the router
+# (median leaf 0.0413), while a second float32-P plain attention read
+# 0.0136 and the kernels' forward with the plain backward 0.0022 (the
+# same routing).  The sm90 forward rounds P to bf16, as its plain version
+# in phase 3 does, and that plain version (`mha_ref_bf16_p`, dbrx's second
+# plain run) read 0.059 from the float32-P run: past TRAIN_GRAD_RTOL, so
+# the rule above gates dbrx on the backward alone.
 #
 # rwkv6-3b's random-weight bf16 model amplifies any difference in its
 # WKV's float32 sums through 32 layers: on an H100 two plain versions
@@ -5722,8 +5938,8 @@ TRAINED = {
             sliding_window=TRAIN_CONTROL_WINDOW)),
         control_label=f"plain run, local window {TRAIN_CONTROL_WINDOW}",
         plain_calls=("mha_ref", "mha_bwd_ref"),
-        fwd_routes={"sm90": 2, "split": 0, "simt": 0},
-        bwd_routes={"sm90": 1, "simt": 0}, nonzero=(), parts=TRAIN_PARTS),
+        fwd_routes={"sm90"},
+        bwd_routes={"sm90"}, nonzero=(), parts=TRAIN_PARTS),
     "rwkv6-3b": dict(
         phase=25, fwd="rwkv6_scan", bwd="rwkv6_bwd", op="wkv",
         plain=wkv_plain_grad, held=wkv_plain_backward,
@@ -5732,8 +5948,8 @@ TRAINED = {
                            "the state's gradient dropped at the middle",
         plain_calls=("wkv_chunked_ref", "wkv_inplace_ref", "wkv_bwd_ref",
                      "wkv_bwd_exact_ref"),
-        fwd_routes={"chunked": 2, "recurrent": 0},
-        bwd_routes={"chunked": 1, "recurrent": 0},
+        fwd_routes={"chunked"},
+        bwd_routes={"chunked"},
         nonzero=("wr", "wk", "wv", "w0", "w_lora_a", "w_lora_b", "u"),
         parts=RWKV_TRAIN_PARTS),
     "hubert-xlarge": dict(
@@ -5742,8 +5958,8 @@ TRAINED = {
         control_label="plain run, keys more than "
                       f"{HUBERT_CONTROL_WINDOW} frames back dropped",
         plain_calls=("mha_ref", "mha_bwd_ref"),
-        fwd_routes={"sm90": 2, "split": 0, "simt": 0},
-        bwd_routes={"sm90": 1, "simt": 0}, nonzero=("feat_proj", "mask_emb"),
+        fwd_routes={"sm90"},
+        bwd_routes={"sm90"}, nonzero=("feat_proj", "mask_emb"),
         parts=TRAIN_PARTS, shape=(ENCODER_BATCH, ENCODER_SEQ),
         unit="frames"),
     "zamba2-7b": dict(
@@ -5759,8 +5975,8 @@ TRAINED = {
                            "the shared attention's window at "
                            f"{TRAIN_CONTROL_WINDOW}",
         plain_calls=("mha_ref", "mha_bwd_ref"),
-        fwd_routes={"sm90": 2, "split": 0, "simt": 0},
-        bwd_routes={"sm90": 1, "simt": 0},
+        fwd_routes={"sm90"},
+        bwd_routes={"sm90"},
         nonzero=("lora_q_a", "lora_q_b", "lora_o_a", "lora_o_b", "A_log",
                  "D", "dt_bias", "shared_attn.attn.wq",
                  "shared_attn.attn.wk", "shared_attn.attn.wv",
@@ -5780,11 +5996,38 @@ TRAINED = {
                            "the cross-attention's keys cut to the first "
                            f"{CROSS_CONTROL_KEYS}",
         plain_calls=("mha_ref", "mha_bwd_ref"),
-        fwd_routes={"sm90": 2, "split": 0, "simt": 0},
-        bwd_routes={"sm90": 1, "simt": 0},
+        fwd_routes={"sm90"},
+        bwd_routes={"sm90"},
         nonzero=("xattn.wq", "xattn.wk", "xattn.wv", "xattn.wo",
                  "xattn.gate"),
-        parts=HYBRID_TRAIN_PARTS, wake=True)}
+        parts=HYBRID_TRAIN_PARTS, wake=True),
+    **{arch: {**dict(
+        phase=ph, fwd="flash_attention", bwd="flash_attention_bwd",
+        op="mha", plain=plain, held=mha_kernels_forward(mha_bwd_plain()),
+        noise=mha_dense_plain,
+        control=(mha_ref_control(window=TRAIN_CONTROL_WINDOW), {}),
+        control_label=f"plain run, every layer's window at "
+                      f"{TRAIN_CONTROL_WINDOW}",
+        held_control=(mha_kernels_forward(mha_bwd_plain(
+            window=TRAIN_CONTROL_WINDOW)), {}),
+        held_control_label="the kernels' forward, the plain backward with "
+                           f"every layer's window at {TRAIN_CONTROL_WINDOW}",
+        plain_calls=("mha_ref", "mha_bwd_ref"),
+        fwd_routes={"sm90"},
+        bwd_routes={"sm90"}, nonzero=nonzero,
+        parts=HYBRID_TRAIN_PARTS, ranges=MOE_TRAIN_RANGES,
+        optimizer=TRAIN_OPTIMIZER, card_cpu=True), **extra}
+       for arch, ph, plain, nonzero, extra in (
+           ("dbrx-132b", 37, "mha_ref",
+            ("moe.router", "moe.w_in", "moe.w_gate", "moe.w_out", "attn.wq",
+             "attn.wk", "attn.wv", "attn.wo"),
+            dict(noise=mha_ref_bf16_p,
+                 noise_label="the plain attention with P rounded to bf16 "
+                             "in 64-key chunks (the sm90 forward's "
+                             "rounding)")),
+           ("deepseek-v3-671b", 38, mha_ref_lean,
+            ("attn.wq_a", "attn.wq_b", "attn.wkv_a", "attn.wk_b",
+             "attn.wv_b", "attn.wo", "mtp."), {}))}}
 
 
 def ssd_times(cfg, dev, seed: int) -> dict:
@@ -5893,6 +6136,7 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
                                           init_train_state, make_train_step,
                                           train_keys)
     from repro_torch.models import init_params
+    from repro_torch.optim import cosine_warmup, make_optimizer
 
     spec = TRAINED[arch]
     ph, op = spec["phase"], spec["op"]
@@ -5913,10 +6157,16 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
     held0 = torch.cuda.memory_allocated(dev)      # earlier phases' tensors
     if cfg is not published:
         log(f"phase {ph} {arch} training depth: published "
-            f"{published.num_layers} layers ({published.num_periods} "
-            f"periods of {'+'.join(published.period)}, "
-            f"{len(published.tail_blocks)} tail), cut to {n_layers} layers "
-            f"({cfg.num_periods} periods), every width published")
+            f"{published.num_layers} layers ({len(published.head_blocks)} "
+            f"head, {published.num_periods} periods of "
+            f"{'+'.join(published.period)}, {len(published.tail_blocks)} "
+            f"tail), cut to {n_layers} layers ({cfg.num_periods} periods)"
+            + (", and the MTP block" if cfg.mtp else "")
+            + ", every width published")
+    if spec.get("optimizer"):
+        log(f"phase {ph} {arch} optimizer and depth: "
+            + train_sizing(published, cfg.num_periods, spec["optimizer"],
+                           total_mem))
     model = init_params(cfg, seed=seed, device=dev)
     model.requires_grad_(True)
     drawn = wake_inert_leaves(model, seed) if spec.get("wake") else []
@@ -5933,12 +6183,12 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
                           device=dev)
     batches = [next(data) for _ in range(TRAIN_STEPS)]
     want_step = {spec["fwd"]: n_fwd, spec["bwd"]: n_calls}
-    want_fwd = {r: n * n_calls for r, n in spec["fwd_routes"].items()}
-    want_bwd = None if spec["bwd_routes"] is None else {
-        r: n * n_calls for r, n in spec["bwd_routes"].items()}
-
-    def bwd_routes():
-        return None if want_bwd is None else bwd_mod.route_counts()
+    # the spec's route takes every launch, the module's others none
+    want_fwd = {r: n_fwd if r in spec["fwd_routes"] else 0
+                for r in fwd_mod.route_counts()}
+    want_bwd = {r: n_calls if r in spec["bwd_routes"] else 0
+                for r in bwd_mod.route_counts()}
+    bwd_routes = bwd_mod.route_counts
 
     # step 0 through the kernels against the plain version, no update
     p0 = torch.zeros((cfg.d_model, mcfg.num_tasks), dtype=torch.float32,
@@ -5987,8 +6237,9 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
     sound = max(e[1] for e in gated.values())
     control = max(e[1] for e in cerrs.values())
     zero = [k for k, g in grads_k.items()
-            if any(k == n or k.endswith("." + n) for n in spec["nonzero"])
-            and not float(g.norm()) > 0]
+            if named(k, spec["nonzero"]) and not float(g.norm()) > 0]
+    zero += [n for n in spec["nonzero"]
+             if not any(named(k, (n,)) for k in grads_k)]   # no such leaf
 
     def reading(e: dict) -> str:
         return (f"worst {sorted(e.items(), key=lambda kv: -kv[1][1])[:3]}, "
@@ -6000,10 +6251,11 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
         "gradients (max |diff| / max |grad|, ||diff|| / ||grad||) a leaf: "
         + reading(errs) + (" (a reading, not gated)" if use_held else "")
         + ("" if noise is None else
-           "; a second plain version against the plain one (the bf16 "
-           f"noise between two plain runs, {plain_noise:.3g} "
-           + ("> " if use_held else "<= ") + f"{TRAIN_GRAD_RTOL}: the gate "
-           f"holds {gate_run}): " + reading(noise))
+           f"; {spec.get('noise_label', 'a second plain version')} against "
+           f"the plain one (the bf16 noise between two plain runs, "
+           f"{plain_noise:.3g}"
+           + (" > " if use_held else " <= ") + f"{TRAIN_GRAD_RTOL}: the "
+           f"gate holds {gate_run}): " + reading(noise))
         + ("" if held is None else
            "; against the kernels' forward with the plain backward"
            + ("" if use_held else " (a reading, not gated)") + ": "
@@ -6037,7 +6289,11 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
     torch.cuda.empty_cache()
 
     # the training run
-    opt = default_optimizer(cfg, lr=3e-4, total_steps=TRAIN_STEPS)
+    if spec.get("optimizer"):
+        opt = make_optimizer(spec["optimizer"], cosine_warmup(
+            3e-4, warmup=min(500, TRAIN_STEPS // 10), total=TRAIN_STEPS))
+    else:
+        opt = default_optimizer(cfg, lr=3e-4, total_steps=TRAIN_STEPS)
     state = init_train_state(cfg, opt, device=dev, model=model)
     step_fn = make_train_step(cfg, opt, remat=True)
     plain_calls = {name: 0 for name in spec["plain_calls"]}
@@ -6097,6 +6353,13 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
             rows.append(dict(step=i, loss=loss, lm_loss=float(m["lm_loss"]),
                              probe_loss=float(m["probe_loss"]),
                              mtl_v_norm=float(m["mtl_v_norm"]), ms=ms))
+            if cfg.moe is not None:
+                rows[-1]["aux_loss"] = float(m["aux_loss"])
+            if "mtp_loss" in m:
+                rows[-1]["mtp_loss"] = float(m["mtp_loss"])
+            if not all(math.isfinite(v) for v in rows[-1].values()):
+                fail(f"phase {ph} step {i}: a loss is not finite: "
+                     f"{rows[-1]}")
             step_ms.append(ms)
     if any(plain_calls.values()):
         fail(f"phase {ph}: a plain version ran on the training path: "
@@ -6120,15 +6383,21 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
     steady = statistics.median(step_ms[1:])
     tokens = t_batch * t_seq
-    log(f"phase {ph} {TRAIN_STEPS} steps (B {t_batch}, S {t_seq}): losses "
+    log(f"phase {ph} {TRAIN_STEPS} steps (B {t_batch}, S {t_seq}"
+        + (f", {opt.name}" if spec.get("optimizer") else "") + "): losses "
         + ", ".join(f"{r['loss']:.6g} (lm {r['lm_loss']:.6g}, probe "
-                    f"{r['probe_loss']:.6g})" for r in rows)
+                    f"{r['probe_loss']:.6g}"
+                    + "".join(f", {k[:-5]} {r[k]:.6g}"
+                              for k in ("aux_loss", "mtp_loss") if k in r)
+                    + ")" for r in rows)
         + f" (finite); step ms " + ", ".join(f"{ms:.1f}" for ms in step_ms)
         + f" (the first warms up, the last profiled); steady "
         f"{steady:.1f} ms, {tokens / (steady * 1e-3):.1f} {unit}/s; "
-        f"launches a step exactly {spec['fwd']} {n_fwd} ({n_calls} "
-        f"+ {n_calls} under remat, routes {want_fwd}) and {spec['bwd']} "
-        f"{n_calls}" + ("" if want_bwd is None else f" (routes {want_bwd})")
+        f"launches a step exactly {spec['fwd']} {n_fwd} ({n_fwd - n_calls} "
+        f"+ {n_fwd - n_calls} under remat"
+        + (", the MTP block's once outside it" if cfg.mtp else "")
+        + f", routes {want_fwd}) and {spec['bwd']} {n_calls}"
+        + f" (routes {want_bwd})"
         + f", no plain {op}; staleness "
         "and masks bitwise the host replay; head ring against the CPU "
         f"replay {head_err:.3g} of its scale <= {HEAD_RTOL}; peak device "
@@ -6157,14 +6426,14 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
             f"kernels ({spec['bwd']}) {parts[spec['bwd']]['ms']:.1f} ms, "
             f"{100 * parts[spec['bwd']]['share']:.1f}% of its "
             f"{dev_ms:.1f} device ms")
+    card_cpu = train_card_cpu(arch, seed, dev, ph) if spec.get("card_cpu") \
+        else None
     free1, _ = torch.cuda.mem_get_info(dev)
     seconds = time.perf_counter() - t_phase
     log(f"phase {ph}: {seconds:.1f} s; {free1 / 1e9:.1f} GB free after")
     launches = {k: n * TRAIN_STEPS for k, n in want_step.items()}
     launches["fwd_routes"] = {r: n * TRAIN_STEPS for r, n in want_fwd.items()}
-    if want_bwd is not None:
-        launches["bwd_routes"] = {r: n * TRAIN_STEPS
-                                  for r, n in want_bwd.items()}
+    launches["bwd_routes"] = {r: n * TRAIN_STEPS for r, n in want_bwd.items()}
     out = dict(rows=rows, step_ms=step_ms, steady_ms=steady,
                tokens_per_s=tokens / (steady * 1e-3), unit=unit,
                peak_bytes=peak, phase_peak_bytes=peak - held0,
@@ -6182,7 +6451,68 @@ def train_phase(dev, seed: int, card: str, arch: str) -> dict:
         out["plain_noise"] = max(e[1] for e in noise.values())
     if ssd is not None:
         out["ssd"] = ssd
+    if card_cpu is not None:
+        out["card_vs_cpu"] = card_cpu
+    if spec.get("optimizer"):
+        out["optimizer"] = opt.name
     return out
+
+
+def named(path: str, names) -> bool:
+    """Whether a leaf's dotted path is one of `names`: a name, a dotted
+    suffix of the path, or (ending in ".") a prefix of it."""
+    return any(path.startswith(n) if n.endswith(".") else
+               (path == n or path.endswith("." + n)) for n in names)
+
+
+# The reduced config's step-0 gradients on the card against the port's
+# CPU run of the same weights and batch (float32, TF32 off): the card's
+# gate for the routed MoE's backward, deepseek's shared expert and the aux
+# loss, which no kernel covers and which cannot train at full width.
+TRAIN_CARD_CPU_SEQ = 64
+
+
+def train_card_cpu(arch: str, seed: int, dev, ph: int) -> dict:
+    """`arch`'s reduced config (float32) with the same weights on the card
+    and on the CPU: step 0's loss (LM, aux and MTP included, with the
+    probe loss at the zero head's read) and every leaf's gradient, by max
+    |diff| over max |grad| <= CARD_CPU_RTOL."""
+    import torch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import LM, init_params
+    cfg = train_mod.train_config(arch, reduced=True)
+    cpu_model = init_params(cfg, seed=seed, device="cpu")
+    card_model = LM(cfg, _to_device(cpu_model.tree(), dev))
+    batch = next(train_mod.batches_for(cfg, TRAIN_CARD_CPU_SEQ, 2,
+                                       seed=seed + 1))
+    runs = {}
+    for name, model, d in (("cpu", cpu_model, torch.device("cpu")),
+                           ("card", card_model, dev)):
+        model.requires_grad_(True)
+        p0 = torch.zeros((cfg.d_model, cfg.mtl.num_tasks),
+                         dtype=torch.float32, device=d)
+        loss, grads = train_grads(
+            model, {k: torch.as_tensor(v, device=d)
+                    for k, v in batch.items()}, cfg, p0)
+        runs[name] = loss, {k: g.cpu() for k, g in grads.items()}
+    (l_cpu, g_cpu), (l_card, g_card) = runs["cpu"], runs["card"]
+    errs = {k: e[0] for k, e in leaf_errs(g_card, g_cpu).items()}
+    worst = max(errs, key=errs.get)
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    live = sum(bool(g.any()) for g in g_cpu.values())
+    if set(g_card) != set(g_cpu) or not loss_err <= CARD_CPU_RTOL \
+            or not errs[worst] <= CARD_CPU_RTOL:
+        fail(f"phase {ph} {arch} reduced card vs CPU: loss {loss_err:.3g}, "
+             f"worst leaf {worst} {errs[worst]:.3g} > {CARD_CPU_RTOL}")
+    log(f"phase {ph} {arch} reduced ({cfg.num_layers} layers"
+        + (" and the MTP block" if cfg.mtp else "") + f", d_model "
+        f"{cfg.d_model}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k}, float32, TF32 off) card vs the port's CPU run of "
+        f"the same weights, B 2 x S {TRAIN_CARD_CPU_SEQ}: step 0's loss "
+        f"{loss_err:.3g}, {len(g_cpu)} leaves' gradients ({live} non-zero), "
+        f"worst {worst} {errs[worst]:.3g}, all <= {CARD_CPU_RTOL} of max "
+        "|grad|: PASS")
+    return dict(loss=loss_err, worst_leaf=errs[worst], leaves=len(g_cpu))
 
 
 # ---------------------------------------------------------------- phase 31 --
@@ -6449,19 +6779,21 @@ def lock_launches(label: str, res: dict, dev) -> None:
              f"for {want}")
 
 
-def lockstep_serve_phase(dev, seed: int, card: str) -> dict:
+def lockstep_serve_phase(dev, seed: int, card: str, worlds: list) -> dict:
     """Phase 22: the learn-while-serve AMTLServer on LOCK_RANKS ranks
-    stepping in lockstep on this card (22a cooperative, 22b resume, 22c
-    threaded with a crash on rank 1, 22d the distributed prox), each
-    against the one-rank server in this process; the one-rank runs are
-    freed before the world is spawned."""
+    stepping in lockstep on this card (22a cooperative, 22c threaded with
+    a crash on rank 1, 22d the distributed prox, in the first of `worlds`;
+    22b the resume in the second), each against the one-rank server in
+    this process; the one-rank runs are freed before the worlds' calls."""
     import gc
     import torch
     from repro_torch.core import prng
     from repro_torch.launch import serve_lockstep
-    from repro_torch.launch.mesh import run_world
 
     t_phase = time.perf_counter()
+    if any(w.n != LOCK_RANKS for w in worlds):
+        fail(f"phase 22: worlds of {[w.n for w in worlds]} ranks, want "
+             f"{LOCK_RANKS}")
     root = ROOT / "build" / "serve_ckpt" / "lockstep"
     shutil.rmtree(root, ignore_errors=True)
     v0 = (np.float32(0.01) * np.random.default_rng(seed + 5).standard_normal(
@@ -6478,9 +6810,6 @@ def lockstep_serve_phase(dev, seed: int, card: str) -> dict:
     saved = serve[:LOCK_SAVE_AT] + [("checkpoint",)] + serve[LOCK_SAVE_AT:]
     fed = [("submit", i) for i in range(LOCK_THREADED)]
     asks = [("ask", i) for i in range(LOCK_BATCHES)]
-    world_kw = dict(device=dev.type, timeout=SHARD_WORLD_TIMEOUT_S,
-                    collective_timeout=SHARD_COLLECTIVE_TIMEOUT_S,
-                    workdir=str(ROOT / "build"), verbose=False)
 
     # the one-rank server (batch engine) in this process: the script (its
     # store by the ranks' blocks), the threaded feedback's cooperative
@@ -6501,7 +6830,7 @@ def lockstep_serve_phase(dev, seed: int, card: str) -> dict:
 
     # the world: 22a, 22c, 22d and frozen serving
     t0 = time.perf_counter()
-    out = run_world(serve_lockstep.session, LOCK_RANKS, lockstep_spec(
+    out = worlds[0].run(serve_lockstep.session, lockstep_spec(
         dev, seed, v0, key, [
             dict(cfg=shard._asdict(), serve=dict(sc, ckpt_dir=str(root)),
                  ops=saved),
@@ -6514,7 +6843,7 @@ def lockstep_serve_phase(dev, seed: int, card: str) -> dict:
             dict(cfg=dist._asdict(), serve=sc, ops=serve[:LOCK_DIST_BATCHES],
                  store=False),
             dict(cfg=shard._asdict(), serve=dict(sc, learning=False),
-                 ops=asks)]), **world_kw)
+                 ops=asks)]), timeout=SHARD_WORLD_TIMEOUT_S)
     world_s = time.perf_counter() - t0
 
     # 22a: cooperative, bitwise the one-rank server
@@ -6541,13 +6870,14 @@ def lockstep_serve_phase(dev, seed: int, card: str) -> dict:
         f"{[res[0]['launches'] for res in out]}, each the count its events "
         f"call for [{card}]: PASS")
 
-    # 22b: resume in a fresh world, and at one rank, from the 2-rank record
+    # 22b: resume in the other world (ranks that never ran the server
+    # that saved), and at one rank, from the 2-rank record
     t0 = time.perf_counter()
-    again = run_world(serve_lockstep.session, LOCK_RANKS, lockstep_spec(
+    again = worlds[1].run(serve_lockstep.session, lockstep_spec(
         dev, seed, v0, key, [dict(cfg=shard._asdict(),
                                   serve=dict(sc, ckpt_dir=str(root)),
                                   resume=True, ops=serve[LOCK_SAVE_AT:])]),
-        **world_kw)
+        timeout=SHARD_WORLD_TIMEOUT_S)
     world_s += time.perf_counter() - t0
     k = LOCK_BATCHES - LOCK_SAVE_AT
     for r, res in enumerate(again):
@@ -6570,7 +6900,7 @@ def lockstep_serve_phase(dev, seed: int, card: str) -> dict:
     def gb(peak):
         return f"{peak[0] / 1e9:.2f} GB (+{peak[1] / 1e9:.2f})"
     log(f"phase 22b resume from the {LOCK_RANKS}-rank record at event "
-        f"{again[0][0]['start_event']}: in a fresh world of {LOCK_RANKS} "
+        f"{again[0][0]['start_event']}: in another world of {LOCK_RANKS} "
         f"({again[0][0]['build_s']:.2f} s; host peak (and rise over the "
         f"call's start) by rank "
         f"{', '.join(gb(res[0]['build_host_peak']) for res in again)}) and "
@@ -6654,8 +6984,9 @@ def lockstep_serve_phase(dev, seed: int, card: str) -> dict:
             "1": [one_back["build_s"], *one_back["build_host_peak"]],
             **{n: [res[0]["build_s"], *res[0]["build_host_peak"]]
                for n, res in zip(ranks, again)}},
-        # ru_maxrss: a spawned rank's starts at its parent's peak (Linux
-        # carries it through fork and exec); the sampled peak is its own
+        # ru_maxrss: a spawned rank's starts at its parent's peak at the
+        # spawn (Linux carries it through fork and exec) and spans phase
+        # 21's session in the same rank; the sampled peak is its own
         "max_rss": {"parent": serve_lockstep.max_rss_bytes(), **{
             n: res[-1]["max_rss"] for n, res in zip(ranks, out)}},
         "host_peak_sampled": {
@@ -6696,14 +7027,16 @@ def lockstep_serve_phase(dev, seed: int, card: str) -> dict:
         + "; ru_maxrss "
         + ", ".join(f"{n} {v / 1e9:.2f} GB"
                     for n, v in metrics["max_rss"].items())
-        + " (a rank's starts at the parent's); each rank's own sampled peak "
+        + " (a rank's from the parent's at its spawn, phase 21's session "
+          "in it); each rank's own sampled peak "
         + ", ".join(f"{n} {v / 1e9:.2f} GB"
                     for n, v in metrics["host_peak_sampled"].items())
         + "; device peak "
         + ", ".join(f"{n} {v / 1e9:.2f} GB"
                     for n, v in metrics["device_peak"].items()))
-    log(f"phase 22 one rank {one_s:.1f} s, the worlds {world_s:.1f} s with "
-        f"spawn and set-up ({metrics['seconds']:.1f} s); by session "
+    log(f"phase 22 one rank {one_s:.1f} s, the worlds' calls "
+        f"{world_s:.1f} s with set-up (the ranks up since phase 20; "
+        f"{metrics['seconds']:.1f} s); by session "
         f"(set-up, then each server's s): "
         + "; ".join(f"{n} " + ", ".join(f"{x:.1f}" for x in v)
                     for n, v in metrics["session_s"].items()) + ": PASS")
@@ -6787,6 +7120,7 @@ def main() -> None:
     try:
         from repro_torch.core import prng
         from repro_torch.kernels import _build, ops, ref
+        from repro_torch.launch.mesh import World
     except ImportError as e:
         fail(f"the port (src/repro_torch) is not next to chip_smoke.py: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7028,18 +7362,30 @@ def main() -> None:
         torch.cuda.empty_cache()
     mark(t_smoke, "35-36")
 
+    # phases 21-22 run their ranks' sessions in two worlds of SHARD_RANKS
+    # ranks on this card, the saves in the first and the restores in the
+    # second, started now: their spawns, imports, card contexts and
+    # rendezvous pass during phase 20's set-up (four spawns took 16-25 s
+    # each of the smoke on an H100 host, outside the ranks' sessions)
+    worlds = [World(SHARD_RANKS, device=dev.type,
+                    collective_timeout=SHARD_COLLECTIVE_TIMEOUT_S,
+                    workdir=str(ROOT / "build")) for _ in range(2)]
+
     # phase 20: the learn-while-serve AMTLServer at the engine cells' width
     amtl_serve = amtl_serve_phase(dev, args.seed, card)
     torch.cuda.empty_cache()
     mark(t_smoke, "20")
 
     # phase 21: the task-sharded engine, one rank and SHARD_RANKS ranks
-    sharded = sharded_phase(dev, args.seed, card, problem, v0, offs, key, b)
+    sharded = sharded_phase(dev, args.seed, card, problem, v0, offs, key, b,
+                            worlds)
     torch.cuda.empty_cache()
     mark(t_smoke, "21")
 
     # phase 22: the server on LOCK_RANKS ranks stepping in lockstep
-    lockstep = lockstep_serve_phase(dev, args.seed, card)
+    lockstep = lockstep_serve_phase(dev, args.seed, card, worlds)
+    for world in worlds:
+        world.close()
     torch.cuda.empty_cache()
     mark(t_smoke, "22")
 
@@ -7066,6 +7412,12 @@ def main() -> None:
     hybrid_train = {}
     for arch in HYBRID_ARCHS:
         hybrid_train[arch] = train_phase(dev, args.seed, card, arch)
+        mark(t_smoke, str(TRAINED[arch]["phase"]))
+    # phases 37-38: dbrx-132b and deepseek-v3-671b training at their
+    # published widths, TRAIN_PERIODS periods, under Adafactor
+    moe_train = {}
+    for arch in MOE_ARCHS:
+        moe_train[arch] = train_phase(dev, args.seed, card, arch)
         mark(t_smoke, str(TRAINED[arch]["phase"]))
 
     kernels = []
@@ -7158,6 +7510,7 @@ def main() -> None:
                 f"library {cold['library_l2_cold_ms'] * 1e3:.2f} us; "
                 f"L2-warm {k_ms * 1e3:.2f} us, library {l_ms * 1e3:.2f} us; "
                 f"plan {cold['plan']}")
+    mark(t_smoke, "12 (the kernels' main shapes)")
     flash = kernels[[k["name"] for k in kernels].index("flash_attention")]
     flash["routes"] = flash_times(info["flash_attention"]["served"], dev)
     flash["library_ms"] = flash["routes"]["sm90"]["library_ms"]
@@ -7171,24 +7524,32 @@ def main() -> None:
     flash["moe_serve_launches"] = {
         a: dict(r["routes"], float32_prefill_simt=r["f32_launches"],
                 layers=r["layers"]) for a, r in moe_served.items()}
+    mark(t_smoke, "12 (flash routes)")
     flash["hybrid_shapes"] = flash_hybrid_times(dev)
+    mark(t_smoke, "12 (flash shapes)")
     flash["hubert_launches"] = {
         "encoder": encoder["routes"],
         "train": hubert_train["launches"]["fwd_routes"]}
     flash["hybrid_train_launches"] = {
         a: r["launches"]["fwd_routes"] for a, r in hybrid_train.items()}
+    flash["moe_train_launches"] = {
+        a: r["launches"]["fwd_routes"] for a, r in moe_train.items()}
     kernels.append(flash_bwd_times(
         info["flash_attention_bwd"], train["launches"]["bwd_routes"], dev))
     del info["flash_attention_bwd"]
+    mark(t_smoke, "12 (flash backward)")
     kernels[-1]["shapes"] = flash_bwd_shape_times(dev, {
         a: r["launches"]["bwd_routes"] for a, r in
-        (("hubert-xlarge", hubert_train), *hybrid_train.items())})
+        (("hubert-xlarge", hubert_train), *hybrid_train.items(),
+         *moe_train.items())})
+    mark(t_smoke, "12 (flash backward shapes)")
     wkv = kernels[[k["name"] for k in kernels].index("rwkv6_scan")]
     wkv["routes"] = rwkv_times(info["rwkv6_scan"], rw["routes"])
     wkv["train_launches"] = rwkv_train["launches"]["fwd_routes"]
     kernels.append(wkv_bwd_times(info["rwkv6_bwd"],
                                  rwkv_train["launches"]["bwd_routes"], dev))
     del info["rwkv6_bwd"]
+    mark(t_smoke, "12 (WKV)")
     l21_km_times(info)
     parts = prox_refresh_breakdown(dev, args.seed)
     log(f"phase 12 prox refresh (svt_randomized, d {D}, T {T}, rank {RANK}, "
@@ -7209,7 +7570,7 @@ def main() -> None:
     log("encoder hubert-xlarge " + json.dumps(encoder))
     log("training hubert-xlarge " + json.dumps(
         {k: v for k, v in hubert_train.items() if k != "rows"}))
-    for arch, r in hybrid_train.items():
+    for arch, r in (*hybrid_train.items(), *moe_train.items()):
         log(f"training {arch} " + json.dumps(
             {k: v for k, v in r.items() if k != "rows"}))
     log("dense serves " + json.dumps({a: {k: r[k] for k in (

@@ -205,8 +205,14 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t parity = (it / STAGES) & 1;
     const int k0 = t * BK;
     if (!live || k0 >= c_hi || k0 + BK <= c_lo) {
-      // none of this warpgroup's rows keeps a key of the tile; waiting for
-      // the tile keeps the arrival below in step with the ring's phases
+      // none of this warpgroup's rows keeps a key of the tile; it still
+      // waits for both of its loads, so that the arrival below and its
+      // next parity waits stay in step with the ring's phases: a wait on
+      // a K barrier whose previous phase this warpgroup skipped would pass
+      // on that phase's parity while its K is still in flight (behind a
+      // window a warpgroup skips a stage's first tiles), and Q K^T would
+      // read a K tile being written
+      mbar_wait(k_full + 8 * s, parity);
       mbar_wait(v_full + 8 * s, parity);
     } else {
       const uint64_t k_desc = sw128_desc(k_s + s * L::KV_BYTES, 16, 1024);

@@ -12,20 +12,25 @@ process.  The port's is one process a rank on `torch.distributed`:
 (`torch.multiprocessing`, spawned), each joining the group through a
 `file://` rendezvous in a fresh temporary directory (no TCP port, so
 concurrent worlds cannot collide), each running `fn(*args)` and sending
-its result back as numpy.  The backend follows the layout and is chosen
+its result back as numpy.  `World(n)` keeps its ranks up for several
+calls (`world.run(fn, *args)`, each call on every rank, then
+`world.close()`): the spawn, the imports, the card's context and the
+group's rendezvous are paid once, and while the parent works on before
+its first call.  The backend follows the layout and is chosen
 explicitly (`backend_for`): NCCL when every rank has a card of its own,
 gloo when the ranks share one card or run on the CPU.  A failed init
-raises; nothing falls back.  A rank that raises, or a world that does not
+raises; nothing falls back.  A rank that raises, or a call that does not
 finish within `timeout`, raises in the parent with the rank's traceback,
-and every rank is stopped; a collective that waits longer than
-`collective_timeout` raises in its rank.  A rank that dies without a
-result (a signal, the host's OOM killer) is named with its signal, and
-the other ranks' reports, each due within the collective timeout, are
-awaited and joined to the error.
+and every rank is stopped (the world is closed); a collective that waits
+longer than `collective_timeout` raises in its rank.  A rank that dies
+without a result (a signal, the host's OOM killer) is named with its
+signal, and the other ranks' reports, each due within the collective
+timeout, are awaited and joined to the error.
 """
 from __future__ import annotations
 
 import datetime
+import gc
 import os
 import queue as queue_mod
 import shutil
@@ -118,26 +123,34 @@ def _host(x):
 
 
 def _rank_main(rank: int, n: int, init_file: str, backend: str,
-               device: str, collective_timeout: float, fn: Callable,
-               args: tuple, results) -> None:
-    """A rank's process: join the group, run fn(*args), report (a CPU
-    rank on one thread, so that worlds beside each other do not
-    oversubscribe the cores)."""
+               device: str, collective_timeout: float, calls,
+               results) -> None:
+    """A rank's process: join the group, then run each (fn, args) that
+    `calls` brings and report it, until None (a CPU rank on one thread,
+    so that worlds beside each other do not oversubscribe the cores).  A
+    failed call ends the rank: its world is closed by the parent."""
     try:
         if device == "cpu":
             torch.set_num_threads(1)
         else:
             torch.cuda.set_device(torch.device(device))
+            torch.zeros(1, device=device)       # the card's context, now
         dist.init_process_group(
             backend, init_method=f"file://{init_file}", world_size=n,
             rank=rank,
             timeout=datetime.timedelta(seconds=collective_timeout))
-        try:
-            out = _host(fn(*args))
-        finally:
+        while (call := calls.get()) is not None:
+            fn, args = call
+            try:
+                out = _host(fn(*args))
+            finally:
+                if device != "cpu":
+                    torch.cuda.synchronize()
+            results.put((rank, True, out))
+            del out
+            gc.collect()
             if device != "cpu":
-                torch.cuda.synchronize()
-        results.put((rank, True, out))
+                torch.cuda.empty_cache()
         dist.destroy_process_group()
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
@@ -194,74 +207,136 @@ def _world_error(procs, out: dict, results, n: int, reports: list,
                 for r, val in sorted(reports)]))
 
 
+class World:
+    """n ranks of one torch.distributed world, kept up across calls.
+
+    `World(n, device)` spawns the ranks and returns at once; each joins
+    the group (and, on "cuda", makes its card's context) while the parent
+    goes on.  `run(fn, *args)` runs `fn(*args)` in every rank and returns
+    the ranks' results (tensors as numpy), in rank order; `close()` stops
+    the ranks (also as a context manager).  `fn` must be picklable (a
+    module-level function of the port).  On "cuda" the kernel library is
+    built here, once, before the ranks start.  The rendezvous file lives
+    in a fresh directory under `workdir` (the system's temporary directory
+    by default), removed at `close`.
+    """
+
+    def __init__(self, n: int, device: str = "cuda",
+                 collective_timeout: float = 120.0,
+                 workdir: str | None = None, verbose: bool = True):
+        backend, devices = backend_for(n, device)
+        if device == "cuda":
+            from repro_torch.kernels import _build
+            _build.build()
+        if verbose:
+            print(f"world: {n} ranks, backend {backend}, devices {devices}",
+                  flush=True)
+        self.n = n
+        self.collective_timeout = collective_timeout
+        ctx = torch.multiprocessing.get_context("spawn")
+        self._results = ctx.Queue()
+        self._calls = [ctx.Queue() for _ in range(n)]
+        if workdir is not None:
+            os.makedirs(workdir, exist_ok=True)
+        self._tmp = tempfile.mkdtemp(prefix="repro_torch_world_",
+                                     dir=workdir)
+        self._procs = [ctx.Process(target=_rank_main, daemon=True, args=(
+            r, n, os.path.join(self._tmp, "rendezvous"), backend,
+            devices[r], collective_timeout, self._calls[r], self._results))
+            for r in range(n)]
+        self._open = True
+        try:
+            for p in self._procs:
+                p.start()
+        except BaseException:
+            self.close(kill=True)
+            raise
+
+    def run(self, fn: Callable, *args, timeout: float = 600.0) -> list:
+        """`fn(*args)` in every rank; the ranks' results in rank order.
+        A rank that fails or dies, or a call not done within `timeout`,
+        closes the world and raises."""
+        if not self._open:
+            raise RuntimeError("the world is closed")
+        n, procs, results = self.n, self._procs, self._results
+        out: dict[int, Any] = {}
+        try:
+            for q in self._calls:
+                q.put((fn, args))
+            deadline = time.monotonic() + timeout
+            while len(out) < n:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(
+                        f"the {n}-rank world did not finish within "
+                        f"{timeout} s (ranks "
+                        f"{sorted(set(range(n)) - set(out))} pending)")
+                try:
+                    rank, ok, val = results.get(timeout=min(left, 1.0))
+                except queue_mod.Empty:
+                    dead = [r for r, p in enumerate(procs)
+                            if r not in out and p.exitcode is not None]
+                    if dead:
+                        # a rank may have reported just before it exited
+                        try:
+                            rank, ok, val = results.get(timeout=1.0)
+                        except queue_mod.Empty:
+                            raise _world_error(
+                                procs, out, results, n, [],
+                                min(self.collective_timeout + 10.0,
+                                    max(0.0, deadline - time.monotonic())))
+                    else:
+                        continue
+                if not ok:
+                    raise _world_error(procs, out, results, n, [(rank, val)],
+                                       min(5.0, max(0.0, deadline -
+                                                    time.monotonic())))
+                out[rank] = val
+        except BaseException:
+            self.close(kill=True)
+            raise
+        return [out[r] for r in range(n)]
+
+    def close(self, kill: bool = False) -> None:
+        """Stop the ranks: each leaves the group and exits (within 30 s,
+        else it is killed), or, with `kill`, is killed at once."""
+        if not self._open:
+            return
+        self._open = False
+        started = [p for p in self._procs if p.pid is not None]
+        try:
+            if not kill:
+                for q, p in zip(self._calls, self._procs):
+                    if p.pid is not None and p.is_alive():
+                        q.put(None)
+                for p in started:
+                    p.join(timeout=30.0)
+        finally:
+            for p in started:
+                if p.is_alive():
+                    p.kill()
+            for p in started:
+                p.join(timeout=10.0)
+            for q in self._calls:
+                # a call a stopped rank never read is dropped, not waited on
+                q.cancel_join_thread()
+            for q in (self._results, *self._calls):
+                q.close()
+            shutil.rmtree(self._tmp, ignore_errors=True)
+
+    def __enter__(self) -> "World":
+        return self
+
+    def __exit__(self, kind, *_) -> None:
+        self.close(kill=kind is not None)
+
+
 def run_world(fn: Callable, n: int, *args, device: str = "cuda",
               timeout: float = 600.0, collective_timeout: float = 120.0,
               workdir: str | None = None,
               verbose: bool = True) -> list:
-    """Run `fn(*args)` in each rank of an n-rank world; the ranks' results
-    (tensors as numpy), in rank order.
-
-    `fn` must be picklable (a module-level function of the port).  On
-    "cuda" the kernel library is built here, once, before the ranks
-    start.  The rendezvous file lives in a fresh directory under `workdir` (the
-    system's temporary directory by default), removed at the end.
-    """
-    backend, devices = backend_for(n, device)
-    if device == "cuda":
-        from repro_torch.kernels import _build
-        _build.build()
-    if verbose:
-        print(f"world: {n} ranks, backend {backend}, devices {devices}",
-              flush=True)
-    ctx = torch.multiprocessing.get_context("spawn")
-    results = ctx.Queue()
-    if workdir is not None:
-        os.makedirs(workdir, exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="repro_torch_world_", dir=workdir)
-    procs = [ctx.Process(target=_rank_main, daemon=True, args=(
-        r, n, os.path.join(tmp, "rendezvous"), backend, devices[r],
-        collective_timeout, fn, args, results)) for r in range(n)]
-    out: dict[int, Any] = {}
-    try:
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + timeout
-        while len(out) < n:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                raise TimeoutError(
-                    f"the {n}-rank world did not finish within {timeout} s "
-                    f"(ranks {sorted(set(range(n)) - set(out))} pending)")
-            try:
-                rank, ok, val = results.get(timeout=min(left, 1.0))
-            except queue_mod.Empty:
-                dead = [r for r, p in enumerate(procs)
-                        if r not in out and p.exitcode is not None]
-                if dead:
-                    # a rank may have reported just before it exited
-                    try:
-                        rank, ok, val = results.get(timeout=1.0)
-                    except queue_mod.Empty:
-                        raise _world_error(
-                            procs, out, results, n, [],
-                            min(collective_timeout + 10.0,
-                                max(0.0, deadline - time.monotonic())))
-                else:
-                    continue
-            if not ok:
-                raise _world_error(procs, out, results, n, [(rank, val)],
-                                   min(5.0, max(0.0, deadline -
-                                                time.monotonic())))
-            out[rank] = val
-        for p in procs:
-            p.join(timeout=30.0)
-    finally:
-        started = [p for p in procs if p.pid is not None]
-        for p in started:
-            if p.is_alive():
-                p.kill()
-        for p in started:
-            p.join(timeout=10.0)
-        results.close()
-        shutil.rmtree(tmp, ignore_errors=True)
-    return [out[r] for r in range(n)]
+    """Run `fn(*args)` in each rank of a fresh n-rank world; the ranks'
+    results (tensors as numpy), in rank order (a `World` for one call)."""
+    with World(n, device=device, collective_timeout=collective_timeout,
+               workdir=workdir, verbose=verbose) as world:
+        return world.run(fn, *args, timeout=timeout)

@@ -84,9 +84,9 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
     the loss does not reach (an audio model's `embed`) takes a zero
     gradient, as the reference's `value_and_grad` gives it.  The metrics
     are the reference's ("loss", "lm_loss", "probe_loss", "aux_loss",
-    "mtl_active_frac", "mtl_mean_staleness", "mtl_v_norm"; tensors or host
-    floats) and the round's draws and input: "mtl_nu", "mtl_mask" (host
-    arrays) and "pooled" (B, D)."""
+    "mtl_active_frac", "mtl_mean_staleness", "mtl_v_norm", and "mtp_loss"
+    for an MTP model; tensors or host floats) and the round's draws and
+    input: "mtl_nu", "mtl_mask" (host arrays) and "pooled" (B, D)."""
     require_ported(cfg, training=True)
     mtl_cfg = cfg.mtl
     reg = get_regularizer(mtl_cfg.reg_name)
@@ -121,10 +121,13 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
         new_mtl, mtl_metrics = amtl_head_update(
             state.mtl, pooled, task_ids, targets, mtl_cfg, k_act,
             read=(p, nu))
-        out = {"loss": total.detach(), "lm_loss": loss.detach(),
+        out = {"loss": total.detach(),
+               "lm_loss": metrics["lm_loss"].detach(),
                "probe_loss": pl.detach(),
-               "aux_loss": metrics["aux_loss"], **mtl_metrics,
+               "aux_loss": metrics["aux_loss"].detach(), **mtl_metrics,
                "pooled": pooled}
+        if "mtp_loss" in metrics:
+            out["mtp_loss"] = metrics["mtp_loss"].detach()
         return TrainState(model, state.opt_state, new_mtl,
                           state.step + 1), out
 

@@ -10,15 +10,19 @@
         --reduced --device cpu --steps 3 --seq 32 --batch 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \
         --reduced --device cpu --steps 3 --seq 40 --batch 2
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-v3-671b --reduced --device cpu --steps 3 --seq 32 \
+        --batch 2                                    # also dbrx-132b
 
 Each step is `launch.steps.make_train_step`'s: the backbone's forward
 and backward (on the card every attention call in the flash kernels, its
 gradient in `flash_attention_bwd`; every WKV in the `rwkv6_scan` kernels,
-its gradient in `rwkv6_bwd`; the Mamba-2 SSD in plain PyTorch under
-autograd), the smooth optimizer's update (AdamW, or Adafactor for
-deepseek), and one AMTL round of the multi-task head.  Every arch of
-`configs.SERVED` trains: gemma2-2b, rwkv6-3b and hubert-xlarge (the audio
-encoder on frame features, its loss over the masked frames) at full width
+its gradient in `rwkv6_bwd`; the Mamba-2 SSD, the routed MoE FFN and
+the MTP loss in plain PyTorch under autograd), the smooth optimizer's
+update (AdamW, or Adafactor for deepseek), and one AMTL round of the
+multi-task head.  Every arch of `configs.SERVED` trains: gemma2-2b,
+rwkv6-3b and hubert-xlarge (the audio encoder on frame features, its
+loss over the masked frames) at full width
 on one card; zamba2-7b (the mamba blocks and the weight-tied shared
 attention with its LoRA) and llama-3.2-vision-11b (the gated
 cross-attention over the vision embeddings that its batches carry) at
@@ -27,7 +31,12 @@ periods their bf16 weights and gradients and AdamW's state, 16 bytes a
 parameter, pass 80 GB; chip_smoke.py cuts the depth); granite-8b,
 nemotron-4-15b and gemma3-12b reduced (at full width their AdamW state
 alone, 12 bytes a parameter, passes one card's 80 GB: the sharded LM is
-ROADMAP item 11(i)).
+ROADMAP item 11(i)); dbrx-132b and deepseek-v3-671b (the routed MoE with
+its aux loss, MLA, deepseek's MTP loss) reduced, and on one card only at
+their published widths with the depth cut (chip_smoke.py phases 37-38:
+dbrx on its first layer of 40, deepseek on its 3 dense MLA layers and
+the MTP block, under Adafactor; one deepseek MoE layer's weights,
+gradients and float32 master pass the card alone).
 The batches are `synthetic_lm_batches`' stream (the reference's bytes
 for the same seed), placed one ahead by `data.ShardedBatcher`.  It prints
 the reference's log line; `main` returns the per-step numbers.

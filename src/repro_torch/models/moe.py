@@ -15,7 +15,11 @@ summed in float32 in slot order (no atomics: runs on the card are
 deterministic) and rounded to the model's dtype.  The reference's gates
 are zero outside the top k, so this is its function up to the order of
 its sums.  The experts' products are cuBLAS's; no Pallas kernel of the
-reference computes the MoE.
+reference computes the MoE.  Under autograd the same code gives the
+gradient of the reference's `moe_dense`: through the experts' products,
+the gates (the top-k probabilities, renormalised) and, for the Switch aux
+loss, the mean probabilities (`occupancy` is a count, as `one_hot` makes
+it in the reference).
 
 The expert-parallel path (`moe_ep`, its capacity dispatch and the mesh
 context) is ROADMAP item 11(i): `moe_apply` raises when given a mesh.
@@ -122,25 +126,33 @@ def routed_experts(p: dict, x2: Tensor, w: Tensor, idx: Tensor,
     """sum_j w[n, j] * expert_{idx[n, j]}(x2[n]) for x2 (N, D), w and idx
     (N, k): the pairs sorted by expert, one product of each weight an
     expert on its contiguous rows (an expert with no pair is skipped; the
-    per-expert counts are read on the host, one sync a call), each output
-    back at its (token, slot) place, the slots summed in float32 in slot
-    order and rounded to x2's dtype."""
+    per-expert counts are read on the host, one sync a call), the outputs
+    joined by one `torch.cat` and put back at their (token, slot) places,
+    the slots summed in float32 in slot order and rounded to x2's dtype.
+
+    Under autograd each stacked expert weight is split by one `unbind(0)`,
+    so its gradient is gathered into one stack in one step (indexing it
+    once an expert would make a zero stack of its size for each expert in
+    the backward), and an expert with no pair gets a zero gradient.  A
+    recompute under `torch.utils.checkpoint` routes again: the float32
+    router (TF32 off) picks the same experts, so the counts and the saved
+    shapes are the first pass's."""
     n, d = x2.shape
     k = idx.shape[1]
     flat = idx.reshape(-1)
     order = torch.argsort(flat, stable=True)        # pair ids by expert
     counts = torch.bincount(flat, minlength=p["w_in"].shape[0]).tolist()
     rows = x2[order // k]                           # (N*k, D) by expert
-    out = torch.empty_like(rows)
-    w_gate = p.get("w_gate")
-    start = 0
+    w_in, w_out = p["w_in"].unbind(0), p["w_out"].unbind(0)
+    w_gate = p["w_gate"].unbind(0) if "w_gate" in p else None
+    outs, start = [], 0
     for e, c in enumerate(counts):
         if c:
-            out[start:start + c] = _expert_ffn(
-                rows[start:start + c], p["w_in"][e], p["w_out"][e],
-                None if w_gate is None else w_gate[e], activation)
+            outs.append(_expert_ffn(
+                rows[start:start + c], w_in[e], w_out[e],
+                None if w_gate is None else w_gate[e], activation))
             start += c
-    out = out[torch.argsort(order)].view(n, k, d)   # back to (token, slot)
+    out = torch.cat(outs)[torch.argsort(order)].view(n, k, d)  # (token, slot)
     acc = torch.zeros((n, d), dtype=torch.float32, device=x2.device)
     wf = w.float()
     for j in range(k):

@@ -24,10 +24,12 @@ in one step.
 `forward` is the training forward (loss and the pooled state for the MTL
 probes), with the reference's remat at its scan body's granularity (a
 period of blocks) through `torch.utils.checkpoint`.  Every ported block
-kind but moe trains:
+kind trains:
 
 - attn, local, global: the flash kernels forward, `flash_attention_bwd`
-  backward, through `ops.mha`'s autograd Function;
+  backward, through `ops.mha`'s autograd Function; with MLA
+  (deepseek-v3-671b) q and k at nope + rope columns and v zero-padded to
+  them (`attention.mla_forward`), the padded columns' gradient dropped;
 - rwkv: the WKV kernels forward, `rwkv6_bwd` backward, through `ops.wkv`;
 - mamba: the Mamba-2 SSD in plain PyTorch (as the reference's is plain
   jnp, with no Pallas kernel), differentiated by autograd;
@@ -37,15 +39,16 @@ kind but moe trains:
   (`shared_attn_params`), so the tied leaves' gradient is summed over the
   invocations by autograd and the LoRA a and b leaves get theirs;
 - cross: the self-attention, then the gated cross-attention over the
-  vision embeddings (a leaf with no gradient), both through `ops.mha`.
+  vision embeddings (a leaf with no gradient), both through `ops.mha`;
+- moe (dbrx-132b, deepseek-v3-671b): the routed MoE FFN of
+  `models/moe.py` under autograd (cuBLAS's products, as the reference's
+  are plain jnp), its Switch aux loss summed by `backbone_forward` and
+  added to the loss at aux_loss_weight.
 
-- moe (dbrx-132b, deepseek-v3-671b): serving only.  The MoE FFN
-  (`models/moe.py`, routed, with the Switch aux loss that
-  `backbone_forward` sums) and MLA (`attention.mla_forward`,
-  `mla_decode`) serve; training with MoE, MLA or MTP (the aux loss in the
-  step, `_mtp_loss`, the routed MoE's backward) is ROADMAP item 11(l),
-  the expert-parallel MoE and the sharded LM 11(i), the int8 KV cache
-  11(f), and they raise.
+An MTP config (deepseek-v3-671b) adds the reference's multi-token
+prediction loss (`_mtp_loss`, outside remat as there) at mtp_weight.  The
+expert-parallel MoE and the sharded LM are ROADMAP item 11(i) and the int8
+KV cache 11(f); they raise.
 """
 from __future__ import annotations
 
@@ -71,7 +74,7 @@ Tensor = torch.Tensor
 PORTED_KINDS = ("attn", "local", "global", "rwkv", "mamba", "shared_attn",
                 "cross", "moe")
 TRAINED_KINDS = ("attn", "local", "global", "rwkv", "mamba", "shared_attn",
-                 "cross")
+                 "cross", "moe")
 
 LORA_RANK = 64   # Zamba2 shared-attention per-invocation LoRA rank
 
@@ -103,9 +106,9 @@ def scan_groups(cfg: ArchConfig) -> list[ScanGroup]:
 def require_ported(cfg: ArchConfig, training: bool = False) -> None:
     """Raise for a config that needs a block kind or a feature the port
     does not have yet: a kind outside PORTED_KINDS, a moe block without
-    its MoE config, or the int8 KV cache (ROADMAP item 11(f)); with
-    `training`, also for a kind outside TRAINED_KINDS (moe) and for MoE,
-    MLA or MTP, which serve but do not train yet (item 11(l))."""
+    its MoE config, or the int8 KV cache (ROADMAP item 11(f)), serving and
+    training alike; with `training`, also for a kind outside
+    TRAINED_KINDS."""
     kinds = set(cfg.layer_kinds) - set(PORTED_KINDS)
     if kinds or ("moe" in cfg.layer_kinds and cfg.moe is None):
         raise NotImplementedError(
@@ -116,11 +119,10 @@ def require_ported(cfg: ArchConfig, training: bool = False) -> None:
             f"{cfg.name}: the {cfg.kv_cache_dtype} KV cache is not ported "
             "yet (ROADMAP.md, Queue 1 item 11(f))")
     untrained = set(cfg.layer_kinds) - set(TRAINED_KINDS)
-    if training and (untrained or cfg.moe or cfg.mla or cfg.mtp):
+    if training and untrained:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(untrained)} (or MoE, MLA, "
-            "MTP) serve but do not train in the port yet (ROADMAP.md, "
-            "Queue 1 item 11(l))")
+            f"{cfg.name}: block kinds {sorted(untrained)} serve but do not "
+            "train in the port (ROADMAP.md, Queue 1 item 11)")
 
 
 class ParamTree(nn.Module):
@@ -519,16 +521,11 @@ def forward(params, batch: dict, cfg: ArchConfig, remat: bool = True
     in place of "tokens", the loss then the cross-entropy over the masked
     positions only.  Returns (loss, metrics) with the reference's
     "lm_loss", "aux_loss" (the MoE's, summed over the layers; 0 without
-    MoE) and "pooled", the float32 mean over the sequence of the
-    backbone's last hidden state (B, D), which the MTL probes read; a MoE
-    model's loss adds aux_loss_weight x aux, as the reference's.  With
-    grad off it runs every ported block kind, with grad on every kind that
-    trains; an MTP model raises (its `_mtp_loss` is ROADMAP item 11(l))."""
+    MoE), "mtp_loss" for an MTP model, and "pooled", the float32 mean over
+    the sequence of the backbone's last hidden state (B, D), which the MTL
+    probes read.  As the reference's, a MoE model's loss adds
+    aux_loss_weight x aux and an MTP model's mtp_weight x mtp_loss."""
     require_ported(cfg, training=torch.is_grad_enabled())
-    if cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: the MTP loss (_mtp_loss) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 11(l))")
     tree = params.tree() if isinstance(params, ParamTree) else params
     extras = Extras(vision_embeds=batch.get("vision_embeds"),
                     shared_attn=tree.get("shared_attn"))
@@ -540,6 +537,31 @@ def forward(params, batch: dict, cfg: ArchConfig, remat: bool = True
                             weights=batch["mask"] if audio else None)
     loss = lm_loss if cfg.moe is None \
         else lm_loss + cfg.moe.aux_loss_weight * aux
-    metrics = {"lm_loss": lm_loss, "aux_loss": aux,
-               "pooled": torch.mean(h.float(), dim=1)}
+    metrics = {"lm_loss": lm_loss, "aux_loss": aux}
+    if cfg.mtp and "mtp" in tree:
+        mtp_loss = _mtp_loss(tree, h, batch, cfg, extras)
+        metrics["mtp_loss"] = mtp_loss
+        loss = loss + cfg.mtp_weight * mtp_loss
+    metrics["pooled"] = torch.mean(h.float(), dim=1)
     return loss, metrics
+
+
+def _mtp_loss(params: dict, h: Tensor, batch: dict, cfg: ArchConfig,
+              extras: Extras) -> Tensor:
+    """DeepSeek's multi-token prediction at depth 1, as the reference's:
+    h_t joined with the embedding of token t+1, projected by `mtp.proj`,
+    one attention block (`mtp.block`, outside remat), `mtp.norm`, the
+    (tied) unembedding and the softcap, against target t+1 (token t+2)."""
+    mp = params["mtp"]
+    tokens, targets = batch["tokens"], batch["targets"]
+    emb_next = embed_tokens(params, tokens[:, 1:], cfg)        # (B, S-1, D)
+    hh = torch.cat([h[:, :-1].to(emb_next.dtype), emb_next], dim=-1)
+    hh = hh @ mp["proj"].to(hh.dtype)
+    hh, _ = apply_block("attn", mp["block"], hh, cfg, extras)
+    hh = apply_norm(cfg.norm, mp["norm"], hh)
+    if cfg.tie_embeddings:
+        logits = hh @ params["embed"].to(hh.dtype).T
+    else:
+        logits = hh @ params["unembed"].to(hh.dtype)
+    return cross_entropy(softcap(logits.float(), cfg.logit_softcap),
+                         targets[:, 1:])

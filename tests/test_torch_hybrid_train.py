@@ -342,14 +342,24 @@ def test_ssd_gradient_stays_finite_where_the_decay_overflows():
     dict(mla=MLACfg()), dict(kv_cache_dtype="int8")],
     ids=["moe", "mla", "int8-cache"])
 def test_training_still_refuses_what_is_not_ported(change):
-    """MoE and MLA serve (item 11(e)) but do not train (item 11(l)); the
-    int8 cache is not ported at all (item 11(f))."""
+    """MoE and MLA train since item 11(l): the check takes them and the
+    train step takes a step with a finite loss; the int8 cache is not
+    ported at all (item 11(f)) and still raises, serving and training
+    alike."""
     cfg = dataclasses.replace(get_config("zamba2-7b").reduced(), **change)
-    item = r"item 11\(f\)" if "kv_cache_dtype" in change \
-        else r"item 11\(l\)"
-    with pytest.raises(NotImplementedError, match=item):
+    if "kv_cache_dtype" not in change:
         transformer.require_ported(cfg, training=True)
-    with pytest.raises(NotImplementedError, match=item):
+        opt = steps.default_optimizer(cfg)
+        state = steps.init_train_state(cfg, opt, seed=0, device="cpu")
+        batch = next(train.batches_for(cfg, 16, BATCH, seed=1))
+        _, m = steps.make_train_step(cfg, opt)(
+            state, {k: torch.from_numpy(v) for k, v in batch.items()})
+        assert np.isfinite(float(m["loss"]))
+        return
+    for training in (False, True):
+        with pytest.raises(NotImplementedError, match=r"item 11\(f\)"):
+            transformer.require_ported(cfg, training=training)
+    with pytest.raises(NotImplementedError, match=r"item 11\(f\)"):
         steps.make_train_step(cfg, steps.default_optimizer(cfg))
 
 

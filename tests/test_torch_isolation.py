@@ -5,6 +5,7 @@ The import check runs in a subprocess, because this test process already
 holds JAX (tests/conftest.py imports it).
 """
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -177,12 +178,15 @@ def test_lockstep_session_without_device_needs_cuda():
 
 def test_unported_archs_raise_naming_their_roadmap_item():
     """Every arch of the reference loads (deepseek-v3-671b, the last, since
-    item 11(e)); its training still raises naming item 11(l), and an
-    unknown arch raises."""
+    item 11(e)) and trains (item 11(l)); the int8 KV cache, which no arch
+    of the reference's registry uses, still raises naming item 11(f), and
+    an unknown arch raises."""
     cfg = get_config("deepseek-v3-671b")
     assert cfg.mla is not None and cfg.moe is not None and cfg.mtp
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*11\(l\)"):
-        transformer.require_ported(cfg, training=True)
+    transformer.require_ported(cfg, training=True)
+    int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.*11\(f\)"):
+        transformer.require_ported(int8, training=True)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

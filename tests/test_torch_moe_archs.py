@@ -97,7 +97,7 @@ def tokens(cfg, prompt_len, seed):
 
 def test_registry_serves_every_arch_of_the_reference():
     """Both configs load equal to the reference's; nothing is pending; both
-    serve, and training still raises naming item 11(l)."""
+    serve and, since item 11(l), train."""
     assert _PENDING == {}
     for arch in ARCHS:
         assert arch in SERVED
@@ -105,8 +105,7 @@ def test_registry_serves_every_arch_of_the_reference():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
             ref_config(arch))
         transformer.require_ported(cfg)
-        with pytest.raises(NotImplementedError, match=r"item 11\(l\)"):
-            transformer.require_ported(cfg, training=True)
+        transformer.require_ported(cfg, training=True)
     assert get_config("dbrx-132b").citation == "hf:databricks/dbrx-base"
     assert get_config("deepseek-v3-671b").citation == "arXiv:2412.19437"
 
@@ -255,20 +254,26 @@ def test_backbone_forward_sums_the_aux_loss_in_layer_order():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_and_the_mtp_loss_still_raise(arch):
-    """MoE, MLA and MTP serve but do not train (item 11(l)): the train
-    step refuses both archs, and deepseek's `forward` (whose loss needs
-    the unported `_mtp_loss`) refuses even with grad off."""
+    """MoE, MLA and MTP train since item 11(l): the train step takes both
+    archs, and deepseek's `forward` returns the MTP loss (with grad off
+    too), added to the loss at mtp_weight beside the aux loss; only the
+    int8 cache (item 11(f)) still raises."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=r"item 11\(l\)"):
-        steps.make_train_step(cfg, steps.default_optimizer(cfg))
-    if cfg.mtp:
-        model = init_params(cfg, seed=0, device="cpu")
-        batch = next(synthetic_lm_batches(cfg.vocab_size, 8, 2,
-                                          cfg.mtl.num_tasks, seed=0))
-        with torch.no_grad(), pytest.raises(NotImplementedError,
-                                            match=r"_mtp_loss.*11\(l\)"):
-            transformer.forward(model, {k: torch.from_numpy(v)
-                                        for k, v in batch.items()}, cfg)
+    assert callable(steps.make_train_step(cfg, steps.default_optimizer(cfg)))
+    model = init_params(cfg, seed=0, device="cpu")
+    batch = next(synthetic_lm_batches(cfg.vocab_size, 8, 2,
+                                      cfg.mtl.num_tasks, seed=0))
+    with torch.no_grad():
+        loss, m = transformer.forward(model, {k: torch.from_numpy(v)
+                                              for k, v in batch.items()},
+                                      cfg)
+    assert ("mtp_loss" in m) == cfg.mtp
+    want = m["lm_loss"] + cfg.moe.aux_loss_weight * m["aux_loss"] + (
+        cfg.mtp_weight * m["mtp_loss"] if cfg.mtp else 0.0)
+    assert abs(loss.item() - float(want)) <= 1e-6 * abs(loss.item())
+    int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    with pytest.raises(NotImplementedError, match=r"item 11\(f\)"):
+        steps.make_train_step(int8, steps.default_optimizer(int8))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -18,8 +18,11 @@ each test reads its configuration's gathered global state:
     the reference's tolerances (the metrics' sums are regrouped);
   * a save at 2 ranks restores at 2 ranks and resumes bitwise;
   * 3 ranks on T 8 raise the divisibility ValueError in the ranks, and a
-    world that outlives its timeout raises in the parent.
+    world that outlives its timeout raises in the parent;
+  * a `World` keeps its ranks across calls (each call in every rank, the
+    same processes), and a closed or failed world takes no more calls.
 """
+import os
 import time
 
 import numpy as np
@@ -35,7 +38,7 @@ from repro.core import make_synthetic  # noqa: E402
 import repro_torch as rt  # noqa: E402
 from repro_torch.interop import LEAVES, state_to_numpy  # noqa: E402
 from repro_torch.launch import amtl_sharded  # noqa: E402
-from repro_torch.launch.mesh import run_world  # noqa: E402
+from repro_torch.launch.mesh import World, run_world  # noqa: E402
 
 ENGINE_RTOL = 1e-4
 DIST_RTOL, DIST_ATOL = 5e-4, 1e-5
@@ -269,3 +272,30 @@ def test_world_that_hangs_raises_within_its_timeout():
         run_world(time.sleep, 2, 120, device="cpu", timeout=5.0,
                   verbose=False)
     assert time.monotonic() - t0 < 60
+
+
+def test_world_keeps_its_ranks_across_calls():
+    """Two functions in turn on the same two ranks: each call's results in
+    rank order, the second call's processes the first's, and the ranks
+    stopped at close."""
+    import torch.distributed as dist
+    with World(2, device="cpu", verbose=False) as world:
+        pids = world.run(os.getpid)
+        assert world.run(dist.get_rank) == [0, 1]
+        assert world.run(dist.get_world_size) == [2, 2]
+        assert world.run(os.getpid) == pids and len(set(pids)) == 2
+        assert os.getpid() not in pids
+    assert all(not p.is_alive() for p in world._procs)
+    with pytest.raises(RuntimeError, match="closed"):
+        world.run(os.getpid)
+
+
+def test_world_closes_after_a_failed_call():
+    """A call that raises in the ranks raises in the parent with their
+    traceback, and the world is closed: its ranks stopped."""
+    world = World(2, device="cpu", verbose=False)
+    with pytest.raises(RuntimeError, match="No such file"):
+        world.run(os.listdir, "/nonexistent-directory-of-no-one")
+    assert all(not p.is_alive() for p in world._procs)
+    with pytest.raises(RuntimeError, match="closed"):
+        world.run(os.getpid)

@@ -182,14 +182,16 @@ def test_train_step_draws_are_the_key_chains():
 
 def test_rwkv_training_raises_naming_its_roadmap_item():
     """rwkv trains since its WKV backward kernel came (ROADMAP item 11(j),
-    done); a block kind that serves but does not train yet (the MoE FFN)
-    raises naming item 11(l)."""
+    done), and the MoE FFN since item 11(l); what does not train yet (the
+    int8 KV cache, not ported at all) raises naming item 11(f)."""
     cfg = get_config("rwkv6-3b").reduced()
     steps.make_train_step(cfg, steps.default_optimizer(cfg))
     moe = dataclasses.replace(cfg, period=("moe",),
                               moe=get_config("dbrx-132b").reduced().moe)
-    with pytest.raises(NotImplementedError, match=r"item 11\(l\)"):
-        steps.make_train_step(moe, steps.default_optimizer(moe))
+    steps.make_train_step(moe, steps.default_optimizer(moe))
+    int8 = dataclasses.replace(moe, kv_cache_dtype="int8")
+    with pytest.raises(NotImplementedError, match=r"item 11\(f\)"):
+        steps.make_train_step(int8, steps.default_optimizer(int8))
 
 
 def test_train_driver_on_cpu_writes_a_record_jax_restores(tmp_path):
