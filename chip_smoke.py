@@ -50,7 +50,12 @@ trained at their published widths with their depth cut under Adafactor
 (phases 37-38: dbrx on its first layer, the routed MoE's backward;
 deepseek on its 3 dense MLA layers and the MTP block, MLA's backward in
 the tensor-core flash backward at 192 columns; each reduced config's
-gradients also against the CPU) — holds
+gradients also against the CPU), and granite-8b served at its published
+widths with the int8 KV cache beside its bf16 cache (phase 39: the int8
+run against the plain attention and against the bf16 run, a control
+without the scales, the reduced config against the CPU), the twins of
+examples/serve_batched.py and train_lm.py on the card (phase 40) and the
+meta-device dry run of every arch and shape (phase 41) — holds
 the card's runs against the port's own CPU runs, replays or plain-kernel
 runs of the same states, and times
 each kernel (the prox's two kernels and the engines' state updates
@@ -3322,7 +3327,11 @@ PROFILE_RANGES = {"zamba2-7b": {"mamba mixer": ("ssm", "mamba_forward"),
                   "dbrx-132b": {"MoE": ("moe", "moe_apply")},
                   "deepseek-v3-671b": {"MoE": ("moe", "moe_apply"),
                                        "MLA decode": ("attention",
-                                                      "mla_decode")}}
+                                                      "mla_decode")},
+                  "granite-8b int8": {"quantize": ("attention",
+                                                   "quantize_kv"),
+                                      "dequantize": ("attention",
+                                                     "dequantize_kv")}}
 # The routes a served bf16 run must take, (every prefill call's, every
 # decode call's), each route's launches `pass_launches` of a prefill and
 # of a decode step, every other route none: gemma2-2b sm90 and split;
@@ -3345,6 +3354,13 @@ SERVE_F32_ROUTE = {"gemma2-2b": "simt", "rwkv6-3b": "recurrent",
 # gate).
 CARD_CPU_PROMPT = 200
 CARD_CPU_RTOL = 1e-4
+# An int8 cache's decode logits where some int8 value of the card's cache
+# is a step from the CPU's (the card's float32 k an ulp from a .5 boundary
+# of k / scale): one such value moved reduced granite-8b's decode logits
+# by 1.94e-4 of their scale on an H100, past CARD_CPU_RTOL.  The prefill
+# logits and the float leaves stay at CARD_CPU_RTOL, and so does the
+# decode where no int8 value is apart.
+INT8_APART_DECODE_RTOL = 1e-3
 # The float32 prefill copies the served weights to float32 leaf by leaf
 # after the bf16 model is dropped; where all the float32 weights would pass
 # F32_WEIGHTS_BYTES (nemotron-4-15b's are 62.5 GB of the card's 80) it runs
@@ -3499,19 +3515,24 @@ def vision_input(cfg, b: int, seed: int, dev):
         getattr(torch, cfg.dtype))
 
 
-def card_cpu_phase(arch: str, seed: int, dev, ph: int) -> dict:
-    """The reduced config of `arch` (float32) with the same weights on the
-    card and on the CPU, woken as the full-width run's: prefill logits at
-    CARD_CPU_PROMPT tokens, every cache leaf (KVCache, SSMState, CrossKV,
-    MLACache),
-    and DENSE_GEN decode steps teacher-forced by the CPU run's tokens,
-    each by max |diff| over max |value| <= CARD_CPU_RTOL."""
+def card_cpu_phase(arch: str, seed: int, dev, ph: int,
+                   kv_cache_dtype: str = "model") -> dict:
+    """The reduced config of `arch` (float32, with `kv_cache_dtype`) with
+    the same weights on the card and on the CPU, woken as the full-width
+    run's: prefill logits at CARD_CPU_PROMPT tokens, every cache leaf
+    (KVCache, SSMState, CrossKV, MLACache), and DENSE_GEN decode steps
+    teacher-forced by the CPU run's tokens, each by max |diff| over max
+    |value| <= CARD_CPU_RTOL; an int8 cache's values (the leaves with a
+    scale) at most one step apart, the differing ones counted (a card's
+    float32 k an ulp from a .5 boundary rounds apart), and where any is
+    apart the decode logits at INT8_APART_DECODE_RTOL."""
     import torch
     from repro_torch.interop import kv_cache_to_numpy
     from repro_torch.launch import serve
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import LM, init_params
-    cfg = serve.serve_config(arch, reduced=True)
+    cfg = dataclasses.replace(serve.serve_config(arch, reduced=True),
+                              kv_cache_dtype=kv_cache_dtype)
     cpu_model = init_params(cfg, seed=seed, device="cpu")
     wake_inert_leaves(cpu_model, seed)
     card_model = LM(cfg, _to_device(cpu_model.tree(), dev))
@@ -3534,23 +3555,36 @@ def card_cpu_phase(arch: str, seed: int, dev, ph: int) -> dict:
         runs[name] = (logits, kv_cache_to_numpy(cache))
     (lc, cc), (lk, ck) = runs["cpu"], runs["card"]
     errs = [rel_err(a, b) for a, b in zip(lk, lc)]
+    quant = {k for k in cc if f"{k}_scale" in cc}
     leaf_errs = {k: float(np.abs(ck[k] - cc[k]).max()
-                          / max(np.abs(cc[k]).max(), 1e-30)) for k in cc}
+                          / max(np.abs(cc[k]).max(), 1e-30))
+                 for k in cc if k not in quant}
     worst_leaf = max(leaf_errs, key=leaf_errs.get)
-    if set(ck) != set(cc) or not max(errs) <= CARD_CPU_RTOL \
-            or not leaf_errs[worst_leaf] <= CARD_CPU_RTOL:
+    apart = sum(int((ck[k] != cc[k]).sum()) for k in quant)
+    steps = max((float(np.abs(ck[k] - cc[k]).max()) for k in quant),
+                default=0.0)
+    dtol = INT8_APART_DECODE_RTOL if apart else CARD_CPU_RTOL
+    if set(ck) != set(cc) or not errs[0] <= CARD_CPU_RTOL \
+            or not max(errs[1:]) <= dtol \
+            or not leaf_errs[worst_leaf] <= CARD_CPU_RTOL or steps > 1:
         fail(f"{arch} reduced card vs CPU: logits prefill {errs[0]:.3g}, "
-             f"decode {max(errs[1:]):.3g}, worst cache leaf {worst_leaf} "
-             f"{leaf_errs[worst_leaf]:.3g} > {CARD_CPU_RTOL}")
+             f"worst cache leaf {worst_leaf} {leaf_errs[worst_leaf]:.3g} "
+             f"(<= {CARD_CPU_RTOL}?), decode {max(errs[1:]):.3g} (<= "
+             f"{dtol}?), int8 values {steps:g} steps apart (<= 1?)")
+    n_quant = sum(cc[k].size for k in quant)
+    int8_text = (f"; {apart} of {n_quant} int8 values differ, by at most "
+                 f"{steps:g} step" if quant else "")
     log(f"phase {ph} {arch} reduced ({cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, float32, TF32 off) card vs the port's CPU run of "
-        f"the same weights, B 2 prompt {p} + {g} teacher-forced decode "
-        f"steps: logits prefill {errs[0]:.3g}, decode {max(errs[1:]):.3g}, "
-        f"{len(cc)} cache leaves at the end, worst {worst_leaf} "
-        f"{leaf_errs[worst_leaf]:.3g}, all <= {CARD_CPU_RTOL} of max "
-        "|value|: PASS")
+        f"{cfg.d_model}, float32, {kv_cache_dtype} KV cache, TF32 off) card "
+        f"vs the port's CPU run of the same weights, B 2 prompt {p} + {g} "
+        f"teacher-forced decode steps: logits prefill {errs[0]:.3g}, decode "
+        f"{max(errs[1:]):.3g} (<= {dtol}), {len(cc)} cache leaves at the "
+        f"end, worst {'float ' if quant else ''}{worst_leaf} "
+        f"{leaf_errs[worst_leaf]:.3g}, prefill and leaves <= "
+        f"{CARD_CPU_RTOL} of max |value|{int8_text}: PASS")
     return dict(prefill=errs[0], decode=max(errs[1:]),
-                worst_leaf=leaf_errs[worst_leaf])
+                worst_leaf=leaf_errs[worst_leaf], int8_apart=apart,
+                int8_values=n_quant)
 
 
 def _to_device(tree: dict, dev) -> dict:
@@ -6638,7 +6672,8 @@ def encoder_phase(dev, seed: int, card: str) -> dict:
     last, cache = make_prefill_step(cfg)(model, feats)
     unmasked = encode(model, feats)
     sync(dev)
-    leaves = [t for c in cache.values() for kv in c.values() for t in kv]
+    leaves = [t for c in cache.values() for kv in c.values() for t in kv
+              if t is not None]      # a model-dtype KVCache's scales
     e_prefill = rel_err(last, unmasked[:, -1:])
     if k_flash.route_counts()["sm90"] != 2 * n \
             or tuple(last.shape) != (b, 1, cfg.vocab_size) \
@@ -7108,6 +7143,399 @@ def twins_phase(dev, card: str) -> dict:
     return {"launches": launches, "seconds": seconds}
 
 
+# ---------------------------------------------------------------- phase 39 --
+
+# granite-8b (configs/granite_8b.py: 36 layers, d_model 4096, 32 heads, kv
+# 8, hd 128, bf16) served with the int8 KV cache beside its model-dtype
+# cache on the same weights, B SERVE_BATCH, prompt SERVE_PROMPT,
+# DENSE_GEN decode steps.  The int8 run's decode against the model-dtype
+# run's within INT8_MODEL_RTOL of max |logits| (a decode that reads the
+# cache without its scales reads ~1: the phase's control); the reduced
+# config (float32, int8) on the card against the CPU (`card_cpu_phase`:
+# CARD_CPU_RTOL, the decode at INT8_APART_DECODE_RTOL where an int8 value
+# is a step apart).
+INT8_ARCH, INT8_PHASE = "granite-8b", 39
+INT8_MODEL_RTOL = 0.1
+
+
+def int8_serve_phase(dev, seed: int, card: str) -> dict:
+    """Phase 39: INT8_ARCH at its published widths served with the int8
+    KV cache and with the model dtype on the same weights: cache bytes,
+    peak memory, prefill tokens/s, decode ms a step and route counts of
+    both; the int8 run's prefill and teacher-forced decode logits on the
+    kernels against the int8 run on the plain attention (`ref.mha_ref`
+    through the same dequantized cache) at SERVE_RTOL; the int8 decode
+    against the model-dtype decode within INT8_MODEL_RTOL (control: the
+    cache read without its scales must fail it); the reduced config card
+    against CPU."""
+    from unittest import mock
+    import torch
+    from repro_torch.kernels import flash_attention as kflash, ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import LM, attention, init_params, serving
+
+    t_phase = time.perf_counter()
+    ph = INT8_PHASE
+    base = serve.serve_config(INT8_ARCH)
+    cfgs = {"int8": dataclasses.replace(base, kv_cache_dtype="int8"),
+            "model": base}
+    b, p, g = SERVE_BATCH, SERVE_PROMPT, DENSE_GEN
+    model = init_params(base, seed=seed, device=dev)
+    models = {k: LM(c, model.tree()) for k, c in cfgs.items()}
+    del model
+    prompts = torch.as_tensor(serve.make_prompts(base, b, p, seed),
+                              device=dev)
+    for m in models.values():                                   # warm up
+        serve.generate(m, prompts[:, :128], 2)
+    n_pre, n_dec = pass_launches(base), pass_launches(base, decode=True)
+    want_routes = {"sm90": n_pre, "split": n_dec * (g - 1), "simt": 0}
+    runs = {}
+    for name, m in models.items():
+        sync(dev)
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        run = serve.generate(m, prompts, g)
+        counts, routes = ops.launch_counts(), kflash.route_counts()
+        if counts["flash_attention"] != n_pre + n_dec * (g - 1) or any(
+                n for k, n in counts.items() if k != "flash_attention") \
+                or routes != want_routes:
+            fail(f"phase {ph} {name} cache: launches {counts}, routes "
+                 f"{routes}, want {want_routes}")
+        peak = torch.cuda.max_memory_allocated(dev)
+        runs[name] = dict(
+            cache_bytes=tree_bytes(serving.init_cache(
+                m.cfg, b, p + g, device="meta")), peak_bytes=peak,
+            peak_over_weights=peak - held, prefill_s=run["prefill_s"],
+            prefill_tps=b * p / run["prefill_s"],
+            decode_ms=1e3 * run["decode_s"] / (g - 1), routes=routes,
+            tokens=run["tokens"])
+    r8, rm = runs["int8"], runs["model"]
+    ratio = r8["cache_bytes"] / rm["cache_bytes"]
+    log(f"phase {ph} serve {INT8_ARCH} B {b} prompt {p} gen {g}, int8 "
+        f"cache against the model dtype ({base.dtype}) on the same weights: "
+        + "; ".join(
+            f"{n}: cache {r['cache_bytes'] / 1e9:.3f} GB, peak "
+            f"{r['peak_bytes'] / 1e9:.2f} GB ({r['peak_over_weights'] / 1e9:.2f}"
+            f" over the weights), prefill {r['prefill_s']:.3f} s "
+            f"({r['prefill_tps']:.1f} tokens/s), decode "
+            f"{r['decode_ms']:.2f} ms a step, routes {r['routes']}"
+            for n, r in runs.items())
+        + f"; cache ratio {ratio:.4f}; card {card}")
+
+    prefill8 = make_prefill_step(cfgs["int8"], s_max=p + g)
+    decode8 = make_decode_step(cfgs["int8"])
+    m8 = models["int8"]
+    ops.reset_launch_counts()
+    with mock.patch.object(ops, "mha", ref.mha_ref):
+        lg, cache = prefill8(m8, prompts)
+        plain_logits, plain_toks = [lg], [lg[:, -1].argmax(-1)[:, None]]
+        for i in range(g - 1):
+            lg, cache = decode8(m8, cache, plain_toks[-1], p + i)
+            plain_logits.append(lg)
+            plain_toks.append(lg[:, -1].argmax(-1)[:, None])
+    del cache
+    if ops.launch_counts()["flash_attention"]:
+        fail(f"phase {ph}: the plain run launched the kernel")
+
+    def forced(name):
+        """Prefill and the g - 1 decode steps teacher-forced by the plain
+        run's tokens, on the kernels: (logits, the cache)."""
+        m = models[name]
+        decode = make_decode_step(m.cfg)
+        lg, cache = make_prefill_step(m.cfg, s_max=p + g)(m, prompts)
+        out = [lg]
+        for i in range(g - 1):
+            lg, cache = decode(m, cache, plain_toks[i], p + i)
+            out.append(lg)
+        return out, cache
+
+    (k8, c8), (km, cm) = forced("int8"), forced("model")
+    # device time of the last 3 decode steps again on each cache, the int8
+    # cache's quantize and dequantize calls in profiler ranges
+    prof = {}
+    for name, cache in (("int8", c8), ("model", cm)):
+        m = models[name]
+        decode = make_decode_step(m.cfg)
+        key = f"{INT8_ARCH} {name}"
+        with profile_ranges(key):
+            prof[name] = serve_profile(
+                lambda: ([decode(m, cache, plain_toks[i], p + i)
+                          for i in range(g - 4, g - 1)], sync(dev)),
+                f"{name} cache, 3 decode steps", FLASH_PARTS, ph,
+                PROFILE_RANGES.get(key))
+    del c8, cm
+    errs = [rel_err(a, w) for a, w in zip(k8, plain_logits)]
+    finite = all(bool(torch.isfinite(x).all()) for x in k8 + plain_logits)
+    if not finite or not max(errs) <= SERVE_RTOL:
+        fail(f"phase {ph} int8: kernels against the plain attention, "
+             f"prefill {errs[0]:.3g}, decode {max(errs[1:]):.3g} > "
+             f"{SERVE_RTOL} of max |logits| (or not finite)")
+    vs_model = [rel_err(a, w) for a, w in zip(k8[1:], km[1:])]
+    with mock.patch.object(attention, "dequantize_kv",
+                           lambda q, scale, dtype: q.to(dtype)):
+        control = max(rel_err(a, w) for a, w in zip(forced("int8")[0][1:],
+                                                    km[1:]))
+    if not max(vs_model) <= INT8_MODEL_RTOL or not control > INT8_MODEL_RTOL:
+        fail(f"phase {ph}: int8 decode against the model-dtype decode "
+             f"{max(vs_model):.3g} (<= {INT8_MODEL_RTOL}?); the control "
+             f"without the scales {control:.3g} (must exceed it)")
+    agree = float((r8["tokens"] == torch.cat(plain_toks, 1)).float().mean())
+    log(f"phase {ph} int8 serve: kernels against the plain attention on the "
+        f"same dequantized cache, max |diff| / max |logits| prefill "
+        f"{errs[0]:.3g}, decode (teacher-forced, {g - 1} steps) "
+        f"{max(errs[1:]):.3g} <= {SERVE_RTOL}; the greedy run's tokens "
+        f"equal the plain run's at {100 * agree:.1f}% of positions; int8 "
+        f"decode against the model-dtype decode by step "
+        f"{[round(x, 4) for x in vs_model]} <= {INT8_MODEL_RTOL} (prefill "
+        f"logits {'bitwise equal' if torch.equal(k8[0], km[0]) else 'differ'}"
+        f"); the control, the cache read without its scales, {control:.3g}"
+        f": PASS")
+    del models, m8, k8, km, plain_logits
+    torch.cuda.empty_cache()
+    card_cpu = card_cpu_phase(INT8_ARCH, seed, dev, ph, "int8")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase {ph} int8 serving: {seconds:.1f} s: PASS")
+    return dict(runs={n: {k: v for k, v in r.items() if k != "tokens"}
+                      for n, r in runs.items()},
+                decode_profile={n: {k: v for k, v in r.items() if k != "top"}
+                                for n, r in prof.items()},
+                cache_ratio=ratio, errs=errs, vs_model=vs_model,
+                control=control, card_vs_cpu=card_cpu, seconds=seconds)
+
+
+# ---------------------------------------------------------------- phase 40 --
+
+TRAIN_LM_STEPS = 20
+# The twins' plain gate: serve_batched's prefill and decode logits
+# (teacher-forced by its own tokens) and train_lm's first step (its loss
+# and every parameter leaf's gradient, from the twin's initial state and
+# first batch) on the kernels against the same calls with `ops.mha` at
+# `ref.mha_ref` (in training autograd's backward of it), each by max
+# |diff| over max |value| (a gradient leaf's over its own max) within
+# TWIN_RTOL, float32 with TF32 off.  The control, the plain attention
+# with every causal call's window cut to TWIN_CONTROL_WINDOW keys, must
+# fail it.  These are the only calls at the twins' shapes: serve_batched
+# prefills 24 tokens on `split` (B 4, H 8, Hkv 4, hd 256), train_lm
+# trains at B 8, S 256, H 12, Hkv 4 (groups of 3), hd 64 on `simt`.
+TWIN_RTOL = SERVE_F32_RTOL
+TWIN_CONTROL_WINDOW = 8
+
+
+def twin_serve_logits(sb: dict, mha) -> list:
+    """serve_batched's prefill and its decode steps teacher-forced by the
+    run's own tokens, with `ops.mha` at `mha`: each call's logits."""
+    from unittest import mock
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_batched
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    model, n = sb["model"], serve_batched.PROMPT_LEN
+    toks = sb["tokens"].to(sb["prompts"].device)
+    decode = make_decode_step(model.cfg)
+    with mock.patch.object(ops, "mha", mha):
+        lg, cache = make_prefill_step(model.cfg, s_max=n + serve_batched.GEN)(
+            model, sb["prompts"])
+        out = [lg]
+        for i in range(serve_batched.GEN - 1):
+            lg, cache = decode(model, cache, toks[:, i:i + 1], n + i)
+            out.append(lg)
+    return out
+
+
+def twin_train_first_step(dev):
+    """train_lm's default config, its initial state (seed 0) and first
+    batch on `dev`, and the head's read p of step 0, as its train step
+    draws it: (model, batch, cfg, p) for `train_grads`."""
+    from repro_torch.core import mtl_head
+    from repro_torch.data import ShardedBatcher, synthetic_lm_batches
+    from repro_torch.launch import train_lm
+    from repro_torch.launch.steps import (default_optimizer,
+                                          init_train_state, train_keys)
+    cfg = train_lm.build_config(small=False)
+    opt = default_optimizer(cfg, lr=3e-4, total_steps=TRAIN_LM_STEPS)
+    state = init_train_state(cfg, opt, seed=0, device=dev)
+    batch = next(ShardedBatcher(synthetic_lm_batches(
+        cfg.vocab_size, train_lm.SEQ, train_lm.BATCH, cfg.mtl.num_tasks,
+        seed=train_lm.DATA_SEED), device=dev))
+    v_hat, _ = mtl_head.stale_read(state.mtl, cfg.mtl, train_keys(0)[0])
+    p = mtl_head.get_regularizer(cfg.mtl.reg_name).prox(
+        v_hat, mtl_head.prox_threshold(cfg.mtl))
+    return state.params, batch, cfg, p
+
+
+def lm_twins_phase(dev, card: str) -> dict:
+    """Phase 40: the twins of examples/serve_batched.py (reduced gemma2-2b,
+    float32) and examples/train_lm.py (granite-100m, float32,
+    TRAIN_LM_STEPS steps, its record written under build/ and removed) on
+    the card, each with the flash launches its passes call for, and each
+    held to the plain attention at its own shapes (TWIN_RTOL, with a
+    control that must fail)."""
+    from unittest import mock
+    import torch
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import flash_attention_bwd as kbwd
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve_batched, train_lm
+
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"        # the CPU launches no kernel
+    control = mha_ref_control(window=TWIN_CONTROL_WINDOW)
+    ops.reset_launch_counts()
+    sb = serve_batched.main(["--device", dev.type])
+    counts = ops.launch_counts()
+    serve_routes = kflash.route_counts()
+    n = pass_launches(sb["model"].cfg)
+    want = n * serve_batched.GEN
+    logits = torch.cat([x.float() for x in sb["logits"]], 1)
+    if on_card and (counts["flash_attention"] != want or any(
+            c for k, c in counts.items() if k != "flash_attention")) \
+            or not bool(torch.isfinite(logits).all()) \
+            or tuple(sb["tokens"].shape) != (serve_batched.BATCH,
+                                              serve_batched.GEN):
+        fail(f"phase 40 serve_batched: launches {counts}, want "
+             f"flash_attention {want}; tokens {tuple(sb['tokens'].shape)}; "
+             "logits finite?")
+    with torch.inference_mode():
+        plain = twin_serve_logits(sb, ref.mha_ref)
+        cut = twin_serve_logits(sb, control)
+    if ops.launch_counts() != counts:
+        fail(f"phase 40 serve_batched: the plain runs launched a kernel: "
+             f"{ops.launch_counts()} after {counts}")
+    s_errs = [rel_err(a, w) for a, w in zip(sb["logits"], plain)]
+    s_control = max(rel_err(a, w) for a, w in zip(sb["logits"], cut))
+    if not max(s_errs) <= TWIN_RTOL or not s_control > TWIN_RTOL:
+        fail(f"phase 40 serve_batched against the plain attention: prefill "
+             f"{s_errs[0]:.3g}, decode {max(s_errs[1:]):.3g} (<= "
+             f"{TWIN_RTOL}?); the control {s_control:.3g} (must exceed it)")
+    log(f"phase 40 serve_batched twin on the card: prefill "
+        f"{sb['prefill_s']:.3f} s, {serve_batched.GEN} tokens x "
+        f"{serve_batched.BATCH} in {sb['decode_s']:.3f} s; flash launches "
+        f"{want} (routes {serve_routes}); its logits against the plain "
+        f"attention's (teacher-forced by its tokens) prefill "
+        f"{s_errs[0]:.3g}, decode {max(s_errs[1:]):.3g} <= {TWIN_RTOL} of "
+        f"max |logits|, the control (window {TWIN_CONTROL_WINDOW}) "
+        f"{s_control:.3g} [{card}]: PASS")
+    del sb, plain, cut
+
+    ckpt = ROOT / "build" / "train_lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ops.reset_launch_counts()
+    tl = train_lm.main(["--steps", str(TRAIN_LM_STEPS), "--ckpt",
+                        str(ckpt), "--device", dev.type])
+    counts = ops.launch_counts()
+    train_routes = {"forward": kflash.route_counts(),
+                    "backward": kbwd.route_counts()}
+    fwd, bwd = train_launches(train_lm.build_config(small=False))
+    want = {"flash_attention": fwd * TRAIN_LM_STEPS,
+            "flash_attention_bwd": bwd * TRAIN_LM_STEPS}
+    got = {k: c for k, c in counts.items() if c}
+    losses = [r["loss"] for r in tl["log"]]
+    if on_card and got != want or not np.isfinite(losses).all() \
+            or not np.isfinite(tl["singular_values"]).all() \
+            or not Path(tl["ckpt"]).is_file() or tl["step"] != TRAIN_LM_STEPS:
+        fail(f"phase 40 train_lm: launches {got}, want {want}; losses "
+             f"{losses}; singular values {tl['singular_values']}; record "
+             f"{tl['ckpt']}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"phase 40 train_lm twin on the card: granite-100m "
+        f"({tl['n_params'] / 1e6:.1f}M), {TRAIN_LM_STEPS} steps, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} ({tl['log'][-1]['seconds']:.1f}"
+        f" s), launches {got} (routes {train_routes}), the record written "
+        f"and removed, singular values finite [{card}]")
+
+    model, batch, cfg, p = twin_train_first_step(dev)
+    ops.reset_launch_counts()
+    loss_k, grads_k = train_grads(model, batch, cfg, p)
+    one = {k: c for k, c in ops.launch_counts().items() if c}
+    if on_card and one != {"flash_attention": fwd,
+                           "flash_attention_bwd": bwd}:
+        fail(f"phase 40 train_lm's first step: launches {one}, want "
+             f"{fwd} forward and {bwd} backward")
+    runs = {}
+    for name, mha in (("plain", ref.mha_ref), ("control", control)):
+        with mock.patch.object(ops, "mha", mha):
+            runs[name] = train_grads(model, batch, cfg, p)
+    if {k: c for k, c in ops.launch_counts().items() if c} != one:
+        fail("phase 40 train_lm: the plain runs launched a kernel")
+    reads = {}
+    for name, (loss, grads) in runs.items():
+        errs = {k: e[0] for k, e in leaf_errs(grads_k, grads).items()}
+        worst = max(errs, key=errs.get)
+        reads[name] = dict(loss=abs(loss_k - loss) / abs(loss),
+                           worst_leaf=worst, grad=errs[worst],
+                           median=float(np.median(list(errs.values()))))
+    zero = [k for k, g in grads_k.items() if not bool(g.abs().max() > 0)]
+    pl, ct = reads["plain"], reads["control"]
+    if not max(pl["loss"], pl["grad"]) <= TWIN_RTOL \
+            or not ct["grad"] > TWIN_RTOL or zero \
+            or not math.isfinite(loss_k):
+        fail(f"phase 40 train_lm's first step against the plain attention: "
+             f"{pl} (<= {TWIN_RTOL}?); the control {ct} (its gradient must "
+             f"exceed it); zero gradients {zero}")
+    del model, batch, grads_k, runs
+    seconds = time.perf_counter() - t0
+    log(f"phase 40 train_lm's first step (B {train_lm.BATCH}, S "
+        f"{train_lm.SEQ}, H {cfg.num_heads}, Hkv {cfg.num_kv_heads}, hd "
+        f"{cfg.head_dim}) on the kernels ({fwd} forward, {bwd} backward "
+        f"launches) against the plain attention under autograd: loss "
+        f"{pl['loss']:.3g}, gradient worst leaf {pl['worst_leaf']} "
+        f"{pl['grad']:.3g} (median {pl['median']:.3g}) <= {TWIN_RTOL} of "
+        f"max |grad|; the control (window {TWIN_CONTROL_WINDOW}) worst leaf "
+        f"{ct['grad']:.3g}, loss {ct['loss']:.3g}; every leaf's gradient "
+        f"non-zero; the phase {seconds:.1f} s [{card}]: PASS")
+    return dict(serve_routes=serve_routes, train_routes=train_routes,
+                serve_errs=s_errs, serve_control=s_control,
+                train_first_step=reads, seconds=seconds)
+
+
+# ---------------------------------------------------------------- phase 41 --
+
+def dryrun_phase(dev) -> dict:
+    """Phase 41: `launch/dryrun.py --all`, with and without --kv-int8, on
+    the meta device (rows under build/dryrun/): the ok and skip rows and
+    granite-8b's decode_32k cache bytes under both settings; the card's
+    memory untouched."""
+    import torch
+    from repro_torch.launch import dryrun
+
+    def held():
+        return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    before = held()
+    res = {}
+    for kv in ("model", "int8"):
+        rows = dryrun.main(["--all", "--out", str(out / f"{kv}.jsonl")]
+                           + (["--kv-int8"] if kv == "int8" else []))
+        ok = sum(r["status"] == "ok" for r in rows)
+        granite = next(r for r in rows if (r["arch"], r["shape"])
+                       == ("granite-8b", "decode_32k"))
+        res[kv] = dict(ok=ok, skip=len(rows) - ok,
+                       granite_decode_32k_cache_bytes=granite["cache_bytes"])
+    ratio = (res["int8"]["granite_decode_32k_cache_bytes"]
+             / res["model"]["granite_decode_32k_cache_bytes"])
+    if any((r["ok"], r["skip"]) != (33, 7) for r in res.values()) \
+            or ratio != (128 + 4) / 256 \
+            or held() != before:
+        fail(f"phase 41 dry run: {res}, int8/model cache ratio {ratio}, "
+             "want 33 ok and 7 skip each and (128 + 4) / 256, the card's "
+             "memory untouched")
+    shutil.rmtree(out, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f"phase 41 dry run on the meta device, --all and --all --kv-int8: "
+        f"{res['model']['ok']} ok + {res['model']['skip']} skip rows each; "
+        f"granite-8b decode_32k cache "
+        f"{res['model']['granite_decode_32k_cache_bytes'] / 1e9:.2f} GB, "
+        f"int8 {res['int8']['granite_decode_32k_cache_bytes'] / 1e9:.2f} GB "
+        f"(ratio {ratio:.4f}); {seconds:.1f} s: PASS")
+    return dict(res, seconds=seconds)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7419,6 +7847,16 @@ def main() -> None:
     for arch in MOE_ARCHS:
         moe_train[arch] = train_phase(dev, args.seed, card, arch)
         mark(t_smoke, str(TRAINED[arch]["phase"]))
+    # phase 39: granite-8b served with the int8 KV cache; 40: the twins of
+    # examples/serve_batched.py and train_lm.py; 41: the meta-device dry run
+    int8_serve = int8_serve_phase(dev, args.seed, card)
+    torch.cuda.empty_cache()
+    mark(t_smoke, "39")
+    lm_twins = lm_twins_phase(dev, card)
+    torch.cuda.empty_cache()
+    mark(t_smoke, "40")
+    dry = dryrun_phase(dev)
+    mark(t_smoke, "41")
 
     kernels = []
     info["lstsq_grad"]["args"] = grad_inputs(dev, args.seed)
@@ -7534,9 +7972,16 @@ def main() -> None:
         a: r["launches"]["fwd_routes"] for a, r in hybrid_train.items()}
     flash["moe_train_launches"] = {
         a: r["launches"]["fwd_routes"] for a, r in moe_train.items()}
+    flash["int8_serve_launches"] = {
+        n: r["routes"] for n, r in int8_serve["runs"].items()}
+    flash["lm_example_launches"] = {
+        "serve_batched": lm_twins["serve_routes"],
+        "train_lm": lm_twins["train_routes"]["forward"]}
     kernels.append(flash_bwd_times(
         info["flash_attention_bwd"], train["launches"]["bwd_routes"], dev))
     del info["flash_attention_bwd"]
+    kernels[-1]["lm_example_launches"] = {
+        "train_lm": lm_twins["train_routes"]["backward"]}
     mark(t_smoke, "12 (flash backward)")
     kernels[-1]["shapes"] = flash_bwd_shape_times(dev, {
         a: r["launches"]["bwd_routes"] for a, r in
@@ -7585,6 +8030,8 @@ def main() -> None:
         "decode_s", "errs", "e32", "tol", "f32_layers", "f32_launches",
         "routes", "prefill_profile", "decode_profile", "peak_bytes",
         "card_vs_cpu", "seconds")} for a, r in moe_served.items()}))
+    log("int8 serve " + json.dumps(int8_serve))
+    log("dry run " + json.dumps(dry))
     log(f"smoke: {time.perf_counter() - t_smoke:.1f} s from phase 1 "
         f"[{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,7 @@
 """Architecture registry of the port.
 
-`ARCH_NAMES` lists the reference's ten architectures, and `get_config`
-returns each; `_PENDING` would name an arch the port cannot serve yet
+`ARCH_NAMES` lists the reference's ten architectures, `get_config`
+returns each and `all_configs` all of them by name; `_PENDING` would name an arch the port cannot serve yet
 (get_config raises NotImplementedError for it, naming the ROADMAP item
 that brings it), and holds none since dbrx-132b and deepseek-v3-671b came
 (item 11(e)).
@@ -44,5 +44,9 @@ def get_config(name: str) -> ArchConfig:
     return importlib.import_module(_MODULES[name]).CONFIG
 
 
+def all_configs() -> dict[str, ArchConfig]:
+    return {name: get_config(name) for name in ARCH_NAMES}
+
+
 __all__ = ["ArchConfig", "MoECfg", "MLACfg", "SSMCfg", "RWKVCfg", "MTLCfg",
-           "ARCH_NAMES", "SERVED", "get_config"]
+           "ARCH_NAMES", "SERVED", "get_config", "all_configs"]

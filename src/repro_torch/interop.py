@@ -19,8 +19,9 @@ An LM's parameters and serving cache cross as flat dicts keyed by the
 the port's state_dict keys and cache paths too:
 
     lm_params_from_numpy(cfg, flat, device) -> models.LM
-    kv_cache_to_numpy(cache) -> flat    # KVCache, RWKVState, SSMState,
-                                        # CrossKV, MLACache
+    kv_cache_to_numpy(cache) -> flat    # KVCache (an int8 one with its
+                                        # k_scale, v_scale), RWKVState,
+                                        # SSMState, CrossKV, MLACache
     kv_cache_from_numpy(cfg, flat, device) -> cache
 
 A bfloat16 array may come with ml_dtypes' `bfloat16` dtype (what
@@ -217,22 +218,25 @@ def lm_params_from_numpy(cfg: ArchConfig, flat: dict,
 
 
 # a cache node by its fields; a cross layer's {k, v} under "cross" is a
-# CrossKV, elsewhere a KVCache
+# CrossKV, elsewhere a KVCache (with its scales, an int8 one)
 _CACHES = {frozenset(t._fields): t
            for t in (KVCache, RWKVState, SSMState, MLACache)}
-_FLOAT32_CACHE_LEAVES = (".wkv", ".ssm")
+_CACHES[frozenset(("k", "v"))] = KVCache
+_FLOAT32_CACHE_LEAVES = ("wkv", "ssm", "k_scale", "v_scale")
 
 
 def kv_cache_to_numpy(cache: dict) -> dict:
-    """The cache's leaves (KVCache and CrossKV k, v; RWKVState x_prev_att,
-    x_prev_ffn, wkv; SSMState conv, ssm; MLACache c_kv, k_rope) as float32
-    host arrays (an exact
-    upcast of bfloat16), keyed by path ("group0.b0.k", "group0.b0.wkv",
-    "group0.b0.ssm", "group0.b4.cross.k", ...)."""
+    """The cache's leaves (KVCache and CrossKV k, v, and an int8 KVCache's
+    k_scale, v_scale; RWKVState x_prev_att, x_prev_ffn, wkv; SSMState conv,
+    ssm; MLACache c_kv, k_rope) as float32 host arrays (an exact upcast of
+    bfloat16 and int8), keyed by path ("group0.b0.k", "group0.b0.k_scale",
+    "group0.b0.wkv", "group0.b0.ssm", "group0.b4.cross.k", ...)."""
     flat = {}
     for path, c in _flatten(cache).items():
         for field, leaf in c._asdict().items():
-            flat[f"{path}.{field}"] = leaf.float().cpu().numpy()
+            if leaf is not None:      # a copy: decode writes the cache
+                flat[f"{path}.{field}"] = leaf.detach().to(
+                    "cpu", torch.float32, copy=True).numpy()
     return flat
 
 
@@ -240,22 +244,23 @@ def kv_cache_from_numpy(cfg: ArchConfig, flat: dict,
                         device: torch.device | str | None = None) -> dict:
     """A cache from leaves keyed as `kv_cache_to_numpy` gives them, or as
     the reference's KVCache, RWKVState, SSMState, CrossKV and MLACache
-    paths, on
-    `device`: cast to cfg.dtype, except the WKV and SSM states, which stay
-    float32."""
+    paths, on `device`: cast to cfg.dtype, except the WKV and SSM states
+    and an int8 KVCache's scales, which are float32, and its k and v,
+    which are int8."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
-    tree = _nest({k: _tensor(a, torch.float32
-                             if k.endswith(_FLOAT32_CACHE_LEAVES) else dtype,
-                             dev) for k, a in flat.items()})
 
     def build(node: dict, name: str = ""):
         cls = _CACHES.get(frozenset(node))
-        if cls is not None:
-            return (CrossKV if name == "cross" else cls)(**node)
-        return {k: build(v, k) for k, v in node.items()}
+        if cls is None:
+            return {k: build(v, k) for k, v in node.items()}
+        quant = "k_scale" in node
+        return (CrossKV if name == "cross" else cls)(**{
+            k: _tensor(a, torch.float32 if k in _FLOAT32_CACHE_LEAVES else
+                       torch.int8 if quant else dtype, dev)
+            for k, a in node.items()})
 
-    return build(tree)
+    return build(_nest(flat))
 
 
 def train_state_from_numpy(cfg: ArchConfig, flat: dict, optimizer,

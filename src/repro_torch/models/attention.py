@@ -6,9 +6,15 @@ Port of the GQA, cross-attention and MLA parts of
 `ops.mha`: the flash-attention CUDA kernel for CUDA tensors, the plain
 chunked online softmax (`ref.mha_ref`) for CPU tensors.  MLA's decode is
 the reference's absorbed form in plain PyTorch (float32 products over the
-latent cache; the reference's is plain jnp too).  The int8 KV cache
-(ROADMAP item 11(f)) and the sharded decodes (11(i)) are not ported;
-`transformer.require_ported` refuses configs that need them.
+latent cache; the reference's is plain jnp too).  With
+`cfg.kv_cache_dtype == "int8"` a GQA cache holds int8 values and a float32
+absmax scale a (position, kv head) (`quantize_kv`, plain PyTorch as the
+reference's is jnp): prefill attends over the float k and v and stores
+them quantized, and decode quantizes the new entry and attends over the
+cache dequantized into the model dtype, as the reference's
+`attn_decode_sharded` does at a degenerate mesh (its mesh-less
+`attn_decode` drops the scales; ROADMAP Queue 3).  The sharded decodes
+are ROADMAP item 11(i).
 
 One deliberate difference from the reference: the KV cache of a
 sliding-window layer is a ring in which position p always sits at slot
@@ -37,9 +43,29 @@ Tensor = torch.Tensor
 
 class KVCache(NamedTuple):
     """Per-layer KV cache.  k/v: (B, S_max, Hkv, hd); a ring of `window`
-    slots on sliding-window layers."""
+    slots on sliding-window layers.  With the int8 cache k/v are int8 and
+    k_scale/v_scale (B, S_max, Hkv) float32 their dequantization scales;
+    None otherwise."""
     k: Tensor
     v: Tensor
+    k_scale: Optional[Tensor] = None
+    v_scale: Optional[Tensor] = None
+
+
+def quantize_kv(t: Tensor) -> tuple[Tensor, Tensor]:
+    """t (..., hd) -> int8 values and the float32 absmax scale over hd:
+    scale = max(amax, 1e-8) / 127, values round-half-even(t / scale)
+    clipped to +-127, as the reference's."""
+    tf = t.float()
+    scale = torch.clamp(tf.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.round(tf / scale[..., None])
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
+def dequantize_kv(q: Tensor, scale: Tensor, dtype: torch.dtype) -> Tensor:
+    """int8 values (..., hd) times their scale (...) in float32, then cast
+    to `dtype`: the reference's two roundings."""
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 def mha(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
@@ -99,7 +125,15 @@ def attn_forward(p: dict, x: Tensor, cfg: ArchConfig, *,
     cl = cache_len if cache_len is not None else s
     if window is not None:
         cl = min(cl, window)
-    return out, KVCache(k=_fit_cache(k, cl), v=_fit_cache(v, cl))
+    kf, vf = _fit_cache(k, cl), _fit_cache(v, cl)
+    if cfg.kv_cache_dtype == "int8":
+        # quantized after fitting: the scales are per (position, head), so
+        # the ring and the quantization compose; an unwritten slot is 0
+        # values at the 1e-8 / 127 scale, as in the reference
+        kq, ks = quantize_kv(kf)
+        vq, vs = quantize_kv(vf)
+        return out, KVCache(k=kq, v=vq, k_scale=ks, v_scale=vs)
+    return out, KVCache(k=kf, v=vf)
 
 
 def _fit_cache(k: Tensor, cache_len: int) -> Tensor:
@@ -121,7 +155,8 @@ def attn_decode(p: dict, x: Tensor, cache: KVCache, pos: int,
     Local (sliding-window) layers keep a ring cache of `window` slots;
     global layers keep the full-length cache.  The new key and value are
     written into `cache` IN PLACE (one slot; the cache is not copied), and
-    (out, cache) is returned.
+    (out, cache) is returned.  An int8 cache takes the new entry quantized,
+    values and scales, and is read dequantized into q's dtype.
     """
     b = x.shape[0]
     theta = cfg.rope_theta if theta is None else theta
@@ -136,9 +171,23 @@ def attn_decode(p: dict, x: Tensor, cache: KVCache, pos: int,
         # ring: every resident entry is within the window; mask only the
         # unwritten tail early on
         slot, valid = pos % s_max, min(pos + 1, s_max)
-    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
-    out = mha(q, cache.k, cache.v, causal=False, softcap=cfg.attn_softcap,
+    if cache.k_scale is None:
+        cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+        k, v = cache.k, cache.v
+    else:
+        for vals, scales, new in ((cache.k, cache.k_scale, k_new),
+                                  (cache.v, cache.v_scale, v_new)):
+            nq, ns = quantize_kv(new[:, 0])
+            vals[:, slot] = nq
+            scales[:, slot] = ns
+        # only the `valid` written slots are dequantized: the masked tail
+        # does not enter the result
+        k = dequantize_kv(cache.k[:, :valid], cache.k_scale[:, :valid],
+                          q.dtype)
+        v = dequantize_kv(cache.v[:, :valid], cache.v_scale[:, :valid],
+                          q.dtype)
+    out = mha(q, k, v, causal=False, softcap=cfg.attn_softcap,
               kv_valid_len=valid, kv_chunk=4096)
     out = out.reshape(b, 1, -1) @ p["wo"].to(x.dtype)
     return out, cache

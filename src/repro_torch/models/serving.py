@@ -2,11 +2,14 @@
 hybrid and vision-language families, and the audio encoder's forward.
 
 Port of `repro/models/serving.py` on one device (the sharded decodes are
-ROADMAP item 11(i), the int8 cache 11(f)).  The cache mirrors the scan
-groups: for each group, a cache per period position whose leaves are
-stacked over the group's repeat count,
+ROADMAP item 11(i)).  The cache mirrors the scan groups: for each group, a
+cache per period position whose leaves are stacked over the group's
+repeat count,
 
-    attn / global / moe : KVCache (n, B, S_max, Hkv, hd)
+    attn / global / moe : KVCache (n, B, S_max, Hkv, hd); with
+                    cfg.kv_cache_dtype "int8" (the self-attention caches
+                    of every kind below too) int8 k and v and float32
+                    k_scale, v_scale (n, B, S_max, Hkv)
     any attention block of an MLA config (deepseek-v3-671b)
                   : MLACache c_kv (n, B, S_max, kv_lora) and k_rope
                     (n, B, S_max, rope_dim) -- the compressed latent and
@@ -108,6 +111,11 @@ def _init_block_cache(kind: BlockKind, cfg: ArchConfig, b: int, s_max: int,
     if cfg.mla is not None:
         kv = MLACache(c_kv=zeros(cl, cfg.mla.kv_lora_rank),
                       k_rope=zeros(cl, cfg.mla.qk_rope_head_dim))
+    elif cfg.kv_cache_dtype == "int8":
+        kv = KVCache(k=zeros(cl, hkv, hd, dt=torch.int8),
+                     v=zeros(cl, hkv, hd, dt=torch.int8),
+                     k_scale=zeros(cl, hkv, dt=torch.float32),
+                     v_scale=zeros(cl, hkv, dt=torch.float32))
     else:
         kv = KVCache(k=zeros(cl, hkv, hd), v=zeros(cl, hkv, hd))
     if kind == "cross":
@@ -117,16 +125,19 @@ def _init_block_cache(kind: BlockKind, cfg: ArchConfig, b: int, s_max: int,
 
 
 def _layer_cache(c, li: int):
-    """Layer li's views of a stacked block cache."""
+    """Layer li's views of a stacked block cache (a None leaf stays
+    None)."""
     if isinstance(c, dict):
         return {k: _layer_cache(v, li) for k, v in c.items()}
-    return type(c)(*(leaf[li] for leaf in c))
+    return type(c)(*(None if leaf is None else leaf[li] for leaf in c))
 
 
 def _write(dst, src) -> None:
-    """Copy the leaves of cache `src` into the views `dst`."""
-    for d, s in zip(dst, src):
-        d.copy_(s)
+    """Copy the leaves of cache `src` into the views `dst`, skipping the
+    None ones."""
+    for d, s in zip(dst, src, strict=True):
+        if d is not None:
+            d.copy_(s)
 
 
 def _cross_kv(p: dict, kv_src: Tensor, cfg: ArchConfig,

@@ -47,8 +47,9 @@ kind trains:
 
 An MTP config (deepseek-v3-671b) adds the reference's multi-token
 prediction loss (`_mtp_loss`, outside remat as there) at mtp_weight.  The
-expert-parallel MoE and the sharded LM are ROADMAP item 11(i) and the int8
-KV cache 11(f); they raise.
+expert-parallel MoE and the sharded LM are ROADMAP item 11(i); they
+raise.  A config with the int8 KV cache (`kv_cache_dtype="int8"`) trains
+exactly as its model-dtype twin: training builds no cache.
 """
 from __future__ import annotations
 
@@ -104,20 +105,19 @@ def scan_groups(cfg: ArchConfig) -> list[ScanGroup]:
 
 
 def require_ported(cfg: ArchConfig, training: bool = False) -> None:
-    """Raise for a config that needs a block kind or a feature the port
-    does not have yet: a kind outside PORTED_KINDS, a moe block without
-    its MoE config, or the int8 KV cache (ROADMAP item 11(f)), serving and
-    training alike; with `training`, also for a kind outside
-    TRAINED_KINDS."""
+    """Raise for a config that needs a block kind the port does not have
+    yet: a kind outside PORTED_KINDS or a moe block without its MoE
+    config; with `training`, also for a kind outside TRAINED_KINDS.  The
+    KV cache is "model" (cfg.dtype) or "int8" (`attention.quantize_kv`),
+    serving and training alike; any other value raises ValueError."""
     kinds = set(cfg.layer_kinds) - set(PORTED_KINDS)
     if kinds or ("moe" in cfg.layer_kinds and cfg.moe is None):
         raise NotImplementedError(
             f"{cfg.name}: block kinds {sorted(kinds)} (or a moe block "
             "without cfg.moe) are not ported (ROADMAP.md, Queue 1 item 11)")
-    if cfg.kv_cache_dtype != "model":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.kv_cache_dtype} KV cache is not ported "
-            "yet (ROADMAP.md, Queue 1 item 11(f))")
+    if cfg.kv_cache_dtype not in ("model", "int8"):
+        raise ValueError(f"{cfg.name}: kv_cache_dtype "
+                         f"{cfg.kv_cache_dtype!r}, want 'model' or 'int8'")
     untrained = set(cfg.layer_kinds) - set(TRAINED_KINDS)
     if training and untrained:
         raise NotImplementedError(

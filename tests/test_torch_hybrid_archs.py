@@ -227,7 +227,10 @@ def test_cache_crosses_from_numpy_and_decodes_on(arch):
             return
         assert type(a) is type(b)
         kinds.add(type(a))
-        for x, y in zip(a, b):
+        for x, y in zip(a, b, strict=True):
+            if x is None:       # a model-dtype KVCache's scales
+                assert y is None
+                continue
             assert x.dtype == y.dtype and torch.equal(x, y)
 
     walk(cache, back)

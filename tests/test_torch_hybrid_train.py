@@ -343,24 +343,32 @@ def test_ssd_gradient_stays_finite_where_the_decay_overflows():
     ids=["moe", "mla", "int8-cache"])
 def test_training_still_refuses_what_is_not_ported(change):
     """MoE and MLA train since item 11(l): the check takes them and the
-    train step takes a step with a finite loss; the int8 cache is not
-    ported at all (item 11(f)) and still raises, serving and training
-    alike."""
+    train step takes a step with a finite loss.  The int8 cache (item
+    11(f)) is a serving setting: training builds no cache, so an int8
+    config's step gives losses and parameters bitwise its model-dtype
+    twin's."""
     cfg = dataclasses.replace(get_config("zamba2-7b").reduced(), **change)
+    transformer.require_ported(cfg, training=True)
+    batch = next(train.batches_for(cfg, 16, BATCH, seed=1))
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    def one_step(c):
+        opt = steps.default_optimizer(c)
+        state = steps.init_train_state(c, opt, seed=0, device="cpu")
+        state, m = steps.make_train_step(c, opt)(state, batch)
+        return state, m
+
+    state, m = one_step(cfg)
+    assert np.isfinite(float(m["loss"]))
     if "kv_cache_dtype" not in change:
-        transformer.require_ported(cfg, training=True)
-        opt = steps.default_optimizer(cfg)
-        state = steps.init_train_state(cfg, opt, seed=0, device="cpu")
-        batch = next(train.batches_for(cfg, 16, BATCH, seed=1))
-        _, m = steps.make_train_step(cfg, opt)(
-            state, {k: torch.from_numpy(v) for k, v in batch.items()})
-        assert np.isfinite(float(m["loss"]))
         return
-    for training in (False, True):
-        with pytest.raises(NotImplementedError, match=r"item 11\(f\)"):
-            transformer.require_ported(cfg, training=training)
-    with pytest.raises(NotImplementedError, match=r"item 11\(f\)"):
-        steps.make_train_step(cfg, steps.default_optimizer(cfg))
+    twin, tm = one_step(dataclasses.replace(cfg, kv_cache_dtype="model"))
+    for k in ("loss", "lm_loss", "probe_loss"):
+        assert float(m[k]) == float(tm[k]), k
+    for (path, a), (_, b) in zip(tree_items(state.params.tree()),
+                                 tree_items(twin.params.tree()),
+                                 strict=True):
+        assert torch.equal(a, b), path
 
 
 @pytest.mark.parametrize("arch", ARCHS)

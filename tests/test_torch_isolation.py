@@ -82,6 +82,11 @@ from repro_torch.data import pipeline
 from repro_torch.launch import train
 train.main(["--arch", "gemma2-2b", "--reduced", "--device", "cpu",
             "--steps", "2", "--batch", "1", "--seq", "8"])
+from repro_torch.launch import dryrun, serve_batched, shapes, train_lm
+dryrun.main(["--arch", "granite-8b", "--shape", "decode_32k", "--kv-int8"])
+serve_batched.main(["--device", "cpu"])
+train_lm.main(["--small", "--device", "cpu", "--steps", "1", "--batch", "1",
+               "--seq", "8", "--ckpt", sys.argv[1]])
 from repro_torch.launch import serve
 serve.main(["--arch", "gemma2-2b", "--reduced", "--device", "cpu",
             "--batch", "1", "--prompt-len", "5", "--gen", "2"])
@@ -93,10 +98,11 @@ print("loaded:" + ",".join(bad))
 """
 
 
-def test_import_and_cpu_engine_load_no_jax_or_reference():
+def test_import_and_cpu_engine_load_no_jax_or_reference(tmp_path):
     env = {**os.environ, "PYTHONPATH": str(SRC)}
-    out = subprocess.run([sys.executable, "-c", _CHILD], env=env,
-                         capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path)],
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
     assert lines[-2].startswith("  req0:"), out.stdout
@@ -162,10 +168,13 @@ def test_lm_entry_points_without_device_need_cuda():
 def test_example_twins_without_device_need_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is the card")
-    from repro_torch.launch import hospitals_async, quickstart
-    for twin in (quickstart, hospitals_async):
+    from repro_torch.launch import (hospitals_async, quickstart,
+                                    serve_batched, train_lm)
+    for twin in (quickstart, hospitals_async, serve_batched):
         with pytest.raises(RuntimeError, match="CUDA"):
             twin.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_lm.main(["--small", "--steps", "1"])
 
 
 def test_lockstep_session_without_device_needs_cuda():
@@ -179,14 +188,19 @@ def test_lockstep_session_without_device_needs_cuda():
 def test_unported_archs_raise_naming_their_roadmap_item():
     """Every arch of the reference loads (deepseek-v3-671b, the last, since
     item 11(e)) and trains (item 11(l)); the int8 KV cache, which no arch
-    of the reference's registry uses, still raises naming item 11(f), and
-    an unknown arch raises."""
+    of the reference's registry uses, serves and trains since item 11(f);
+    a KV cache dtype the reference does not know raises, and so does an
+    unknown arch."""
     cfg = get_config("deepseek-v3-671b")
     assert cfg.mla is not None and cfg.moe is not None and cfg.mtp
     transformer.require_ported(cfg, training=True)
-    int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*11\(f\)"):
+    for arch in ("deepseek-v3-671b", "granite-8b"):
+        int8 = dataclasses.replace(get_config(arch), kv_cache_dtype="int8")
+        transformer.require_ported(int8)
         transformer.require_ported(int8, training=True)
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        transformer.require_ported(dataclasses.replace(
+            cfg, kv_cache_dtype="fp8"))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

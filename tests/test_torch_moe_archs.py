@@ -42,6 +42,7 @@ from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step)
 from repro_torch.models import init_params, transformer  # noqa: E402
 from repro_torch.models.attention import KVCache, MLACache  # noqa: E402
+from repro_torch.optim.optimizers import tree_items  # noqa: E402
 
 RTOL = 1e-5
 GEN = 8
@@ -203,7 +204,10 @@ def test_cache_crosses_from_numpy_and_decodes_on(arch):
             return
         assert type(a) is type(b)
         kinds.add(type(a))
-        for x, y in zip(a, b):
+        for x, y in zip(a, b, strict=True):
+            if x is None:       # a model-dtype KVCache's scales
+                assert y is None
+                continue
             assert x.dtype == y.dtype and torch.equal(x, y)
 
     walk(cache, back)
@@ -256,8 +260,9 @@ def test_backbone_forward_sums_the_aux_loss_in_layer_order():
 def test_training_and_the_mtp_loss_still_raise(arch):
     """MoE, MLA and MTP train since item 11(l): the train step takes both
     archs, and deepseek's `forward` returns the MTP loss (with grad off
-    too), added to the loss at mtp_weight beside the aux loss; only the
-    int8 cache (item 11(f)) still raises."""
+    too), added to the loss at mtp_weight beside the aux loss.  The int8
+    cache (item 11(f)) serves only: an int8 config's train step gives
+    losses and parameters bitwise its model-dtype twin's."""
     cfg = get_config(arch).reduced()
     assert callable(steps.make_train_step(cfg, steps.default_optimizer(cfg)))
     model = init_params(cfg, seed=0, device="cpu")
@@ -271,9 +276,19 @@ def test_training_and_the_mtp_loss_still_raise(arch):
     want = m["lm_loss"] + cfg.moe.aux_loss_weight * m["aux_loss"] + (
         cfg.mtp_weight * m["mtp_loss"] if cfg.mtp else 0.0)
     assert abs(loss.item() - float(want)) <= 1e-6 * abs(loss.item())
-    int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match=r"item 11\(f\)"):
-        steps.make_train_step(int8, steps.default_optimizer(int8))
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    runs = []
+    for c in (cfg, dataclasses.replace(cfg, kv_cache_dtype="int8")):
+        opt = steps.default_optimizer(c)
+        state = steps.init_train_state(c, opt, seed=0, device="cpu")
+        runs.append(steps.make_train_step(c, opt)(state, batch))
+    (s0, m0), (s1, m1) = runs
+    for k in ("loss", "lm_loss", "aux_loss") + (("mtp_loss",) if cfg.mtp
+                                                else ()):
+        assert float(m0[k]) == float(m1[k]), k
+    for (path, a), (_, b) in zip(tree_items(s0.params.tree()),
+                                 tree_items(s1.params.tree()), strict=True):
+        assert torch.equal(a, b), path
 
 
 @pytest.mark.parametrize("arch", ARCHS)
